@@ -1,0 +1,164 @@
+// Whole-block self-attention for short sequences, one block per
+// (batch, head): out = softmax(q k^T * scale + key_bias) v.
+//
+// Replaces the TPU kernel lightningdot_tpu/ops/attention.py::_attn_kernel
+// (launched by _attention_pallas). The TPU kernel needed a head-major
+// [B,H,S,D] copy of q, k and v; this kernel reads them straight out of the
+// projection-native [B,S,H,D] layout by strides and writes the output in
+// that layout, so no transpose ever touches device memory.
+//
+// Scores, softmax and probs @ v run in float32. Two numeric paths mirror
+// ops/attention.py::_attention_math:
+//   defer = 0: normalized probabilities, rounded to the input dtype before
+//              probs @ v (the float32 path; a no-op rounding there);
+//   defer = 1: un-normalized exp(s - max) rounded to the input dtype, the
+//              float32 row sum kept aside, and the division applied after
+//              probs @ v (the bfloat16 serving path).
+//
+// Bound: at the serving shapes (S <= 64, D = 64) a block moves 3*S*D
+// inputs and S*D outputs and does 4*S*S*D flops: a few hundred flops per
+// byte at most, and per block far too little work to fill an SM. What
+// bounds it is latency and the number of blocks in flight. The design
+// stages q, k and v of one head in shared memory as float32 (K rows padded
+// by one word, so the score loop reads K without bank conflicts), keeps the
+// S x S scores in shared memory, and runs one warp per softmax row. The
+// grid is batch * heads blocks (3072 at batch 256), several resident per
+// SM.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxSeq = 64;
+constexpr int kMaxHeadDim = 64;
+
+__host__ __device__ constexpr size_t smem_floats(int seq, int head_dim) {
+  // q [S][D], k [S][D+1], v [S][D], p [S][S+1], row sums [S]
+  return static_cast<size_t>(seq) * head_dim * 2 +
+         static_cast<size_t>(seq) * (head_dim + 1) +
+         static_cast<size_t>(seq) * (seq + 1) + seq;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const float* __restrict__ bias,
+                     T* __restrict__ out, int seq, int heads, int head_dim,
+                     float scale, int defer) {
+  extern __shared__ float smem[];
+  const int S = seq;
+  const int D = head_dim;
+  const int kd = D + 1;
+  const int ps = S + 1;
+  float* sq = smem;
+  float* sk = sq + S * D;
+  float* sv = sk + S * kd;
+  float* sp = sv + S * D;
+  float* srow = sp + S * ps;
+
+  const int b = blockIdx.x / heads;
+  const int h = blockIdx.x % heads;
+  const size_t row_stride = static_cast<size_t>(heads) * D;
+  const size_t base = static_cast<size_t>(b) * S * row_stride +
+                      static_cast<size_t>(h) * D;
+
+  for (int idx = threadIdx.x; idx < S * D; idx += kThreads) {
+    const int s = idx / D;
+    const int d = idx - s * D;
+    const size_t g = base + s * row_stride + d;
+    sq[idx] = ldot::to_f32(q[g]);
+    sk[s * kd + d] = ldot::to_f32(k[g]);
+    sv[idx] = ldot::to_f32(v[g]);
+  }
+  __syncthreads();
+
+  // scores[i][j] = (q_i . k_j) * scale + bias[b][j]
+  const float* brow = bias + static_cast<size_t>(b) * S;
+  for (int idx = threadIdx.x; idx < S * S; idx += kThreads) {
+    const int i = idx / S;
+    const int j = idx - i * S;
+    const float* qi = sq + i * D;
+    const float* kj = sk + j * kd;
+    float acc = 0.f;
+    for (int d = 0; d < D; ++d) acc = fmaf(qi[d], kj[d], acc);
+    sp[i * ps + j] = acc * scale + brow[j];
+  }
+  __syncthreads();
+
+  // softmax, one warp per row
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int i = warp; i < S; i += kThreads / 32) {
+    float* row = sp + i * ps;
+    float m = -INFINITY;
+    for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
+    m = ldot::warp_max(m);
+    float sum = 0.f;
+    for (int j = lane; j < S; j += 32) {
+      const float e = expf(row[j] - m);
+      row[j] = e;
+      sum += e;
+    }
+    sum = ldot::warp_sum(sum);
+    if (defer) {
+      for (int j = lane; j < S; j += 32) row[j] = ldot::round_to<T>(row[j]);
+      if (lane == 0) srow[i] = sum;
+    } else {
+      for (int j = lane; j < S; j += 32)
+        row[j] = ldot::round_to<T>(row[j] / sum);
+    }
+  }
+  __syncthreads();
+
+  // out[i][d] = sum_j p[i][j] v[j][d]  (then / row sum on the deferred path)
+  for (int idx = threadIdx.x; idx < S * D; idx += kThreads) {
+    const int i = idx / D;
+    const int d = idx - i * D;
+    const float* pi = sp + i * ps;
+    float acc = 0.f;
+    for (int j = 0; j < S; ++j) acc = fmaf(pi[j], sv[j * D + d], acc);
+    if (defer) acc = acc / srow[i];
+    out[base + i * row_stride + d] = ldot::from_f32<T>(acc);
+  }
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const float* bias, void* out, int batch, int seq,
+                   int heads, int head_dim, float scale, int defer,
+                   cudaStream_t stream) {
+  // above 48 KB a block's shared memory must be granted explicitly; grant
+  // the largest supported shape once per instantiation
+  static cudaError_t granted = cudaFuncSetAttribute(
+      attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem_floats(kMaxSeq, kMaxHeadDim) * sizeof(float)));
+  if (granted != cudaSuccess) return granted;
+  const size_t smem = smem_floats(seq, head_dim) * sizeof(float);
+  attention_kernel<T><<<batch * heads, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), bias, static_cast<T*>(out), seq, heads,
+      head_dim, scale, defer);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// q, k, v, out: [batch, seq, heads, head_dim] contiguous, float32 or
+// bfloat16 (dtype code); bias: [batch, seq] float32 additive key bias.
+// seq <= 64, head_dim <= 64.
+extern "C" int ldot_attention(const void* q, const void* k, const void* v,
+                              const float* bias, void* out, int batch,
+                              int seq, int heads, int head_dim, float scale,
+                              int defer, int dtype, void* stream) {
+  if (batch <= 0 || seq <= 0 || heads <= 0 || head_dim <= 0 ||
+      seq > kMaxSeq || head_dim > kMaxHeadDim)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ldot::kFloat32)
+    return launch<float>(q, k, v, bias, out, batch, seq, heads, head_dim,
+                         scale, defer, s);
+  if (dtype == ldot::kBFloat16)
+    return launch<__nv_bfloat16>(q, k, v, bias, out, batch, seq, heads,
+                                 head_dim, scale, defer, s);
+  return cudaErrorInvalidValue;
+}

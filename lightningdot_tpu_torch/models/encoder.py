@@ -1,0 +1,248 @@
+"""The BERT text tower, inference only (counterpart of
+lightningdot_tpu/models/encoder.py).
+
+Modules are named after the reference's torch state-dict keys
+(``bert.embeddings.word_embeddings.weight``,
+``bert.encoder.layer.{i}.attention.self.query.weight`` stored [out, in],
+``encode_proj.{0,2,3}.*``), so a released tower state dict loads with
+``load_state_dict`` and ``map_tower(tower.state_dict())`` gives the JAX
+tree.
+
+Math parity with the JAX package (and through it the reference): post-LN
+BERT layers, erf GELU, additive -10000 key mask, pooled output = the raw
+CLS hidden, optional Linear-GELU-LN-Linear projection head. Parameters are
+float32 masters; ``dtype`` selects the compute dtype. Each dense layer
+multiplies in that dtype, accumulates in float32, adds its float32 bias and
+rounds once (``encoder._dense``). LayerNorm scales and biases stay float32.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from lightningdot_tpu.config import EncoderConfig
+from lightningdot_tpu_torch.ops import (ffn_gelu, gelu, layer_norm, mm_f32,
+                                        multi_head_attention)
+
+MASK_BIAS = -10000.0  # uniter_model/model/model.py:365
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` with the numerics of ``encoder._dense``.
+
+    :meth:`kernel` gives the weight in the compute dtype and the [in, out]
+    layout. The JAX package casts the float32 masters on every call; this
+    casts once per (dtype, device) and keeps the copy until the weight
+    changes (its version counter moves on an in-place update such as
+    ``load_state_dict``). The numbers are the same.
+    """
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__(in_features, out_features)
+        self._kernels: Dict[tuple, Tuple[int, torch.Tensor]] = {}
+
+    def kernel(self, dtype: torch.dtype) -> torch.Tensor:
+        w = self.weight
+        key = (dtype, w.device, w.data_ptr())
+        hit = self._kernels.get(key)
+        if hit is None or hit[0] != w._version:
+            with torch.no_grad():
+                cast = w.detach().to(dtype).t().contiguous()
+            self._kernels = {key: (w._version, cast)}
+            hit = self._kernels[key]
+        return hit[1]
+
+    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        shape = x.shape
+        y = mm_f32(x.reshape(-1, shape[-1]).to(dtype), self.kernel(dtype))
+        return (y + self.bias).to(dtype).reshape(*shape[:-1],
+                                                 self.out_features)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with float32 ``weight`` (scale) and ``bias``; the kernel on
+    CUDA (ops.layer_norm)."""
+
+    def __init__(self, hidden: int, eps: float):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(hidden))
+        self.bias = nn.Parameter(torch.zeros(hidden))
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class Embeddings(nn.Module):
+    """Word + position + type-0 embeddings -> LN (``text_embeddings``,
+    lightningdot_tpu/models/encoder.py:251; reference model.py:233-246)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        h = cfg.hidden_size
+        self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
+        self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
+                                                h)
+        self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
+        self.LayerNorm = LayerNorm(h, cfg.layer_norm_eps)
+
+    def forward(self, input_ids, position_ids, dtype):
+        words = self.word_embeddings(input_ids)
+        pos = self.position_embeddings(position_ids)
+        types = self.token_type_embeddings.weight[0]
+        # summed in float32, then cast, then LN (encoder.py:255-261)
+        return self.LayerNorm((words + pos + types).to(dtype))
+
+
+class _SelfAttention(nn.Module):
+    def __init__(self, h: int):
+        super().__init__()
+        self.query = Dense(h, h)
+        self.key = Dense(h, h)
+        self.value = Dense(h, h)
+
+
+class _DenseLN(nn.Module):
+    """``dense`` + ``LayerNorm`` pair (attention.output and output)."""
+
+    def __init__(self, in_dim: int, out_dim: int, eps: float):
+        super().__init__()
+        self.dense = Dense(in_dim, out_dim)
+        self.LayerNorm = LayerNorm(out_dim, eps)
+
+
+class _Attention(nn.Module):
+    def __init__(self, h: int, eps: float):
+        super().__init__()
+        self.self = _SelfAttention(h)
+        self.output = _DenseLN(h, h, eps)
+
+
+class _Intermediate(nn.Module):
+    def __init__(self, h: int, inter: int):
+        super().__init__()
+        self.dense = Dense(h, inter)
+
+
+class BertLayer(nn.Module):
+    """One post-LN BertLayer, deterministic (``_bert_layer`` in its default
+    branch, lightningdot_tpu/models/encoder.py:336-338,355,363-376)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.num_heads = cfg.num_attention_heads
+        self.head_dim = cfg.head_dim
+        self.attention = _Attention(h, eps)
+        self.intermediate = _Intermediate(h, cfg.intermediate_size)
+        self.output = _DenseLN(cfg.intermediate_size, h, eps)
+
+    def forward(self, hidden, mask_bias, dtype):
+        b, s, h = hidden.shape
+        sa = self.attention.self
+        # projection-native [B, S, heads, dim]: the kernel reads it by strides
+        q = sa.query(hidden, dtype).view(b, s, self.num_heads, self.head_dim)
+        k = sa.key(hidden, dtype).view(b, s, self.num_heads, self.head_dim)
+        v = sa.value(hidden, dtype).view(b, s, self.num_heads, self.head_dim)
+        ctx = multi_head_attention(q, k, v, mask_bias)
+        out = self.attention.output
+        attn_out = out.LayerNorm(out.dense(ctx.reshape(b, s, h), dtype)
+                                 + hidden)
+        fc1, fc2 = self.intermediate.dense, self.output.dense
+        ffn = ffn_gelu(attn_out, fc1.kernel(dtype), fc1.bias,
+                       fc2.kernel(dtype), fc2.bias)
+        return self.output.LayerNorm(ffn + attn_out)
+
+
+class BertEncoderStack(nn.Module):
+    """The layer loop (``encoder_stack``, encoder.py:397)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.layer = nn.ModuleList(BertLayer(cfg)
+                                   for _ in range(cfg.num_hidden_layers))
+
+    def forward(self, hidden, mask_bias, dtype):
+        for layer in self.layer:
+            hidden = layer(hidden, mask_bias, dtype)
+        return hidden
+
+
+class _Pooler(nn.Module):
+    """The tanh pooler's weights (reference layer.py:173-185). The text
+    tower does not use it; it is kept so that checkpoints round-trip."""
+
+    def __init__(self, h: int):
+        super().__init__()
+        self.dense = Dense(h, h)
+
+
+class BertModel(nn.Module):
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.embeddings = Embeddings(cfg)
+        self.encoder = BertEncoderStack(cfg)
+        self.pooler = _Pooler(cfg.hidden_size)
+
+
+def attention_bias(attention_mask: torch.Tensor) -> torch.Tensor:
+    """[B, S] {0,1} mask -> additive float32 [B, 1, 1, S] bias
+    (encoder.py:429-432; reference model.py:362-365)."""
+    return ((1.0 - attention_mask.float()) * MASK_BIAS)[:, None, None, :]
+
+
+class TextEncoder(nn.Module):
+    """The text tower: ``bert.*`` plus the optional ``encode_proj`` head
+    (reference dvl/models/bi_encoder.py:76-128)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.bert = BertModel(cfg)
+        self.encode_proj: Optional[nn.Sequential] = None
+        if cfg.project_dim > 0:
+            h = cfg.hidden_size
+            self.encode_proj = nn.Sequential(
+                Dense(h, 2 * h), nn.GELU(),
+                LayerNorm(2 * h, cfg.layer_norm_eps),
+                Dense(2 * h, cfg.project_dim))
+
+    def projection_head(self, pooled, dtype):
+        """Linear-GELU-LN-Linear (``projection_head``, encoder.py:435)."""
+        fc1, _, ln, fc2 = self.encode_proj
+        return fc2(ln(gelu(fc1(pooled, dtype))), dtype)
+
+    def forward(self, input_ids, attention_mask, position_ids, *,
+                dtype: torch.dtype = torch.float32):
+        """-> (sequence [B, S, H], pooled [B, out]) (``encode_text``,
+        encoder.py:451)."""
+        emb = self.bert.embeddings(input_ids, position_ids, dtype)
+        seq = self.bert.encoder(emb, attention_bias(attention_mask), dtype)
+        pooled = seq[:, 0, :]
+        if self.encode_proj is not None:
+            pooled = self.projection_head(pooled, dtype)
+        return seq, pooled
+
+
+@torch.no_grad()
+def init_text_encoder_(tower: TextEncoder, generator: torch.Generator
+                       ) -> TextEncoder:
+    """Random weights as the JAX package initialises them
+    (encoder.py:55-157): normal(0, initializer_range) for dense kernels and
+    embedding tables, zero biases, unit LayerNorm scales, and a zero row
+    for the padding id 0. ``generator`` lives on the CPU; the weights are
+    copied to the tower's device."""
+    std = tower.cfg.initializer_range
+    for module in tower.modules():
+        if isinstance(module, (Dense, nn.Embedding)):
+            w = torch.randn(module.weight.shape, generator=generator) * std
+            module.weight.copy_(w)
+        if isinstance(module, Dense):
+            module.bias.zero_()
+        elif isinstance(module, LayerNorm):
+            module.weight.fill_(1.0)
+            module.bias.zero_()
+    tower.bert.embeddings.word_embeddings.weight[0].zero_()
+    return tower

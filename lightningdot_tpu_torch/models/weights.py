@@ -1,0 +1,115 @@
+"""Carry weights into the port (numpy only; counterpart of the loading and
+export parts of lightningdot_tpu/models/checkpoint_torch.py).
+
+:func:`tower_state_dict_from_jax` turns a JAX tower pytree (numpy or array
+leaves, layers stacked on axis 0) into the port's state dict, as
+``checkpoint_torch.export_tower`` does. :func:`load_torch_state_dict` and
+:func:`normalize_keys` read the reference's released ``.pt`` files.
+"""
+from __future__ import annotations
+
+import logging
+import pickle
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+logger = logging.getLogger(__name__)
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """Read a .pt file into a flat {key: float32 np.ndarray} dict; a
+    fine-tune ``CheckpointState`` is unwrapped from ``model_dict``."""
+    try:
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError:
+        # older artifacts pickle argparse Namespaces beside the tensors:
+        # full unpickling runs pickle code, so only for files you trust
+        logger.warning("%s is not loadable with weights_only=True; "
+                       "falling back to full unpickling", path)
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "model_dict" in sd:
+        sd = sd["model_dict"]
+    return {k: v.float().numpy() for k, v in sd.items()
+            if isinstance(v, torch.Tensor)}
+
+
+def normalize_keys(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """Strip the ``module.`` wrapper prefix and rename gamma/beta to
+    weight/bias."""
+    out = {}
+    for k, v in sd.items():
+        if k.startswith("module."):
+            k = k[len("module."):]
+        k = k.replace(".gamma", ".weight").replace(".beta", ".bias")
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().float().numpy()
+        out[k] = np.asarray(v)
+    return out
+
+
+def _lin(sd, prefix, p):
+    sd[f"{prefix}.weight"] = np.ascontiguousarray(np.asarray(p["kernel"]).T)
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _ln(sd, prefix, p):
+    sd[f"{prefix}.weight"] = np.asarray(p["scale"])
+    sd[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def tower_state_dict_from_jax(tree: Mapping[str, Any]
+                              ) -> Dict[str, np.ndarray]:
+    """JAX text-tower pytree -> the port's state dict (torch layout:
+    linear weights [out, in]). Mirrors ``checkpoint_torch.export_tower``
+    for a text tower."""
+    sd: Dict[str, np.ndarray] = {}
+    emb = tree["embeddings"]
+    sd["bert.embeddings.word_embeddings.weight"] = np.asarray(emb["word"])
+    sd["bert.embeddings.position_embeddings.weight"] = np.asarray(
+        emb["position"])
+    sd["bert.embeddings.token_type_embeddings.weight"] = np.asarray(
+        emb["token_type"])
+    _ln(sd, "bert.embeddings.LayerNorm", emb["ln"])
+
+    layers = tree["layers"]
+    attn, mlp = layers["attn"], layers["mlp"]
+    num_layers = np.asarray(attn["query"]["kernel"]).shape[0]
+
+    def at(p, i):
+        return {k: np.asarray(v)[i] for k, v in p.items()}
+
+    for i in range(num_layers):
+        p = f"bert.encoder.layer.{i}"
+        _lin(sd, f"{p}.attention.self.query", at(attn["query"], i))
+        _lin(sd, f"{p}.attention.self.key", at(attn["key"], i))
+        _lin(sd, f"{p}.attention.self.value", at(attn["value"], i))
+        _lin(sd, f"{p}.attention.output.dense", at(attn["output"], i))
+        _ln(sd, f"{p}.attention.output.LayerNorm", at(attn["ln"], i))
+        _lin(sd, f"{p}.intermediate.dense", at(mlp["intermediate"], i))
+        _lin(sd, f"{p}.output.dense", at(mlp["output"], i))
+        _ln(sd, f"{p}.output.LayerNorm", at(mlp["ln"], i))
+
+    if "pooler" in tree:
+        _lin(sd, "bert.pooler.dense", tree["pooler"])
+    if "proj" in tree:
+        _lin(sd, "encode_proj.0", tree["proj"]["fc1"])
+        _ln(sd, "encode_proj.2", tree["proj"]["ln"])
+        _lin(sd, "encode_proj.3", tree["proj"]["fc2"])
+    return sd
+
+
+def load_tower_(tower: torch.nn.Module, sd: Mapping[str, Any]) -> None:
+    """Copy a tower state dict (numpy or tensors, reference key names) into
+    the port's :class:`~lightningdot_tpu_torch.models.encoder.TextEncoder`,
+    strictly: a missing or unexpected key raises. The index buffers that HF
+    ``BertModel`` serializes (``*.position_ids``) are dropped."""
+    sd = {k: v for k, v in normalize_keys(sd).items()
+          if not k.endswith((".position_ids", ".token_type_ids"))}
+    if not any(k.startswith("bert.") for k in sd):
+        sd = {f"bert.{k}": v for k, v in sd.items()
+              if not k.startswith("encode_proj.")} | {
+            k: v for k, v in sd.items() if k.startswith("encode_proj.")}
+    tower.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                           for k, v in sd.items()})

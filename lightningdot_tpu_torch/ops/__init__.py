@@ -1,0 +1,30 @@
+"""Ops of the port: hand-written CUDA kernels with plain PyTorch twins.
+
+Counterpart of lightningdot_tpu/ops. Each op takes its kernel for a CUDA
+tensor (raising on a shape or dtype the kernel does not take) and its twin
+for a CPU tensor. Each kernel wrapper counts its launches in a
+``launches`` attribute; :func:`launch_counts` reads them all.
+"""
+from lightningdot_tpu_torch.ops.activations import gelu  # noqa: F401
+from lightningdot_tpu_torch.ops.attention import (  # noqa: F401
+    attention_cuda, multi_head_attention)
+from lightningdot_tpu_torch.ops.ffn import ffn_cuda, ffn_gelu  # noqa: F401
+from lightningdot_tpu_torch.ops.layernorm import (  # noqa: F401
+    layer_norm, layer_norm_cuda)
+from lightningdot_tpu_torch.ops.matmul import mm_f32  # noqa: F401
+
+KERNEL_WRAPPERS = {
+    "layernorm": layer_norm_cuda,
+    "attention": attention_cuda,
+    "ffn": ffn_cuda,
+}
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches since the last reset}."""
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0

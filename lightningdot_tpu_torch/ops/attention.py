@@ -1,0 +1,112 @@
+"""Multi-head self-attention: a CUDA kernel and its plain PyTorch twin.
+
+Counterpart of lightningdot_tpu/ops/attention.py, deterministic (no
+dropout) and in the projection-native ``bshd`` layout only: q, k, v are
+[batch, seq, heads, head_dim]. The kernel (``csrc/attention.cu``) replaces
+the TPU kernel ``_attn_kernel`` (lightningdot_tpu/ops/attention.py:87,
+launched by ``_attention_pallas``). Unlike the TPU dispatch, which sent
+only batch * heads <= 128 to the kernel, every CUDA call takes the kernel.
+
+Math parity with the reference's attention (uniter_model/model/layer.py:
+75-101): scores = q k^T / sqrt(d) + additive key bias (0 keep, -10000
+masked), row softmax, probs @ v.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from lightningdot_tpu_torch.ops import _build
+
+MAX_SEQ = 64
+MAX_HEAD_DIM = 64
+
+
+def _attention_math(q, k, v, bias, scale, defer: Optional[bool] = None):
+    """The plain twin, with both numeric paths of the reference's
+    ``_attention_math`` (lightningdot_tpu/ops/attention.py:41-84).
+
+    ``bias`` broadcasts to [B, H, Sq, Sk]. Normalized path: float32
+    softmax, probabilities cast to v's dtype before probs @ v. Deferred
+    path: un-normalized exp(s - max) cast to v's dtype, float32 row sums,
+    division after probs @ v. ``defer=None`` takes the deferred path for
+    bfloat16 and the normalized one for float32, as the JAX package does
+    by default; float32 never defers.
+    """
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    scores = scores + bias.float()
+    if q.dtype == torch.float32 or defer is False:
+        probs = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                           v.float())
+        return out.to(v.dtype)
+    m = scores.amax(dim=-1, keepdim=True)
+    ex = torch.exp(scores - m)
+    denom = ex.sum(dim=-1)                              # [B, H, Sq]
+    e = ex.to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", e.float(), v.float())
+    out = out / denom.transpose(1, 2)[..., None]
+    return out.to(v.dtype)
+
+
+def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   key_bias: torch.Tensor, scale: float,
+                   defer: bool) -> torch.Tensor:
+    """Launch the attention kernel.
+
+    q, k, v: contiguous [B, S, H, D] CUDA tensors of one dtype;
+    key_bias: float32 [B, S], added to every query row's scores.
+    """
+    what = "attention kernel"
+    _build.require_cuda(what, q, k, v, key_bias)
+    code = _build.dtype_code(q, what)
+    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: q, k, v must share one [B,S,H,D] shape, "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"{what}: q, k, v dtypes differ")
+    b, s, h, d = q.shape
+    if s > MAX_SEQ or d > MAX_HEAD_DIM:
+        raise ValueError(f"{what}: seq {s} > {MAX_SEQ} or head_dim {d} > "
+                         f"{MAX_HEAD_DIM} is not supported")
+    if key_bias.dtype != torch.float32 or key_bias.shape != (b, s):
+        raise ValueError(f"{what}: key bias must be float32 [{b}, {s}], got "
+                         f"{key_bias.dtype} {tuple(key_bias.shape)}")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        _build.check(_build.lib().ldot_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
+            out.data_ptr(), b, s, h, d, scale, int(defer), code,
+            _build.stream_ptr(q)), what)
+    attention_cuda.launches += 1
+    return out
+
+
+attention_cuda.launches = 0
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor) -> torch.Tensor:
+    """Scaled dot-product attention, deterministic, ``bshd`` layout.
+
+    Args:
+      q, k, v: [batch, seq, heads, head_dim].
+      bias: additive mask broadcastable to [batch, heads, seq, seq]; on
+        CUDA it must be a key-only bias, [batch, 1, 1, seq] (as
+        ``models.encoder.attention_bias`` makes) or [batch, seq].
+
+    bfloat16 takes the deferred-normalization path, float32 the normalized
+    one (``_attention_math``).
+    """
+    scale = 1.0 / (q.shape[-1] ** 0.5)
+    if not q.is_cuda:
+        return _attention_math(q, k, v, bias, scale)
+    b, s = q.shape[0], q.shape[1]
+    if bias.shape not in ((b, 1, 1, s), (b, s)):
+        raise ValueError(f"attention kernel: bias {tuple(bias.shape)} is not "
+                         f"a key-only bias [{b}, 1, 1, {s}]")
+    return attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
+                          bias.reshape(b, s).float().contiguous(), scale,
+                          defer=q.dtype != torch.float32)

@@ -1,0 +1,100 @@
+"""Fused FFN (dense -> erf GELU -> dense), forward only: a CUDA kernel and
+its plain PyTorch twin.
+
+Counterpart of lightningdot_tpu/ops/ffn.py (``_ffn_math`` and the forward
+of ``_ffn``). The kernel (``csrc/ffn.cu``) replaces the TPU kernel
+``_ffn_kernel`` (lightningdot_tpu/ops/ffn.py:77, launched by
+``_ffn_pallas`` with ``with_h1=False``). The TPU dispatch gates (rows >= 256
+and the VMEM fit) are not carried over: every CUDA call takes the kernel.
+
+Weights are in the JAX package's [in, out] layout: w1 [H, I], w2 [I, H].
+"""
+from __future__ import annotations
+
+import torch
+
+from lightningdot_tpu_torch.ops import _build
+from lightningdot_tpu_torch.ops.activations import gelu
+from lightningdot_tpu_torch.ops.matmul import mm_f32
+
+# csrc/ffn.cu: 16-row tiles, 32-column chunks of the intermediate
+_TILE_ROWS = 16
+_CHUNK = 32
+MAX_HIDDEN = 1024
+
+
+def _ffn_math(x, w1, b1, w2, b2):
+    """The plain twin: identical math to encoder._dense + gelu
+    (lightningdot_tpu/ops/ffn.py:47-52). Returns (out, h1)."""
+    h1 = (mm_f32(x, w1) + b1).to(x.dtype)
+    inter = gelu(h1)
+    return (mm_f32(inter, w2) + b2).to(x.dtype), h1
+
+
+def ffn_splits(rows: int, inter: int, num_sms: int) -> int:
+    """How many blocks share one row tile's intermediate dimension.
+
+    Enough that the grid covers every SM about twice, at most one 32-wide
+    chunk per block; then evened out so that no split is empty.
+    """
+    n_chunks = inter // _CHUNK
+    tiles = -(-rows // _TILE_ROWS)
+    splits = max(1, min(n_chunks, -(-2 * num_sms // tiles)))
+    per = -(-n_chunks // splits)
+    return -(-n_chunks // per)
+
+
+def ffn_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Launch the fused FFN kernel on a [rows, H] CUDA tensor."""
+    what = "ffn kernel"
+    _build.require_cuda(what, x2d, w1, b1, w2, b2)
+    code = _build.dtype_code(x2d, what)
+    rows, h = x2d.shape
+    inter = w1.shape[1]
+    if w1.dtype != x2d.dtype or w2.dtype != x2d.dtype:
+        raise TypeError(f"{what}: weights must be {x2d.dtype}")
+    if (w1.shape != (h, inter) or w2.shape != (inter, h)
+            or b1.shape != (inter,) or b2.shape != (h,)):
+        raise ValueError(f"{what}: shapes x {tuple(x2d.shape)}, w1 "
+                         f"{tuple(w1.shape)}, w2 {tuple(w2.shape)} do not "
+                         f"form an FFN")
+    if b1.dtype != torch.float32 or b2.dtype != torch.float32:
+        raise TypeError(f"{what}: biases must be float32")
+    if h % 32 or h > MAX_HIDDEN or inter % _CHUNK:
+        raise ValueError(f"{what}: needs H % 32 == 0, H <= {MAX_HIDDEN} and "
+                         f"I % {_CHUNK} == 0, got H={h}, I={inter}")
+    num_sms = torch.cuda.get_device_properties(
+        x2d.device).multi_processor_count
+    splits = ffn_splits(rows, inter, num_sms)
+    out = torch.empty_like(x2d)
+    workspace = (torch.empty((splits, rows, h), dtype=torch.float32,
+                             device=x2d.device) if splits > 1 else None)
+    with torch.cuda.device(x2d.device):
+        _build.check(_build.lib().ldot_ffn(
+            x2d.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(),
+            workspace.data_ptr() if workspace is not None else None,
+            rows, h, inter, splits, code, _build.stream_ptr(x2d)), what)
+    ffn_cuda.launches += 1
+    return out
+
+
+ffn_cuda.launches = 0
+
+
+def ffn_gelu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """dense(H->I) -> erf GELU -> dense(I->H) on [..., H] input.
+
+    ``x``, ``w1`` [H, I] and ``w2`` [I, H] in the compute dtype, ``b1`` and
+    ``b2`` float32 (lightningdot_tpu/ops/ffn.py:247-265 casts the float32
+    masters to that form on every call).
+    """
+    shape = x.shape
+    x2d = x.reshape(-1, shape[-1])
+    if x.is_cuda:
+        out = ffn_cuda(x2d.contiguous(), w1, b1, w2, b2)
+    else:
+        out, _ = _ffn_math(x2d, w1, b1, w2, b2)
+    return out.reshape(shape)

@@ -1,0 +1,37 @@
+"""Matrix products with float32 accumulation and a float32 result.
+
+The JAX package writes ``jnp.dot(a, b, preferred_element_type=float32)``
+for every dense layer and for the corpus scores. ``torch.matmul`` of two
+bfloat16 tensors instead returns bfloat16, rounding before the bias is
+added; :func:`mm_f32` keeps the float32 result.
+"""
+from __future__ import annotations
+
+import torch
+
+# corpus columns per CPU block: bounds the float32 copy that the CPU path
+# makes of a bfloat16 operand
+_CPU_BLOCK = 16384
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 2-D float32 or bfloat16 operands, accumulated and
+    returned in float32.
+
+    On CUDA, bfloat16 operands go to ``torch.mm(..., out_dtype=float32)``
+    and float32 operands to ``torch.mm`` (true float32 only while
+    ``torch.backends.cuda.matmul.allow_tf32`` is False). On the CPU the
+    operands are upcast first: a product of two bfloat16 values is exact in
+    float32, so this is float32 accumulation too.
+    """
+    if a.is_cuda:
+        if a.dtype == torch.float32 and b.dtype == torch.float32:
+            return torch.mm(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+    af = a.float()
+    if b.shape[1] <= _CPU_BLOCK:
+        return af @ b.float()
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=torch.float32)
+    for j in range(0, b.shape[1], _CPU_BLOCK):
+        out[:, j:j + _CPU_BLOCK] = af @ b[:, j:j + _CPU_BLOCK].float()
+    return out
