@@ -10,8 +10,11 @@ Phases, each of which exits non-zero on failure (no result is printed):
 1. set-up: torch version, the card's name and power limit, TF32 off, the
    CUDA kernels built from ``lightningdot_tpu_torch/csrc`` (build time);
 2. kernels: each hand-written kernel against its plain PyTorch twin on the
-   card, at the shapes of the query path, float32 and bfloat16, with its
-   median time beside the twin's (CUDA events);
+   card, at the shapes of the paths below (the encode batches included:
+   attention at [128, 32|64|104], the bf16 FFN at 4,096-13,312 rows; the
+   int8 FFN bit-equal to its twin) and at S 65, 105 and 128 for later
+   slices, with its median time beside the twin's (CUDA graph, CUDA
+   events); the approximate top-k beside torch.topk over the corpus;
 3. main path at BERT-base cased width (12 layers, hidden 768, 12 heads,
    intermediate 3072, vocab 28,996; random weights from ``--seed``) against
    a full-COCO corpus of 123,287 x 768 bfloat16 vectors, through
@@ -22,11 +25,24 @@ Phases, each of which exits non-zero on failure (no result is printed):
      ranks first; cosine to the float32 embeddings above a bound;
    - p50 latency at batch 1, 8 and 64, top 100;
    - every kernel's launch counter rose on this path;
+   - a torch.profiler pass at batch 1 and 64: device busy time per call,
+     idle share against the p50, the costliest device kernels;
 4. serve: ``serving_native.serve_retriever`` over the bfloat16 Retriever
    answers concurrent /search requests, each ``ranking_equivalent`` to a
-   direct ``retrieve_batch``.
+   direct ``retrieve_batch``;
+5. image: corpus encoding with both towers in bfloat16 through
+   ``get_model_encoded_vecs`` over 4,224 synthetic images (num_bb 36 and
+   100), images/s; float32 on the card against the CPU plain path, bfloat16
+   against float32; a profiler pass over one batch;
+6. int8 serving: ``Retriever(quantization="int8", weight_quantization=
+   "int8", topk="approx")`` against a 123,287-vector int8 corpus that begins
+   with the image vectors: cosine to the bfloat16 tower, planted queries
+   first, p50 at batch 1, 8 and 64, a profiler pass, approximate
+   recall@100 against exact top-k, rankings on the card against the CPU
+   plain path, and a control (see ``int8_phase``).
 
-Then one JSON line listing the kernels, and as the last line
+Each path's kernel launch counters are reset just before it and read just
+after it. Then one JSON line listing the kernels, and as the last line
 ``{"ok": true, "device": {...}}``. The script imports no JAX.
 """
 from __future__ import annotations
@@ -47,11 +63,40 @@ import numpy as np
 import torch
 
 CORPUS_SIZE = 123_287          # COCO images (train + restval + val + test)
+MODEL = dict(vocab_size=28996, project_dim=0)   # BERT-base cased
+IMG_DIM = 2048                 # Faster R-CNN region features
+DEVICE = "cuda"
 TOP = 100
 # kernel vs twin: float32 within 1e-5 and bfloat16 within one bf16 ulp
 # (2**-7), relative to max(1, the twin's largest magnitude); only the
 # summation order differs
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# the int8 FFN kernel is held to its twin bit for bit: both compute the
+# same roundings in the same order, and the int32 sums are exact
+# int8 vs bfloat16 tower, cosine of the query embeddings: int8 weights and
+# activations keep about two decimal digits per value; H100 runs read
+# 0.99960 at seed 0, so the bound leaves 2.5 times that gap
+INT8_BF16_COSINE_MIN = 0.999
+# int8 tower on the card vs on the CPU: the bf16 roundings inside the tower
+# differ by summation order (LayerNorm and attention sums), and every dense
+# layer requantizes its input per row, where the int8 step (max|x| / 127,
+# ~0.03 on LayerNorm outputs) is only twice the bf16 ulp at 2-4: a one-ulp
+# difference often moves an element one int8 level, a fresh quantization
+# error that the next layers carry on. H100 runs read embedding cosines of
+# 0.99973 and score deltas of 1.7e-3 of the peak score (1.33 of 768; an
+# earlier twin whose deferred softmax summed in another order read 2.1e-3):
+# held at cosine 0.9995 and 3e-3 of the peak score
+INT8_CARD_COSINE_MIN = 0.9995
+INT8_RANK_RTOL = 3e-3
+# corpus encoding: images per run and per batch; the regions per image
+# (configs/coco_eval.json:11)
+IMAGES = 4096
+IMG_BATCH = 128
+NUM_BB = 36
+# the kernels each path must launch
+PATH_KERNELS = {"text_bf16": ("layernorm", "attention", "ffn"),
+                "image_bf16": ("layernorm", "attention", "ffn"),
+                "int8_serving": ("layernorm", "attention", "ffn_int8")}
 # float32 tower on the card vs on the CPU: the query vector may differ by
 # float32 summation order (1e-3 absolute on unit-scale LayerNorm outputs
 # after 12 layers), and then rounds to bfloat16 for the corpus product, where
@@ -59,8 +104,9 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # at 5e-4 of the peak score
 F32_VEC_ATOL = 1e-3
 F32_RANK_RTOL = 5e-4
-# bfloat16 vs float32 tower, cosine of the query embeddings
-BF16_COSINE_MIN = 0.99
+# bfloat16 vs float32 tower, cosine of the query and image embeddings (the
+# text tower read 0.99993 on an H100)
+BF16_COSINE_MIN = 0.999
 # served (coalesced batch) vs direct single-query bfloat16 rankings: another
 # batch size sums in another order (cuBLAS picks other kernels, the FFN
 # kernel other splits), which moves bf16 roundings inside the tower and
@@ -127,7 +173,9 @@ def time_ms(fn, groups: int = 7, per_group: int = 10) -> float:
     return statistics.median(times)
 
 
-def compare(name, shape, dtype, kernel, twin, device_name):
+def compare(name, shape, dtype, kernel, twin, device_name, exact=False):
+    """Hold a kernel against its twin on the same inputs and time both;
+    ``exact``: bit for bit."""
     got, want = kernel(), twin()
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
@@ -135,18 +183,23 @@ def compare(name, shape, dtype, kernel, twin, device_name):
           f"{want.dtype}{tuple(want.shape)}")
     check(bool(torch.isfinite(got).all()), f"{name} {shape}: non-finite")
     err = (got.float() - want.float()).abs().max().item()
-    tol = TOL[dtype] * max(1.0, want.float().abs().max().item())
+    peak = want.float().abs().max().item()
+    differ = (got != want).float().mean().item()
+    tol = 0.0 if exact else TOL[dtype] * max(1.0, peak)
     row = dict(phase="kernel", kernel=name, shape=list(shape),
                dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-               tol=tol, ms=time_ms(kernel), plain_ms=time_ms(twin),
-               device=device_name)
+               tol=tol, differ_frac=differ, ms=time_ms(kernel),
+               plain_ms=time_ms(twin), device=device_name)
     emit(**row)
     check(err <= tol, f"{name} {shape} {dtype}: error {err} > {tol}")
+    check(not exact or differ == 0.0,
+          f"{name} {shape}: {differ:.3%} of elements differ")
     return row
 
 
 def kernel_phase(device_name):
-    from lightningdot_tpu_torch.ops import attention, ffn, layernorm
+    from lightningdot_tpu_torch.ops import (attention, ffn, ffn_int8,
+                                            layernorm)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -156,7 +209,8 @@ def kernel_phase(device_name):
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        for n in (32, 2048, 16384):
+        # query batches, encode batches of 128 (S 64 and 104), and more
+        for n in (32, 2048, 8192, 13312, 16384):
             x = randn(n, 768, scale=3.0, dtype=dtype) + 1
             scale = torch.rand(768, device=dev, generator=g) + 0.5
             bias = randn(768)
@@ -165,19 +219,27 @@ def kernel_phase(device_name):
                 lambda: layernorm.layer_norm_cuda(x, scale, bias, 1e-12),
                 lambda: layernorm._ln_math(x.float(), scale, bias,
                                            1e-12).to(dtype), device_name))
-        for b in (1, 8, 64, 256):
-            for s in (16, 32, 64):
-                q, k, v = (randn(b, s, 12, 64, dtype=dtype)
-                           for _ in range(3))
-                lens = torch.randint(1, s + 1, (b,), device=dev, generator=g)
-                mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
-                bias = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
-                rows.append(compare(
-                    "attention", (b, s, 12, 64), dtype,
-                    lambda: attention.multi_head_attention(q, k, v, bias),
-                    lambda: attention._attention_math(q, k, v, bias, 0.125),
-                    device_name))
-        for n in (16, 32, 256, 2048):
+        # query buckets; the encode batches (captions at S 32, images at 1
+        # + R with R = bucket_len(num_bb + 1) - 1, itm_fast_collate: S 64
+        # at num_bb 36, 104 at 100); and for later slices S 65 and 105 (R
+        # bucketed without the [CLS] slot, itm.py:261) and 128 (the
+        # longest text bucket)
+        for b, s in ([(b, s) for b in (1, 8, 64, 256) for s in (16, 32, 64)]
+                     + [(128, s) for s in (32, 64, 104)]
+                     + [(b, s) for b in (1, 64) for s in (65, 105, 128)]):
+            q, k, v = (randn(b, s, 12, 64, dtype=dtype) for _ in range(3))
+            lens = torch.randint(1, s + 1, (b,), device=dev, generator=g)
+            mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
+            bias = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+            rows.append(compare(
+                "attention", (b, s, 12, 64), dtype,
+                lambda: attention.multi_head_attention(q, k, v, bias),
+                lambda: attention._attention_math(q, k, v, bias, 0.125),
+                device_name))
+        # query rows (batch x length), then in bfloat16 the encode batches:
+        # 128 captions x 32, 128 images x 64 and x 104
+        for n in (16, 32, 256, 2048) + (
+                (4096, 8192, 13312) if dtype == torch.bfloat16 else ()):
             x = randn(n, 768, dtype=dtype)
             w1 = randn(768, 3072, scale=0.02, dtype=dtype)
             b1 = randn(3072, scale=0.02)
@@ -187,7 +249,80 @@ def kernel_phase(device_name):
                 "ffn", (n, 768, 3072), dtype,
                 lambda: ffn.ffn_gelu(x, w1, b1, w2, b2),
                 lambda: ffn._ffn_math(x, w1, b1, w2, b2)[0], device_name))
+    # the int8 FFN takes bfloat16 activations only; per-channel int8
+    # weights, quantized as QuantizedDense does, in the [in, out] view of
+    # out-major storage
+    w1q, s1 = ffn_int8._quant_rows(randn(3072, 768, scale=0.02))
+    w2q, s2 = ffn_int8._quant_rows(randn(768, 3072, scale=0.02))
+    w1, w2, s1, s2 = w1q.t(), w2q.t(), s1[:, 0], s2[:, 0]
+    b1, b2 = randn(3072, scale=0.02), randn(768, scale=0.02)
+    for n in (16, 32, 256, 2048, 4096):
+        x = randn(n, 768, dtype=torch.bfloat16)
+        rows.append(compare(
+            "ffn_int8", (n, 768, 3072), torch.bfloat16,
+            lambda: ffn_int8.ffn_gelu_int8(x, w1, s1, b1, w2, s2, b2),
+            lambda: ffn_int8._ffn_int8_math(x, w1, s1, b1, w2, s2, b2),
+            device_name, exact=True))
     return rows
+
+
+def topk_phase(device_name):
+    """The approximate top-k of ``topk="approx"`` beside ``torch.topk`` over
+    a full-COCO row of scores (123,287 padded to 123,392), top 100."""
+    from lightningdot_tpu_torch.serving import approx_topk
+
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    n = -(-CORPUS_SIZE // 128) * 128
+    for batch in (1, 64):
+        scores = torch.randn((batch, n), device=DEVICE, generator=g)
+        approx = approx_topk(scores, TOP, 0.95)[1].tolist()
+        exact = torch.topk(scores, TOP, dim=1)[1].tolist()
+        emit(phase="topk", batch=batch, n=n, top=TOP, recall=float(np.mean(
+            [len(set(a) & set(b)) / TOP for a, b in zip(approx, exact)])),
+             approx_ms=time_ms(lambda: approx_topk(scores, TOP, 0.95)),
+             exact_ms=time_ms(lambda: torch.topk(scores, TOP, dim=1)),
+             device=device_name)
+
+
+def device_profile(fn, calls):
+    """torch.profiler over ``calls`` calls of ``fn``: device busy time per
+    call (the union of the device's kernel and copy intervals) and the five
+    costliest device kernels, as [name, ms per call, launches per call]."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans, by_name = [], {}
+    for e in prof.events():
+        if str(e.device_type) != "DeviceType.CUDA":
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + (end - start) / 1e3, n + 1)
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return dict(calls=calls, busy_ms=busy_us / 1e3 / calls if spans else None,
+                top=[[name[:70], ms / calls, n / calls]
+                     for name, (ms, n) in top])
+
+
+def emit_profile(path, batch, fn, wall_ms, calls=10):
+    """One profiler row; the idle share is against ``wall_ms``, measured
+    without the profiler."""
+    prof = device_profile(fn, calls)
+    busy = prof["busy_ms"]
+    emit(phase="profile", path=path, batch=batch, wall_ms=wall_ms,
+         idle_share=None if busy is None else 1.0 - busy / wall_ms, **prof)
 
 
 def make_tokenizer(workdir: Path, words):
@@ -225,15 +360,14 @@ def hold_rankings(got, want, rtol, what):
 
 def main_path(args, tok, device_name):
     from lightningdot_tpu.config import EncoderConfig
-    from lightningdot_tpu_torch.models import BiEncoder, init_text_encoder_
+    from lightningdot_tpu_torch.models import BiEncoder, init_tower_
     from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
     from lightningdot_tpu_torch.serving import Retriever
 
-    cfg = EncoderConfig(vocab_size=28996, project_dim=0)   # BERT-base cased
+    cfg = EncoderConfig(**MODEL)
     t0 = time.perf_counter()
     master = BiEncoder(cfg)
-    init_text_encoder_(master.txt_model,
-                       torch.Generator().manual_seed(args.seed))
+    init_tower_(master.txt_model, torch.Generator().manual_seed(args.seed))
     state = master.state_dict()
 
     def model(dtype):
@@ -251,7 +385,7 @@ def main_path(args, tok, device_name):
 
     reset_launch_counts()
     # float32 on the card against the plain path on the CPU
-    r32 = Retriever(model(torch.float32), tok, device="cuda")
+    r32 = Retriever(model(torch.float32), tok, device=DEVICE)
     r32.set_corpus(ids, corpus)
     ref = Retriever(model(torch.float32), tok, device="cpu")
     ref.set_corpus(ids, corpus)
@@ -270,7 +404,7 @@ def main_path(args, tok, device_name):
     del r32, ref
 
     # bfloat16, the serving configuration: plant each query's embedding
-    r16 = Retriever(model(torch.bfloat16), tok, device="cuda")
+    r16 = Retriever(model(torch.bfloat16), tok, device=DEVICE)
     r16.set_corpus(ids, corpus)
     vec16 = r16.encode_queries(CAPTIONS)
     check(np.isfinite(vec16).all(), "bfloat16 query vectors not finite")
@@ -296,8 +430,10 @@ def main_path(args, tok, device_name):
     # latency of the serving entry point, 32-token queries as bench.py
     words = sorted({w for c in CAPTIONS for w in c.split()})
     r16.warmup(tops=(TOP,), batches=(1, 8, 64))
+    p50, batches = {}, {}
     for batch in (1, 8, 64):
         queries = [" ".join(rng.choice(words, 30)) for _ in range(batch)]
+        batches[batch] = queries
         idx, scores = r16.retrieve_batch_arrays(queries, top=TOP)
         check(idx.shape == (batch, TOP) and np.isfinite(scores).all(),
               "retrieve_batch_arrays output malformed")
@@ -306,15 +442,19 @@ def main_path(args, tok, device_name):
             t = time.perf_counter()
             r16.retrieve_batch_arrays(queries, top=TOP)
             lat.append((time.perf_counter() - t) * 1e3)
+        p50[batch] = statistics.median(lat)
         emit(phase="latency", batch=batch, top=TOP, query_tokens=32,
-             p50_ms=statistics.median(lat),
-             p90_ms=float(np.percentile(lat, 90)), reps=len(lat),
-             device=device_name)
+             p50_ms=p50[batch], p90_ms=float(np.percentile(lat, 90)),
+             reps=len(lat), device=device_name)
     counts = launch_counts()
-    emit(phase="main_path_launches", **counts)
-    check(all(n > 0 for n in counts.values()),
+    emit(phase="main_path_launches", path="text_bf16", **counts)
+    check(all(counts[k] > 0 for k in PATH_KERNELS["text_bf16"]),
           f"a kernel was not launched on the main path: {counts}")
-    return r16, counts
+    for batch in (1, 64):
+        emit_profile("text_bf16", batch, lambda: r16.retrieve_batch_arrays(
+            batches[batch], top=TOP), p50[batch])
+    return r16, dict(counts=counts, state=state, cfg=cfg, vec16=vec16,
+                     p50=p50)
 
 
 def serve_phase(r16):
@@ -363,6 +503,277 @@ def serve_phase(r16):
     check(stats["errors"] == 0, f"server errors: {stats}")
 
 
+class SynthImages:
+    """Items in the format of ``lightningdot_tpu/data/itm.py::
+    ItmFastDataset``, made from ``seed``: ``num_bb`` regions of
+    ``IMG_DIM`` float16 features and 7 box features each, as the feature DB stores
+    them, and one random caption of 12-30 ids each. Made in bulk before
+    the timed encode."""
+
+    def __init__(self, n, num_bb, seed, prefix):
+        rng = np.random.default_rng(seed)
+        self.feats = rng.standard_normal((n, num_bb, IMG_DIM),
+                                         dtype=np.float32).astype(np.float16)
+        box = rng.random((n, num_bb, 6), dtype=np.float32)
+        self.pos = np.concatenate(
+            [box, box[..., 4:5] * box[..., 5:6]], axis=-1).astype(np.float32)
+        self.caps = [rng.integers(106, 28996, rng.integers(12, 31)).tolist()
+                     for _ in range(n)]
+        self.names = [f"{prefix}_{i:06d}.npz" for i in range(n)]
+        self.num_bb = num_bb
+
+    def __len__(self):
+        return len(self.names)
+
+    def __getitem__(self, i):
+        return {"input_ids": [101] + self.caps[i] + [102],
+                "img": {"fname": self.names[i], "num_bb": self.num_bb,
+                        "img_feat": self.feats[i], "img_pos_feat": self.pos[i],
+                        "caption_ids": None},
+                "neg_imgs": None, "neg_txts": None,
+                "txt_id": self.names[i].replace(".npz", "_txt")}
+
+
+def image_loader(data, batch):
+    from lightningdot_tpu.data.itm import CollateConfig, itm_fast_collate
+    from lightningdot_tpu.data.loader import DataLoader
+
+    return DataLoader(data, batch_size=batch, collate_fn=lambda items:
+                      itm_fast_collate(items, CollateConfig(
+                          fixed_batch=batch)))
+
+
+def image_phase(args, ctx, device_name):
+    """Corpus encoding at full width: both towers in bfloat16 over
+    ``IMAGES`` synthetic images with ``NUM_BB`` regions (sequence 1 + 63 =
+    64 after the collate's bucketing) and a batch at 100 regions (1 + 103
+    = 104), through ``get_model_encoded_vecs``; a profiler pass over one
+    batch; then, for a few images, float32 on the card against the CPU
+    plain path and bfloat16 against float32 on the card."""
+    from lightningdot_tpu.config import EncoderConfig
+    from lightningdot_tpu.data.itm import CollateConfig, itm_fast_collate
+    from lightningdot_tpu_torch.models import BiEncoder, init_tower_
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.serving import get_model_encoded_vecs
+    from lightningdot_tpu_torch.training.evaluator import BatchEncoder
+
+    cfg = ctx["cfg"]
+    img_cfg = EncoderConfig(**MODEL, img_dim=IMG_DIM)
+    t0 = time.perf_counter()
+    master = BiEncoder(cfg, img_cfg)
+    master.txt_model.load_state_dict(
+        {k[len("txt_model."):]: v for k, v in ctx["state"].items()})
+    init_tower_(master.img_model, torch.Generator().manual_seed(args.seed + 1))
+    state = master.state_dict()
+
+    def model(dtype, device):
+        m = BiEncoder(cfg, img_cfg, compute_dtype=dtype)
+        m.load_state_dict(state)
+        return m.to(device)
+
+    data = SynthImages(IMAGES, NUM_BB, args.seed, "coco")
+    data100 = SynthImages(IMG_BATCH, 100, args.seed + 1, "coco100")
+    emit(phase="setup_image", seconds=time.perf_counter() - t0,
+         images=len(data) + len(data100), num_bb=[NUM_BB, 100])
+
+    m16 = model(torch.bfloat16, DEVICE)
+    get_model_encoded_vecs(m16, image_loader(data100, IMG_BATCH))  # warm
+    reset_launch_counts()
+    rates = {}
+    vecs = {}
+    for name, d in (("num_bb_36", data), ("num_bb_100", data100)):
+        t = time.perf_counter()
+        out = get_model_encoded_vecs(m16, image_loader(d, IMG_BATCH))
+        seconds = time.perf_counter() - t
+        rates[name] = len(d) / seconds
+        check(len(out["img_embed"]) == len(d)
+              and len(out["txt_embed"]) == len(d),
+              f"{name}: {len(out['img_embed'])} images encoded of {len(d)}")
+        vecs.update(out["img_embed"])
+        emit(phase="image_encode", images=len(d), batch=IMG_BATCH,
+             seconds=seconds, images_per_s=rates[name],
+             seq_len=1 + (63 if d.num_bb == NUM_BB else 103),
+             device=device_name)
+    counts = launch_counts()
+    emit(phase="main_path_launches", path="image_bf16", **counts)
+    check(all(counts[k] > 0 for k in PATH_KERNELS["image_bf16"]),
+          f"a kernel was not launched on the image path: {counts}")
+    names = data.names + data100.names
+    img = np.stack([vecs[n] for n in names])
+    check(img.shape == (len(names), cfg.hidden_size)
+          and np.isfinite(img).all(),
+          "image vectors malformed")
+    encoder = BatchEncoder(m16)
+    batch = next(iter(image_loader(data, IMG_BATCH)))
+    emit_profile("image_bf16", IMG_BATCH, lambda: encoder(batch),
+                 1e3 * IMG_BATCH / rates["num_bb_36"], calls=3)
+
+    # float32 on the card against the plain path on the CPU, and bfloat16
+    # against float32 on the card, a few images of each length
+    errs, cosines = [], []
+    for d in (data, data100):
+        batch = itm_fast_collate([d[i] for i in range(4)],
+                                 CollateConfig(fixed_batch=4))
+        _, card, _ = BatchEncoder(model(torch.float32, DEVICE))(batch)
+        _, cpu, _ = BatchEncoder(model(torch.float32, "cpu"))(batch)
+        _, half, _ = encoder(batch)
+        errs.append(float((card.cpu() - cpu).abs().max()))
+        cosines.append(float(torch.nn.functional.cosine_similarity(
+            half, card, dim=1).min()))
+    emit(phase="image_f32_check", max_vec_err=max(errs), vec_atol=F32_VEC_ATOL,
+         min_bf16_cosine_to_f32=min(cosines), cosine_min=BF16_COSINE_MIN,
+         images=8, seq_len=[64, 104])
+    check(max(errs) <= F32_VEC_ATOL, f"float32 image vectors differ by "
+          f"{max(errs)}")
+    check(min(cosines) >= BF16_COSINE_MIN,
+          f"bfloat16 vs float32 image vectors: cosine {min(cosines)}")
+    return dict(vectors=img, names=names, rates=rates, counts=counts)
+
+
+def int8_phase(args, tok, ctx, img, device_name):
+    """The int8 serving configuration: int8 tower, int8 corpus (the image
+    tower's vectors first, seeded random vectors after them, 123,287 in
+    all) and approximate top-k.
+
+    The control for the cosine bounds: the CPU plain path with the
+    activation scale computed by a true division, max / 127 (the JAX
+    package's eager form), not a multiply by 1/127. It is a different
+    numerics, not a fault: its readings show what the bounds can and cannot
+    tell apart."""
+    from lightningdot_tpu_torch.models import BiEncoder
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.serving import Retriever, approx_bin_width
+
+    cfg = ctx["cfg"]
+    t0 = time.perf_counter()
+    model = BiEncoder(cfg, compute_dtype=torch.bfloat16)
+    model.load_state_dict(ctx["state"])
+    rng = np.random.default_rng(args.seed + 2)
+    n_img = img["vectors"].shape[0]
+    corpus = np.concatenate([img["vectors"], rng.standard_normal(
+        (CORPUS_SIZE - n_img, cfg.hidden_size), dtype=np.float32)])
+    ids = img["names"] + [f"coco_{i:06d}" for i in range(n_img, CORPUS_SIZE)]
+    kw = dict(quantization="int8", weight_quantization="int8")
+    r8 = Retriever(model, tok, device=DEVICE, topk="approx", **kw)
+    emit(phase="setup_int8", seconds=time.perf_counter() - t0,
+         corpus=list(corpus.shape), image_vectors=n_img)
+
+    reset_launch_counts()
+    vec8 = r8.encode_queries(CAPTIONS)
+    check(vec8.shape == (len(CAPTIONS), cfg.hidden_size)
+          and np.isfinite(vec8).all(), "int8 query vectors malformed")
+    vec16 = ctx["vec16"]
+    cos = (vec8 * vec16).sum(1) / (np.linalg.norm(vec8, axis=1)
+                                   * np.linalg.norm(vec16, axis=1))
+    spots = rng.choice(np.arange(n_img, CORPUS_SIZE), len(CAPTIONS),
+                       replace=False)
+    planted = corpus.copy()
+    planted[spots] = vec8
+    r8.set_corpus(ids, planted)
+    res = rankings(r8, CAPTIONS)
+    firsts = [r[0][0] for r in res]
+    emit(phase="int8_check", min_cosine_to_bf16=float(cos.min()),
+         cosine_min=INT8_BF16_COSINE_MIN, planted_first=sum(
+             f == ids[s] for f, s in zip(firsts, spots)),
+         queries=len(CAPTIONS),
+         min_top1_margin=min(r[0][1] - r[1][1] for r in res))
+    check(float(cos.min()) >= INT8_BF16_COSINE_MIN,
+          f"int8 vs bfloat16 tower cosine {cos.min()}")
+    check(all(f == ids[s] for f, s in zip(firsts, spots)),
+          f"planted embeddings not first: {firsts} vs "
+          f"{[ids[s] for s in spots]}")
+
+    words = sorted({w for c in CAPTIONS for w in c.split()})
+    r8.warmup(tops=(TOP,), batches=(1, 8, 64))
+    lat_rows = []
+    for batch in (1, 8, 64):
+        queries = [" ".join(rng.choice(words, 30)) for _ in range(batch)]
+        idx, scores = r8.retrieve_batch_arrays(queries, top=TOP)
+        check(idx.shape == (batch, TOP) and np.isfinite(scores).all(),
+              "int8 retrieve_batch_arrays output malformed")
+        lat = []
+        for _ in range(30):
+            t = time.perf_counter()
+            r8.retrieve_batch_arrays(queries, top=TOP)
+            lat.append((time.perf_counter() - t) * 1e3)
+        lat_rows.append(dict(batch=batch, queries=queries,
+                             p50_ms=statistics.median(lat)))
+        emit(phase="latency_int8", batch=batch, top=TOP, query_tokens=32,
+             p50_ms=statistics.median(lat),
+             p90_ms=float(np.percentile(lat, 90)), reps=len(lat),
+             bf16_p50_ms=ctx["p50"][batch], device=device_name)
+    counts = launch_counts()
+    emit(phase="main_path_launches", path="int8_serving", **counts)
+    check(all(counts[k] > 0 for k in PATH_KERNELS["int8_serving"]),
+          f"a kernel was not launched on the int8 path: {counts}")
+    for row in (lat_rows[0], lat_rows[-1]):
+        emit_profile("int8_serving", row["batch"],
+                     lambda: r8.retrieve_batch_arrays(row["queries"],
+                                                      top=TOP),
+                     row["p50_ms"])
+
+    # approximate against exact top-k of the same int8 scores
+    exact = Retriever(model, tok, device=DEVICE, topk="exact", **kw)
+    exact.set_corpus(ids, planted)
+    queries = lat_rows[-1]["queries"]
+    approx_idx, _ = r8.retrieve_batch_arrays(queries, top=TOP)
+    exact_idx, _ = exact.retrieve_batch_arrays(queries, top=TOP)
+    recall = float(np.mean([len(set(a) & set(b)) / TOP for a, b in
+                            zip(approx_idx.tolist(), exact_idx.tolist())]))
+    emit(phase="int8_recall", queries=len(queries), top=TOP, recall=recall,
+         recall_min=r8.topk_recall, bins=int(
+             exact._corpus.shape[0] // approx_bin_width(
+                 exact._corpus.shape[0], TOP, r8.topk_recall)))
+    check(recall >= r8.topk_recall, f"approximate recall@{TOP} {recall}")
+    del exact
+
+    # the int8 tower on the card against the plain path on the CPU
+    ref = Retriever(model, tok, device="cpu", topk="approx", **kw)
+    ref.set_corpus(ids, planted)
+    got = rankings(r8, CAPTIONS)
+    want = rankings(ref, CAPTIONS)
+    vec_ref = ref.encode_queries(CAPTIONS)
+    cos = (vec8 * vec_ref).sum(1) / (np.linalg.norm(vec8, axis=1)
+                                     * np.linalg.norm(vec_ref, axis=1))
+    emit(phase="int8_card_vs_cpu", max_vec_err=float(
+        np.abs(vec8 - vec_ref).max()), min_vec_cosine=float(cos.min()),
+        cosine_min=INT8_CARD_COSINE_MIN,
+        max_rank_score_delta=max_rank_delta(got, want),
+        rank_rtol=INT8_RANK_RTOL, queries=len(CAPTIONS))
+    check(float(cos.min()) >= INT8_CARD_COSINE_MIN,
+          f"int8 tower card vs cpu cosine {cos.min()}")
+    hold_rankings(got, want, INT8_RANK_RTOL, "int8 card vs cpu")
+
+    # the control: read, not held
+    from lightningdot_tpu_torch.models import quantized
+    from lightningdot_tpu_torch.ops import ffn_int8
+
+    def quant_rows_true_division(xf):
+        xs = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127
+        return torch.round(xf / xs).clamp(-127, 127).to(torch.int8), xs
+
+    sound = ffn_int8._quant_rows
+    quantized._quant_rows = ffn_int8._quant_rows = quant_rows_true_division
+    try:
+        vec_ctl = ref.encode_queries(CAPTIONS)
+        ctl = rankings(ref, CAPTIONS)
+    finally:
+        quantized._quant_rows = ffn_int8._quant_rows = sound
+
+    def min_cos(a, b):
+        return float(((a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                                         * np.linalg.norm(b, axis=1))).min())
+
+    peak = max(abs(s) for lst in want for _, s in lst)
+    emit(phase="int8_control", control="true-division activation scale, cpu",
+         min_cosine_to_cpu=min_cos(vec_ctl, vec_ref),
+         min_cosine_to_card=min_cos(vec_ctl, vec8),
+         min_cosine_to_bf16=min_cos(vec_ctl, vec16),
+         max_rank_score_delta_to_cpu=max_rank_delta(ctl, want),
+         rank_rtol_to_cpu=max_rank_delta(ctl, want) / peak)
+    return counts
+
+
 REPLACES = {
     "layernorm": ("lightningdot_tpu_torch/csrc/layernorm.cu",
                   "lightningdot_tpu/ops/layernorm.py:30"),
@@ -370,10 +781,15 @@ REPLACES = {
                   "lightningdot_tpu/ops/attention.py:87"),
     "ffn": ("lightningdot_tpu_torch/csrc/ffn.cu",
             "lightningdot_tpu/ops/ffn.py:77"),
+    "ffn_int8": ("lightningdot_tpu_torch/csrc/ffn_int8.cu",
+                 "lightningdot_tpu/ops/experimental/ffn_int8_pallas.py:24"),
 }
 # the serving shape reported in the kernels line: batch 64, 32 tokens, bf16
 REPORT_SHAPE = {"layernorm": [2048, 768], "attention": [64, 32, 12, 64],
-                "ffn": [2048, 768, 3072]}
+                "ffn": [2048, 768, 3072], "ffn_int8": [2048, 768, 3072]}
+# the path whose launch count the kernels line reports for each kernel
+REPORT_PATH = {"layernorm": "text_bf16", "attention": "text_bf16",
+               "ffn": "text_bf16", "ffn_int8": "int8_serving"}
 
 
 def main() -> int:
@@ -398,14 +814,22 @@ def main() -> int:
          nvcc_seconds=_build.build_seconds)
 
     rows = kernel_phase(device_name)
+    topk_phase(device_name)
     with tempfile.TemporaryDirectory() as tmp:
         words = [w for c in CAPTIONS for w in c.split()] + ["at", "night"]
         t0 = time.perf_counter()
         tok = make_tokenizer(Path(tmp), words)
         emit(phase="tokenizer", native=tok.native,
              seconds=time.perf_counter() - t0)
-        r16, counts = main_path(args, tok, device_name)
+        r16, ctx = main_path(args, tok, device_name)
         serve_phase(r16)
+        del r16
+        paths = {"text_bf16": ctx["counts"]}
+        img = image_phase(args, ctx, device_name)
+        paths["image_bf16"] = img["counts"]
+        paths["int8_serving"] = int8_phase(args, tok, ctx, img, device_name)
+    check(all(any(c[name] > 0 for c in paths.values()) for name in REPLACES),
+          f"a kernel was launched on no path: {paths}")
 
     kernels = []
     for name, (source, replaces) in REPLACES.items():
@@ -414,9 +838,10 @@ def main() -> int:
                and r["dtype"] == "bfloat16"][0]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=rep["max_abs_err"],
-            ms=rep["ms"], plain_ms=rep["plain_ms"], shape=rep["shape"],
-            dtype="bfloat16", passed=True))
+            launches=paths[REPORT_PATH[name]][name],
+            max_abs_err=rep["max_abs_err"], ms=rep["ms"],
+            plain_ms=rep["plain_ms"], shape=rep["shape"], dtype="bfloat16",
+            path=REPORT_PATH[name], passed=True))
     check("jax" not in sys.modules, "jax was imported")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

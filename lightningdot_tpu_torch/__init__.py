@@ -13,7 +13,11 @@ import importlib
 _EXPORTS = {
     "BiEncoder": "lightningdot_tpu_torch.models.bi_encoder",
     "TextEncoder": "lightningdot_tpu_torch.models.encoder",
+    "ImageEncoder": "lightningdot_tpu_torch.models.encoder",
+    "QuantizedTextEncoder": "lightningdot_tpu_torch.models.quantized",
+    "BatchEncoder": "lightningdot_tpu_torch.training.evaluator",
     "Retriever": "lightningdot_tpu_torch.serving",
+    "get_model_encoded_vecs": "lightningdot_tpu_torch.serving",
     "ranking_equivalent": "lightningdot_tpu_torch.serving",
 }
 

@@ -15,21 +15,23 @@
 //              float32 row sum kept aside, and the division applied after
 //              probs @ v (the bfloat16 serving path).
 //
-// Bound: at the serving shapes (S <= 64, D = 64) a block moves 3*S*D
-// inputs and S*D outputs and does 4*S*S*D flops: a few hundred flops per
-// byte at most, and per block far too little work to fill an SM. What
+// Bound: at the path's shapes (S <= 128, D = 64: query buckets up to 64,
+// text buckets up to 128, image sequences 1 + R with R bucketed to 32, 64 or
+// 104) a block moves 3*S*D inputs and S*D outputs and does 4*S*S*D flops: a
+// few hundred flops per byte at most, and per block little work. What
 // bounds it is latency and the number of blocks in flight. The design
 // stages q, k and v of one head in shared memory as float32 (K rows padded
 // by one word, so the score loop reads K without bank conflicts), keeps the
-// S x S scores in shared memory, and runs one warp per softmax row. The
-// grid is batch * heads blocks (3072 at batch 256), several resident per
-// SM.
+// S x S scores in shared memory, and runs one warp per softmax row: 66 KB
+// at S = 64, 126 KB at S = 105 and 165 KB at S = 128, under the 227 KB a
+// block may ask for. The grid is batch * heads blocks (3072 at batch 256);
+// several are resident per SM at S <= 64, one at S > 96.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSeq = 64;
+constexpr int kMaxSeq = 128;
 constexpr int kMaxHeadDim = 64;
 
 __host__ __device__ constexpr size_t smem_floats(int seq, int head_dim) {
@@ -145,7 +147,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q, k, v, out: [batch, seq, heads, head_dim] contiguous, float32 or
 // bfloat16 (dtype code); bias: [batch, seq] float32 additive key bias.
-// seq <= 64, head_dim <= 64.
+// seq <= 128, head_dim <= 64.
 extern "C" int ldot_attention(const void* q, const void* k, const void* v,
                               const float* bias, void* out, int batch,
                               int seq, int heads, int head_dim, float scale,

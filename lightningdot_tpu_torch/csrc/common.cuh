@@ -35,6 +35,18 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// GELU with the plain version's rounding (ops/activations.py::gelu on a
+// tensor of dtype T): x * 0.5 * (1 + erf(x / sqrt 2)), each op rounded to T
+// (no-op for float). Exact erff, as torch.erf.
+template <typename T>
+__device__ __forceinline__ float gelu_rounded(float x) {
+  const float half = round_to<T>(x * 0.5f);
+  const float arg = round_to<T>(x * 0.7071067811865476f);
+  const float e = round_to<T>(erff(arg));
+  const float one_plus = round_to<T>(1.0f + e);
+  return round_to<T>(half * one_plus);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

@@ -39,17 +39,6 @@ constexpr int kRows = 16;    // rows per tile
 constexpr int kChunk = 32;   // intermediate columns per chunk (one per lane)
 constexpr int kMaxHidden = 1024;
 
-// GELU with the plain version's rounding: x * 0.5 * (1 + erf(x / sqrt 2)),
-// each op rounded to T (no-op for float)
-template <typename T>
-__device__ __forceinline__ float gelu_rounded(float x) {
-  const float half = ldot::round_to<T>(x * 0.5f);
-  const float arg = ldot::round_to<T>(x * 0.7071067811865476f);
-  const float e = ldot::round_to<T>(erff(arg));
-  const float one_plus = ldot::round_to<T>(1.0f + e);
-  return ldot::round_to<T>(half * one_plus);
-}
-
 // kOut = ceil(H / kThreads): output columns each thread accumulates
 template <typename T, int kOut>
 __global__ void __launch_bounds__(kThreads)
@@ -128,7 +117,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) h += part[w * kRows * kChunk + idx];
       const float h1 = ldot::round_to<T>(h + b1[chunk * kChunk + c]);
-      gs[idx] = gelu_rounded<T>(h1);
+      gs[idx] = ldot::gelu_rounded<T>(h1);
     }
     __syncthreads();
 

@@ -1,18 +1,18 @@
-"""Two-tower bi-encoder, text side only (counterpart of
-lightningdot_tpu/models/bi_encoder.py:37-48,93-131).
+"""Two-tower bi-encoder, inference (counterpart of
+lightningdot_tpu/models/bi_encoder.py:37-48,93-167).
 
-The image tower, the losses and the pre-training heads are later slices of
-the port (ROADMAP.md, queue A).
+The losses and the pre-training heads are later slices of the port
+(ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
 
 from lightningdot_tpu.config import EncoderConfig
-from lightningdot_tpu_torch.models.encoder import TextEncoder
+from lightningdot_tpu_torch.models.encoder import ImageEncoder, TextEncoder
 from lightningdot_tpu_torch.ops import mm_f32
 
 
@@ -24,15 +24,20 @@ def dot_product_scores(q_vectors: torch.Tensor,
 
 
 class BiEncoder(nn.Module):
-    """The text tower of the bi-encoder; ``txt_model.*`` state-dict keys as
-    in the reference's fine-tune checkpoints (bi_encoder.py:203-219)."""
+    """The two towers; ``txt_model.*`` and ``img_model.*`` state-dict keys
+    as in the reference's fine-tune checkpoints (bi_encoder.py:203-219).
+    Without ``img_cfg`` only the text tower is built (the query server
+    needs no image tower)."""
 
     def __init__(self, txt_cfg: EncoderConfig,
+                 img_cfg: Optional[EncoderConfig] = None, *,
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.txt_cfg = txt_cfg
+        self.img_cfg = img_cfg
         self.compute_dtype = compute_dtype
         self.txt_model = TextEncoder(txt_cfg)
+        self.img_model = ImageEncoder(img_cfg) if img_cfg is not None else None
 
     def encode_txt(self, sb: Dict[str, Any]) -> torch.Tensor:
         """Text sub-batch (input_ids, attention_mask, position_ids) ->
@@ -41,3 +46,29 @@ class BiEncoder(nn.Module):
                                    sb["position_ids"],
                                    dtype=self.compute_dtype)
         return pooled
+
+    def encode_img(self, sb: Dict[str, Any]) -> torch.Tensor:
+        """Image sub-batch (input_ids [B, 1], attention_mask, img_feat,
+        img_pos_feat, optional img_masks) -> pooled [B, out] in the compute
+        dtype."""
+        if self.img_model is None:
+            raise ValueError("this BiEncoder was built without an image "
+                             "tower (img_cfg=None)")
+        _, pooled = self.img_model(sb["input_ids"], sb["attention_mask"],
+                                   sb["img_feat"], sb["img_pos_feat"],
+                                   img_masks=sb.get("img_masks"),
+                                   dtype=self.compute_dtype)
+        return pooled
+
+    def apply(self, batch: Dict[str, Any]):
+        """batch{'txts', 'imgs', 'caps'} -> (txt, img, cap) pooled vectors,
+        None where the sub-batch is missing (bi_encoder.py:146-167)."""
+        txt = img = cap = None
+        if batch.get("txts") is not None:
+            txt = self.encode_txt(batch["txts"])
+        if batch.get("imgs") is not None:
+            img = self.encode_img(batch["imgs"])
+        caps = batch.get("caps")
+        if caps is not None and caps.get("input_ids") is not None:
+            cap = self.encode_txt(caps)
+        return txt, img, cap

@@ -1,4 +1,4 @@
-"""The BERT text tower, inference only (counterpart of
+"""The BERT text and image towers, inference only (counterpart of
 lightningdot_tpu/models/encoder.py).
 
 Modules are named after the reference's torch state-dict keys
@@ -94,6 +94,36 @@ class Embeddings(nn.Module):
         types = self.token_type_embeddings.weight[0]
         # summed in float32, then cast, then LN (encoder.py:255-261)
         return self.LayerNorm((words + pos + types).to(dtype))
+
+
+class ImgEmbeddings(nn.Module):
+    """Region features -> embeddings (``img_embeddings``,
+    lightningdot_tpu/models/encoder.py:265-283; reference model.py:249-273):
+    img_linear + LN, pos_linear + LN, + the type embedding, joint LN. Keys
+    as ``checkpoint_torch.export_tower(with_img=True)`` writes them."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.img_linear = Dense(cfg.img_dim, h)
+        self.img_layer_norm = LayerNorm(h, eps)
+        self.pos_linear = Dense(cfg.pos_dim, h)
+        self.pos_layer_norm = LayerNorm(h, eps)
+        self.mask_embedding = nn.Embedding(2, cfg.img_dim)
+        self.LayerNorm = LayerNorm(h, eps)
+
+    def forward(self, img_feat, img_pos_feat, type_embedding, img_masks,
+                dtype):
+        if img_masks is not None:
+            # row 0 of mask_embedding counts as zero on every forward
+            # (model.py:264); the stored weight is left as it is
+            table = self.mask_embedding.weight
+            table = torch.cat([torch.zeros_like(table[:1]), table[1:]])
+            img_feat = img_feat + table[img_masks.long()]
+        im = self.img_layer_norm(self.img_linear(img_feat.to(dtype), dtype))
+        pos = self.pos_layer_norm(self.pos_linear(img_pos_feat.to(dtype),
+                                                  dtype))
+        return self.LayerNorm(im + pos + type_embedding.to(dtype))
 
 
 class _SelfAttention(nn.Module):
@@ -226,14 +256,46 @@ class TextEncoder(nn.Module):
         return seq, pooled
 
 
+class ImageEncoder(TextEncoder):
+    """The image tower: a text tower whose ``bert`` also holds
+    ``img_embeddings`` (reference dvl/models/bi_encoder.py:131-196)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__(cfg)
+        self.bert.img_embeddings = ImgEmbeddings(cfg)
+
+    def forward(self, input_ids, attention_mask, img_feat, img_pos_feat, *,
+                img_masks=None, dtype: torch.dtype = torch.float32):
+        """-> (sequence [B, 1+R, H], pooled [B, out]) (``encode_image``,
+        encoder.py:473-510).
+
+        ``input_ids`` [B, 1] holds the [CLS] id (101, dvl/data/itm.py:74)
+        at position 0 with type 0; the R regions follow with type 1.
+        ``attention_mask`` [B, 1+R]; ``img_feat`` [B, R, img_dim];
+        ``img_pos_feat`` [B, R, 7]; ``img_masks`` optional [B, R] {0, 1}.
+        """
+        bert = self.bert
+        txt = bert.embeddings(input_ids, torch.zeros_like(input_ids), dtype)
+        img_type = bert.embeddings.token_type_embeddings.weight[1]
+        img = bert.img_embeddings(img_feat, img_pos_feat, img_type,
+                                  img_masks, dtype)
+        seq = bert.encoder(torch.cat([txt, img], dim=1),
+                           attention_bias(attention_mask), dtype)
+        pooled = seq[:, 0, :]
+        if self.encode_proj is not None:
+            pooled = self.projection_head(pooled, dtype)
+        return seq, pooled
+
+
 @torch.no_grad()
-def init_text_encoder_(tower: TextEncoder, generator: torch.Generator
-                       ) -> TextEncoder:
-    """Random weights as the JAX package initialises them
-    (encoder.py:55-157): normal(0, initializer_range) for dense kernels and
-    embedding tables, zero biases, unit LayerNorm scales, and a zero row
-    for the padding id 0. ``generator`` lives on the CPU; the weights are
-    copied to the tower's device."""
+def init_tower_(tower: TextEncoder, generator: torch.Generator
+                ) -> TextEncoder:
+    """Random weights for a text or image tower as the JAX package
+    initialises them (encoder.py:55-157): normal(0, initializer_range) for
+    dense kernels and embedding tables (``img_linear``, ``pos_linear`` and
+    ``mask_embedding`` included), zero biases, unit LayerNorm scales, and a
+    zero row for the padding id 0. ``generator`` lives on the CPU; the
+    weights are copied to the tower's device."""
     std = tower.cfg.initializer_range
     for module in tower.modules():
         if isinstance(module, (Dense, nn.Embedding)):

@@ -61,9 +61,9 @@ def _ln(sd, prefix, p):
 
 def tower_state_dict_from_jax(tree: Mapping[str, Any]
                               ) -> Dict[str, np.ndarray]:
-    """JAX text-tower pytree -> the port's state dict (torch layout:
-    linear weights [out, in]). Mirrors ``checkpoint_torch.export_tower``
-    for a text tower."""
+    """JAX tower pytree -> the port's state dict (torch layout: linear
+    weights [out, in]). Mirrors ``checkpoint_torch.export_tower``: a tree
+    with ``img_embeddings`` is an image tower (``with_img=True``)."""
     sd: Dict[str, np.ndarray] = {}
     emb = tree["embeddings"]
     sd["bert.embeddings.word_embeddings.weight"] = np.asarray(emb["word"])
@@ -93,6 +93,14 @@ def tower_state_dict_from_jax(tree: Mapping[str, Any]
 
     if "pooler" in tree:
         _lin(sd, "bert.pooler.dense", tree["pooler"])
+    if "img_embeddings" in tree:
+        ie, p = tree["img_embeddings"], "bert.img_embeddings"
+        _lin(sd, f"{p}.img_linear", ie["img_linear"])
+        _ln(sd, f"{p}.img_layer_norm", ie["img_ln"])
+        _lin(sd, f"{p}.pos_linear", ie["pos_linear"])
+        _ln(sd, f"{p}.pos_layer_norm", ie["pos_ln"])
+        sd[f"{p}.mask_embedding.weight"] = np.asarray(ie["mask_embedding"])
+        _ln(sd, f"{p}.LayerNorm", ie["ln"])
     if "proj" in tree:
         _lin(sd, "encode_proj.0", tree["proj"]["fc1"])
         _ln(sd, "encode_proj.2", tree["proj"]["ln"])
@@ -102,7 +110,8 @@ def tower_state_dict_from_jax(tree: Mapping[str, Any]
 
 def load_tower_(tower: torch.nn.Module, sd: Mapping[str, Any]) -> None:
     """Copy a tower state dict (numpy or tensors, reference key names) into
-    the port's :class:`~lightningdot_tpu_torch.models.encoder.TextEncoder`,
+    the port's :class:`~lightningdot_tpu_torch.models.encoder.TextEncoder`
+    or :class:`~lightningdot_tpu_torch.models.encoder.ImageEncoder`,
     strictly: a missing or unexpected key raises. The index buffers that HF
     ``BertModel`` serializes (``*.position_ids``) are dropped."""
     sd = {k: v for k, v in normalize_keys(sd).items()

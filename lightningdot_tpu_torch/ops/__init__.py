@@ -9,14 +9,17 @@ from lightningdot_tpu_torch.ops.activations import gelu  # noqa: F401
 from lightningdot_tpu_torch.ops.attention import (  # noqa: F401
     attention_cuda, multi_head_attention)
 from lightningdot_tpu_torch.ops.ffn import ffn_cuda, ffn_gelu  # noqa: F401
+from lightningdot_tpu_torch.ops.ffn_int8 import (  # noqa: F401
+    ffn_gelu_int8, ffn_int8_cuda)
 from lightningdot_tpu_torch.ops.layernorm import (  # noqa: F401
     layer_norm, layer_norm_cuda)
-from lightningdot_tpu_torch.ops.matmul import mm_f32  # noqa: F401
+from lightningdot_tpu_torch.ops.matmul import mm_f32, mm_int8  # noqa: F401
 
 KERNEL_WRAPPERS = {
     "layernorm": layer_norm_cuda,
     "attention": attention_cuda,
     "ffn": ffn_cuda,
+    "ffn_int8": ffn_int8_cuda,
 }
 
 

@@ -14,6 +14,7 @@ package on a machine without ``nvcc``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -42,6 +43,9 @@ _SIGNATURES = {
     "ldot_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
     # x, w1, b1, w2, b2, out, workspace, rows, H, I, splits, dtype, stream
     "ldot_ffn": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w1t, s1, b1, w2t, s2, b2, out, inter, chunk_max, row_scale,
+    # workspace, rows, H, I, splits, stream
+    "ldot_ffn_int8": (_P,) * 12 + (_I, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -133,6 +137,12 @@ def check(err: int, what: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (looked up once)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def dtype_code(t: torch.Tensor, what: str) -> int:

@@ -19,8 +19,30 @@ import torch
 
 from lightningdot_tpu_torch.ops import _build
 
-MAX_SEQ = 64
+# csrc/attention.cu holds one head's q, k, v and scores in shared memory:
+# 165 KB at S = 128, D = 64 (the longest text bucket; image sequences reach
+# 105). CAP_LEN_BUCKETS (lightningdot_tpu/const.py:23) reach 256: not yet.
+MAX_SEQ = 128
 MAX_HEAD_DIM = 64
+
+
+def _warp_order_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order of the kernel's warp reduction
+    (csrc/common.cuh ``warp_sum``): lane l adds elements l, l + 32, ... in
+    turn, then the 32 partials meet in a butterfly (16, 8, 4, 2, 1). The
+    same float32 sum as ``x.sum(-1)`` up to rounding order, so the deferred
+    path's denominators, and the kernel's output, agree bit for bit."""
+    s = x.shape[-1]
+    x = torch.nn.functional.pad(x, (0, -s % 32))        # + 0.0 is exact
+    chunks = x.unflatten(-1, (-1, 32)).unbind(-2)
+    part = chunks[0]
+    for c in chunks[1:]:
+        part = part + c
+    off = 16
+    while off:
+        part = part[..., :off] + part[..., off:2 * off]
+        off //= 2
+    return part[..., 0]
 
 
 def _attention_math(q, k, v, bias, scale, defer: Optional[bool] = None):
@@ -43,7 +65,7 @@ def _attention_math(q, k, v, bias, scale, defer: Optional[bool] = None):
         return out.to(v.dtype)
     m = scores.amax(dim=-1, keepdim=True)
     ex = torch.exp(scores - m)
-    denom = ex.sum(dim=-1)                              # [B, H, Sq]
+    denom = _warp_order_sum(ex)                         # [B, H, Sq]
     e = ex.to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", e.float(), v.float())
     out = out / denom.transpose(1, 2)[..., None]

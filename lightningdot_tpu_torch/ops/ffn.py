@@ -64,9 +64,7 @@ def ffn_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     if h % 32 or h > MAX_HIDDEN or inter % _CHUNK:
         raise ValueError(f"{what}: needs H % 32 == 0, H <= {MAX_HIDDEN} and "
                          f"I % {_CHUNK} == 0, got H={h}, I={inter}")
-    num_sms = torch.cuda.get_device_properties(
-        x2d.device).multi_processor_count
-    splits = ffn_splits(rows, inter, num_sms)
+    splits = ffn_splits(rows, inter, _build.num_sms(x2d.device))
     out = torch.empty_like(x2d)
     workspace = (torch.empty((splits, rows, h), dtype=torch.float32,
                              device=x2d.device) if splits > 1 else None)

@@ -35,3 +35,26 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for j in range(0, b.shape[1], _CPU_BLOCK):
         out[:, j:j + _CPU_BLOCK] = af @ b[:, j:j + _CPU_BLOCK].float()
     return out
+
+
+# torch._int_mm on CUDA takes only more than 16 rows
+_INT_MM_MIN_ROWS = 17
+
+
+def mm_int8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for int8 ``a`` [m, k] and ``b`` [k, n], exact in int32.
+
+    The JAX package writes ``jnp.dot(..., preferred_element_type=int32)``
+    outside any Pallas kernel; this is its counterpart, ``torch._int_mm``
+    (cuBLASLt's int8 path on CUDA, an int32-accumulating loop on the CPU).
+    On CUDA it needs k and n multiples of 8 and more than 16 rows: fewer
+    rows are padded with zero rows here, never sent to a float product.
+    Give ``b`` as the transpose of a contiguous [n, k] tensor (the torch
+    Linear layout), the layout cuBLASLt's int8 kernels take.
+    """
+    m = a.shape[0]
+    if a.is_cuda and m < _INT_MM_MIN_ROWS:
+        padded = a.new_zeros((_INT_MM_MIN_ROWS, a.shape[1]))
+        padded[:m] = a
+        return torch._int_mm(padded, b)[:m]
+    return torch._int_mm(a, b)

@@ -1,21 +1,22 @@
-"""Interactive text->image query serving (counterpart of
-lightningdot_tpu/serving.py:23-31,142-441).
+"""Interactive text->image query serving and corpus encoding
+(counterpart of lightningdot_tpu/serving.py:23-31,142-464).
 
-Encode a corpus once, then serve text queries: tokenize -> one text-tower
-forward -> scores against the corpus held on the device -> top-k
-(reference retrieve_query, dvl/utils.py:204-211). The duck-typed frontends
-of the JAX package (``serving_native.serve_retriever``,
-``serving_frontend.BatchingFrontend``, ``serving_http``) serve this
-:class:`Retriever` as they are.
+Encode a corpus once (:func:`get_model_encoded_vecs`), then serve text
+queries: tokenize -> one text-tower forward -> scores against the corpus
+held on the device -> top-k (reference retrieve_query,
+dvl/utils.py:204-211). The duck-typed frontends of the JAX package
+(``serving_native.serve_retriever``, ``serving_frontend.BatchingFrontend``,
+``serving_http``) serve this :class:`Retriever` as they are.
 
-This slice serves the bfloat16 (or float32) tower, a bfloat16 corpus and
-exact top-k. The int8 corpus, the int8 tower and approximate top-k are the
-next slice (ROADMAP.md, queue A item 3b).
+The tower runs in bfloat16 (or float32), or on int8 weights
+(``weight_quantization="int8"``); the corpus is bfloat16 or per-vector int8
+(``quantization="int8"``); top-k is exact or approximate (``topk="approx"``,
+:func:`approx_topk`).
 """
 from __future__ import annotations
 
 import pickle
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,13 +24,57 @@ import torch
 from lightningdot_tpu.data.padding import bucket_len
 from lightningdot_tpu_torch.models.bi_encoder import (BiEncoder,
                                                       dot_product_scores)
+from lightningdot_tpu_torch.models.quantized import QuantizedTextEncoder
+from lightningdot_tpu_torch.ops import mm_int8
+from lightningdot_tpu_torch.ops.ffn_int8 import INV_127
+from lightningdot_tpu_torch.training.evaluator import BatchEncoder
 
 QUERY_LEN_BUCKETS = (16, 32, 64)
 # batch sizes are padded up this ladder, as in the JAX package, so a server
 # that coalesces arbitrary batch sizes runs a bounded set of shapes
 BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
-_NEXT_SLICE = ("ROADMAP.md queue A item 3b (int8 serving options and "
-               "approximate top-k)")
+
+
+def approx_bin_width(n: int, k: int, recall: float) -> int:
+    """The widest power-of-two bin width w that divides ``n`` and leaves
+    ``bins = n / w`` >= k bins with (1 - 1/bins)^(k-1) >= ``recall``; 1
+    means exact.
+
+    When each bin keeps only its maximum and the true top k fall into bins
+    independently and uniformly, (1 - 1/bins)^(k-1) is the chance that the
+    k-th of them survives (none of the k - 1 above it shares its bin): the
+    sizing rule of XLA's ApproxTopK, which ``jax.lax.approx_max_k`` uses.
+    Every item above the k-th survives more often, so the expected recall,
+    (bins / k)(1 - (1 - 1/bins)^k), is higher still (0.987 for k = 100 at
+    recall 0.95 over full COCO).
+    """
+    w = 1
+    while (n % (2 * w) == 0 and n // (2 * w) >= k
+           and (1.0 - 2 * w / n) ** (k - 1) >= recall):
+        w *= 2
+    return w
+
+
+def approx_topk(scores: torch.Tensor, k: int, recall: float
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Approximate top-k over the last axis of [B, N] ``scores``, sorted
+    (counterpart of ``jax.lax.approx_max_k`` with its final exact top-k,
+    lightningdot_tpu/serving.py:318-323, which torch lacks).
+
+    Column i falls into bin i mod (N / w) for the width w of
+    :func:`approx_bin_width`; each bin keeps its maximum, and an exact
+    ``torch.topk`` runs over the bin maxima. Strided bins spread
+    neighbouring corpus entries apart. A plain torch op: the JAX package
+    computes this outside Pallas too.
+    """
+    b, n = scores.shape
+    w = approx_bin_width(n, k, recall)
+    if w == 1:
+        return torch.topk(scores, k, dim=1)
+    bins = n // w
+    best, row = scores.view(b, w, bins).max(dim=1)
+    values, cand = torch.topk(best, k, dim=1)
+    return values, torch.gather(row, 1, cand) * bins + cand
 
 
 class Retriever:
@@ -45,8 +90,16 @@ class Retriever:
                  query_buckets: Sequence[int] = QUERY_LEN_BUCKETS,
                  quantization: Optional[str] = None,
                  weight_quantization: Optional[str] = None,
-                 topk: str = "exact",
+                 topk: str = "exact", topk_recall: float = 0.95,
                  batch_buckets: Sequence[int] = BATCH_BUCKETS):
+        """``quantization="int8"`` holds the corpus as per-vector int8 with
+        float32 scales and scores it in int32; ``weight_quantization=
+        "int8"`` runs the query tower on int8 weights
+        (:class:`~lightningdot_tpu_torch.models.quantized.
+        QuantizedTextEncoder`; the float tower then stays where it is);
+        ``topk="approx"`` takes :func:`approx_topk`,
+        its bins sized so that recall is at least ``topk_recall``
+        (lightningdot_tpu/serving.py:145-159)."""
         if quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {quantization!r}")
         if weight_quantization not in (None, "int8"):
@@ -54,53 +107,72 @@ class Retriever:
                 f"unknown weight_quantization {weight_quantization!r}")
         if topk not in ("exact", "approx"):
             raise ValueError(f"unknown topk {topk!r}")
-        for name, value in (("quantization", quantization),
-                            ("weight_quantization", weight_quantization)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}={value!r} is not ported yet: {_NEXT_SLICE}")
-        if topk != "exact":
-            raise NotImplementedError(
-                f"topk={topk!r} is not ported yet: {_NEXT_SLICE}")
         if device is None:
             device = next(model.parameters()).device
         self.device = torch.device(device)
-        self.model = model.to(self.device).eval()
+        # the int8 tower is quantized from the float tower where that lies
+        # and alone goes to the device
+        self._qtower = (QuantizedTextEncoder(model.txt_model).to(self.device)
+                        if weight_quantization == "int8" else None)
+        self.model = (model if self._qtower is not None
+                      else model.to(self.device)).eval()
         self.tokenizer = tokenizer
         self.query_buckets = tuple(query_buckets)
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.quantization = quantization
+        self.weight_quantization = weight_quantization
         self.topk = topk
-        self._corpus: Optional[torch.Tensor] = None   # [N_pad, D] bfloat16
+        self.topk_recall = topk_recall
+        # [N_pad, D] bfloat16, or int8 with float32 [N_pad] scales
+        self._corpus: Optional[torch.Tensor] = None
+        self._scales: Optional[torch.Tensor] = None
         self._bias: Optional[torch.Tensor] = None     # [N_pad] float32
         self._ids: List[Any] = []
 
     # -- corpus --------------------------------------------------------------
     def set_corpus(self, ids: Sequence[Any], vectors: np.ndarray) -> None:
-        """Hold ``vectors`` [N, D] on the device as bfloat16, rows padded to
-        a multiple of 128; padding rows carry a -1e30 score bias."""
+        """Hold ``vectors`` [N, D] on the device, rows padded to a multiple
+        of 128; padding rows carry a -1e30 score bias. bfloat16, or with
+        ``quantization="int8"`` per-vector int8: scale max(max|v| / 127,
+        1e-12), values round(v / scale) clipped to +-127, computed in numpy
+        exactly as the JAX package does (serving.py:186-203)."""
         n = vectors.shape[0]
         n_pad = -(-n // 128) * 128
         mat = np.zeros((n_pad, vectors.shape[1]), np.float32)
         mat[:n] = vectors
         bias = np.zeros((n_pad,), np.float32)
         bias[n:] = -1e30
-        self._place(mat, bias)
+        scales = None
+        if self.quantization == "int8":
+            scales = np.maximum(np.abs(mat).max(axis=1) / 127.0, 1e-12)
+            mat = np.clip(np.rint(mat / scales[:, None]), -127, 127
+                          ).astype(np.int8)
+            scales = scales.astype(np.float32)
+        self._place(mat, bias, scales)
         self._ids = list(ids)
 
-    def _place(self, mat: np.ndarray, bias: np.ndarray) -> None:
-        # round to bfloat16 on the device: one upload of float32, no
-        # float32 copy kept
-        self._corpus = torch.from_numpy(mat).to(self.device).to(
-            torch.bfloat16)
+    def _place(self, mat: np.ndarray, bias: np.ndarray,
+               scales: Optional[np.ndarray]) -> None:
+        # a float corpus rounds to bfloat16 on the device: one upload of
+        # float32, no float32 copy kept
+        corpus = torch.from_numpy(mat).to(self.device)
+        self._corpus = (corpus if corpus.dtype == torch.int8
+                        else corpus.to(torch.bfloat16))
         self._bias = torch.from_numpy(bias).to(self.device)
+        self._scales = (torch.from_numpy(scales).to(self.device)
+                        if scales is not None else None)
 
     def save_corpus(self, path: str) -> None:
-        """``path.corpus.npz`` (vecs as float32, bias) + ``path.ids.pkl``:
-        the JAX package's format, so either package loads the other's."""
-        np.savez(path + ".corpus.npz",
-                 vecs=self._corpus.float().cpu().numpy(),
-                 bias=self._bias.cpu().numpy())
+        """``path.corpus.npz`` (vecs as float32 or int8, bias, and the int8
+        scales) + ``path.ids.pkl``: the JAX package's format, so either
+        package loads the other's."""
+        vecs = self._corpus.cpu()
+        arrays = {"vecs": (vecs if vecs.dtype == torch.int8
+                           else vecs.float()).numpy(),
+                  "bias": self._bias.cpu().numpy()}
+        if self._scales is not None:
+            arrays["scales"] = self._scales.cpu().numpy()
+        np.savez(path + ".corpus.npz", **arrays)
         with open(path + ".ids.pkl", "wb") as f:
             pickle.dump((self._ids, self.quantization), f)
 
@@ -114,8 +186,12 @@ class Retriever:
             raise ValueError(
                 f"corpus saved with quantization={quant!r}, retriever has "
                 f"{self.quantization!r}")
-        self._place(np.asarray(data["vecs"], np.float32),
-                    np.asarray(data["bias"], np.float32))
+        vecs = data["vecs"]
+        self._place(vecs if vecs.dtype == np.int8
+                    else np.asarray(vecs, np.float32),
+                    np.asarray(data["bias"], np.float32),
+                    np.asarray(data["scales"], np.float32)
+                    if "scales" in data.files else None)
         self._ids = list(ids)
 
     @property
@@ -168,23 +244,40 @@ class Retriever:
     @torch.inference_mode()
     def _encode(self, ids: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         ids_t = torch.from_numpy(ids).to(self.device)
+        mask_t = torch.from_numpy(mask).to(self.device)
         pos = torch.arange(ids.shape[1], device=self.device).expand(
             ids.shape)
+        if self._qtower is not None:
+            return self._qtower(ids_t, mask_t, pos)
         return self.model.encode_txt({
-            "input_ids": ids_t,
-            "attention_mask": torch.from_numpy(mask).to(self.device),
+            "input_ids": ids_t, "attention_mask": mask_t,
             "position_ids": pos})
 
     def encode_queries(self, queries: Sequence[str]) -> np.ndarray:
         """Query embeddings [n, D] as float32 (in the compute dtype's
-        precision), through the same padding as the query path."""
+        precision; the int8 tower's with ``weight_quantization="int8"``),
+        through the same padding as the query path."""
         ids, mask = self._token_batch(queries)
         return self._encode(ids, mask)[:len(queries)].float().cpu().numpy()
 
     @torch.inference_mode()
     def _search(self, vec: torch.Tensor, k: int):
-        scores = dot_product_scores(vec.to(self._corpus.dtype), self._corpus)
-        return torch.topk(scores + self._bias, k, dim=1)
+        if self._scales is not None:
+            # symmetric per-query int8, int32 scores rescaled in float32
+            # (serving.py:303-313)
+            q_scale = torch.clamp(vec.abs().amax(dim=-1, keepdim=True),
+                                  min=1e-12).float() * INV_127
+            q = torch.round(vec.float() / q_scale).clamp(-127, 127).to(
+                torch.int8)
+            scores = (mm_int8(q, self._corpus.t()).float() * q_scale
+                      * self._scales)
+        else:
+            scores = dot_product_scores(vec.to(self._corpus.dtype),
+                                        self._corpus)
+        biased = scores + self._bias
+        if self.topk == "approx":
+            return approx_topk(biased, k, self.topk_recall)
+        return torch.topk(biased, k, dim=1)
 
     def warmup(self, tops: Sequence[int] = (100,),
                batches: Sequence[int] = (1,)) -> None:
@@ -275,3 +368,28 @@ def ranking_equivalent(got, want, *, atol: float) -> Tuple[bool, str]:
                                f"{src[i]:.6g} not a boundary tie with "
                                f"{other_last:.6g} (atol {atol:.3g})")
     return True, ""
+
+
+def get_model_encoded_vecs(model: BiEncoder, dataloader) -> Dict[str, Any]:
+    """Encode a whole dataloader with both towers (counterpart of
+    lightningdot_tpu/serving.py:444-464; reference dvl/utils.py:214-233):
+    {'img_embed': {img_fname: vec}, 'caption_embed': {img_fname: vec},
+    'txt_embed': {txt_id: vec}, 'img_name': [img_fname, ...]}, float32
+    numpy vectors. The model's weights are its own (the JAX function takes
+    them as ``params``)."""
+    encoder = BatchEncoder(model)
+    img_embedding, caption_embedding, query_embedding = {}, {}, {}
+    labels_img_name: List[Any] = []
+    for batch in dataloader:
+        txt, img, cap = encoder(batch)
+        n_valid = batch["n_valid"]
+        fnames = batch["img_fname"][:n_valid]
+        tids = batch["txt_index"][:n_valid]
+        img_embedding.update(zip(fnames, img[:n_valid].cpu().numpy()))
+        if cap is not None:
+            caption_embedding.update(zip(fnames,
+                                         cap[:n_valid].cpu().numpy()))
+        query_embedding.update(zip(tids, txt[:n_valid].cpu().numpy()))
+        labels_img_name.extend(fnames)
+    return {"img_embed": img_embedding, "caption_embed": caption_embedding,
+            "txt_embed": query_embedding, "img_name": labels_img_name}

@@ -17,8 +17,8 @@ from lightningdot_tpu.ops import attention as jattn
 from lightningdot_tpu.ops import ffn as jffn
 from lightningdot_tpu.ops import layernorm as jln
 from lightningdot_tpu.ops.activations import gelu as jgelu
-from lightningdot_tpu_torch.ops import (attention, ffn, launch_counts,
-                                        layernorm)
+from lightningdot_tpu_torch.ops import (attention, ffn, ffn_int8,
+                                        launch_counts, layernorm)
 from lightningdot_tpu_torch.ops.activations import gelu
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 1e-5),
@@ -164,7 +164,13 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         ffn.ffn_cuda(x, torch.zeros(32, 64), torch.zeros(64),
                      torch.zeros(64, 32), torch.zeros(32))
-    assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0}
+    w = torch.zeros(64, 64, dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ffn_int8.ffn_int8_cuda(x.to(torch.bfloat16), w, torch.ones(64),
+                               torch.zeros(64), w, torch.ones(64),
+                               torch.zeros(64))
+    assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0,
+                               "ffn_int8": 0}
 
 
 @pytest.mark.cuda

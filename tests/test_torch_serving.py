@@ -154,12 +154,21 @@ def test_padding_rows_and_batch_buckets(setup):
 
 
 def test_options_of_later_slices_raise(setup):
+    """The int8 and approximate options (ported since) are accepted and
+    serve; unknown values of each option raise."""
+    queries = _queries(3, 6, seed=6)
     for kw in ({"quantization": "int8"}, {"weight_quantization": "int8"},
-               {"topk": "approx"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+               {"topk": "approx", "topk_recall": 0.9}):
+        r = Retriever(setup["model"], Tok(), **kw)
+        r.set_corpus(setup["ids"], setup["vecs"])
+        res = r.retrieve_batch(queries, top=5)
+        assert [len(x) for x in res] == [5, 5, 5]
+        assert all(s1 >= s2 for x in res for (_, s1), (_, s2)
+                   in zip(x, x[1:]))
+    for kw in ({"topk": "nope"}, {"quantization": "int4"},
+               {"weight_quantization": "fp8"}):
+        with pytest.raises(ValueError):
             Retriever(setup["model"], Tok(), **kw)
-    with pytest.raises(ValueError):
-        Retriever(setup["model"], Tok(), topk="nope")
 
 
 def test_ranking_equivalent_rules():
@@ -227,7 +236,8 @@ def test_http_server_serves_the_port_retriever(setup):
 
 def test_launch_counters_stay_zero_on_cpu(setup):
     setup["port"].retrieve_batch(_queries(3, 5, seed=5), top=4)
-    assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0}
+    assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0,
+                               "ffn_int8": 0}
 
 
 def test_port_imports_no_jax():
