@@ -10,7 +10,8 @@ Phases, each of which exits non-zero on failure (no result is printed):
 1. set-up: torch version, the card's name and power limit, TF32 off, the
    CUDA kernels built from ``lightningdot_tpu_torch/csrc`` (build time);
 2. kernels: each hand-written kernel against its plain PyTorch twin on the
-   card, at the shapes of the paths below (the encode batches included:
+   card, at the shapes of the paths below (the encode and training batches
+   included:
    attention at [128, 32|64|104], the bf16 FFN at 4,096-13,312 rows; the
    int8 FFN bit-equal to its twin) and at S 65, 105 and 128 for later
    slices, with its median time beside the twin's (CUDA graph, CUDA
@@ -39,7 +40,21 @@ Phases, each of which exits non-zero on failure (no result is printed):
    with the image vectors: cosine to the bfloat16 tower, planted queries
    first, p50 at batch 1, 8 and 64, a profiler pass, approximate
    recall@100 against exact top-k, rankings on the card against the CPU
-   plain path, and a control (see ``int8_phase``).
+   plain path, and a control (see ``int8_phase``);
+7. ITM fine-tuning at configs/coco_ft.json's configuration (both towers
+   with project_dim 768, bf16 over float32 masters, dropout 0.1, batch 64,
+   clip 2.0, AdamW, linear schedule) through ``make_itm_train_step``:
+   ms/step, pairs/s, peak memory, a profiler pass, eval after the steps
+   against a fresh model, the loss falling on a fixed batch, float32 card
+   vs CPU and bfloat16 vs float32, each bound beside a control (see
+   ``train_phase``).
+
+The kernel rows also hold the training kernels at the step's shapes: the
+FFN forward writing h1 and gelu(h1) and ``ffn_dh1`` at 2,048 and 4,096 rows
+in float32 and bfloat16, and ``adamw`` over every parameter of both towers
+with a float32 and a bfloat16 first moment, bit for bit. Each row carries
+its bound (bytes or operations at the card's published rates) and, where
+one PyTorch call computes the same function, that call's time.
 
 Each path's kernel launch counters are reset just before it and read just
 after it. Then one JSON line listing the kernels, and as the last line
@@ -49,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -71,6 +87,11 @@ TOP = 100
 # (2**-7), relative to max(1, the twin's largest magnitude); only the
 # summation order differs
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# the card's published rates (H100 SXM, dense, at 700 W): device memory,
+# and operations by type (bfloat16 and int8 on the tensor cores, float32 on
+# the FMA units)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # the int8 FFN kernel is held to its twin bit for bit: both compute the
 # same roundings in the same order, and the int32 sums are exact
 # int8 vs bfloat16 tower, cosine of the query embeddings: int8 weights and
@@ -96,7 +117,33 @@ NUM_BB = 36
 # the kernels each path must launch
 PATH_KERNELS = {"text_bf16": ("layernorm", "attention", "ffn"),
                 "image_bf16": ("layernorm", "attention", "ffn"),
-                "int8_serving": ("layernorm", "attention", "ffn_int8")}
+                "int8_serving": ("layernorm", "attention", "ffn_int8"),
+                "itm_train": ("layernorm", "ffn", "ffn_dh1", "adamw")}
+# ITM fine-tuning (configs/coco_ft.json): batch, timed steps after 3
+# warm-up steps, and the fixed-batch learning check: LEARN_STEPS steps at a
+# constant LEARN_LR must bring the mean of the last five losses under
+# LEARN_LOSS_FRAC of the first. The first is not ln 64 = 4.16: the random
+# projection heads give 768-d vectors of norm ~20 whose scores spread by
+# ~10, so it starts near 24 (a probe on an H100 read 24.5, then 11.5 after
+# 12 steps at this lr)
+TRAIN_BATCH = 64
+TRAIN_STEPS = 20
+LEARN_LR = 1e-4
+LEARN_STEPS = 30
+LEARN_LOSS_FRAC = 0.5
+# float32 training, card vs the CPU plain path at batch 8: the loss before
+# and after two steps, and every gradient leaf (relative L2), where only
+# summation orders differ. An H100 run read 4.4e-6 and 5.4e-6 for the
+# losses (scores of ~10-20 through 24 layers) and 1.7e-5 for the worst
+# leaf; the control, TF32 products, read 8.4e-4 and 5.5e-3: the bounds sit
+# 5-6 times above the readings and 28-55 times below the control
+TRAIN_F32_LOSS_RTOL = 3e-5
+TRAIN_F32_GRAD_RTOL = 1e-4
+# bfloat16 vs float32 training on the card: the loss and the cosine of the
+# whole gradient (an H100 run read 1.5e-3 and 0.9938; the control, the
+# float32 gradient of another batch, read a cosine of -0.002)
+TRAIN_BF16_LOSS_RTOL = 2e-2
+TRAIN_BF16_COSINE_MIN = 0.98
 # float32 tower on the card vs on the CPU: the query vector may differ by
 # float32 summation order (1e-3 absolute on unit-scale LayerNorm outputs
 # after 12 layers), and then rounds to bfloat16 for the corpus product, where
@@ -173,11 +220,51 @@ def time_ms(fn, groups: int = 7, per_group: int = 10) -> float:
     return statistics.median(times)
 
 
-def compare(name, shape, dtype, kernel, twin, device_name, exact=False):
-    """Hold a kernel against its twin on the same inputs and time both;
+def time_eager_ms(fn, calls: int = 10, groups: int = 5) -> float:
+    """Device time of one call launched eagerly (for a wrapper that copies a
+    host table to the card on every call, which a CUDA graph must not
+    capture): ``calls`` back-to-back calls between CUDA events, the median
+    over ``groups`` of the mean per call. The host enqueues faster than
+    such a kernel runs, so the events time the device."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def bound(nbytes: float, ops: float, peak: float):
+    """(bound_ms, bound_by): the least time the card could take for work
+    that must move ``nbytes`` (each input read once, each output written
+    once) and do ``ops`` operations at ``peak`` per second."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _flat(out):
+    if isinstance(out, tuple):
+        return torch.cat([t.float().reshape(-1) for t in out])
+    return out
+
+
+def compare(name, shape, dtype, kernel, twin, device_name, work,
+            library=None, exact=False, **extra):
+    """Hold a kernel against its twin on the same inputs and time both (and
+    ``library``, one PyTorch call computing the same function, where there
+    is one); ``work`` = (bytes, operations, peak rate) for the bound;
     ``exact``: bit for bit."""
     got, want = kernel(), twin()
     torch.cuda.synchronize()
+    got, want = _flat(got), _flat(want)
     check(got.shape == want.shape and got.dtype == want.dtype,
           f"{name} {shape}: kernel gave {got.dtype}{tuple(got.shape)}, twin "
           f"{want.dtype}{tuple(want.shape)}")
@@ -186,10 +273,14 @@ def compare(name, shape, dtype, kernel, twin, device_name, exact=False):
     peak = want.float().abs().max().item()
     differ = (got != want).float().mean().item()
     tol = 0.0 if exact else TOL[dtype] * max(1.0, peak)
+    bound_ms, bound_by = bound(*work)
     row = dict(phase="kernel", kernel=name, shape=list(shape),
-               dtype=str(dtype).replace("torch.", ""), max_abs_err=err,
-               tol=tol, differ_frac=differ, ms=time_ms(kernel),
-               plain_ms=time_ms(twin), device=device_name)
+               dtype=str(dtype).replace("torch.", ""), **extra,
+               max_abs_err=err, tol=tol, differ_frac=differ,
+               ms=time_ms(kernel), plain_ms=time_ms(twin), bound_ms=bound_ms,
+               bound_by=bound_by,
+               library_ms=time_ms(library) if library is not None else None,
+               device=device_name)
     emit(**row)
     check(err <= tol, f"{name} {shape} {dtype}: error {err} > {tol}")
     check(not exact or differ == 0.0,
@@ -197,20 +288,27 @@ def compare(name, shape, dtype, kernel, twin, device_name, exact=False):
     return row
 
 
+def _peak(dtype):
+    return PEAK_OPS["bf16" if dtype == torch.bfloat16 else "f32"]
+
+
 def kernel_phase(device_name):
-    from lightningdot_tpu_torch.ops import (attention, ffn, ffn_int8,
-                                            layernorm)
+    from lightningdot_tpu_torch.ops import (attention, ffn, ffn_dh1,
+                                            ffn_int8, layernorm)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
+    f = torch.nn.functional
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, device=dev, generator=g) * scale).to(dtype)
 
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        # query batches, encode batches of 128 (S 64 and 104), and more
-        for n in (32, 2048, 8192, 13312, 16384):
+        isz = torch.finfo(dtype).bits // 8
+        # query batches, encode batches of 128 (S 64 and 104), the training
+        # batches (64 x 32 text rows, 64 x 64 image rows), and more
+        for n in (32, 2048, 4096, 8192, 13312, 16384):
             x = randn(n, 768, scale=3.0, dtype=dtype) + 1
             scale = torch.rand(768, device=dev, generator=g) + 0.5
             bias = randn(768)
@@ -218,7 +316,11 @@ def kernel_phase(device_name):
                 "layernorm", (n, 768), dtype,
                 lambda: layernorm.layer_norm_cuda(x, scale, bias, 1e-12),
                 lambda: layernorm._ln_math(x.float(), scale, bias,
-                                           1e-12).to(dtype), device_name))
+                                           1e-12).to(dtype), device_name,
+                (2 * n * 768 * isz + 2 * 768 * 4, 8 * n * 768,
+                 PEAK_OPS["f32"]),
+                library=lambda: f.layer_norm(x, (768,), scale.to(dtype),
+                                             bias.to(dtype), 1e-12)))
         # query buckets; the encode batches (captions at S 32, images at 1
         # + R with R = bucket_len(num_bb + 1) - 1, itm_fast_collate: S 64
         # at num_bb 36, 104 at 100); and for later slices S 65 and 105 (R
@@ -235,20 +337,48 @@ def kernel_phase(device_name):
                 "attention", (b, s, 12, 64), dtype,
                 lambda: attention.multi_head_attention(q, k, v, bias),
                 lambda: attention._attention_math(q, k, v, bias, 0.125),
-                device_name))
-        # query rows (batch x length), then in bfloat16 the encode batches:
-        # 128 captions x 32, 128 images x 64 and x 104
-        for n in (16, 32, 256, 2048) + (
-                (4096, 8192, 13312) if dtype == torch.bfloat16 else ()):
+                device_name,
+                (4 * b * s * 768 * isz + b * s * 4, 4 * b * 12 * s * s * 64,
+                 _peak(dtype)),
+                library=lambda: f.scaled_dot_product_attention(
+                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                    attn_mask=bias.to(dtype))))
+        # query rows (batch x length), the training rows (text 2,048 and
+        # image 4,096), then in bfloat16 the encode batches: 128 captions x
+        # 32, 128 images x 64 and x 104
+        for n in (16, 32, 256, 2048, 4096) + (
+                (8192, 13312) if dtype == torch.bfloat16 else ()):
             x = randn(n, 768, dtype=dtype)
             w1 = randn(768, 3072, scale=0.02, dtype=dtype)
             b1 = randn(3072, scale=0.02)
             w2 = randn(3072, 768, scale=0.02, dtype=dtype)
             b2 = randn(768, scale=0.02)
+            io = (2 * n * 768 + 2 * 768 * 3072) * isz + (768 + 3072) * 4
             rows.append(compare(
                 "ffn", (n, 768, 3072), dtype,
                 lambda: ffn.ffn_gelu(x, w1, b1, w2, b2),
-                lambda: ffn._ffn_math(x, w1, b1, w2, b2)[0], device_name))
+                lambda: ffn._ffn_math(x, w1, b1, w2, b2)[0], device_name,
+                (io, 4 * n * 768 * 3072, _peak(dtype)), mode="forward"))
+            if n in (2048, 4096):
+                # the training forward also writes h1 and gelu(h1)
+                def twin_h1():
+                    out, h1 = ffn._ffn_math(x, w1, b1, w2, b2)
+                    return out, h1, ffn.gelu(h1)
+
+                rows.append(compare(
+                    "ffn", (n, 768, 3072), dtype,
+                    lambda: ffn.ffn_cuda(x, w1, b1, w2, b2, with_h1=True),
+                    twin_h1, device_name,
+                    (io + 2 * n * 3072 * isz, 4 * n * 768 * 3072,
+                     _peak(dtype)), mode="train"))
+                gr = randn(n, 768, dtype=dtype)
+                h1 = randn(n, 3072, dtype=dtype)
+                rows.append(compare(
+                    "ffn_dh1", (n, 768, 3072), dtype,
+                    lambda: ffn_dh1.ffn_dh1_cuda(gr, h1, w2),
+                    lambda: ffn_dh1._dh1_math(gr, h1, w2), device_name,
+                    ((n * 768 + 2 * n * 3072 + 3072 * 768) * isz,
+                     2 * n * 768 * 3072, _peak(dtype))))
     # the int8 FFN takes bfloat16 activations only; per-channel int8
     # weights, quantized as QuantizedDense does, in the [in, out] view of
     # out-major storage
@@ -262,7 +392,79 @@ def kernel_phase(device_name):
             "ffn_int8", (n, 768, 3072), torch.bfloat16,
             lambda: ffn_int8.ffn_gelu_int8(x, w1, s1, b1, w2, s2, b2),
             lambda: ffn_int8._ffn_int8_math(x, w1, s1, b1, w2, s2, b2),
-            device_name, exact=True))
+            device_name,
+            (2 * n * 768 * 2 + 2 * 768 * 3072 + (768 + 3072) * 8,
+             4 * n * 768 * 3072, PEAK_OPS["int8"]), exact=True))
+    rows += adamw_rows(device_name)
+    return rows
+
+
+def adamw_rows(device_name):
+    """The AdamW kernel over every parameter of the two fine-tuning towers
+    (the ``itm_train`` model's shapes; clip active, weight decay under the
+    decay mask), with a float32 and a bfloat16 first moment, against its
+    twin tensor by tensor: bit for bit. Timed eagerly (``time_eager_ms``):
+    the wrapper uploads its pointer table on every call."""
+    from lightningdot_tpu_torch.models import BiEncoder
+    from lightningdot_tpu_torch.ops import adamw
+    from lightningdot_tpu_torch.training.optim import decay_mask
+
+    txt_cfg, img_cfg = train_configs(0.1)
+    with torch.device("meta"):
+        meta = BiEncoder(txt_cfg, img_cfg)
+    mask = decay_mask(meta)
+    names = [n for n, _ in meta.named_parameters()]
+    shapes = [tuple(p.shape) for _, p in meta.named_parameters()]
+    wds = [0.01 if mask[n] else 0.0 for n in names]
+    n_params = sum(int(np.prod(s)) for s in shapes)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def randn(shape, scale, dtype=torch.float32):
+        return (torch.randn(shape, device=dev, generator=g) * scale).to(dtype)
+
+    kw = dict(step_size=2e-5, lr=2e-5, b1=0.9, b2=0.999, eps=1e-8)
+    scale = torch.tensor(0.5, device=dev)
+    rows = []
+    for m_dtype in (torch.float32, torch.bfloat16):
+        p = [randn(s, 0.02) for s in shapes]
+        grads = [randn(s, 1e-3) for s in shapes]
+        m = [randn(s, 1e-4, m_dtype) for s in shapes]
+        v = [randn(s, 1e-4).square() for s in shapes]
+        p2, m2, v2 = ([t.clone() for t in ts] for ts in (p, m, v))
+        adamw.adamw_cuda(p, grads, m, v, wds, scale, **kw)
+        want = [adamw._adamw_math(*a, scale, wd=wd, **kw)
+                for *a, wd in zip(p2, grads, m2, v2, wds)]
+        torch.cuda.synchronize()
+        got_all = torch.cat([t.float().reshape(-1) for trio in zip(p, m, v)
+                             for t in trio])
+        want_all = torch.cat([t.float().reshape(-1) for trio in want
+                              for t in trio])
+        err = (got_all - want_all).abs().max().item()
+        differ = (got_all != want_all).float().mean().item()
+        del got_all, want_all, want
+
+        def twin():
+            for a in zip(p2, grads, m2, v2, wds):
+                adamw._adamw_math(*a[:4], scale, wd=a[4], **kw)
+
+        per_param = 28 if m_dtype == torch.float32 else 24
+        bound_ms, bound_by = bound(per_param * n_params, 16 * n_params,
+                                   PEAK_OPS["f32"])
+        row = dict(phase="kernel", kernel="adamw", shape=[n_params],
+                   dtype="float32", m_dtype=str(m_dtype).replace("torch.", ""),
+                   tensors=len(shapes), max_abs_err=err, tol=0.0,
+                   differ_frac=differ,
+                   ms=time_eager_ms(lambda: adamw.adamw_cuda(
+                       p, grads, m, v, wds, scale, **kw)),
+                   plain_ms=time_eager_ms(twin, calls=3, groups=3),
+                   bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                   device=device_name)
+        emit(**row)
+        check(differ == 0.0, f"adamw ({m_dtype}): {differ:.3%} of elements "
+              f"differ from the twin (max {err})")
+        rows.append(row)
+        del p, grads, m, v, p2, m2, v2
     return rows
 
 
@@ -329,7 +531,7 @@ def make_tokenizer(workdir: Path, words):
     """A cased WordPiece vocabulary with BERT-base cased's special ids
     ([PAD] 0, [UNK] 100, [CLS] 101, [SEP] 102, [MASK] 103) and the words
     of the queries."""
-    from lightningdot_tpu.data.tokenizer import WordPieceTokenizer
+    from lightningdot_tpu_torch.data.tokenizer import WordPieceTokenizer
 
     vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)]
              + ["[UNK]", "[CLS]", "[SEP]", "[MASK]"] + sorted(set(words)))
@@ -359,7 +561,7 @@ def hold_rankings(got, want, rtol, what):
 
 
 def main_path(args, tok, device_name):
-    from lightningdot_tpu.config import EncoderConfig
+    from lightningdot_tpu_torch.config import EncoderConfig
     from lightningdot_tpu_torch.models import BiEncoder, init_tower_
     from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
     from lightningdot_tpu_torch.serving import Retriever
@@ -458,7 +660,7 @@ def main_path(args, tok, device_name):
 
 
 def serve_phase(r16):
-    from lightningdot_tpu.serving_native import serve_retriever
+    from lightningdot_tpu_torch.serving_native import serve_retriever
 
     t0 = time.perf_counter()
     srv = serve_retriever(r16, max_batch=64, max_top=TOP)
@@ -504,8 +706,9 @@ def serve_phase(r16):
 
 
 class SynthImages:
-    """Items in the format of ``lightningdot_tpu/data/itm.py::
-    ItmFastDataset``, made from ``seed``: ``num_bb`` regions of
+    """Items in the format of the ITM datasets (what
+    ``lightningdot_tpu_torch/data/itm.py::itm_fast_collate`` takes), made
+    from ``seed``: ``num_bb`` regions of
     ``IMG_DIM`` float16 features and 7 box features each, as the feature DB stores
     them, and one random caption of 12-30 ids each. Made in bulk before
     the timed encode."""
@@ -535,8 +738,10 @@ class SynthImages:
 
 
 def image_loader(data, batch):
-    from lightningdot_tpu.data.itm import CollateConfig, itm_fast_collate
-    from lightningdot_tpu.data.loader import DataLoader
+    from torch.utils.data import DataLoader
+
+    from lightningdot_tpu_torch.data.itm import (CollateConfig,
+                                                 itm_fast_collate)
 
     return DataLoader(data, batch_size=batch, collate_fn=lambda items:
                       itm_fast_collate(items, CollateConfig(
@@ -550,8 +755,9 @@ def image_phase(args, ctx, device_name):
     = 104), through ``get_model_encoded_vecs``; a profiler pass over one
     batch; then, for a few images, float32 on the card against the CPU
     plain path and bfloat16 against float32 on the card."""
-    from lightningdot_tpu.config import EncoderConfig
-    from lightningdot_tpu.data.itm import CollateConfig, itm_fast_collate
+    from lightningdot_tpu_torch.config import EncoderConfig
+    from lightningdot_tpu_torch.data.itm import (CollateConfig,
+                                                 itm_fast_collate)
     from lightningdot_tpu_torch.models import BiEncoder, init_tower_
     from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
     from lightningdot_tpu_torch.serving import get_model_encoded_vecs
@@ -615,7 +821,8 @@ def image_phase(args, ctx, device_name):
         batch = itm_fast_collate([d[i] for i in range(4)],
                                  CollateConfig(fixed_batch=4))
         _, card, _ = BatchEncoder(model(torch.float32, DEVICE))(batch)
-        _, cpu, _ = BatchEncoder(model(torch.float32, "cpu"))(batch)
+        _, cpu, _ = BatchEncoder(model(torch.float32, "cpu"),
+                                 device="cpu")(batch)
         _, half, _ = encoder(batch)
         errs.append(float((card.cpu() - cpu).abs().max()))
         cosines.append(float(torch.nn.functional.cosine_similarity(
@@ -774,6 +981,239 @@ def int8_phase(args, tok, ctx, img, device_name):
     return counts
 
 
+def train_configs(dropout):
+    """The fine-tuning towers of configs/coco_ft.json: BERT-base cased and
+    UNITER-base (configs/img_base.json: 12 x 768, 12 heads, intermediate
+    3072, vocab 28,996, img_dim 2048), both with project_dim 768."""
+    from lightningdot_tpu_torch.config import EncoderConfig
+
+    kw = dict(MODEL, project_dim=768, hidden_dropout_prob=dropout,
+              attention_probs_dropout_prob=dropout)
+    return EncoderConfig(**kw), EncoderConfig(**kw, img_dim=IMG_DIM)
+
+
+def _grads(model):
+    return {n: (p.grad.detach().float().cpu() if p.grad is not None
+                else torch.zeros(p.shape))
+            for n, p in model.named_parameters()}
+
+
+def _leaf_rel_l2(got, want):
+    """Worst relative L2 over the leaves, each against max(its own norm,
+    1e-3 of the largest leaf norm): leaves whose exact gradient cancels
+    (attention key biases: 0) would otherwise divide noise by noise."""
+    top = max(float(w.norm()) for w in want.values())
+    return max(float((got[n] - w).norm()) / max(float(w.norm()), 1e-3 * top)
+               for n, w in want.items())
+
+
+def _cosine(a, b):
+    a = torch.cat([t.reshape(-1) for t in a.values()]).double()
+    b = torch.cat([t.reshape(-1) for t in b.values()]).double()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def train_phase(args, device_name):
+    """ITM fine-tuning at the configuration of configs/coco_ft.json: both
+    towers at full width with project_dim 768 (random weights from
+    ``--seed``), bf16 compute over float32 masters, dropout 0.1, batch 64
+    of synthetic pairs (num_bb 36 -> image S 64; captions of 12-30 ids ->
+    text S 32), the bidirectional in-batch NCE loss, clip 2.0, AdamW (0.9,
+    0.999, 1e-8, wd 0) under the linear schedule at lr 2e-5, as
+    cli/train_itm.py:160-177 builds them, through ``make_itm_train_step``.
+
+    Speed (p50 of TRAIN_STEPS steps after 3 warm-up steps), a profiler
+    pass, eval-after-step against a fresh model, learning on one fixed
+    batch, float32 on the card against the plain path on the CPU (with TF32
+    products as the control), bfloat16 against float32 on the card (with
+    another batch's gradient as the control)."""
+    from dataclasses import replace
+
+    from lightningdot_tpu_torch.data.itm import (CollateConfig,
+                                                 itm_fast_collate)
+    from lightningdot_tpu_torch.models import BiEncoder, init_tower_
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training.itm_step import (
+        batch_to_device, itm_loss_fn, make_itm_train_step)
+    from lightningdot_tpu_torch.training.optim import (make_optimizer,
+                                                       schedule_linear)
+
+    t0 = time.perf_counter()
+    txt_cfg, img_cfg = train_configs(0.1)
+    master = BiEncoder(txt_cfg, img_cfg)
+    gen = torch.Generator().manual_seed(args.seed + 3)
+    init_tower_(master.txt_model, gen)
+    init_tower_(master.img_model, gen)
+    state = master.state_dict()
+    n_params = sum(p.numel() for p in master.parameters())
+    del master
+    data = SynthImages(4 * TRAIN_BATCH, NUM_BB, args.seed + 3, "train")
+    batches = list(image_loader(data, TRAIN_BATCH))
+    check(batches[0]["txts"]["input_ids"].shape[1] == 32
+          and batches[0]["imgs"]["attention_mask"].shape[1] == 64,
+          "training batches are not at text S 32 and image S 64")
+
+    def build(dtype, dropout, weights=state):
+        m = BiEncoder(*(replace(c, hidden_dropout_prob=dropout,
+                                attention_probs_dropout_prob=dropout)
+                        for c in (txt_cfg, img_cfg)), compute_dtype=dtype)
+        m.load_state_dict(weights)
+        return m.train()
+
+    emit(phase="setup_train", seconds=time.perf_counter() - t0,
+         params=n_params, batch=TRAIN_BATCH, txt_len=32, img_len=64)
+
+    # speed, at the fine-tuning configuration
+    model = build(torch.bfloat16, 0.1)
+    step = make_itm_train_step(model, make_optimizer(
+        model, schedule_linear(2e-5, 100, 1000), max_grad_norm=2.0),
+        device=DEVICE)
+    dropout_gen = torch.Generator().manual_seed(args.seed)
+    for i in range(3):
+        step(batches[i % 4], dropout_gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lat, losses = [], []
+    for i in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        metrics = step(batches[i % 4], dropout_gen)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        losses.append(metrics["loss"])
+    counts = launch_counts()
+    losses = [float(x) for x in losses]
+    p50 = statistics.median(lat)
+    emit(phase="itm_train", batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+         ms_per_step_p50=p50, ms_per_step_p90=float(np.percentile(lat, 90)),
+         pairs_per_s=TRAIN_BATCH * 1e3 / p50,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+         loss_first=losses[0], loss_last=losses[-1],
+         grad_norm_last=float(metrics["grad_norm"]), device=device_name)
+    check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
+    emit(phase="main_path_launches", path="itm_train", **counts)
+    check(all(counts[k] > 0 for k in PATH_KERNELS["itm_train"]),
+          f"a kernel was not launched on the training path: {counts}")
+    emit_profile("itm_train", TRAIN_BATCH,
+                 lambda: step(batches[0], dropout_gen), p50, calls=3)
+
+    # eval after the steps: the cached bf16 casts must see the new weights
+    model.eval()
+    sub = batch_to_device(itm_fast_collate([data[i] for i in range(8)],
+                                           CollateConfig()), DEVICE)
+    fresh = build(torch.bfloat16, 0.1).to(DEVICE).eval()
+    fresh.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        same = torch.equal(model.encode_txt(sub["txts"]),
+                           fresh.encode_txt(sub["txts"]))
+    emit(phase="train_eval_after_step", equal_to_fresh_model=same)
+    check(same, "eval after training steps serves stale weights")
+    del model, fresh, step
+
+    # learning: one fixed batch, constant lr
+    model = build(torch.bfloat16, 0.1)
+    step = make_itm_train_step(model, make_optimizer(
+        model, LEARN_LR, max_grad_norm=2.0), device=DEVICE)
+    curve = [float(step(batches[0], dropout_gen)["loss"])
+             for _ in range(LEARN_STEPS)]
+    tail = statistics.mean(curve[-5:])
+    emit(phase="train_learns", lr=LEARN_LR, steps=LEARN_STEPS,
+         loss_first=curve[0], loss_last5_mean=tail,
+         bound=LEARN_LOSS_FRAC * curve[0], ln_batch=math.log(TRAIN_BATCH),
+         curve=curve[::5])
+    check(tail < LEARN_LOSS_FRAC * curve[0],
+          f"loss on a fixed batch fell only from {curve[0]} to {tail}")
+    del model, step
+
+    # float32, dropout 0, batch 8, from the random init (where the scores
+    # spread by ~10, so the gradients carry signal): the card against the
+    # plain path on the CPU, two steps; the control is the card with TF32
+    # products. The parameters after two steps are judged by the loss they
+    # give: Adam scales each element's step by 1/sqrt(v), so an element
+    # whose exact gradient is ~0 (the attention key biases, exactly 0) steps
+    # by noise of lr size either way; the update's relative L2 is read.
+    small = itm_fast_collate(
+        [data[i] for i in range(TRAIN_BATCH, TRAIN_BATCH + 8)],
+        CollateConfig())
+    other = itm_fast_collate(
+        [data[i] for i in range(TRAIN_BATCH + 8, TRAIN_BATCH + 16)],
+        CollateConfig())
+    readings = {}
+    for dev in (DEVICE, "cpu"):
+        m = build(torch.float32, 0.0)
+        st = make_itm_train_step(m, make_optimizer(m, 2e-5,
+                                                   max_grad_norm=2.0),
+                                 device=dev)
+        loss = float(st(small)["loss"])
+        grads = _grads(m)
+        st(small)
+        with torch.no_grad():
+            after = itm_loss_fn(m, batch_to_device(small, dev))[0].item()
+        update = {n: p.detach().cpu() - state[n]
+                  for n, p in m.named_parameters()}
+        readings[dev] = (loss, grads, after, update)
+        if dev == DEVICE:
+            card_model = m
+        else:
+            del m
+    (l_card, g_card, a_card, u_card) = readings[DEVICE]
+    (l_cpu, g_cpu, a_cpu, u_cpu) = readings["cpu"]
+    card_model.load_state_dict(state)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        card_model.zero_grad()
+        loss_tf32, _ = itm_loss_fn(card_model,
+                                   batch_to_device(small, DEVICE))
+        loss_tf32.backward()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    g_tf32 = _grads(card_model)
+    card_model.zero_grad()
+    itm_loss_fn(card_model, batch_to_device(other, DEVICE))[0].backward()
+    g_other = _grads(card_model)
+    del card_model
+    diff2 = sum(float((u_card[n] - u).double().square().sum())
+                for n, u in u_cpu.items())
+    norm2 = sum(float(u.double().square().sum()) for u in u_cpu.values())
+    row = dict(
+        phase="train_f32_card_vs_cpu", batch=8, loss_card=l_card,
+        loss_cpu=l_cpu, loss_rel=abs(l_card - l_cpu) / abs(l_cpu),
+        loss_rel_max=TRAIN_F32_LOSS_RTOL,
+        grad_leaf_rel_l2=_leaf_rel_l2(g_card, g_cpu),
+        grad_rel_l2_max=TRAIN_F32_GRAD_RTOL,
+        loss_after_2_steps_card=a_card, loss_after_2_steps_cpu=a_cpu,
+        loss_after_2_steps_rel=abs(a_card - a_cpu) / abs(a_cpu),
+        update_2_steps_rel_l2=math.sqrt(diff2 / norm2),
+        control="float32 card with TF32 products",
+        control_loss_rel=abs(loss_tf32.item() - l_cpu) / abs(l_cpu),
+        control_grad_leaf_rel_l2=_leaf_rel_l2(g_tf32, g_cpu))
+    emit(**row)
+    check(row["loss_rel"] <= TRAIN_F32_LOSS_RTOL
+          and row["grad_leaf_rel_l2"] <= TRAIN_F32_GRAD_RTOL
+          and row["loss_after_2_steps_rel"] <= TRAIN_F32_LOSS_RTOL,
+          f"float32 training, card vs cpu: {row}")
+
+    # bfloat16 against float32 on the card, same weights and batch
+    m = build(torch.bfloat16, 0.0).to(DEVICE)
+    loss16, _ = itm_loss_fn(m, batch_to_device(small, DEVICE))
+    loss16.backward()
+    g16 = _grads(m)
+    del m
+    row = dict(phase="train_bf16_vs_f32", batch=8, loss_bf16=loss16.item(),
+               loss_f32=l_card,
+               loss_rel=abs(loss16.item() - l_card) / abs(l_card),
+               loss_rel_max=TRAIN_BF16_LOSS_RTOL,
+               grad_cosine=_cosine(g16, g_card),
+               grad_cosine_min=TRAIN_BF16_COSINE_MIN,
+               control="float32 gradient of another batch",
+               control_grad_cosine=_cosine(g_other, g_card))
+    emit(**row)
+    check(row["loss_rel"] <= TRAIN_BF16_LOSS_RTOL
+          and row["grad_cosine"] >= TRAIN_BF16_COSINE_MIN,
+          f"bfloat16 training vs float32: {row}")
+    return dict(counts=counts, n_params=n_params)
+
+
 REPLACES = {
     "layernorm": ("lightningdot_tpu_torch/csrc/layernorm.cu",
                   "lightningdot_tpu/ops/layernorm.py:30"),
@@ -783,13 +1223,25 @@ REPLACES = {
             "lightningdot_tpu/ops/ffn.py:77"),
     "ffn_int8": ("lightningdot_tpu_torch/csrc/ffn_int8.cu",
                  "lightningdot_tpu/ops/experimental/ffn_int8_pallas.py:24"),
+    "ffn_dh1": ("lightningdot_tpu_torch/csrc/ffn_dh1.cu",
+                "lightningdot_tpu/ops/experimental/ffn_dh1.py:28"),
+    "adamw": ("lightningdot_tpu_torch/csrc/adamw.cu",
+              "lightningdot_tpu/ops/experimental/adamw_pallas.py:27"),
 }
-# the serving shape reported in the kernels line: batch 64, 32 tokens, bf16
-REPORT_SHAPE = {"layernorm": [2048, 768], "attention": [64, 32, 12, 64],
-                "ffn": [2048, 768, 3072], "ffn_int8": [2048, 768, 3072]}
+# the row each kernel reports in the kernels line: the serving shape (batch
+# 64, 32 tokens, bf16) for the serving kernels; the training step's image
+# tower (64 x 64 rows, bf16) for dh1; every parameter with a float32 first
+# moment for AdamW
+REPORT_ROW = {"layernorm": ([2048, 768], "bfloat16"),
+              "attention": ([64, 32, 12, 64], "bfloat16"),
+              "ffn": ([2048, 768, 3072], "bfloat16"),
+              "ffn_int8": ([2048, 768, 3072], "bfloat16"),
+              "ffn_dh1": ([4096, 768, 3072], "bfloat16"),
+              "adamw": (None, "float32")}
 # the path whose launch count the kernels line reports for each kernel
 REPORT_PATH = {"layernorm": "text_bf16", "attention": "text_bf16",
-               "ffn": "text_bf16", "ffn_int8": "int8_serving"}
+               "ffn": "text_bf16", "ffn_int8": "int8_serving",
+               "ffn_dh1": "itm_train", "adamw": "itm_train"}
 
 
 def main() -> int:
@@ -828,20 +1280,26 @@ def main() -> int:
         img = image_phase(args, ctx, device_name)
         paths["image_bf16"] = img["counts"]
         paths["int8_serving"] = int8_phase(args, tok, ctx, img, device_name)
+        del ctx, img
+    paths["itm_train"] = train_phase(args, device_name)["counts"]
     check(all(any(c[name] > 0 for c in paths.values()) for name in REPLACES),
           f"a kernel was launched on no path: {paths}")
 
     kernels = []
     for name, (source, replaces) in REPLACES.items():
+        shape, dtype = REPORT_ROW[name]
         rep = [r for r in rows if r["kernel"] == name
-               and r["shape"] == REPORT_SHAPE[name]
-               and r["dtype"] == "bfloat16"][0]
+               and (shape is None or r["shape"] == shape)
+               and r["dtype"] == dtype and r.get("mode") != "train"
+               and r.get("m_dtype", "float32") == "float32"][0]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=paths[REPORT_PATH[name]][name],
             max_abs_err=rep["max_abs_err"], ms=rep["ms"],
-            plain_ms=rep["plain_ms"], shape=rep["shape"], dtype="bfloat16",
-            path=REPORT_PATH[name], passed=True))
+            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+            bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+            shape=rep["shape"], dtype=dtype, path=REPORT_PATH[name],
+            passed=True))
     check("jax" not in sys.modules, "jax was imported")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

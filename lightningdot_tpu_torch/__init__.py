@@ -2,9 +2,12 @@
 
 The JAX package (``lightningdot_tpu``) is the reference; this package runs
 the same models on an NVIDIA H100 through hand-written CUDA kernels, each
-with a plain PyTorch twin that the CPU takes. It imports torch and never
-jax; it reuses the JAX-free modules of ``lightningdot_tpu`` (config,
-tokenizer, padding, the serving frontends).
+with a plain PyTorch twin that the CPU takes. It imports torch and nothing
+of ``jax`` or ``lightningdot_tpu``: what it needs of the JAX package's
+JAX-free modules (the config, the padding ladders, the tokenizer, the ITM
+collate, the native server's front end) it keeps as its own copies, each
+naming its counterpart. Its entry points run on the card unless the
+caller passes ``device="cpu"``.
 
 Exports are lazy, so importing the package loads nothing heavy.
 """
@@ -16,6 +19,8 @@ _EXPORTS = {
     "ImageEncoder": "lightningdot_tpu_torch.models.encoder",
     "QuantizedTextEncoder": "lightningdot_tpu_torch.models.quantized",
     "BatchEncoder": "lightningdot_tpu_torch.training.evaluator",
+    "FusedAdamW": "lightningdot_tpu_torch.training.optim",
+    "make_itm_train_step": "lightningdot_tpu_torch.training.itm_step",
     "Retriever": "lightningdot_tpu_torch.serving",
     "get_model_encoded_vecs": "lightningdot_tpu_torch.serving",
     "ranking_equivalent": "lightningdot_tpu_torch.serving",

@@ -47,6 +47,26 @@ __device__ __forceinline__ float gelu_rounded(float x) {
   return round_to<T>(half * one_plus);
 }
 
+// d/dx GELU with the plain version's rounding (ops/ffn_dh1.py::_gelu_grad on
+// a tensor of dtype T, the counterpart of lightningdot_tpu/ops/ffn.py::
+// _gelu_grad): cdf + x * pdf with cdf = 0.5 * (1 + erf(x / sqrt 2)) and
+// pdf = (2 pi)^-0.5 (rounded to T) * exp(-0.5 * x^2), each op rounded to T;
+// __fmul_rn/__fadd_rn keep the compiler from contracting a product and a
+// sum into one FMA, which the plain version never does.
+template <typename T>
+__device__ __forceinline__ float gelu_grad_rounded(float x) {
+  const float arg = round_to<T>(__fmul_rn(x, 0.7071067811865476f));
+  const float e = round_to<T>(erff(arg));
+  const float one_plus = round_to<T>(__fadd_rn(1.0f, e));
+  const float cdf = round_to<T>(__fmul_rn(0.5f, one_plus));
+  const float sq = round_to<T>(__fmul_rn(x, x));
+  const float t = round_to<T>(__fmul_rn(-0.5f, sq));
+  const float ex = round_to<T>(expf(t));
+  const float pdf =
+      round_to<T>(__fmul_rn(round_to<T>(0.3989422804014327f), ex));
+  return round_to<T>(__fadd_rn(cdf, round_to<T>(__fmul_rn(x, pdf))));
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

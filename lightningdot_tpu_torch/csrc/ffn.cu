@@ -1,8 +1,11 @@
-// Fused feed-forward block, forward only:
-//   out = gelu(x W1 + b1) W2 + b2,  x [rows, H], W1 [H, I], W2 [I, H].
+// Fused feed-forward block, forward:
+//   out = gelu(x W1 + b1) W2 + b2,  x [rows, H], W1 [H, I], W2 [I, H],
+// and, for the backward, optionally h1 = x W1 + b1 and inter = gelu(h1)
+// [rows, I] (both in the compute dtype).
 //
 // Replaces the TPU kernel lightningdot_tpu/ops/ffn.py::_ffn_kernel
-// (launched by _ffn_pallas, with_h1=False). Numerics follow
+// (launched by _ffn_pallas; with_h1 and with_inter under the default
+// "store" policy when the training path needs a gradient). Numerics follow
 // ops/ffn.py::_ffn_math: both products accumulate in float32, b1 is added
 // in float32 and h1 is rounded to the compute dtype, the erf GELU is
 // evaluated op by op with the compute dtype's rounding after each op (as
@@ -25,6 +28,9 @@
 // to a float32 workspace [splits, rows, H] and a second pass sums the
 // partials in split order, adds b2 and casts. No atomics: the result does
 // not depend on block scheduling, so rankings do not jitter between runs.
+// Each (tile, chunk) belongs to exactly one block, which also writes that
+// chunk's h1 and gelu(h1) when asked: the [rows, I] tensors the backward
+// reads cost one write each and no extra pass.
 //
 // Weights are read in their [in, out] layout, so the lanes of a warp read
 // neighbouring columns and every weight load is coalesced. Plain FMA, no
@@ -45,6 +51,7 @@ __global__ void __launch_bounds__(kThreads)
     ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
                const float* __restrict__ b1, const T* __restrict__ w2,
                const float* __restrict__ b2, T* __restrict__ out,
+               T* __restrict__ h1_out, T* __restrict__ inter_out,
                float* __restrict__ workspace, int rows, int H, int I,
                int chunks_per_split) {
   extern __shared__ float smem[];
@@ -112,12 +119,20 @@ __global__ void __launch_bounds__(kThreads)
 
     // sum the warps' partials in warp order, + b1, round, GELU
     for (int idx = tid; idx < kRows * kChunk; idx += kThreads) {
+      const int r = idx / kChunk;
       const int c = idx % kChunk;
       float h = 0.f;
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) h += part[w * kRows * kChunk + idx];
       const float h1 = ldot::round_to<T>(h + b1[chunk * kChunk + c]);
-      gs[idx] = ldot::gelu_rounded<T>(h1);
+      const float g = ldot::gelu_rounded<T>(h1);
+      gs[idx] = g;
+      if (h1_out != nullptr && row0 + r < rows) {
+        const size_t at =
+            static_cast<size_t>(row0 + r) * I + chunk * kChunk + c;
+        h1_out[at] = ldot::from_f32<T>(h1);
+        inter_out[at] = ldot::from_f32<T>(g);
+      }
     }
     __syncthreads();
 
@@ -184,9 +199,9 @@ size_t smem_bytes(int H) {
 
 template <typename T, int kOut>
 cudaError_t launch_main(const void* x, const void* w1, const float* b1,
-                        const void* w2, const float* b2, void* out,
-                        float* workspace, int rows, int H, int I, int splits,
-                        cudaStream_t stream) {
+                        const void* w2, const float* b2, void* out, void* h1,
+                        void* inter, float* workspace, int rows, int H, int I,
+                        int splits, cudaStream_t stream) {
   static cudaError_t granted = cudaFuncSetAttribute(
       ffn_kernel<T, kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_bytes(kMaxHidden)));
@@ -196,34 +211,35 @@ cudaError_t launch_main(const void* x, const void* w1, const float* b1,
   const dim3 grid((rows + kRows - 1) / kRows, splits);
   ffn_kernel<T, kOut><<<grid, kThreads, smem_bytes(H), stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w1), b1,
-      static_cast<const T*>(w2), b2, static_cast<T*>(out), workspace, rows,
-      H, I, per);
+      static_cast<const T*>(w2), b2, static_cast<T*>(out),
+      static_cast<T*>(h1), static_cast<T*>(inter), workspace, rows, H, I,
+      per);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const void* w1, const float* b1,
-                     const void* w2, const float* b2, void* out,
-                     float* workspace, int rows, int H, int I, int splits,
-                     cudaStream_t stream) {
+                     const void* w2, const float* b2, void* out, void* h1,
+                     void* inter, float* workspace, int rows, int H, int I,
+                     int splits, cudaStream_t stream) {
   const int out_per_thread = (H + kThreads - 1) / kThreads;
   cudaError_t err;
   switch (out_per_thread) {
     case 1:
-      err = launch_main<T, 1>(x, w1, b1, w2, b2, out, workspace, rows, H, I,
-                              splits, stream);
+      err = launch_main<T, 1>(x, w1, b1, w2, b2, out, h1, inter, workspace,
+                              rows, H, I, splits, stream);
       break;
     case 2:
-      err = launch_main<T, 2>(x, w1, b1, w2, b2, out, workspace, rows, H, I,
-                              splits, stream);
+      err = launch_main<T, 2>(x, w1, b1, w2, b2, out, h1, inter, workspace,
+                              rows, H, I, splits, stream);
       break;
     case 3:
-      err = launch_main<T, 3>(x, w1, b1, w2, b2, out, workspace, rows, H, I,
-                              splits, stream);
+      err = launch_main<T, 3>(x, w1, b1, w2, b2, out, h1, inter, workspace,
+                              rows, H, I, splits, stream);
       break;
     case 4:
-      err = launch_main<T, 4>(x, w1, b1, w2, b2, out, workspace, rows, H, I,
-                              splits, stream);
+      err = launch_main<T, 4>(x, w1, b1, w2, b2, out, h1, inter, workspace,
+                              rows, H, I, splits, stream);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -242,23 +258,25 @@ cudaError_t dispatch(const void* x, const void* w1, const float* b1,
 }  // namespace
 
 // x, out: [rows, H]; w1: [H, I]; w2: [I, H] (all contiguous, float32 or
-// bfloat16 by dtype code); b1 [I], b2 [H] float32. workspace: float32
+// bfloat16 by dtype code); b1 [I], b2 [H] float32. h1, inter: [rows, I] in
+// the compute dtype, both given or both null. workspace: float32
 // [splits, rows, H] when splits > 1 (unused otherwise). H % 32 == 0,
 // H <= 1024, I % 32 == 0, 1 <= splits <= I / 32.
 extern "C" int ldot_ffn(const void* x, const void* w1, const float* b1,
-                        const void* w2, const float* b2, void* out,
-                        float* workspace, int rows, int H, int I, int splits,
-                        int dtype, void* stream) {
+                        const void* w2, const float* b2, void* out, void* h1,
+                        void* inter, float* workspace, int rows, int H, int I,
+                        int splits, int dtype, void* stream) {
   if (rows <= 0 || H <= 0 || H % 32 != 0 || H > kMaxHidden || I <= 0 ||
       I % kChunk != 0 || splits < 1 || splits > I / kChunk ||
-      (splits > 1 && workspace == nullptr))
+      (splits > 1 && workspace == nullptr) ||
+      ((h1 == nullptr) != (inter == nullptr)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ldot::kFloat32)
-    return dispatch<float>(x, w1, b1, w2, b2, out, workspace, rows, H, I,
-                           splits, s);
+    return dispatch<float>(x, w1, b1, w2, b2, out, h1, inter, workspace,
+                           rows, H, I, splits, s);
   if (dtype == ldot::kBFloat16)
-    return dispatch<__nv_bfloat16>(x, w1, b1, w2, b2, out, workspace, rows,
-                                   H, I, splits, s);
+    return dispatch<__nv_bfloat16>(x, w1, b1, w2, b2, out, h1, inter,
+                                   workspace, rows, H, I, splits, s);
   return cudaErrorInvalidValue;
 }

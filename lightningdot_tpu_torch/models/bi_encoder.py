@@ -1,17 +1,19 @@
-"""Two-tower bi-encoder, inference (counterpart of
+"""Two-tower bi-encoder (counterpart of
 lightningdot_tpu/models/bi_encoder.py:37-48,93-167).
 
-The losses and the pre-training heads are later slices of the port
-(ROADMAP.md, queue A).
+Built in eval mode; ``train()`` turns dropout on, with the masks drawn from
+the generators passed to :meth:`BiEncoder.apply`. The ITM loss is
+``training/itm_step.py``; the pre-training heads are a later slice of the
+port (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
 
-from lightningdot_tpu.config import EncoderConfig
+from lightningdot_tpu_torch.config import EncoderConfig
 from lightningdot_tpu_torch.models.encoder import ImageEncoder, TextEncoder
 from lightningdot_tpu_torch.ops import mm_f32
 
@@ -38,16 +40,22 @@ class BiEncoder(nn.Module):
         self.compute_dtype = compute_dtype
         self.txt_model = TextEncoder(txt_cfg)
         self.img_model = ImageEncoder(img_cfg) if img_cfg is not None else None
+        self.train(False)
 
-    def encode_txt(self, sb: Dict[str, Any]) -> torch.Tensor:
+    def encode_txt(self, sb: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
         """Text sub-batch (input_ids, attention_mask, position_ids) ->
         pooled [B, out] in the compute dtype."""
         _, pooled = self.txt_model(sb["input_ids"], sb["attention_mask"],
                                    sb["position_ids"],
-                                   dtype=self.compute_dtype)
+                                   dtype=self.compute_dtype,
+                                   generator=generator)
         return pooled
 
-    def encode_img(self, sb: Dict[str, Any]) -> torch.Tensor:
+    def encode_img(self, sb: Dict[str, Any],
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
         """Image sub-batch (input_ids [B, 1], attention_mask, img_feat,
         img_pos_feat, optional img_masks) -> pooled [B, out] in the compute
         dtype."""
@@ -57,18 +65,24 @@ class BiEncoder(nn.Module):
         _, pooled = self.img_model(sb["input_ids"], sb["attention_mask"],
                                    sb["img_feat"], sb["img_pos_feat"],
                                    img_masks=sb.get("img_masks"),
-                                   dtype=self.compute_dtype)
+                                   dtype=self.compute_dtype,
+                                   generator=generator)
         return pooled
 
-    def apply(self, batch: Dict[str, Any]):
+    def apply(self, batch: Dict[str, Any],
+              generators: Optional[Sequence[torch.Generator]] = None):
         """batch{'txts', 'imgs', 'caps'} -> (txt, img, cap) pooled vectors,
-        None where the sub-batch is missing (bi_encoder.py:146-167)."""
+        None where the sub-batch is missing (bi_encoder.py:146-167).
+
+        ``generators``: (txt, img, cap), one per pass, as JAX splits one key
+        three ways; needed in training mode with dropout."""
+        g_txt, g_img, g_cap = generators or (None, None, None)
         txt = img = cap = None
         if batch.get("txts") is not None:
-            txt = self.encode_txt(batch["txts"])
+            txt = self.encode_txt(batch["txts"], g_txt)
         if batch.get("imgs") is not None:
-            img = self.encode_img(batch["imgs"])
+            img = self.encode_img(batch["imgs"], g_img)
         caps = batch.get("caps")
         if caps is not None and caps.get("input_ids") is not None:
-            cap = self.encode_txt(caps)
+            cap = self.encode_txt(caps, g_cap)
         return txt, img, cap

@@ -1,4 +1,4 @@
-"""The BERT text and image towers, inference only (counterpart of
+"""The BERT text and image towers (counterpart of
 lightningdot_tpu/models/encoder.py).
 
 Modules are named after the reference's torch state-dict keys
@@ -14,6 +14,14 @@ CLS hidden, optional Linear-GELU-LN-Linear projection head. Parameters are
 float32 masters; ``dtype`` selects the compute dtype. Each dense layer
 multiplies in that dtype, accumulates in float32, adds its float32 bias and
 rounds once (``encoder._dense``). LayerNorm scales and biases stay float32.
+
+A tower is built in eval mode, deterministic as the JAX package's default
+(``deterministic=True``). ``train()`` turns dropout on (``_dropout``,
+encoder.py:235-248): embedding dropout and the ``use_fused`` branch of
+``_bert_layer`` (:286-376), whose draws come from the ``generator`` passed
+to ``forward``. Every op has a gradient (``ops/fused.py``, the FFN and
+LayerNorm Functions), so a loss through a tower reaches the float32
+masters.
 """
 from __future__ import annotations
 
@@ -22,11 +30,33 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from lightningdot_tpu.config import EncoderConfig
+from lightningdot_tpu_torch.config import EncoderConfig
 from lightningdot_tpu_torch.ops import (ffn_gelu, gelu, layer_norm, mm_f32,
                                         multi_head_attention)
+from lightningdot_tpu_torch.ops.fused import (apply_keep,
+                                              attention_prob_dropout,
+                                              dropout_add_ln, keep_mask)
 
 MASK_BIAS = -10000.0  # uniter_model/model/model.py:365
+
+
+def _draw(module: nn.Module, rate: float, shape,
+          generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+    """The keep mask of one dropout site, or None where the module is in
+    eval mode or the rate is 0. A site that drops needs a generator, as
+    JAX's needs a key."""
+    if not module.training or rate == 0.0:
+        return None
+    if generator is None:
+        raise ValueError("dropout in training mode needs a torch.Generator "
+                         "(pass generator=...)")
+    return keep_mask(shape, rate, generator)
+
+
+def _dropout(module, x, rate, generator):
+    """Inverted dropout (``_dropout``, encoder.py:235-248)."""
+    keep = _draw(module, rate, x.shape, generator)
+    return x if keep is None else apply_keep(x, keep, rate)
 
 
 class Dense(nn.Linear):
@@ -36,7 +66,9 @@ class Dense(nn.Linear):
     layout. The JAX package casts the float32 masters on every call; this
     casts once per (dtype, device) and keeps the copy until the weight
     changes (its version counter moves on an in-place update such as
-    ``load_state_dict``). The numbers are the same.
+    ``load_state_dict``, and ``training.optim.FusedAdamW`` moves it after
+    each step). The numbers are the same. Where the weight needs a
+    gradient, the cast is made on every call, in the graph.
     """
 
     def __init__(self, in_features: int, out_features: int):
@@ -45,6 +77,8 @@ class Dense(nn.Linear):
 
     def kernel(self, dtype: torch.dtype) -> torch.Tensor:
         w = self.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return w.to(dtype).t()
         key = (dtype, w.device, w.data_ptr())
         hit = self._kernels.get(key)
         if hit is None or hit[0] != w._version:
@@ -82,18 +116,20 @@ class Embeddings(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         h = cfg.hidden_size
+        self.dropout = cfg.hidden_dropout_prob
         self.word_embeddings = nn.Embedding(cfg.vocab_size, h)
         self.position_embeddings = nn.Embedding(cfg.max_position_embeddings,
                                                 h)
         self.token_type_embeddings = nn.Embedding(cfg.type_vocab_size, h)
         self.LayerNorm = LayerNorm(h, cfg.layer_norm_eps)
 
-    def forward(self, input_ids, position_ids, dtype):
+    def forward(self, input_ids, position_ids, dtype, generator=None):
         words = self.word_embeddings(input_ids)
         pos = self.position_embeddings(position_ids)
         types = self.token_type_embeddings.weight[0]
         # summed in float32, then cast, then LN (encoder.py:255-261)
-        return self.LayerNorm((words + pos + types).to(dtype))
+        emb = self.LayerNorm((words + pos + types).to(dtype))
+        return _dropout(self, emb, self.dropout, generator)
 
 
 class ImgEmbeddings(nn.Module):
@@ -105,6 +141,7 @@ class ImgEmbeddings(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.dropout = cfg.hidden_dropout_prob
         self.img_linear = Dense(cfg.img_dim, h)
         self.img_layer_norm = LayerNorm(h, eps)
         self.pos_linear = Dense(cfg.pos_dim, h)
@@ -113,7 +150,7 @@ class ImgEmbeddings(nn.Module):
         self.LayerNorm = LayerNorm(h, eps)
 
     def forward(self, img_feat, img_pos_feat, type_embedding, img_masks,
-                dtype):
+                dtype, generator=None):
         if img_masks is not None:
             # row 0 of mask_embedding counts as zero on every forward
             # (model.py:264); the stored weight is left as it is
@@ -123,7 +160,8 @@ class ImgEmbeddings(nn.Module):
         im = self.img_layer_norm(self.img_linear(img_feat.to(dtype), dtype))
         pos = self.pos_layer_norm(self.pos_linear(img_pos_feat.to(dtype),
                                                   dtype))
-        return self.LayerNorm(im + pos + type_embedding.to(dtype))
+        emb = self.LayerNorm(im + pos + type_embedding.to(dtype))
+        return _dropout(self, emb, self.dropout, generator)
 
 
 class _SelfAttention(nn.Module):
@@ -157,33 +195,57 @@ class _Intermediate(nn.Module):
 
 
 class BertLayer(nn.Module):
-    """One post-LN BertLayer, deterministic (``_bert_layer`` in its default
-    branch, lightningdot_tpu/models/encoder.py:336-338,355,363-376)."""
+    """One post-LN BertLayer (``_bert_layer``,
+    lightningdot_tpu/models/encoder.py:286-376).
+
+    Inference (eval mode, no gradient): the attention kernel and plain
+    LayerNorms, the deterministic branch. Training, or wherever a gradient
+    is needed: the ``use_fused`` branch, attention with probability
+    dropout and two ``dropout_add_ln``, drawing three keep masks from
+    ``generator`` in training mode (none in eval mode). The FFN is
+    ``ffn_gelu`` in both.
+    """
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.eps = eps
+        self.attn_dropout = cfg.attention_probs_dropout_prob
+        self.hidden_dropout = cfg.hidden_dropout_prob
         self.num_heads = cfg.num_attention_heads
         self.head_dim = cfg.head_dim
         self.attention = _Attention(h, eps)
         self.intermediate = _Intermediate(h, cfg.intermediate_size)
         self.output = _DenseLN(cfg.intermediate_size, h, eps)
 
-    def forward(self, hidden, mask_bias, dtype):
+    def forward(self, hidden, mask_bias, dtype, generator=None):
         b, s, h = hidden.shape
+        nh = self.num_heads
         sa = self.attention.self
         # projection-native [B, S, heads, dim]: the kernel reads it by strides
-        q = sa.query(hidden, dtype).view(b, s, self.num_heads, self.head_dim)
-        k = sa.key(hidden, dtype).view(b, s, self.num_heads, self.head_dim)
-        v = sa.value(hidden, dtype).view(b, s, self.num_heads, self.head_dim)
-        ctx = multi_head_attention(q, k, v, mask_bias)
+        q = sa.query(hidden, dtype).view(b, s, nh, self.head_dim)
+        k = sa.key(hidden, dtype).view(b, s, nh, self.head_dim)
+        v = sa.value(hidden, dtype).view(b, s, nh, self.head_dim)
+        keep = _draw(self, self.attn_dropout, (b, nh, s, s), generator)
+        if keep is None and not (torch.is_grad_enabled() and q.requires_grad):
+            ctx = multi_head_attention(q, k, v, mask_bias)
+        else:
+            ctx = attention_prob_dropout(q, k, v, mask_bias, keep,
+                                         rate=self.attn_dropout,
+                                         scale=self.head_dim ** -0.5)
         out = self.attention.output
-        attn_out = out.LayerNorm(out.dense(ctx.reshape(b, s, h), dtype)
-                                 + hidden)
+        dense = out.dense(ctx.reshape(b, s, h), dtype)
+        keep = _draw(self, self.hidden_dropout, dense.shape, generator)
+        attn_out = dropout_add_ln(dense, hidden, out.LayerNorm.weight,
+                                  out.LayerNorm.bias, keep,
+                                  rate=self.hidden_dropout, eps=self.eps)
         fc1, fc2 = self.intermediate.dense, self.output.dense
-        ffn = ffn_gelu(attn_out, fc1.kernel(dtype), fc1.bias,
-                       fc2.kernel(dtype), fc2.bias)
-        return self.output.LayerNorm(ffn + attn_out)
+        ffn = ffn_gelu(attn_out, fc1.kernel(dtype).contiguous(), fc1.bias,
+                       fc2.kernel(dtype).contiguous(), fc2.bias)
+        keep = _draw(self, self.hidden_dropout, ffn.shape, generator)
+        ln = self.output.LayerNorm
+        return dropout_add_ln(ffn, attn_out, ln.weight, ln.bias, keep,
+                              rate=self.hidden_dropout, eps=self.eps)
 
 
 class BertEncoderStack(nn.Module):
@@ -194,9 +256,9 @@ class BertEncoderStack(nn.Module):
         self.layer = nn.ModuleList(BertLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, hidden, mask_bias, dtype):
+    def forward(self, hidden, mask_bias, dtype, generator=None):
         for layer in self.layer:
-            hidden = layer(hidden, mask_bias, dtype)
+            hidden = layer(hidden, mask_bias, dtype, generator)
         return hidden
 
 
@@ -225,7 +287,7 @@ def attention_bias(attention_mask: torch.Tensor) -> torch.Tensor:
 
 class TextEncoder(nn.Module):
     """The text tower: ``bert.*`` plus the optional ``encode_proj`` head
-    (reference dvl/models/bi_encoder.py:76-128)."""
+    (reference dvl/models/bi_encoder.py:76-128). Built in eval mode."""
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
@@ -238,6 +300,7 @@ class TextEncoder(nn.Module):
                 Dense(h, 2 * h), nn.GELU(),
                 LayerNorm(2 * h, cfg.layer_norm_eps),
                 Dense(2 * h, cfg.project_dim))
+        self.train(False)
 
     def projection_head(self, pooled, dtype):
         """Linear-GELU-LN-Linear (``projection_head``, encoder.py:435)."""
@@ -245,11 +308,14 @@ class TextEncoder(nn.Module):
         return fc2(ln(gelu(fc1(pooled, dtype))), dtype)
 
     def forward(self, input_ids, attention_mask, position_ids, *,
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None):
         """-> (sequence [B, S, H], pooled [B, out]) (``encode_text``,
-        encoder.py:451)."""
-        emb = self.bert.embeddings(input_ids, position_ids, dtype)
-        seq = self.bert.encoder(emb, attention_bias(attention_mask), dtype)
+        encoder.py:451). ``generator`` draws the dropout masks in training
+        mode."""
+        emb = self.bert.embeddings(input_ids, position_ids, dtype, generator)
+        seq = self.bert.encoder(emb, attention_bias(attention_mask), dtype,
+                                generator)
         pooled = seq[:, 0, :]
         if self.encode_proj is not None:
             pooled = self.projection_head(pooled, dtype)
@@ -263,9 +329,11 @@ class ImageEncoder(TextEncoder):
     def __init__(self, cfg: EncoderConfig):
         super().__init__(cfg)
         self.bert.img_embeddings = ImgEmbeddings(cfg)
+        self.train(False)
 
     def forward(self, input_ids, attention_mask, img_feat, img_pos_feat, *,
-                img_masks=None, dtype: torch.dtype = torch.float32):
+                img_masks=None, dtype: torch.dtype = torch.float32,
+                generator: Optional[torch.Generator] = None):
         """-> (sequence [B, 1+R, H], pooled [B, out]) (``encode_image``,
         encoder.py:473-510).
 
@@ -275,12 +343,13 @@ class ImageEncoder(TextEncoder):
         ``img_pos_feat`` [B, R, 7]; ``img_masks`` optional [B, R] {0, 1}.
         """
         bert = self.bert
-        txt = bert.embeddings(input_ids, torch.zeros_like(input_ids), dtype)
+        txt = bert.embeddings(input_ids, torch.zeros_like(input_ids), dtype,
+                              generator)
         img_type = bert.embeddings.token_type_embeddings.weight[1]
         img = bert.img_embeddings(img_feat, img_pos_feat, img_type,
-                                  img_masks, dtype)
+                                  img_masks, dtype, generator)
         seq = bert.encoder(torch.cat([txt, img], dim=1),
-                           attention_bias(attention_mask), dtype)
+                           attention_bias(attention_mask), dtype, generator)
         pooled = seq[:, 0, :]
         if self.encode_proj is not None:
             pooled = self.projection_head(pooled, dtype)

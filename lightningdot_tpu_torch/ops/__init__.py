@@ -6,9 +6,11 @@ for a CPU tensor. Each kernel wrapper counts its launches in a
 ``launches`` attribute; :func:`launch_counts` reads them all.
 """
 from lightningdot_tpu_torch.ops.activations import gelu  # noqa: F401
+from lightningdot_tpu_torch.ops.adamw import adamw_, adamw_cuda  # noqa: F401
 from lightningdot_tpu_torch.ops.attention import (  # noqa: F401
     attention_cuda, multi_head_attention)
 from lightningdot_tpu_torch.ops.ffn import ffn_cuda, ffn_gelu  # noqa: F401
+from lightningdot_tpu_torch.ops.ffn_dh1 import ffn_dh1_cuda  # noqa: F401
 from lightningdot_tpu_torch.ops.ffn_int8 import (  # noqa: F401
     ffn_gelu_int8, ffn_int8_cuda)
 from lightningdot_tpu_torch.ops.layernorm import (  # noqa: F401
@@ -20,6 +22,8 @@ KERNEL_WRAPPERS = {
     "attention": attention_cuda,
     "ffn": ffn_cuda,
     "ffn_int8": ffn_int8_cuda,
+    "ffn_dh1": ffn_dh1_cuda,
+    "adamw": adamw_cuda,
 }
 
 

@@ -41,8 +41,14 @@ _SIGNATURES = {
     # q, k, v, bias, out, batch, seq, heads, head_dim, scale, defer, dtype,
     # stream
     "ldot_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-    # x, w1, b1, w2, b2, out, workspace, rows, H, I, splits, dtype, stream
-    "ldot_ffn": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, out, h1, inter, workspace, rows, H, I, splits,
+    # dtype, stream
+    "ldot_ffn": (_P,) * 9 + (_I, _I, _I, _I, _I, _P),
+    # g, h1, w2, dh1, rows, H, I, dtype, stream
+    "ldot_ffn_dh1": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # table, chunks, n_chunks, scale, step_size, lr, b1, 1 - b1, b2,
+    # 1 - b2, eps, m_bf16, stream
+    "ldot_adamw": (_P, _P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _I, _P),
     # x, w1t, s1, b1, w2t, s2, b2, out, inter, chunk_max, row_scale,
     # workspace, rows, H, I, splits, stream
     "ldot_ffn_int8": (_P,) * 12 + (_I, _I, _I, _I, _P),

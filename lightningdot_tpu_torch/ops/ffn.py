@@ -1,11 +1,16 @@
-"""Fused FFN (dense -> erf GELU -> dense), forward only: a CUDA kernel and
-its plain PyTorch twin.
+"""Fused FFN (dense -> erf GELU -> dense) with its gradient: a CUDA kernel
+and its plain PyTorch twin.
 
-Counterpart of lightningdot_tpu/ops/ffn.py (``_ffn_math`` and the forward
-of ``_ffn``). The kernel (``csrc/ffn.cu``) replaces the TPU kernel
-``_ffn_kernel`` (lightningdot_tpu/ops/ffn.py:77, launched by
-``_ffn_pallas`` with ``with_h1=False``). The TPU dispatch gates (rows >= 256
-and the VMEM fit) are not carried over: every CUDA call takes the kernel.
+Counterpart of lightningdot_tpu/ops/ffn.py (``_ffn_math``, ``_ffn`` and its
+custom VJP ``_ffn_fwd``/``_ffn_bwd``, :193-241). The kernel
+(``csrc/ffn.cu``) replaces the TPU kernel ``_ffn_kernel``
+(lightningdot_tpu/ops/ffn.py:77, launched by ``_ffn_pallas``): without a
+gradient it writes the output only; under autograd also h1 and gelu(h1)
+(``with_h1``/``with_inter`` under the default "store" policy, :176-181).
+The backward's dh1 goes through ``ops/ffn_dh1.py``'s kernel; its three
+weight products are plain float32-accumulated products, as JAX leaves them
+to XLA. The TPU dispatch gates (rows >= 256 and the VMEM fit) are not
+carried over: every CUDA call takes the kernel.
 
 Weights are in the JAX package's [in, out] layout: w1 [H, I], w2 [I, H].
 """
@@ -15,6 +20,7 @@ import torch
 
 from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.activations import gelu
+from lightningdot_tpu_torch.ops.ffn_dh1 import ffn_dh1
 from lightningdot_tpu_torch.ops.matmul import mm_f32
 
 # csrc/ffn.cu: 16-row tiles, 32-column chunks of the intermediate
@@ -45,8 +51,9 @@ def ffn_splits(rows: int, inter: int, num_sms: int) -> int:
 
 
 def ffn_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
-    """Launch the fused FFN kernel on a [rows, H] CUDA tensor."""
+             w2: torch.Tensor, b2: torch.Tensor, *, with_h1: bool = False):
+    """Launch the fused FFN kernel on a [rows, H] CUDA tensor -> out, or
+    with ``with_h1`` (out, h1, gelu(h1)), the last two [rows, I]."""
     what = "ffn kernel"
     _build.require_cuda(what, x2d, w1, b1, w2, b2)
     code = _build.dtype_code(x2d, what)
@@ -66,19 +73,56 @@ def ffn_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"I % {_CHUNK} == 0, got H={h}, I={inter}")
     splits = ffn_splits(rows, inter, _build.num_sms(x2d.device))
     out = torch.empty_like(x2d)
+    h1 = inter_out = None
+    if with_h1:
+        h1 = x2d.new_empty((rows, inter))
+        inter_out = x2d.new_empty((rows, inter))
     workspace = (torch.empty((splits, rows, h), dtype=torch.float32,
                              device=x2d.device) if splits > 1 else None)
     with torch.cuda.device(x2d.device):
         _build.check(_build.lib().ldot_ffn(
             x2d.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), out.data_ptr(),
+            h1.data_ptr() if with_h1 else None,
+            inter_out.data_ptr() if with_h1 else None,
             workspace.data_ptr() if workspace is not None else None,
             rows, h, inter, splits, code, _build.stream_ptr(x2d)), what)
     ffn_cuda.launches += 1
-    return out
+    return (out, h1, inter_out) if with_h1 else out
 
 
 ffn_cuda.launches = 0
+
+
+def ffn_bwd(g, x2d, w1, w2, h1, inter):
+    """``_ffn_bwd`` (lightningdot_tpu/ops/ffn.py:220-241), default branch:
+    g rounded to the compute dtype; dW2 = inter^T g and db2 = sum g in
+    float32; dh1 through :func:`ffn_dh1`; dW1 = x^T dh1, db1 = sum dh1 and
+    dx = dh1 W1^T. dx, dW1 and dW2 are rounded to the compute dtype."""
+    g = g.to(x2d.dtype)
+    dw2 = mm_f32(inter.t(), g).to(w2.dtype)
+    db2 = g.float().sum(0)
+    dh1 = ffn_dh1(g, h1, w2)
+    dw1 = mm_f32(x2d.t(), dh1).to(w1.dtype)
+    db1 = dh1.float().sum(0)
+    dx = mm_f32(dh1, w1.t()).to(x2d.dtype)
+    return dx, dw1, db1, dw2, db2
+
+
+class _FFN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, w1, b1, w2, b2):
+        if x2d.is_cuda:
+            out, h1, inter = ffn_cuda(x2d, w1, b1, w2, b2, with_h1=True)
+        else:
+            out, h1 = _ffn_math(x2d, w1, b1, w2, b2)
+            inter = gelu(h1)
+        ctx.save_for_backward(x2d, w1, w2, h1, inter)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return ffn_bwd(g.contiguous(), *ctx.saved_tensors)
 
 
 def ffn_gelu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -87,12 +131,19 @@ def ffn_gelu(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
     ``x``, ``w1`` [H, I] and ``w2`` [I, H] in the compute dtype, ``b1`` and
     ``b2`` float32 (lightningdot_tpu/ops/ffn.py:247-265 casts the float32
-    masters to that form on every call).
+    masters to that form on every call). Where a gradient is needed the
+    forward also keeps h1 and gelu(h1), and the backward is
+    :func:`ffn_bwd`.
     """
     shape = x.shape
     x2d = x.reshape(-1, shape[-1])
     if x.is_cuda:
-        out = ffn_cuda(x2d.contiguous(), w1, b1, w2, b2)
+        x2d = x2d.contiguous()
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, w1, b1, w2, b2)):
+        out = _FFN.apply(x2d, w1, b1, w2, b2)
+    elif x.is_cuda:
+        out = ffn_cuda(x2d, w1, b1, w2, b2)
     else:
         out, _ = _ffn_math(x2d, w1, b1, w2, b2)
     return out.reshape(shape)

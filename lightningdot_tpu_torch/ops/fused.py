@@ -1,0 +1,136 @@
+"""The two training compositions of a BertLayer, with their gradients
+(counterpart of lightningdot_tpu/ops/fused.py).
+
+* :func:`dropout_add_ln` -- ``LayerNorm(dropout(x) + res)``
+  (``dropout_add_ln``, :93-148): the forward runs the LayerNorm kernel, the
+  backward recomputes the LayerNorm input (``_dal_bwd``, :114-126) and keeps
+  only the keep mask, JAX's default "store" policy (:59-66).
+* :func:`attention_prob_dropout` -- attention with dropout on the
+  probabilities (``attention_prob_dropout``, :173-291): normalized float32
+  softmax, probabilities rounded to the compute dtype before the mask
+  (``_attn_core``, :197-208); the backward recomputes scores and softmax
+  (``_attn_drop_bwd``, :238-280). Plain torch, as the JAX default computes
+  it in jnp; a hand-written kernel replaces it later (ROADMAP B5).
+
+Each takes its keep mask as an input, drawn by :func:`keep_mask` from an
+explicit ``torch.Generator``, so a test can inject the mask that
+``jax.random.bernoulli`` drew. ``keep=None`` means no dropout.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from lightningdot_tpu_torch.ops.layernorm import (_ln_forward, layer_norm,
+                                                  layer_norm_bwd)
+
+
+def keep_mask(shape, rate: float, generator: torch.Generator
+              ) -> torch.Tensor:
+    """A bool keep mask, True with probability ``1 - rate``, drawn on the
+    generator's device."""
+    return torch.rand(shape, generator=generator,
+                      device=generator.device) < 1.0 - rate
+
+
+def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float
+               ) -> torch.Tensor:
+    """Inverted dropout given the keep mask: ``x * keep * scale`` in x's
+    dtype, the scale ``1 / (1 - rate)`` rounded to that dtype
+    (``_apply_keep``, lightningdot_tpu/ops/fused.py:74-77)."""
+    return x * keep.to(x.dtype) * torch.tensor(1.0 / (1.0 - rate),
+                                               dtype=x.dtype)
+
+
+def _dal_input(x, res, keep, rate):
+    return (x if keep is None else apply_keep(x, keep, rate)) + res
+
+
+class _DropoutAddLN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, res, scale, bias, keep, rate, eps):
+        ctx.save_for_backward(x, res, scale, keep)
+        ctx.rate, ctx.eps = rate, eps
+        return _ln_forward(_dal_input(x, res, keep, rate), scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, res, scale, keep = ctx.saved_tensors
+        u = _dal_input(x, res, keep, ctx.rate)       # recomputed, not stored
+        du, dscale, dbias = layer_norm_bwd(u, scale, g, ctx.eps)
+        dx = du if keep is None else apply_keep(du, keep, ctx.rate)
+        return dx, du, dscale, dbias, None, None, None
+
+
+def dropout_add_ln(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor,
+                   bias: torch.Tensor, keep: Optional[torch.Tensor], *,
+                   rate: float, eps: float) -> torch.Tensor:
+    """``LayerNorm(dropout(x) + res)`` with float32 statistics, cast back to
+    x's dtype. Without a gradient and without a mask it is
+    ``layer_norm(x + res)``, the inference path."""
+    if keep is not None and rate <= 0.0:
+        raise ValueError("dropout_add_ln: a keep mask needs rate > 0")
+    needs_grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, res, scale, bias))
+    if not needs_grad:
+        return layer_norm(_dal_input(x, res, keep, rate), scale, bias, eps)
+    return _DropoutAddLN.apply(x, res, scale, bias, keep, rate, eps)
+
+
+def _heads_first(t: torch.Tensor) -> torch.Tensor:
+    """[B, S, H, D] -> float32 [B, H, S, D] (bfloat16 -> float32 is exact,
+    so the products below accumulate exact products in float32)."""
+    return t.float().permute(0, 2, 1, 3)
+
+
+def _attn_probs(qf, kf, bias, scale):
+    scores = qf @ kf.transpose(-1, -2) * scale + bias.float()
+    return torch.softmax(scores, dim=-1)
+
+
+class _AttnProbDropout(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, keep, rate, scale):
+        ctx.save_for_backward(q, k, v, bias, keep)
+        ctx.rate, ctx.scale = rate, scale
+        probs = _attn_probs(_heads_first(q), _heads_first(k), bias, scale)
+        dropped = probs.to(v.dtype)
+        if keep is not None:
+            dropped = apply_keep(dropped, keep, rate)
+        out = dropped.float() @ _heads_first(v)
+        return out.permute(0, 2, 1, 3).to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, keep = ctx.saved_tensors
+        rate, scale = ctx.rate, ctx.scale
+        qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
+        probs = _attn_probs(qf, kf, bias, scale)          # recomputed
+        dropped = probs.to(v.dtype)
+        if keep is not None:
+            dropped = apply_keep(dropped, keep, rate)
+        gf = _heads_first(g)
+        dv = (dropped.float().transpose(-1, -2) @ gf).to(v.dtype)
+        d_dropped = (gf @ vf.transpose(-1, -2)).to(v.dtype)
+        if keep is not None:
+            d_dropped = apply_keep(d_dropped, keep, rate)
+        dp = d_dropped.float()
+        ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True)) * scale
+        dq = (ds @ kf).to(q.dtype)
+        dk = (ds.transpose(-1, -2) @ qf).to(k.dtype)
+        return (dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3),
+                dv.permute(0, 2, 1, 3), None, None, None, None)
+
+
+def attention_prob_dropout(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, bias: torch.Tensor,
+                           keep: Optional[torch.Tensor], *, rate: float,
+                           scale: float) -> torch.Tensor:
+    """Attention on [B, S, heads, D] q, k, v with an additive key bias
+    (broadcast to [B, heads, S, S]) and dropout on the probabilities by the
+    bool ``keep`` [B, heads, S, S] (None: no dropout). Returns [B, S, heads,
+    D] in v's dtype; the backward recomputes the probabilities."""
+    if keep is not None and rate <= 0.0:
+        raise ValueError("attention_prob_dropout: a keep mask needs rate > 0")
+    return _AttnProbDropout.apply(q, k, v, bias, keep, rate, scale)

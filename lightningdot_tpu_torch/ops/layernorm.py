@@ -49,15 +49,56 @@ def layer_norm_cuda(x2d: torch.Tensor, scale: torch.Tensor,
 layer_norm_cuda.launches = 0
 
 
+def _ln_forward(x, scale, bias, eps):
+    if x.is_cuda:
+        shape = x.shape
+        return layer_norm_cuda(x.reshape(-1, shape[-1]).contiguous(), scale,
+                               bias, eps).reshape(shape)
+    return _ln_math(x.float(), scale, bias, eps).to(x.dtype)
+
+
+def layer_norm_bwd(x, scale, g, eps):
+    """``_layer_norm_bwd`` (lightningdot_tpu/ops/layernorm.py:74-95): the
+    plain formula in float32; dx cast to x's dtype, dscale and dbias
+    float32. JAX computes it in jnp, so plain torch is its counterpart."""
+    xf, gf = x.float(), g.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    var = xc.square().mean(dim=-1, keepdim=True)
+    inv = torch.rsqrt(var + eps)
+    xhat = xc * inv
+    dscale = (gf * xhat).reshape(-1, x.shape[-1]).sum(0)
+    dbias = gf.reshape(-1, x.shape[-1]).sum(0)
+    gs = gf * scale.float()
+    dx = inv * (gs - gs.mean(dim=-1, keepdim=True)
+                - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), dscale, dbias
+
+
+class _LayerNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _ln_forward(x, scale, bias, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        dx, dscale, dbias = layer_norm_bwd(x, scale, g, ctx.eps)
+        return dx, dscale, dbias, None
+
+
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = DEFAULT_EPS) -> torch.Tensor:
     """LayerNorm over the last axis with a learned float32 affine.
 
     A CUDA tensor goes through the kernel (or raises); a CPU tensor through
-    the twin, in float32, cast back to x's dtype.
+    the twin, in float32, cast back to x's dtype. Where a gradient is
+    needed, the forward is the same and the backward is
+    :func:`layer_norm_bwd`.
     """
-    if x.is_cuda:
-        shape = x.shape
-        return layer_norm_cuda(x.reshape(-1, shape[-1]), scale, bias,
-                               eps).reshape(shape)
-    return _ln_math(x.float(), scale, bias, eps).to(x.dtype)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad
+                                    or bias.requires_grad):
+        return _LayerNorm.apply(x, scale, bias, eps)
+    return _ln_forward(x, scale, bias, eps)

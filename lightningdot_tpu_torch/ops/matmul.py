@@ -14,16 +14,7 @@ import torch
 _CPU_BLOCK = 16384
 
 
-def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` for 2-D float32 or bfloat16 operands, accumulated and
-    returned in float32.
-
-    On CUDA, bfloat16 operands go to ``torch.mm(..., out_dtype=float32)``
-    and float32 operands to ``torch.mm`` (true float32 only while
-    ``torch.backends.cuda.matmul.allow_tf32`` is False). On the CPU the
-    operands are upcast first: a product of two bfloat16 values is exact in
-    float32, so this is float32 accumulation too.
-    """
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.is_cuda:
         if a.dtype == torch.float32 and b.dtype == torch.float32:
             return torch.mm(a, b)
@@ -35,6 +26,46 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for j in range(0, b.shape[1], _CPU_BLOCK):
         out[:, j:j + _CPU_BLOCK] = af @ b[:, j:j + _CPU_BLOCK].float()
     return out
+
+
+class _MatmulF32(torch.autograd.Function):
+    """The gradient of ``jnp.dot(a, b, preferred_element_type=float32)``:
+    the float32 cotangent is rounded to the operands' dtype (what the TPU's
+    default precision does to a float32 operand of a bfloat16 product; an
+    identity in float32), each operand's gradient is a float32-accumulated
+    product rounded to that operand's dtype (``_dot_general_transpose_*``
+    converts back to the primal dtype)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _mm_f32(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _mm_f32(g.to(b.dtype), b.t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = _mm_f32(a.t(), g.to(a.dtype)).to(b.dtype)
+        return da, db
+
+
+def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` for 2-D float32 or bfloat16 operands, accumulated and
+    returned in float32.
+
+    On CUDA, bfloat16 operands go to ``torch.mm(..., out_dtype=float32)``
+    and float32 operands to ``torch.mm`` (true float32 only while
+    ``torch.backends.cuda.matmul.allow_tf32`` is False). On the CPU the
+    operands are upcast first: a product of two bfloat16 values is exact in
+    float32, so this is float32 accumulation too. Under autograd the
+    gradient is :class:`_MatmulF32`'s.
+    """
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _MatmulF32.apply(a, b)
+    return _mm_f32(a, b)
 
 
 # torch._int_mm on CUDA takes only more than 16 rows

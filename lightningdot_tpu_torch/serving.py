@@ -4,9 +4,8 @@
 Encode a corpus once (:func:`get_model_encoded_vecs`), then serve text
 queries: tokenize -> one text-tower forward -> scores against the corpus
 held on the device -> top-k (reference retrieve_query,
-dvl/utils.py:204-211). The duck-typed frontends of the JAX package
-(``serving_native.serve_retriever``, ``serving_frontend.BatchingFrontend``,
-``serving_http``) serve this :class:`Retriever` as they are.
+dvl/utils.py:204-211). :func:`lightningdot_tpu_torch.serving_native.
+serve_retriever` puts the native C++ HTTP server in front of it.
 
 The tower runs in bfloat16 (or float32), or on int8 weights
 (``weight_quantization="int8"``); the corpus is bfloat16 or per-vector int8
@@ -21,7 +20,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from lightningdot_tpu.data.padding import bucket_len
+from lightningdot_tpu_torch.data.padding import bucket_len
+from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import (BiEncoder,
                                                       dot_product_scores)
 from lightningdot_tpu_torch.models.quantized import QuantizedTextEncoder
@@ -81,8 +81,8 @@ class Retriever:
     """Serve text->image retrieval against a pre-encoded corpus.
 
     ``model`` holds the weights; the Retriever moves it to ``device``
-    (default: where its parameters are) and runs it in its
-    ``compute_dtype``.
+    (``None``: the card, raising where there is none; ``"cpu"`` runs the
+    plain PyTorch path) and runs it in its ``compute_dtype``.
     """
 
     def __init__(self, model: BiEncoder, tokenizer, *,
@@ -107,9 +107,7 @@ class Retriever:
                 f"unknown weight_quantization {weight_quantization!r}")
         if topk not in ("exact", "approx"):
             raise ValueError(f"unknown topk {topk!r}")
-        if device is None:
-            device = next(model.parameters()).device
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # the int8 tower is quantized from the float tower where that lies
         # and alone goes to the device
         self._qtower = (QuantizedTextEncoder(model.txt_model).to(self.device)
@@ -370,14 +368,16 @@ def ranking_equivalent(got, want, *, atol: float) -> Tuple[bool, str]:
     return True, ""
 
 
-def get_model_encoded_vecs(model: BiEncoder, dataloader) -> Dict[str, Any]:
+def get_model_encoded_vecs(model: BiEncoder, dataloader, *,
+                           device: Optional[torch.device] = None
+                           ) -> Dict[str, Any]:
     """Encode a whole dataloader with both towers (counterpart of
     lightningdot_tpu/serving.py:444-464; reference dvl/utils.py:214-233):
     {'img_embed': {img_fname: vec}, 'caption_embed': {img_fname: vec},
     'txt_embed': {txt_id: vec}, 'img_name': [img_fname, ...]}, float32
     numpy vectors. The model's weights are its own (the JAX function takes
-    them as ``params``)."""
-    encoder = BatchEncoder(model)
+    them as ``params``); it runs on ``device`` (:class:`BatchEncoder`)."""
+    encoder = BatchEncoder(model, device=device)
     img_embedding, caption_embedding, query_embedding = {}, {}, {}
     labels_img_name: List[Any] = []
     for batch in dataloader:

@@ -11,24 +11,27 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
 
 
 class BatchEncoder:
-    """Encode the numpy batches of the JAX-free loaders
-    (``lightningdot_tpu/data/itm.py::itm_fast_collate`` and its
-    ``DataLoader``) with both towers: each sub-batch goes to the model's
-    device, through :meth:`BiEncoder.apply`, and comes back as float32
-    vectors, still on the device.
+    """Encode the numpy batches of
+    :func:`lightningdot_tpu_torch.data.itm.itm_fast_collate` with both
+    towers: the model moves to ``device`` (``None``: the card, raising
+    where there is none; ``"cpu"`` runs the plain PyTorch path), each
+    sub-batch follows it through :meth:`BiEncoder.apply`, and the vectors
+    come back as float32, still on the device.
 
     Token ids are checked against each tower's vocabulary on the host: the
     JAX package's ``jnp.take`` would return NaN rows for an id past the
     table, torch would fail on the device.
     """
 
-    def __init__(self, model: BiEncoder):
-        self.model = model.eval()
-        self.device = next(model.parameters()).device
+    def __init__(self, model: BiEncoder, *,
+                 device: Optional[torch.device] = None):
+        self.device = resolve_device(device)
+        self.model = model.to(self.device).eval()
 
     def _sub_batch(self, sb: Optional[Dict[str, Any]], vocab: int):
         if sb is None:

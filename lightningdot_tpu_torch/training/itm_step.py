@@ -1,0 +1,150 @@
+"""The ITM fine-tuning step (counterpart of
+lightningdot_tpu/training/itm_step.py).
+
+Parity: the train_itm.py hot loop (train_itm.py:191-289): the
+bidirectional in-batch NCE loss (txt->img and img->txt averaged,
+train_itm.py:197-222) with the fixed-batch padding rules, the hard-negative
+layout and optional caption-score blending; then global-norm clipping,
+AdamW and the schedule (:class:`~lightningdot_tpu_torch.training.optim.
+FusedAdamW`). Knowledge distillation against a cross-encoder teacher
+(train_itm.py:224-239) comes with the cross-encoder (ROADMAP A9).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lightningdot_tpu_torch.device import resolve_device
+from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
+from lightningdot_tpu_torch.ops.matmul import mm_f32
+from lightningdot_tpu_torch.training.optim import FusedAdamW
+
+NEG_INF = -1e30
+
+
+def _scores(q: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
+    """q [n1, D] x ctx [n2, D] -> float32 [n1, n2], float32 accumulation
+    (``jnp.dot(..., precision=HIGHEST)``)."""
+    return mm_f32(q, ctx.t())
+
+
+def itm_loss_fn(model: BiEncoder, batch: Dict[str, Any], generators=None, *,
+                caption_score_weight: float = 0.0,
+                num_hard_negatives: int = 0
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Bidirectional NCE (``itm_loss_fn``, itm_step.py:51-121) on a batch of
+    device tensors -> (loss, metrics). With hard negatives, txts and imgs
+    carry bs positives followed by bs * num_hard_negatives negatives, item
+    by item (``itm_fast_collate``); queries are the positives, contexts are
+    all rows. ``valid_mask`` [bs] marks real items: a padded row is no
+    query, and a padded column (with its negatives) is no context except at
+    its own diagonal."""
+    txt, img, cap = model.apply(batch, generators)
+    bs = txt.shape[0] // (1 + num_hard_negatives)
+    dev = txt.device
+    pos_idx = torch.arange(bs, device=dev)
+    valid = batch.get("valid_mask")
+    valid = (torch.ones(bs, device=dev) if valid is None
+             else valid.to(device=dev, dtype=torch.float32))
+
+    def masked_calc(q, ctx, cap_ctx, n_pos_ctx):
+        scores = _scores(q, ctx)
+        if cap_ctx is not None and caption_score_weight != 0:
+            scores = ((1 - caption_score_weight) * scores
+                      + caption_score_weight * _scores(q, cap_ctx))
+        n_ctx = ctx.shape[0]
+        ctx_valid = torch.ones(n_ctx, device=dev)
+        ctx_valid[:n_pos_ctx] = valid
+        k = (n_ctx - n_pos_ctx) // n_pos_ctx
+        if k > 0:
+            neg_valid = valid.repeat_interleave(k)
+            ctx_valid[n_pos_ctx:n_pos_ctx + neg_valid.shape[0]] = neg_valid
+        col_mask = (1.0 - ctx_valid)[None, :] * NEG_INF
+        diag = torch.nn.functional.one_hot(pos_idx, n_ctx).float()
+        scores = scores + col_mask * (1.0 - diag)
+        logp = torch.log_softmax(scores, dim=1)
+        nll = -logp.gather(1, pos_idx[:, None])[:, 0]
+        loss = (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        correct = ((logp.argmax(dim=1) == pos_idx).float() * valid).sum()
+        return loss, correct
+
+    loss1, correct1 = masked_calc(img[:bs], txt, cap, bs)   # img -> txt
+    loss2, correct2 = masked_calc(txt[:bs], img, cap, bs)   # txt -> img
+    loss = 0.5 * loss1 + 0.5 * loss2
+    n_valid = torch.clamp(valid.sum(), min=1.0)
+    metrics = {"loss": loss.detach(), "loss_img2txt": loss1.detach(),
+               "loss_txt2img": loss2.detach(),
+               "acc": ((correct1 + correct2) / (2.0 * n_valid)).detach()}
+    return loss, metrics
+
+
+def batch_to_device(batch: Dict[str, Any], device: torch.device
+                    ) -> Dict[str, Any]:
+    """The model inputs of a collated batch (``txts``, ``imgs``, ``caps``,
+    ``valid_mask``) as tensors on ``device``; host-only fields are dropped
+    (``jit_train_step``'s ``model_batch``, itm_step.py:230-244)."""
+
+    def put(x):
+        if x is None:
+            return None
+        if isinstance(x, dict):
+            return {k: put(v) for k, v in x.items() if v is not None}
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        return x.to(device, non_blocking=True)
+
+    return {k: put(batch.get(k)) for k in ("txts", "imgs", "caps",
+                                           "valid_mask")}
+
+
+def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
+                        caption_score_weight: float = 0.0,
+                        num_hard_negatives: int = 0,
+                        kd_fn: Optional[Callable] = None,
+                        device: Optional[torch.device] = None) -> Callable:
+    """Build ``step(batch, generator=None) -> metrics``
+    (``make_itm_train_step``, itm_step.py:172-216).
+
+    The model moves to ``device`` (``None``: the card, raising where there is
+    none; ``"cpu"`` runs the plain PyTorch path) and takes one optimizer step
+    per call in whatever mode it is in: ``model.train()`` turns dropout on,
+    and ``generator`` (a CPU ``torch.Generator``) then seeds the three
+    passes' generators, as JAX splits one key three ways. ``batch`` is a
+    collated batch (numpy or tensors). The metrics (loss, acc, grad_norm,
+    both directions' losses) stay on the device.
+
+    float32 compute on the card needs ``torch.backends.cuda.matmul.
+    allow_tf32`` off: the JAX package's float32 products are true float32.
+    """
+    if kd_fn is not None:
+        raise NotImplementedError(
+            "knowledge distillation needs the cross-encoder teacher, which "
+            "the port does not have yet (ROADMAP A9)")
+    device = resolve_device(device)
+    model.to(device)
+
+    def step(batch: Dict[str, Any],
+             generator: Optional[torch.Generator] = None
+             ) -> Dict[str, torch.Tensor]:
+        if (device.type == "cuda" and model.compute_dtype == torch.float32
+                and torch.backends.cuda.matmul.allow_tf32):
+            raise RuntimeError("float32 training with TF32 products on: set "
+                               "torch.backends.cuda.matmul.allow_tf32 = "
+                               "False")
+        generators = None
+        if generator is not None:
+            seeds = torch.randint(0, 2 ** 62, (3,), generator=generator)
+            generators = [torch.Generator(device=device).manual_seed(int(s))
+                          for s in seeds]
+        optimizer.zero_grad()
+        loss, metrics = itm_loss_fn(
+            model, batch_to_device(batch, device), generators,
+            caption_score_weight=caption_score_weight,
+            num_hard_negatives=num_hard_negatives)
+        loss.backward()
+        metrics["grad_norm"] = optimizer.step()
+        return metrics
+
+    return step

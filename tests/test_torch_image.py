@@ -192,7 +192,7 @@ def test_bi_encoder_apply_matches_jax(dtype):
     imgs = {"input_ids": cls, "attention_mask": mask, "img_feat": feat,
             "img_pos_feat": pos}
     batch = {"txts": txts, "imgs": imgs, "caps": None}
-    got = BatchEncoder(model)(batch)
+    got = BatchEncoder(model, device="cpu")(batch)
     want = jmodel.apply(jax.tree.map(jnp.asarray, params),
                         jax.tree.map(jnp.asarray, batch))
     assert got[2] is None and want[2] is None
@@ -213,7 +213,7 @@ def test_batch_encoder_checks_token_ids():
     model = BiEncoder(cfg, cfg)
     cls, mask, feat, pos, _ = _img_batch(cfg)
     with pytest.raises(ValueError, match="vocabulary"):
-        BatchEncoder(model)({"imgs": {"input_ids": cls,
+        BatchEncoder(model, device="cpu")({"imgs": {"input_ids": cls,
                                       "attention_mask": mask,
                                       "img_feat": feat, "img_pos_feat": pos}})
 
@@ -240,7 +240,7 @@ def test_get_model_encoded_vecs_matches_jax(synth):
     1 + R bucketed to 32 or 64), the loader, both towers in float32."""
     cfg = EncoderConfig(**{**IMG, "vocab_size": 28996})   # synth's vocab
     jmodel, params, model = _models(cfg, cfg)
-    got = get_model_encoded_vecs(model, _loader(*synth))
+    got = get_model_encoded_vecs(model, _loader(*synth), device="cpu")
     want = jax_encoded_vecs(jmodel, jax.tree.map(jnp.asarray, params),
                             _loader(*synth))
     assert got["img_name"] == want["img_name"]

@@ -1,0 +1,231 @@
+"""The port stands alone: it imports nothing of ``jax`` or
+``lightningdot_tpu``, its own copies of the JAX package's JAX-free modules
+give the originals' outputs, and its entry points run on the card unless
+asked for the CPU."""
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from lightningdot_tpu import const as jconst
+from lightningdot_tpu.config import EncoderConfig as JEncoderConfig
+from lightningdot_tpu.data import itm as jitm
+from lightningdot_tpu.data import padding as jpadding
+from lightningdot_tpu.data.tokenizer import WordPieceTokenizer as JTokenizer
+from lightningdot_tpu_torch import const
+from lightningdot_tpu_torch.config import EncoderConfig
+from lightningdot_tpu_torch.data import itm, padding
+from lightningdot_tpu_torch.data.tokenizer import WordPieceTokenizer
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "lightningdot_tpu_torch"
+SMALL = dict(vocab_size=1000, hidden_size=32, num_hidden_layers=2,
+             num_attention_heads=4, intermediate_size=64,
+             max_position_embeddings=48, hidden_dropout_prob=0.0,
+             attention_probs_dropout_prob=0.0)
+
+
+def _port_modules():
+    return sorted(PORT.rglob("*.py"))
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "lightningdot_tpu")
+
+
+@pytest.mark.parametrize("path", _port_modules() + [ROOT / "chip_smoke.py"],
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_import_of_jax_or_the_jax_package(path):
+    """An ``ast`` walk: no ``import``/``from`` of jax or lightningdot_tpu,
+    at any depth of the file (function-level imports included)."""
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0 and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_importing_every_port_module_loads_no_jax():
+    names = [".".join(p.relative_to(ROOT).with_suffix("").parts)
+             for p in _port_modules()]
+    names = [n[:-len(".__init__")] if n.endswith(".__init__") else n
+             for n in names]
+    code = ("import importlib, sys\n"
+            f"for name in {names!r}:\n"
+            "    importlib.import_module(name)\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'lightningdot_tpu'))\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=300,
+                   cwd=ROOT)
+
+
+# ---------------------------------------------------------------------------
+# The copies give the originals' outputs
+# ---------------------------------------------------------------------------
+
+def test_config_and_constants_copies_match_jax():
+    path = str(ROOT / "configs" / "img_base.json")
+    got = EncoderConfig.from_json_file(path)
+    want = JEncoderConfig.from_json_file(path)
+    assert got.to_dict() == want.to_dict()
+    assert (got.head_dim, got.out_size) == (want.head_dim, want.out_size)
+    assert EncoderConfig(project_dim=768).out_size == 768
+    for name in ("IMG_DIM", "IMG_CLS_TOKEN_ID", "TXT_LEN_BUCKETS",
+                 "IMG_LEN_BUCKETS", "CAP_LEN_BUCKETS"):
+        assert getattr(const, name) == getattr(jconst, name), name
+
+
+def test_padding_copies_match_jax():
+    for ladder in (const.TXT_LEN_BUCKETS, const.IMG_LEN_BUCKETS,
+                   const.CAP_LEN_BUCKETS):
+        for n in range(0, ladder[-1] + 6):
+            assert padding.bucket_len(n, ladder) == jpadding.bucket_len(
+                n, ladder)
+    rng = np.random.default_rng(0)
+    seqs = [rng.integers(1, 99, rng.integers(1, 20)).tolist()
+            for _ in range(5)]
+    np.testing.assert_array_equal(padding.pad_ids(seqs, 16),
+                                  jpadding.pad_ids(seqs, 16))
+    np.testing.assert_array_equal(padding.pad_mask([3, 20, 0], 16),
+                                  jpadding.pad_mask([3, 20, 0], 16))
+    feats = [rng.standard_normal((n, 4)).astype(np.float16)
+             for n in (3, 9, 1)]
+    np.testing.assert_array_equal(padding.pad_feats(feats, 8),
+                                  jpadding.pad_feats(feats, 8))
+    np.testing.assert_array_equal(padding.position_ids(3, 7),
+                                  jpadding.position_ids(3, 7))
+
+
+CAPTIONS = ["A man riding a horse on the beach .",
+            "Two dogs, playing in the snow; next to a fence!",
+            "A café in Zürich (naïve) — 東京 at night",
+            "unknownword and [MASK] tokens\tsplit\nacross lines"]
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_tokenizer_copy_matches_jax(tmp_path, native):
+    words = sorted({w.strip(".,;!()") for c in CAPTIONS for w in c.split()})
+    vocab = (["[PAD]"] + [f"[unused{i}]" for i in range(1, 100)]
+             + ["[UNK]", "[CLS]", "[SEP]", "[MASK]", "##s", "##ing", "do",
+                "##gs", "東", "京", "café", "(", ")", ",", ";", "!", "—"]
+             + words)
+    path = tmp_path / "vocab.txt"
+    path.write_text("\n".join(vocab) + "\n", encoding="utf-8")
+    got = WordPieceTokenizer(str(path), use_native=native)
+    want = JTokenizer(str(path), use_native=native)
+    assert got.native == want.native == native
+    for text in CAPTIONS:
+        assert got.encode(text) == want.encode(text)
+        assert got.tokenize(text) == want.tokenize(text)
+        assert got.encode_words(text) == want.encode_words(text)
+    assert got.cls_token_id == 101 and got.vocab_size == want.vocab_size
+
+
+def _item(rng, i, num_bb, negs=0, captions=False):
+    def img(name, nbb):
+        feat = rng.standard_normal((nbb, 16)).astype(np.float16)
+        pos = rng.random((nbb, 7)).astype(np.float32)
+        cap = (rng.integers(106, 999, rng.integers(5, 70)).tolist()
+               if captions else None)
+        return {"fname": name, "img_feat": feat, "img_pos_feat": pos,
+                "num_bb": nbb, "caption_ids": cap}
+
+    return {"txt_id": f"t{i}",
+            "input_ids": rng.integers(106, 999, rng.integers(3, 40)).tolist(),
+            "img": img(f"i{i}", num_bb),
+            "neg_imgs": ([img(f"n{i}_{k}", num_bb) for k in range(negs)]
+                         if negs else None),
+            "neg_txts": ([rng.integers(106, 999, 9).tolist()
+                          for _ in range(negs)] if negs else None)}
+
+
+def _assert_same(got, want):
+    assert type(got) is type(want) or (got is None and want is None)
+    if isinstance(want, dict):
+        assert got.keys() == want.keys()
+        for k in want:
+            _assert_same(got[k], want[k])
+    elif isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("num_bb,negs,captions,fixed", [
+    (36, 0, False, 0), (100, 0, False, 0), (36, 1, True, 6),
+    (100, 2, False, 8)])
+def test_itm_collate_copy_matches_jax(num_bb, negs, captions, fixed):
+    rng = np.random.default_rng(num_bb + negs)
+    items = [_item(rng, i, num_bb, negs, captions) for i in range(5)]
+    got = itm.itm_fast_collate(items, itm.CollateConfig(fixed_batch=fixed))
+    want = jitm.itm_fast_collate(items,
+                                 jitm.CollateConfig(fixed_batch=fixed))
+    _assert_same(got, want)
+    assert got["imgs"]["attention_mask"].shape[1] == (64 if num_bb == 36
+                                                      else 104)
+
+
+# ---------------------------------------------------------------------------
+# Entry points: the card by default, the CPU when asked
+# ---------------------------------------------------------------------------
+
+class _Tok:
+    cls_token_id = 101
+
+    def encode(self, text):
+        return [101] + [110 + len(w) for w in text.split()] + [102]
+
+
+def _model():
+    from lightningdot_tpu_torch.models import BiEncoder, init_tower_
+
+    model = BiEncoder(EncoderConfig(**SMALL),
+                      EncoderConfig(**SMALL, img_dim=16))
+    gen = torch.Generator().manual_seed(0)
+    init_tower_(model.txt_model, gen)
+    init_tower_(model.img_model, gen)
+    return model
+
+
+def _batch():
+    rng = np.random.default_rng(1)
+    return itm.itm_fast_collate([_item(rng, i, 5) for i in range(3)])
+
+
+def test_entry_points_run_on_the_card_by_default(monkeypatch):
+    """With no card, Retriever, BatchEncoder and the trainer raise unless
+    given ``device="cpu"``, and then they run."""
+    from lightningdot_tpu_torch.serving import Retriever
+    from lightningdot_tpu_torch.training.evaluator import BatchEncoder
+    from lightningdot_tpu_torch.training.itm_step import make_itm_train_step
+    from lightningdot_tpu_torch.training.optim import make_fused_adamw
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    model = _model()
+    opt = make_fused_adamw(model, 1e-4)
+    for make in (lambda: Retriever(model, _Tok()),
+                 lambda: BatchEncoder(model),
+                 lambda: make_itm_train_step(model, opt)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    r = Retriever(model, _Tok(), device="cpu")
+    r.set_corpus(["a", "b"], np.eye(2, 32, dtype=np.float32))
+    assert len(r.retrieve_query("a dog", top=2)) == 2
+    txt, img, _ = BatchEncoder(model, device="cpu")(_batch())
+    assert txt.shape == img.shape == (3, 32) and txt.device.type == "cpu"
+    model.train()
+    step = make_itm_train_step(model, opt, device="cpu")
+    metrics = step(_batch())
+    assert np.isfinite(metrics["loss"].item())
+    assert metrics["grad_norm"].device.type == "cpu"

@@ -314,7 +314,7 @@ def setup():
 
 
 def _int8_pair(setup, **kw):
-    port = Retriever(setup["model"], Tok(), quantization="int8",
+    port = Retriever(setup["model"], Tok(), device="cpu", quantization="int8",
                      weight_quantization="int8", topk="approx", **kw)
     ref = jserving.Retriever(setup["jmodel"], setup["params"], Tok(),
                              quantization="int8", weight_quantization="int8",
@@ -334,7 +334,8 @@ def test_int8_corpus_matches_jax_and_files_cross_load(setup, tmp_path):
     np.testing.assert_array_equal(port._bias.numpy(), np.asarray(ref._bias))
 
     ref.save_corpus(str(tmp_path / "from_jax"))
-    other = Retriever(setup["model"], Tok(), quantization="int8")
+    other = Retriever(setup["model"], Tok(), device="cpu",
+                      quantization="int8")
     other.load_corpus(str(tmp_path / "from_jax"))
     assert other.ids == setup["ids"]
     assert torch.equal(other._corpus, port._corpus)
@@ -349,8 +350,8 @@ def test_int8_corpus_matches_jax_and_files_cross_load(setup, tmp_path):
     np.testing.assert_array_equal(np.asarray(ref2._scales),
                                   np.asarray(ref._scales))
     with pytest.raises(ValueError, match="quantization"):
-        Retriever(setup["model"], Tok()).load_corpus(str(tmp_path /
-                                                         "from_jax"))
+        Retriever(setup["model"], Tok(), device="cpu").load_corpus(
+            str(tmp_path / "from_jax"))
 
 
 def test_int8_scores_match_jax(setup):
@@ -362,7 +363,7 @@ def test_int8_scores_match_jax(setup):
     model.load_state_dict(setup["model"].state_dict())
     jmodel = JBiEncoder(setup["cfg"], EncoderConfig(**SMALL, img_dim=16),
                         compute_dtype=jnp.float32)
-    port = Retriever(model, Tok(), quantization="int8")
+    port = Retriever(model, Tok(), device="cpu", quantization="int8")
     ref = jserving.Retriever(jmodel, setup["params"], Tok(),
                              quantization="int8")
     queries = _queries(3, 8, seed=7)

@@ -170,7 +170,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                torch.zeros(64), w, torch.ones(64),
                                torch.zeros(64))
     assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0,
-                               "ffn_int8": 0}
+                               "ffn_int8": 0, "ffn_dh1": 0, "adamw": 0}
 
 
 @pytest.mark.cuda

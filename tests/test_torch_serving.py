@@ -8,6 +8,7 @@ are compared with ``ranking_equivalent`` at atol 1e-3 on scores of order
 (about 1e-5 relative after two layers). The servers print scores with four
 decimals, inside that band.
 """
+import importlib
 import json
 import subprocess
 import sys
@@ -63,7 +64,7 @@ def setup():
     ids = [f"img_{i}" for i in range(N_CORPUS)]
     vecs = np.random.default_rng(0).standard_normal(
         (N_CORPUS, 32)).astype(np.float32)
-    port = Retriever(model, Tok())
+    port = Retriever(model, Tok(), device="cpu")
     port.set_corpus(ids, vecs)
     ref = jserving.Retriever(jmodel, params, Tok())
     ref.set_corpus(ids, vecs)
@@ -99,7 +100,7 @@ def test_corpus_files_load_in_either_package(setup, tmp_path):
     want = port.retrieve_batch(queries, top=10)
 
     ref.save_corpus(str(tmp_path / "from_jax"))
-    other = Retriever(setup["model"], Tok())
+    other = Retriever(setup["model"], Tok(), device="cpu")
     other.load_corpus(str(tmp_path / "from_jax"))
     assert other.ids == setup["ids"] and other.corpus_size == N_CORPUS
     assert torch.equal(other._corpus, port._corpus)
@@ -118,7 +119,7 @@ def test_planted_query_embeddings_rank_first(setup):
     must rank first."""
     model = BiEncoder(setup["cfg"], compute_dtype=torch.bfloat16)
     model.load_state_dict(setup["model"].state_dict())
-    r = Retriever(model, Tok())
+    r = Retriever(model, Tok(), device="cpu")
     queries = _queries(4, 7, seed=2)
     r.set_corpus(setup["ids"], setup["vecs"])
     planted = r.encode_queries(queries)
@@ -140,14 +141,15 @@ def test_padding_rows_and_batch_buckets(setup):
         def encode(self, text):
             return [7] + [200 + len(w) for w in text.split()]
 
-    assert Retriever(setup["model"], NoCls())._pad_token([[7, 3]]) == 7
+    no_cls = Retriever(setup["model"], NoCls(), device="cpu")
+    assert no_cls._pad_token([[7, 3]]) == 7
     assert port._pad_token([[5, 3]]) == 101
 
     class OutOfVocab:
         def encode(self, text):
             return [101, 100000]
 
-    bad = Retriever(setup["model"], OutOfVocab())
+    bad = Retriever(setup["model"], OutOfVocab(), device="cpu")
     bad.set_corpus(setup["ids"], setup["vecs"])
     with pytest.raises(ValueError, match="vocabulary"):
         bad.retrieve_query("x")
@@ -159,7 +161,7 @@ def test_options_of_later_slices_raise(setup):
     queries = _queries(3, 6, seed=6)
     for kw in ({"quantization": "int8"}, {"weight_quantization": "int8"},
                {"topk": "approx", "topk_recall": 0.9}):
-        r = Retriever(setup["model"], Tok(), **kw)
+        r = Retriever(setup["model"], Tok(), device="cpu", **kw)
         r.set_corpus(setup["ids"], setup["vecs"])
         res = r.retrieve_batch(queries, top=5)
         assert [len(x) for x in res] == [5, 5, 5]
@@ -168,7 +170,7 @@ def test_options_of_later_slices_raise(setup):
     for kw in ({"topk": "nope"}, {"quantization": "int4"},
                {"weight_quantization": "fp8"}):
         with pytest.raises(ValueError):
-            Retriever(setup["model"], Tok(), **kw)
+            Retriever(setup["model"], Tok(), device="cpu", **kw)
 
 
 def test_ranking_equivalent_rules():
@@ -212,9 +214,12 @@ def _serve_and_check(address, retriever, n=12, top=5):
     _equivalent([[tuple(x) for x in o["results"]] for o in out], want)
 
 
-def test_native_server_serves_the_port_retriever(setup):
-    from lightningdot_tpu.serving_native import serve_retriever
-
+@pytest.mark.parametrize("package", ["lightningdot_tpu",
+                                     "lightningdot_tpu_torch"])
+def test_native_server_serves_the_port_retriever(setup, package):
+    """The JAX package's native server and the port's own copy of it."""
+    serve_retriever = importlib.import_module(
+        f"{package}.serving_native").serve_retriever
     port = setup["port"]
     srv = serve_retriever(port, max_batch=8, max_top=10)
     try:
@@ -237,7 +242,7 @@ def test_http_server_serves_the_port_retriever(setup):
 def test_launch_counters_stay_zero_on_cpu(setup):
     setup["port"].retrieve_batch(_queries(3, 5, seed=5), top=4)
     assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0,
-                               "ffn_int8": 0}
+                               "ffn_int8": 0, "ffn_dh1": 0, "adamw": 0}
 
 
 def test_port_imports_no_jax():
