@@ -1,5 +1,5 @@
-// Whole-block self-attention for short sequences, one block per
-// (batch, head): out = softmax(q k^T * scale + key_bias) v.
+// Self-attention for sequences up to 256, one block per (batch, head, tile
+// of 32 queries): out = softmax(q k^T * scale + key_bias) v.
 //
 // Replaces the TPU kernel lightningdot_tpu/ops/attention.py::_attn_kernel
 // (launched by _attention_pallas). The TPU kernel needed a head-major
@@ -14,31 +14,35 @@
 //   defer = 1: un-normalized exp(s - max) rounded to the input dtype, the
 //              float32 row sum kept aside, and the division applied after
 //              probs @ v (the bfloat16 serving path).
+// A tile holds whole score rows, so every row is summed in the same order
+// whatever the tiling: each output element has the bits it had when one
+// block held the whole head (S <= 128).
 //
-// Bound: at the path's shapes (S <= 128, D = 64: query buckets up to 64,
-// text buckets up to 128, image sequences 1 + R with R bucketed to 32, 64 or
-// 104) a block moves 3*S*D inputs and S*D outputs and does 4*S*S*D flops: a
-// few hundred flops per byte at most, and per block little work. What
-// bounds it is latency and the number of blocks in flight. The design
-// stages q, k and v of one head in shared memory as float32 (K rows padded
-// by one word, so the score loop reads K without bank conflicts), keeps the
-// S x S scores in shared memory, and runs one warp per softmax row: 66 KB
-// at S = 64, 126 KB at S = 105 and 165 KB at S = 128, under the 227 KB a
-// block may ask for. The grid is batch * heads blocks (3072 at batch 256);
-// several are resident per SM at S <= 64, one at S > 96.
+// Bound: at the path's shapes (S <= 256, D = 64: query buckets up to 64,
+// text buckets up to 128, caption buckets up to 256, image sequences 1 + R
+// with R bucketed to 32, 64 or 104) a block moves its head's K and V and a
+// tile of q and out, and does 4*32*S*D flops: what bounds it is latency and
+// the number of blocks in flight. The design stages K and V of one head and
+// the tile's q in shared memory as float32 (K rows padded by one word, so
+// the score loop reads K without bank conflicts), keeps the 32 x S scores in
+// shared memory, and runs one warp per softmax row: 39 KB at S = 64, 91 KB
+// at S = 128 and 173 KB at S = 256, under the 227 KB a block may ask for.
+// The grid is batch * heads * ceil(S / 32) blocks.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxSeq = 128;
+constexpr int kTile = 32;   // query rows per block
+constexpr int kMaxSeq = 256;
 constexpr int kMaxHeadDim = 64;
 
 __host__ __device__ constexpr size_t smem_floats(int seq, int head_dim) {
-  // q [S][D], k [S][D+1], v [S][D], p [S][S+1], row sums [S]
-  return static_cast<size_t>(seq) * head_dim * 2 +
+  // q [T][D], k [S][D+1], v [S][D], p [T][S+1], row sums [T]
+  return static_cast<size_t>(kTile) * head_dim +
          static_cast<size_t>(seq) * (head_dim + 1) +
-         static_cast<size_t>(seq) * (seq + 1) + seq;
+         static_cast<size_t>(seq) * head_dim +
+         static_cast<size_t>(kTile) * (seq + 1) + kTile;
 }
 
 template <typename T>
@@ -53,13 +57,15 @@ __global__ void __launch_bounds__(kThreads)
   const int kd = D + 1;
   const int ps = S + 1;
   float* sq = smem;
-  float* sk = sq + S * D;
+  float* sk = sq + kTile * D;
   float* sv = sk + S * kd;
   float* sp = sv + S * D;
-  float* srow = sp + S * ps;
+  float* srow = sp + kTile * ps;
 
   const int b = blockIdx.x / heads;
   const int h = blockIdx.x % heads;
+  const int i0 = blockIdx.y * kTile;          // first query row of the tile
+  const int nq = min(kTile, S - i0);          // query rows in the tile
   const size_t row_stride = static_cast<size_t>(heads) * D;
   const size_t base = static_cast<size_t>(b) * S * row_stride +
                       static_cast<size_t>(h) * D;
@@ -68,15 +74,19 @@ __global__ void __launch_bounds__(kThreads)
     const int s = idx / D;
     const int d = idx - s * D;
     const size_t g = base + s * row_stride + d;
-    sq[idx] = ldot::to_f32(q[g]);
     sk[s * kd + d] = ldot::to_f32(k[g]);
     sv[idx] = ldot::to_f32(v[g]);
   }
+  for (int idx = threadIdx.x; idx < nq * D; idx += kThreads) {
+    const int s = idx / D;
+    const int d = idx - s * D;
+    sq[idx] = ldot::to_f32(q[base + (i0 + s) * row_stride + d]);
+  }
   __syncthreads();
 
-  // scores[i][j] = (q_i . k_j) * scale + bias[b][j]
+  // scores[i][j] = (q_i . k_j) * scale + bias[b][j], i over the tile's rows
   const float* brow = bias + static_cast<size_t>(b) * S;
-  for (int idx = threadIdx.x; idx < S * S; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < nq * S; idx += kThreads) {
     const int i = idx / S;
     const int j = idx - i * S;
     const float* qi = sq + i * D;
@@ -90,7 +100,7 @@ __global__ void __launch_bounds__(kThreads)
   // softmax, one warp per row
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  for (int i = warp; i < S; i += kThreads / 32) {
+  for (int i = warp; i < nq; i += kThreads / 32) {
     float* row = sp + i * ps;
     float m = -INFINITY;
     for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
@@ -113,14 +123,14 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // out[i][d] = sum_j p[i][j] v[j][d]  (then / row sum on the deferred path)
-  for (int idx = threadIdx.x; idx < S * D; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < nq * D; idx += kThreads) {
     const int i = idx / D;
     const int d = idx - i * D;
     const float* pi = sp + i * ps;
     float acc = 0.f;
     for (int j = 0; j < S; ++j) acc = fmaf(pi[j], sv[j * D + d], acc);
     if (defer) acc = acc / srow[i];
-    out[base + i * row_stride + d] = ldot::from_f32<T>(acc);
+    out[base + (i0 + i) * row_stride + d] = ldot::from_f32<T>(acc);
   }
 }
 
@@ -136,7 +146,8 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<int>(smem_floats(kMaxSeq, kMaxHeadDim) * sizeof(float)));
   if (granted != cudaSuccess) return granted;
   const size_t smem = smem_floats(seq, head_dim) * sizeof(float);
-  attention_kernel<T><<<batch * heads, kThreads, smem, stream>>>(
+  const dim3 grid(batch * heads, (seq + kTile - 1) / kTile);
+  attention_kernel<T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(out), seq, heads,
       head_dim, scale, defer);
@@ -147,7 +158,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q, k, v, out: [batch, seq, heads, head_dim] contiguous, float32 or
 // bfloat16 (dtype code); bias: [batch, seq] float32 additive key bias.
-// seq <= 128, head_dim <= 64.
+// seq <= 256, head_dim <= 64.
 extern "C" int ldot_attention(const void* q, const void* k, const void* v,
                               const float* bias, void* out, int batch,
                               int seq, int heads, int head_dim, float scale,

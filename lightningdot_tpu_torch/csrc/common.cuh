@@ -35,13 +35,20 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// 2^-0.5 rounded to T, as JAX's weak typing rounds the Python constant of
+// `x * 2 ** -0.5` to the array's dtype (ops/activations.py::weak_const)
+template <typename T>
+__device__ __forceinline__ float sqrt_half() {
+  return round_to<T>(0.7071067811865476f);
+}
+
 // GELU with the plain version's rounding (ops/activations.py::gelu on a
 // tensor of dtype T): x * 0.5 * (1 + erf(x / sqrt 2)), each op rounded to T
-// (no-op for float). Exact erff, as torch.erf.
+// (no-op for float), the constant 2^-0.5 too. Exact erff, as torch.erf.
 template <typename T>
 __device__ __forceinline__ float gelu_rounded(float x) {
   const float half = round_to<T>(x * 0.5f);
-  const float arg = round_to<T>(x * 0.7071067811865476f);
+  const float arg = round_to<T>(x * sqrt_half<T>());
   const float e = round_to<T>(erff(arg));
   const float one_plus = round_to<T>(1.0f + e);
   return round_to<T>(half * one_plus);
@@ -50,12 +57,13 @@ __device__ __forceinline__ float gelu_rounded(float x) {
 // d/dx GELU with the plain version's rounding (ops/ffn_dh1.py::_gelu_grad on
 // a tensor of dtype T, the counterpart of lightningdot_tpu/ops/ffn.py::
 // _gelu_grad): cdf + x * pdf with cdf = 0.5 * (1 + erf(x / sqrt 2)) and
-// pdf = (2 pi)^-0.5 (rounded to T) * exp(-0.5 * x^2), each op rounded to T;
+// pdf = (2 pi)^-0.5 (rounded to T) * exp(-0.5 * x^2), each op and 2^-0.5
+// rounded to T;
 // __fmul_rn/__fadd_rn keep the compiler from contracting a product and a
 // sum into one FMA, which the plain version never does.
 template <typename T>
 __device__ __forceinline__ float gelu_grad_rounded(float x) {
-  const float arg = round_to<T>(__fmul_rn(x, 0.7071067811865476f));
+  const float arg = round_to<T>(__fmul_rn(x, sqrt_half<T>()));
   const float e = round_to<T>(erff(arg));
   const float one_plus = round_to<T>(__fadd_rn(1.0f, e));
   const float cdf = round_to<T>(__fmul_rn(0.5f, one_plus));

@@ -18,10 +18,12 @@ rounds once (``encoder._dense``). LayerNorm scales and biases stay float32.
 A tower is built in eval mode, deterministic as the JAX package's default
 (``deterministic=True``). ``train()`` turns dropout on (``_dropout``,
 encoder.py:235-248): embedding dropout and the ``use_fused`` branch of
-``_bert_layer`` (:286-376), whose draws come from the ``generator`` passed
-to ``forward``. Every op has a gradient (``ops/fused.py``, the FFN and
-LayerNorm Functions), so a loss through a tower reaches the float32
-masters.
+``_bert_layer`` (:286-376) with its attention kernel branch (:308-324,
+``ops/attention_fused.py``). Hidden dropout draws from the ``generator``
+passed to ``forward``; the attention masks come from Philox seeds derived
+from that generator's seed. Every op has a gradient (``ops/fused.py``,
+``ops/attention_fused.py``, the FFN and LayerNorm Functions), so a loss
+through a tower reaches the float32 masters.
 """
 from __future__ import annotations
 
@@ -31,26 +33,48 @@ import torch
 from torch import nn
 
 from lightningdot_tpu_torch.config import EncoderConfig
-from lightningdot_tpu_torch.ops import (ffn_gelu, gelu, layer_norm, mm_f32,
+from lightningdot_tpu_torch.ops import (attention_nodrop, ffn_gelu,
+                                        fused_attention_train, gelu,
+                                        layer_norm, mm_f32,
                                         multi_head_attention)
-from lightningdot_tpu_torch.ops.fused import (apply_keep,
-                                              attention_prob_dropout,
-                                              dropout_add_ln, keep_mask)
+from lightningdot_tpu_torch.ops.attention_fused import site_seeds
+from lightningdot_tpu_torch.ops.fused import (apply_keep, dropout_add_ln,
+                                              keep_mask)
 
 MASK_BIAS = -10000.0  # uniter_model/model/model.py:365
 
 
-def _draw(module: nn.Module, rate: float, shape,
-          generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
-    """The keep mask of one dropout site, or None where the module is in
-    eval mode or the rate is 0. A site that drops needs a generator, as
-    JAX's needs a key."""
+def _drops(module: nn.Module, rate: float,
+           generator: Optional[torch.Generator]) -> bool:
+    """Whether a dropout site of ``module`` drops: training mode and a rate
+    above 0. A site that drops needs a generator, as JAX's needs a key."""
     if not module.training or rate == 0.0:
-        return None
+        return False
     if generator is None:
         raise ValueError("dropout in training mode needs a torch.Generator "
                          "(pass generator=...)")
+    return True
+
+
+def _draw(module: nn.Module, rate: float, shape,
+          generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+    """The keep mask of one dropout site, or None where it does not drop."""
+    if not _drops(module, rate, generator):
+        return None
     return keep_mask(shape, rate, generator)
+
+
+def _attention_seeds(module: nn.Module, rate: float, n: int,
+                     generator: Optional[torch.Generator],
+                     device: torch.device) -> Optional[torch.Tensor]:
+    """int64 [n] Philox seeds of ``n`` attention-dropout sites, or None where
+    they do not drop: a function of ``generator.initial_seed()`` (the host
+    seed it was made from), so one step seed gives one set of masks on the
+    card and on the CPU, with no device sync. A generator seeds the masks of
+    one forward pass: the training step makes fresh ones every step."""
+    if not _drops(module, rate, generator):
+        return None
+    return site_seeds(generator.initial_seed(), n, device)
 
 
 def _dropout(module, x, rate, generator):
@@ -200,10 +224,13 @@ class BertLayer(nn.Module):
 
     Inference (eval mode, no gradient): the attention kernel and plain
     LayerNorms, the deterministic branch. Training, or wherever a gradient
-    is needed: the ``use_fused`` branch, attention with probability
-    dropout and two ``dropout_add_ln``, drawing three keep masks from
-    ``generator`` in training mode (none in eval mode). The FFN is
-    ``ffn_gelu`` in both.
+    is needed: the ``use_fused`` branch, two ``dropout_add_ln`` drawing
+    their keep masks from ``generator`` in training mode, and attention by
+    the fused training kernel on the raw projections where attention
+    dropout is on (JAX's ``LDOT_ATTN_KERNEL=1`` branch, encoder.py:308-324,
+    the kernel's own Philox masks from ``attn_seed``), else
+    ``attention_nodrop`` (``_attention_nodrop``). The FFN is ``ffn_gelu``
+    in both.
     """
 
     def __init__(self, cfg: EncoderConfig):
@@ -218,21 +245,32 @@ class BertLayer(nn.Module):
         self.intermediate = _Intermediate(h, cfg.intermediate_size)
         self.output = _DenseLN(cfg.intermediate_size, h, eps)
 
-    def forward(self, hidden, mask_bias, dtype, generator=None):
+    def forward(self, hidden, mask_bias, dtype, generator=None,
+                attn_seed: Optional[torch.Tensor] = None):
+        """``attn_seed``: the int64 [1] Philox seed of this layer's attention
+        dropout (``BertEncoderStack`` passes one per layer); drawn from
+        ``generator`` where it is None."""
         b, s, h = hidden.shape
         nh = self.num_heads
         sa = self.attention.self
-        # projection-native [B, S, heads, dim]: the kernel reads it by strides
-        q = sa.query(hidden, dtype).view(b, s, nh, self.head_dim)
-        k = sa.key(hidden, dtype).view(b, s, nh, self.head_dim)
-        v = sa.value(hidden, dtype).view(b, s, nh, self.head_dim)
-        keep = _draw(self, self.attn_dropout, (b, nh, s, s), generator)
-        if keep is None and not (torch.is_grad_enabled() and q.requires_grad):
-            ctx = multi_head_attention(q, k, v, mask_bias)
+        q, k, v = (sa.query(hidden, dtype), sa.key(hidden, dtype),
+                   sa.value(hidden, dtype))
+        if attn_seed is None:
+            attn_seed = _attention_seeds(self, self.attn_dropout, 1,
+                                         generator, hidden.device)
+        if attn_seed is not None:
+            # raw [B, S, H]: the kernel splits the heads by strides
+            ctx = fused_attention_train(q, k, v, mask_bias.reshape(b, s),
+                                        attn_seed, nh=nh,
+                                        rate=self.attn_dropout)
         else:
-            ctx = attention_prob_dropout(q, k, v, mask_bias, keep,
-                                         rate=self.attn_dropout,
-                                         scale=self.head_dim ** -0.5)
+            # projection-native [B, S, heads, dim]: the kernel reads it by
+            # strides
+            q, k, v = (t.view(b, s, nh, self.head_dim) for t in (q, k, v))
+            if torch.is_grad_enabled() and q.requires_grad:
+                ctx = attention_nodrop(q, k, v, mask_bias)
+            else:
+                ctx = multi_head_attention(q, k, v, mask_bias)
         out = self.attention.output
         dense = out.dense(ctx.reshape(b, s, h), dtype)
         keep = _draw(self, self.hidden_dropout, dense.shape, generator)
@@ -253,12 +291,16 @@ class BertEncoderStack(nn.Module):
 
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
+        self.attn_dropout = cfg.attention_probs_dropout_prob
         self.layer = nn.ModuleList(BertLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
 
     def forward(self, hidden, mask_bias, dtype, generator=None):
-        for layer in self.layer:
-            hidden = layer(hidden, mask_bias, dtype, generator)
+        seeds = _attention_seeds(self, self.attn_dropout, len(self.layer),
+                                 generator, hidden.device)
+        for i, layer in enumerate(self.layer):
+            hidden = layer(hidden, mask_bias, dtype, generator,
+                           None if seeds is None else seeds[i:i + 1])
         return hidden
 
 

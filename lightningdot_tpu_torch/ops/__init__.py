@@ -8,7 +8,9 @@ for a CPU tensor. Each kernel wrapper counts its launches in a
 from lightningdot_tpu_torch.ops.activations import gelu  # noqa: F401
 from lightningdot_tpu_torch.ops.adamw import adamw_, adamw_cuda  # noqa: F401
 from lightningdot_tpu_torch.ops.attention import (  # noqa: F401
-    attention_cuda, multi_head_attention)
+    attention_cuda, attention_nodrop, multi_head_attention)
+from lightningdot_tpu_torch.ops.attention_fused import (  # noqa: F401
+    attention_train_bwd, attention_train_fwd, fused_attention_train)
 from lightningdot_tpu_torch.ops.ffn import ffn_cuda, ffn_gelu  # noqa: F401
 from lightningdot_tpu_torch.ops.ffn_dh1 import ffn_dh1_cuda  # noqa: F401
 from lightningdot_tpu_torch.ops.ffn_int8 import (  # noqa: F401
@@ -24,6 +26,8 @@ KERNEL_WRAPPERS = {
     "ffn_int8": ffn_int8_cuda,
     "ffn_dh1": ffn_dh1_cuda,
     "adamw": adamw_cuda,
+    "attention_train_fwd": attention_train_fwd,
+    "attention_train_bwd": attention_train_bwd,
 }
 
 

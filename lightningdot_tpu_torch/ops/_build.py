@@ -35,6 +35,7 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
     # x, scale, bias, out, rows, hidden, eps, dtype, stream
     "ldot_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
@@ -52,6 +53,14 @@ _SIGNATURES = {
     # x, w1t, s1, b1, w2t, s2, b2, out, inter, chunk_max, row_scale,
     # workspace, rows, H, I, splits, stream
     "ldot_ffn_int8": (_P,) * 12 + (_I, _I, _I, _I, _P),
+    # q, k, v, bias, seed, out, batch, seq, heads, head_dim, scale, mscale,
+    # thresh, dropout, dtype, stream
+    "ldot_attention_train_fwd": (_P,) * 6 + (_I, _I, _I, _I, _F, _F, _U, _I,
+                                             _I, _P),
+    # q, k, v, bias, seed, g, dq, dk, dv, stats, batch, seq, heads,
+    # head_dim, scale, mscale, mscale_f32, thresh, dropout, dtype, stream
+    "ldot_attention_train_bwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _U,
+                                              _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -6,6 +6,8 @@ dropout) and in the projection-native ``bshd`` layout only: q, k, v are
 the TPU kernel ``_attn_kernel`` (lightningdot_tpu/ops/attention.py:87,
 launched by ``_attention_pallas``). Unlike the TPU dispatch, which sent
 only batch * heads <= 128 to the kernel, every CUDA call takes the kernel.
+:func:`attention_nodrop` adds the gradient of ``_attention_nodrop``
+(:136-163) for training at dropout 0 and in eval mode under autograd.
 
 Math parity with the reference's attention (uniter_model/model/layer.py:
 75-101): scores = q k^T / sqrt(d) + additive key bias (0 keep, -10000
@@ -18,11 +20,12 @@ from typing import Optional
 import torch
 
 from lightningdot_tpu_torch.ops import _build
+from lightningdot_tpu_torch.ops.fused import attention_vjp
 
-# csrc/attention.cu holds one head's q, k, v and scores in shared memory:
-# 165 KB at S = 128, D = 64 (the longest text bucket; image sequences reach
-# 105). CAP_LEN_BUCKETS (lightningdot_tpu/const.py:23) reach 256: not yet.
-MAX_SEQ = 128
+# csrc/attention.cu holds one head's k and v and a 32-row tile of q and of
+# the scores in shared memory: 173 KB at S = 256, D = 64 (CAP_LEN_BUCKETS,
+# const.py, reach 256)
+MAX_SEQ = 256
 MAX_HEAD_DIM = 64
 
 
@@ -132,3 +135,29 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return attention_cuda(q.contiguous(), k.contiguous(), v.contiguous(),
                           bias.reshape(b, s).float().contiguous(), scale,
                           defer=q.dtype != torch.float32)
+
+
+class _AttentionNoDrop(torch.autograd.Function):
+    """``_attention_nodrop`` (lightningdot_tpu/ops/attention.py:136-163):
+    the forward is :func:`multi_head_attention` (the kernel on CUDA, the
+    deferred normalization in bfloat16); the backward recomputes the
+    normalized form, the vjp of ``_attention_math(defer=False)``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias):
+        ctx.save_for_backward(q, k, v, bias)
+        return multi_head_attention(q, k, v, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv = attention_vjp(q, k, v, bias, None, 0.0,
+                                   q.shape[-1] ** -0.5, g)
+        return dq, dk, dv, None
+
+
+def attention_nodrop(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor) -> torch.Tensor:
+    """:func:`multi_head_attention` with a gradient w.r.t. q, k and v: the
+    training path at dropout 0 and the eval path under autograd."""
+    return _AttentionNoDrop.apply(q, k, v, bias)

@@ -16,6 +16,7 @@ import math
 import torch
 
 from lightningdot_tpu_torch.ops import _build
+from lightningdot_tpu_torch.ops.activations import SQRT_HALF, weak_const
 from lightningdot_tpu_torch.ops.matmul import mm_f32
 
 _DEPTH = 32   # csrc/ffn_dh1.cu stages H in slices of 32
@@ -23,8 +24,10 @@ _DEPTH = 32   # csrc/ffn_dh1.cu stages H in slices of 32
 
 def _gelu_grad(h1: torch.Tensor) -> torch.Tensor:
     """d/dx [x * 0.5 * (1 + erf(x / sqrt 2))] in h1's dtype, each op
-    rounded to it (``_gelu_grad``; the kernel's ``gelu_grad_rounded``)."""
-    cdf = 0.5 * (1.0 + torch.erf(h1 * (2 ** -0.5)))
+    rounded to it (``_gelu_grad``; the kernel's ``gelu_grad_rounded``),
+    both constants rounded to it first, as JAX's weak typing rounds
+    ``2 ** -0.5`` and the code casts the pdf constant."""
+    cdf = 0.5 * (1.0 + torch.erf(h1 * weak_const(SQRT_HALF, h1.dtype)))
     pdf = torch.tensor((2.0 * math.pi) ** -0.5, dtype=h1.dtype) * torch.exp(
         -0.5 * h1.square())
     return cdf + h1 * pdf

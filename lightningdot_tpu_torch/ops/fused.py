@@ -9,8 +9,11 @@
   probabilities (``attention_prob_dropout``, :173-291): normalized float32
   softmax, probabilities rounded to the compute dtype before the mask
   (``_attn_core``, :197-208); the backward recomputes scores and softmax
-  (``_attn_drop_bwd``, :238-280). Plain torch, as the JAX default computes
-  it in jnp; a hand-written kernel replaces it later (ROADMAP B5).
+  (``_attn_drop_bwd``, :238-280, :func:`attention_vjp`). Plain torch, as
+  the JAX default computes it in jnp. It is the spec of JAX's default
+  training path; the port's towers train through the fused kernel of
+  ``ops/attention_fused.py`` (JAX's ``LDOT_ATTN_KERNEL=1`` branch) instead,
+  and through ``attention_vjp`` at dropout 0.
 
 Each takes its keep mask as an input, drawn by :func:`keep_mask` from an
 explicit ``torch.Generator``, so a test can inject the mask that
@@ -89,6 +92,32 @@ def _attn_probs(qf, kf, bias, scale):
     return torch.softmax(scores, dim=-1)
 
 
+def attention_vjp(q, k, v, bias, keep, rate, scale, g):
+    """(dq, dk, dv) of the attention composition by recompute
+    (``_attn_drop_bwd``, :238-280): scores and the float32 softmax again,
+    the probabilities rounded to the compute dtype (then the mask), the
+    cotangent of the rounded probabilities rounded to it too, the float32
+    softmax VJP. With ``keep=None`` this is also the vjp of the normalized
+    ``_attention_math(defer=False)`` (lightningdot_tpu/ops/attention.py:
+    149-160), the backward of ``ops.attention.attention_nodrop``."""
+    qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
+    probs = _attn_probs(qf, kf, bias, scale)          # recomputed
+    dropped = probs.to(v.dtype)
+    if keep is not None:
+        dropped = apply_keep(dropped, keep, rate)
+    gf = _heads_first(g)
+    dv = (dropped.float().transpose(-1, -2) @ gf).to(v.dtype)
+    d_dropped = (gf @ vf.transpose(-1, -2)).to(v.dtype)
+    if keep is not None:
+        d_dropped = apply_keep(d_dropped, keep, rate)
+    dp = d_dropped.float()
+    ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True)) * scale
+    dq = (ds @ kf).to(q.dtype)
+    dk = (ds.transpose(-1, -2) @ qf).to(k.dtype)
+    return (dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3),
+            dv.permute(0, 2, 1, 3))
+
+
 class _AttnProbDropout(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, keep, rate, scale):
@@ -104,23 +133,8 @@ class _AttnProbDropout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, keep = ctx.saved_tensors
-        rate, scale = ctx.rate, ctx.scale
-        qf, kf, vf = _heads_first(q), _heads_first(k), _heads_first(v)
-        probs = _attn_probs(qf, kf, bias, scale)          # recomputed
-        dropped = probs.to(v.dtype)
-        if keep is not None:
-            dropped = apply_keep(dropped, keep, rate)
-        gf = _heads_first(g)
-        dv = (dropped.float().transpose(-1, -2) @ gf).to(v.dtype)
-        d_dropped = (gf @ vf.transpose(-1, -2)).to(v.dtype)
-        if keep is not None:
-            d_dropped = apply_keep(d_dropped, keep, rate)
-        dp = d_dropped.float()
-        ds = probs * (dp - (dp * probs).sum(dim=-1, keepdim=True)) * scale
-        dq = (ds @ kf).to(q.dtype)
-        dk = (ds.transpose(-1, -2) @ qf).to(k.dtype)
-        return (dq.permute(0, 2, 1, 3), dk.permute(0, 2, 1, 3),
-                dv.permute(0, 2, 1, 3), None, None, None, None)
+        return attention_vjp(q, k, v, bias, keep, ctx.rate, ctx.scale,
+                             g) + (None, None, None, None)
 
 
 def attention_prob_dropout(q: torch.Tensor, k: torch.Tensor,

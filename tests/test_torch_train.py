@@ -10,8 +10,7 @@ chip_smoke.py). Sizes: the SMALL config of tests/test_train_parity.py
 Tolerances, each relative to the largest magnitude of the JAX result
 unless stated: float32 1e-5 (the same math summed in another order);
 bfloat16 2e-2 (a few bf16 ulps: the frameworks round at slightly other
-points, e.g. JAX rounds the constant of ``x * 2**-0.5`` to bf16, torch
-does not; ROADMAP C).
+points, e.g. the bf16 dense cotangent; ROADMAP C).
 """
 import jax
 import jax.numpy as jnp
@@ -529,6 +528,54 @@ def test_itm_step_matches_jax(negs, padded):
     _assert_trees_close({n: _np(p) for n, p in model.named_parameters()},
                         state.params, 1e-5, "params after 5 steps",
                         floor=1.0)
+
+
+def test_attention_dropout_model_matches_the_composition(monkeypatch):
+    """float32, attention dropout 0.1, hidden dropout 0: the BiEncoder in
+    training mode (fused training attention, ops/attention_fused.py) gives
+    the loss and every gradient of the same model whose attention is JAX's
+    default composition (``fused.attention_prob_dropout``) fed the
+    ``philox_keep`` masks of the same seeds, within 1e-5 of the largest
+    gradient; and another step seed gives another loss."""
+    from lightningdot_tpu_torch.models import encoder
+    from lightningdot_tpu_torch.ops import attention_fused
+
+    dropout = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.1)
+    batch = itm_step.batch_to_device(_itm_batch(4, 0, seed=60),
+                                     torch.device("cpu"))
+
+    def run(seed):
+        _, _, model = _pair(seed=5, dropout=dropout)
+        model.train()
+        gens = [torch.Generator().manual_seed(seed + i) for i in range(3)]
+        loss, _ = itm_step.itm_loss_fn(model, batch, gens)
+        loss.backward()
+        return loss.item(), {n: _np(p.grad) for n, p in
+                             model.named_parameters() if p.grad is not None}
+
+    loss, grads = run(70)
+    calls = []
+
+    def composed(q, k, v, bias2d, seed, *, nh, rate):
+        calls.append(seed)
+        b, s, w = q.shape
+        keep = attention_fused.philox_keep(seed, b, nh, s, s, rate)
+        heads = [t.view(b, s, nh, w // nh) for t in (q, k, v)]
+        return fused.attention_prob_dropout(
+            *heads, bias2d[:, None, None, :], keep, rate=rate,
+            scale=(w // nh) ** -0.5).reshape(b, s, w)
+
+    monkeypatch.setattr(encoder, "fused_attention_train", composed)
+    want_loss, want = run(70)
+    assert len(calls) == 2 * SMALL["num_hidden_layers"]
+    assert len({int(s) for s in calls}) == len(calls)
+    assert _rel(loss, want_loss) <= 1e-5
+    assert set(grads) == set(want)
+    top = max(np.abs(w).max() for w in want.values())
+    for name, w in want.items():
+        assert np.abs(grads[name] - w).max() <= 1e-5 * top, name
+    monkeypatch.undo()
+    assert run(71)[0] != loss
 
 
 def test_train_step_seeds_and_kd():
