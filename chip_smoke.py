@@ -13,9 +13,10 @@ Phases, each of which exits non-zero on failure (no result is printed):
    card, at the shapes of the paths below (the encode and training batches
    included:
    attention at [128, 32|64|104], the bf16 FFN at 4,096-13,312 rows; the
-   int8 FFN bit-equal to its twin) and at S 65, 105 and 128 for later
-   slices, with its median time beside the twin's (CUDA graph, CUDA
-   events); the approximate top-k beside torch.topk over the corpus;
+   int8 FFN bit-equal to its twin) and at S 37, 65, 105 and 128 and head
+   dim 32 for the ragged paths, with its median time beside the twin's
+   (CUDA graph, CUDA events); the approximate top-k beside torch.topk over
+   the corpus;
 3. main path at BERT-base cased width (12 layers, hidden 768, 12 heads,
    intermediate 3072, vocab 28,996; random weights from ``--seed``) against
    a full-COCO corpus of 123,287 x 768 bfloat16 vectors, through
@@ -56,12 +57,14 @@ FFN forward writing h1 and gelu(h1) and ``ffn_dh1`` at 2,048 and 4,096 rows
 in float32 and bfloat16, ``adamw`` over every parameter of both towers
 with a float32 and a bfloat16 first moment, bit for bit, and the fused
 training attention (``attention_train_fwd``/``_bwd``) at rate 0.1 at
-[64, 32|64|104] and [8, 256], after ``mask`` rows that read the kernels'
-Philox keep masks (q = k = 0 and v = I, or g = I) against ``philox_keep``
-bit for bit. The attention kernel's rows (S up to 256) are held bit for
-bit. Each row carries its bound (bytes or operations at the card's
-published rates) and, where one PyTorch call computes the same function,
-that call's time.
+[64, 32|37|64|104], [8, 256] and head dim 32, after ``mask`` rows that read
+the kernels' Philox keep masks (q = k = 0 and v = I, or g = I) against
+``philox_keep`` bit for bit. The float32 attention forwards (S up to 256)
+are held bit for bit; the bfloat16 ones, on the tensor cores, within a
+bf16 ulp of their twins, no less accurate than the twins against the
+float32 computation, and the same bits on a second launch. Each row carries
+its bound (bytes or operations at the card's published rates) and, where
+one PyTorch call computes the same function, that call's time.
 
 Each path's kernel launch counters are reset just before it and read just
 after it. Then one JSON line listing the kernels, and as the last line
@@ -70,8 +73,11 @@ after it. Then one JSON line listing the kernels, and as the last line
 from __future__ import annotations
 
 import argparse
+import functools
+import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -94,6 +100,12 @@ TOP = 100
 # (2**-7), relative to max(1, the twin's largest magnitude); only the
 # summation order differs
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# a bfloat16 attention forward on the tensor cores keeps its twin's rounding
+# points and sums in another order: its relative L2 error against the
+# float32 computation (the twin on the float32 upcast of the same inputs)
+# may be at most this times the twin's own: as accurate as the spec, with
+# room for the summation order
+ACCURACY_RATIO = 1.1
 # the card's published rates (H100 SXM, dense, at 700 W): device memory,
 # and operations by type (bfloat16 and int8 on the tensor cores, float32 on
 # the FMA units)
@@ -154,8 +166,18 @@ TRAIN_F32_LOSS_RTOL = 3e-5
 TRAIN_F32_GRAD_RTOL = 1e-4
 # bfloat16 vs float32 training on the card: the loss and the cosine of the
 # whole gradient (an H100 run read 1.5e-3 and 0.9938; the control, the
-# float32 gradient of another batch, read a cosine of -0.002)
-TRAIN_BF16_LOSS_RTOL = 2e-2
+# float32 gradient of another batch, read a cosine of -0.002). The loss of
+# a batch of 8 moves with every bf16 rounding inside the towers: the
+# embeddings (norm ~20) move by ~1 % (cosine 0.9999), each score of ~10-20
+# by ~0.2, the loss by a few percent, and a change of summation order alone
+# redraws it. ``bf16_loss_controls`` reads the spread beside the check, over
+# four batches and three valid bf16 attentions; an H100 run read 2.5e-3 to
+# 4.5e-2 through the tensor-core kernel (3.4e-2 on the checked batch), 1.8e-3
+# to 1.2e-2 through its twin on the card (the FMA kernel's bits) and 9.8e-3
+# to 3.2e-2 through the plain path on the CPU, which an earlier bound of
+# 2e-2 would have refused. A fault in a kernel moves the loss by tens of
+# percent
+TRAIN_BF16_LOSS_RTOL = 6e-2
 TRAIN_BF16_COSINE_MIN = 0.98
 # float32 tower on the card vs on the CPU: the query vector may differ by
 # float32 summation order (1e-3 absolute on unit-scale LayerNorm outputs
@@ -208,12 +230,26 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
+def _warm_up_stream() -> torch.cuda.Stream:
+    """One side stream for every warm-up: cuBLAS keeps a workspace (32 MiB
+    on Hopper) for each stream it has run on, so a new stream per call
+    would leave ~1 GiB allocated under the later phases' memory readings."""
+    return torch.cuda.Stream()
+
+
 def time_ms(fn, groups: int = 7, per_group: int = 10) -> float:
     """Device time of one call: ``per_group`` calls captured in a CUDA
     graph (so the host's launch cost is out of the measurement), replayed
     ``groups`` times between CUDA events; the median over groups of the
-    mean per call. Inputs stay in the 50 MB L2 between calls."""
-    fn()
+    mean per call. Inputs stay in the 50 MB L2 between calls. The warm-up
+    call runs on a side stream, as capturing a call that runs autograd
+    wants."""
+    side = _warm_up_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -270,13 +306,17 @@ def _flat(out):
 
 
 def compare(name, shape, dtype, kernel, twin, device_name, work,
-            library=None, exact=False, library_eager=False, **extra):
+            library=None, exact=False, reference=None, repeat=False,
+            **extra):
     """Hold a kernel against its twin on the same inputs and time both (and
     ``library``, one PyTorch call computing the same function, where there
-    is one; ``library_eager``: timed by ``time_eager_ms``, for a call that
-    runs autograd); ``work`` = (bytes, operations, peak rate) for the
-    bound; ``exact``: bit for bit."""
+    is one); ``work`` = (bytes, operations, peak rate) for the bound;
+    ``exact``: bit for bit; ``reference``: the float32 computation of the
+    same inputs, against which the kernel's relative L2 error may be at most
+    ``ACCURACY_RATIO`` times the twin's; ``repeat``: a second launch must
+    give the same bits."""
     got, want = kernel(), twin()
+    again = kernel() if repeat else None
     torch.cuda.synchronize()
     got, want = _flat(got), _flat(want)
     check(got.shape == want.shape and got.dtype == want.dtype,
@@ -287,19 +327,32 @@ def compare(name, shape, dtype, kernel, twin, device_name, work,
     peak = want.float().abs().max().item()
     differ = (got != want).float().mean().item()
     tol = 0.0 if exact else TOL[dtype] * max(1.0, peak)
+    held = {}
+    if reference is not None:
+        ref = _flat(reference()).float()
+        held.update({f"rel_l2_{who}": ((x.float() - ref).norm() / ref.norm())
+                     .item() for who, x in (("kernel", got), ("twin", want))},
+                    rel_l2_ratio_max=ACCURACY_RATIO)
+    if repeat:
+        held["deterministic"] = bool(torch.equal(_flat(again), got))
     bound_ms, bound_by = bound(*work)
     row = dict(phase="kernel", kernel=name, shape=list(shape),
                dtype=str(dtype).replace("torch.", ""), **extra,
-               max_abs_err=err, tol=tol, differ_frac=differ,
+               max_abs_err=err, tol=tol, differ_frac=differ, **held,
                ms=time_ms(kernel), plain_ms=time_ms(twin), bound_ms=bound_ms,
                bound_by=bound_by,
-               library_ms=(None if library is None else time_eager_ms(library)
-                           if library_eager else time_ms(library)),
+               library_ms=None if library is None else time_ms(library),
                device=device_name)
     emit(**row)
     check(err <= tol, f"{name} {shape} {dtype}: error {err} > {tol}")
     check(not exact or differ == 0.0,
           f"{name} {shape}: {differ:.3%} of elements differ")
+    check(reference is None or held["rel_l2_kernel"]
+          <= ACCURACY_RATIO * held["rel_l2_twin"],
+          f"{name} {shape}: less accurate than its twin against float32: "
+          f"{held}")
+    check(not repeat or held["deterministic"],
+          f"{name} {shape}: a second launch gave other bits")
     return row
 
 
@@ -340,26 +393,35 @@ def kernel_phase(device_name):
         # + R with R = bucket_len(num_bb + 1) - 1, itm_fast_collate: S 64
         # at num_bb 36, 104 at 100); and for later slices S 65 and 105 (R
         # bucketed without the [CLS] slot, itm.py:261), 128 (the longest
-        # text bucket), 192 and 256 (caption buckets). Bit for bit: every
-        # shape sums each row in the twin's order
-        for b, s in ([(b, s) for b in (1, 8, 64, 256) for s in (16, 32, 64)]
-                     + [(128, s) for s in (32, 64, 104)]
-                     + [(b, s) for b in (1, 64) for s in (65, 105, 128)]
-                     + [(b, s) for b in (8, 64) for s in (192, 256)]):
-            q, k, v = (randn(b, s, 12, 64, dtype=dtype) for _ in range(3))
+        # text bucket), 192 and 256 (caption buckets); S 37 and head dim 32
+        # for the ragged paths (keys padded to 48, head rows to 64). float32
+        # bit for bit (every row sums in the twin's order); bfloat16 within
+        # the tolerance, as accurate as the twin, deterministic
+        for b, s, d in ([(b, s, 64) for b in (1, 8, 64, 256)
+                         for s in (16, 32, 64)]
+                        + [(128, s, 64) for s in (32, 64, 104)]
+                        + [(b, s, 64) for b in (1, 64)
+                           for s in (65, 105, 128)]
+                        + [(b, s, 64) for b in (8, 64) for s in (192, 256)]
+                        + [(64, 37, 64), (64, 64, 32)]):
+            q, k, v = (randn(b, s, 12, d, dtype=dtype) for _ in range(3))
             lens = torch.randint(1, s + 1, (b,), device=dev, generator=g)
             mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
             bias = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+            half = dtype == torch.bfloat16
             rows.append(compare(
-                "attention", (b, s, 12, 64), dtype,
+                "attention", (b, s, 12, d), dtype,
                 lambda: attention.multi_head_attention(q, k, v, bias),
-                lambda: attention._attention_math(q, k, v, bias, 0.125),
+                lambda: attention._attention_math(q, k, v, bias, d ** -0.5),
                 device_name,
-                (4 * b * s * 768 * isz + b * s * 4, 4 * b * 12 * s * s * 64,
-                 _peak(dtype)),
+                (4 * b * s * 12 * d * isz + b * s * 4,
+                 4 * b * 12 * s * s * d, _peak(dtype)),
                 library=lambda: f.scaled_dot_product_attention(
                     q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    attn_mask=bias.to(dtype)), exact=True))
+                    attn_mask=bias.to(dtype)), exact=not half,
+                reference=(lambda: attention._attention_math(
+                    q.float(), k.float(), v.float(), bias, d ** -0.5))
+                if half else None, repeat=True))
         rows += fused_attention_rows(dtype, device_name, randn)
         # query rows (batch x length), the training rows (text 2,048 and
         # image 4,096), then in bfloat16 the encode batches: 128 captions x
@@ -420,9 +482,12 @@ def kernel_phase(device_name):
 def fused_attention_rows(dtype, device_name, randn):
     """The fused training attention at rate 0.1 against its twins (the
     same seed) at the training shapes, batch 64 at text S 32 and image S
-    64 and 104, and at [8, 256] (the longest caption bucket). Library: SDPA
-    with the additive mask at dropout 0 (forward; forward and backward,
-    timed eagerly, for the backward row)."""
+    64 and 104, at [8, 256] (the longest caption bucket), and at S 37 and
+    head dim 32 for the ragged paths. The forward is held as the attention
+    rows are (float32 bit for bit; bfloat16 by tolerance, accuracy against
+    float32 and determinism). Library: SDPA with the additive mask at
+    dropout 0 (forward; forward and backward for the backward row, captured
+    in a CUDA graph like every timed call)."""
     from lightningdot_tpu_torch.ops import attention_fused as af
 
     dev = torch.device("cuda")
@@ -431,39 +496,43 @@ def fused_attention_rows(dtype, device_name, randn):
     isz = torch.finfo(dtype).bits // 8
     seed = torch.tensor([0x5EED_0000_1234], device=dev)
     rows = []
-    for b, s in ((64, 32), (64, 64), (64, 104), (8, 256)):
-        q, k, v, g = (randn(b, s, 768, dtype=dtype) for _ in range(4))
+    half = dtype == torch.bfloat16
+    for b, s, d in ((64, 32, 64), (64, 37, 64), (64, 64, 64), (64, 104, 64),
+                    (8, 256, 64), (64, 64, 32)):
+        q, k, v, g = (randn(b, s, 12 * d, dtype=dtype) for _ in range(4))
         lens = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
         bias = ((torch.arange(s, device=dev)[None, :] >= lens[:, None])
                 .float() * -10000.0)
-        kw = dict(nh=12, rate=0.1, scale=0.125)
-        heads = [t.view(b, s, 12, 64).transpose(1, 2) for t in (q, k, v)]
+        kw = dict(nh=12, rate=0.1, scale=d ** -0.5)
+        heads = [t.view(b, s, 12, d).transpose(1, 2) for t in (q, k, v)]
         mask4 = bias[:, None, None, :].to(dtype)
-        elems, flops = b * s * 768, 2 * b * 12 * s * s * 64
+        elems, flops = b * s * 12 * d, 2 * b * 12 * s * s * d
         rows.append(compare(
-            "attention_train_fwd", (b, s, 12, 64), dtype,
+            "attention_train_fwd", (b, s, 12, d), dtype,
             lambda: af.attention_train_fwd(q, k, v, bias, seed, **kw),
             lambda: af._fused_attn_fwd_math(q, k, v, bias, seed, 12, 0.1,
-                                            0.125), device_name,
+                                            d ** -0.5), device_name,
             (4 * elems * isz + b * s * 4, 2 * flops, _peak(dtype)),
             library=lambda: f.scaled_dot_product_attention(
-                *heads, attn_mask=mask4), rate=0.1, library_rate=0.0))
+                *heads, attn_mask=mask4), exact=not half,
+            reference=(lambda: af._fused_attn_fwd_math(
+                q.float(), k.float(), v.float(), bias, seed, 12, 0.1,
+                d ** -0.5)) if half else None, repeat=True, rate=0.1,
+            library_rate=0.0))
         leaves = [t.detach().clone().requires_grad_() for t in heads]
-        g4 = g.view(b, s, 12, 64).transpose(1, 2)
+        g4 = g.view(b, s, 12, d).transpose(1, 2)
 
         def sdpa_fwd_bwd():
             out = f.scaled_dot_product_attention(*leaves, attn_mask=mask4)
             return torch.autograd.grad(out, leaves, g4)
 
-        row = compare(
-            "attention_train_bwd", (b, s, 12, 64), dtype,
+        rows.append(compare(
+            "attention_train_bwd", (b, s, 12, d), dtype,
             lambda: af.attention_train_bwd(q, k, v, bias, seed, g, **kw),
             lambda: af._fused_attn_bwd_math(q, k, v, bias, seed, g, 12, 0.1,
-                                            0.125), device_name,
+                                            d ** -0.5), device_name,
             (7 * elems * isz + b * s * 4, 5 * flops, _peak(dtype)),
-            library=sdpa_fwd_bwd, library_eager=True, rate=0.1,
-            library_rate=0.0)
-        rows.append(row)
+            library=sdpa_fwd_bwd, rate=0.1, library_rate=0.0))
     return rows
 
 
@@ -621,7 +690,7 @@ def _kind(name: str) -> str:
 
 def device_profile(fn, calls):
     """torch.profiler over ``calls`` calls of ``fn``: device busy time per
-    call (the union of the device's kernel and copy intervals), the five
+    call (the union of the device's kernel and copy intervals), the eight
     costliest device kernels, as [name, ms per call, launches per call],
     and the device events per call by kind (``_kind``)."""
     from torch.profiler import ProfilerActivity, profile
@@ -647,7 +716,7 @@ def device_profile(fn, calls):
         if end > reach:
             busy_us += end - max(start, reach)
             reach = end
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(calls=calls, busy_ms=busy_us / 1e3 / calls if spans else None,
                 top=[[name[:70], ms / calls, n / calls]
                      for name, (ms, n) in top],
@@ -1149,6 +1218,37 @@ def _cosine(a, b):
     return float(a @ b / (a.norm() * b.norm()))
 
 
+def bf16_loss_controls(build, batches):
+    """|bf16 loss - f32 loss| / f32 loss at dropout 0 on each batch, through
+    three valid bf16 attentions: the tensor-core kernel (the path), its twin
+    on the card (the bits of the FMA kernel it replaced), and the plain path
+    on the CPU. Their spread is the noise of the loss check."""
+    from lightningdot_tpu_torch.models import encoder
+    from lightningdot_tpu_torch.ops import attention
+    from lightningdot_tpu_torch.training.itm_step import (batch_to_device,
+                                                          itm_loss_fn)
+
+    def losses(dtype, device):
+        m = build(dtype, 0.0).to(device)
+        with torch.no_grad():
+            return [itm_loss_fn(m, batch_to_device(b, device))[0].item()
+                    for b in batches]
+
+    f32 = losses(torch.float32, DEVICE)
+    readings = {"kernel_card": losses(torch.bfloat16, DEVICE)}
+    kernel = encoder.multi_head_attention
+    encoder.multi_head_attention = (
+        lambda q, k, v, bias: attention._attention_math(
+            q, k, v, bias, q.shape[-1] ** -0.5))
+    try:
+        readings["twin_card"] = losses(torch.bfloat16, DEVICE)
+    finally:
+        encoder.multi_head_attention = kernel
+    readings["plain_cpu"] = losses(torch.bfloat16, "cpu")
+    return {name: [abs(x - y) / abs(y) for x, y in zip(got, f32)]
+            for name, got in readings.items()}
+
+
 def composition_control(step, batches, dropout_gen):
     """The same step with the training attention of PR 5 in place of the
     fused kernels, read beside them: ``ops/fused.py``'s composition (JAX's
@@ -1235,8 +1335,12 @@ def train_phase(args, device_name):
         m.load_state_dict(weights)
         return m.train()
 
+    # memory that earlier phases left allocated on the card: it sits under
+    # the step's peak below
+    gc.collect()
     emit(phase="setup_train", seconds=time.perf_counter() - t0,
-         params=n_params, batch=TRAIN_BATCH, txt_len=32, img_len=64)
+         params=n_params, batch=TRAIN_BATCH, txt_len=32, img_len=64,
+         allocated_before_gb=torch.cuda.memory_allocated() / 2 ** 30)
 
     # speed, at the fine-tuning configuration
     model = build(torch.bfloat16, 0.1)
@@ -1421,10 +1525,16 @@ def train_phase(args, device_name):
     loss16.backward()
     g16 = _grads(m)
     del m
+    more = [itm_fast_collate([data[i] for i in range(j, j + 8)],
+                             CollateConfig())
+            for j in (TRAIN_BATCH + 16, TRAIN_BATCH + 24)]
     row = dict(phase="train_bf16_vs_f32", batch=8, loss_bf16=loss16.item(),
                loss_f32=l_card,
                loss_rel=abs(loss16.item() - l_card) / abs(l_card),
                loss_rel_max=TRAIN_BF16_LOSS_RTOL,
+               loss_control="three bf16 attentions, four batches",
+               control_loss_rel=bf16_loss_controls(
+                   build, [small, other] + more),
                grad_cosine=_cosine(g16, g_card),
                grad_cosine_min=TRAIN_BF16_COSINE_MIN,
                control="float32 gradient of another batch",
@@ -1439,7 +1549,7 @@ def train_phase(args, device_name):
 REPLACES = {
     "layernorm": ("lightningdot_tpu_torch/csrc/layernorm.cu",
                   "lightningdot_tpu/ops/layernorm.py:30"),
-    "attention": ("lightningdot_tpu_torch/csrc/attention.cu",
+    "attention": ("lightningdot_tpu_torch/csrc/attention_mma.cu",
                   "lightningdot_tpu/ops/attention.py:87"),
     "ffn": ("lightningdot_tpu_torch/csrc/ffn.cu",
             "lightningdot_tpu/ops/ffn.py:77"),
@@ -1450,7 +1560,7 @@ REPLACES = {
     "adamw": ("lightningdot_tpu_torch/csrc/adamw.cu",
               "lightningdot_tpu/ops/experimental/adamw_pallas.py:27"),
     "attention_train_fwd": (
-        "lightningdot_tpu_torch/csrc/attention_fused.cu",
+        "lightningdot_tpu_torch/csrc/attention_mma.cu",
         "lightningdot_tpu/ops/experimental/attention_fused.py:117"),
     "attention_train_bwd": (
         "lightningdot_tpu_torch/csrc/attention_fused.cu",
@@ -1459,7 +1569,8 @@ REPLACES = {
 # the row each kernel reports in the kernels line: the serving shape (batch
 # 64, 32 tokens, bf16) for the serving kernels; the training step's image
 # tower (64 x 64 rows, bf16) for dh1 and the training attention; every
-# parameter with a float32 first moment for AdamW
+# parameter with a float32 first moment for AdamW. The bf16 attention
+# forwards run the tensor-core kernel, the source named above
 REPORT_ROW = {"layernorm": ([2048, 768], "bfloat16"),
               "attention": ([64, 32, 12, 64], "bfloat16"),
               "ffn": ([2048, 768, 3072], "bfloat16"),
@@ -1496,6 +1607,15 @@ def main() -> int:
     _build.lib()
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds)
+    # the tensor-core attention's register file: one kernel per bucket of
+    # keys (32, 64, 128, 256) and epilogue (0 deferred, 1 normalized)
+    for name, (regs, spill_st, spill_ld) in sorted(
+            _build.ptxas_report("attention_mma").items()):
+        keys, epilogue = re.search(r"kernelILi(\d+)ELi(\d)E", name).groups()
+        emit(phase="resources", kernel="attention_mma", keys=16 * int(keys),
+             epilogue=("deferred", "normalized")[int(epilogue)],
+             registers=regs, spill_store_bytes=spill_st,
+             spill_load_bytes=spill_ld)
 
     mask_rows(device_name)
     rows = kernel_phase(device_name)

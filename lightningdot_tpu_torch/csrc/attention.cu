@@ -1,34 +1,34 @@
-// Self-attention for sequences up to 256, one block per (batch, head, tile
-// of 32 queries): out = softmax(q k^T * scale + key_bias) v.
+// Self-attention for sequences up to 256 in float32, one block per (batch,
+// head, tile of 32 queries): out = softmax(q k^T * scale + key_bias) v. The
+// bfloat16 forms go to the tensor-core kernel (attention_mma.cu); the C
+// entry below splits by dtype.
 //
 // Replaces the TPU kernel lightningdot_tpu/ops/attention.py::_attn_kernel
-// (launched by _attention_pallas). The TPU kernel needed a head-major
-// [B,H,S,D] copy of q, k and v; this kernel reads them straight out of the
-// projection-native [B,S,H,D] layout by strides and writes the output in
-// that layout, so no transpose ever touches device memory.
+// (launched by _attention_pallas) in float32. The TPU kernel needed a
+// head-major [B,H,S,D] copy of q, k and v; this kernel reads them straight
+// out of the projection-native [B,S,H,D] layout by strides and writes the
+// output in that layout, so no transpose ever touches device memory.
 //
 // Scores, softmax and probs @ v run in float32. Two numeric paths mirror
 // ops/attention.py::_attention_math:
 //   defer = 0: normalized probabilities, rounded to the input dtype before
-//              probs @ v (the float32 path; a no-op rounding there);
-//   defer = 1: un-normalized exp(s - max) rounded to the input dtype, the
-//              float32 row sum kept aside, and the division applied after
-//              probs @ v (the bfloat16 serving path).
+//              probs @ v (a no-op rounding in float32);
+//   defer = 1: un-normalized exp(s - max), the float32 row sum kept aside,
+//              and the division applied after probs @ v.
 // A tile holds whole score rows, so every row is summed in the same order
-// whatever the tiling: each output element has the bits it had when one
-// block held the whole head (S <= 128).
+// whatever the tiling: the kernel is bit-equal to its twin, which is what
+// the float32 checks on the card hold it to. The configurations that serve,
+// encode and train are bfloat16, so this path is kept right, not fast.
 //
-// Bound: at the path's shapes (S <= 256, D = 64: query buckets up to 64,
-// text buckets up to 128, caption buckets up to 256, image sequences 1 + R
-// with R bucketed to 32, 64 or 104) a block moves its head's K and V and a
-// tile of q and out, and does 4*32*S*D flops: what bounds it is latency and
-// the number of blocks in flight. The design stages K and V of one head and
-// the tile's q in shared memory as float32 (K rows padded by one word, so
-// the score loop reads K without bank conflicts), keeps the 32 x S scores in
-// shared memory, and runs one warp per softmax row: 39 KB at S = 64, 91 KB
-// at S = 128 and 173 KB at S = 256, under the 227 KB a block may ask for.
-// The grid is batch * heads * ceil(S / 32) blocks.
-#include "common.cuh"
+// Bound: at the path's shapes (S <= 256, D = 64) a block moves its head's K
+// and V and a tile of q and out, and does 4*32*S*D float32 FMA flops. The
+// design stages K and V of one head and the tile's q in shared memory (K
+// rows padded by one word, so the score loop reads K without bank
+// conflicts), keeps the 32 x S scores in shared memory, and runs one warp
+// per softmax row: 39 KB at S = 64, 91 KB at S = 128 and 173 KB at S = 256,
+// under the 227 KB a block may ask for. The grid is batch * heads *
+// ceil(S / 32) blocks.
+#include "attention_mma.cuh"
 
 namespace {
 
@@ -158,7 +158,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 
 // q, k, v, out: [batch, seq, heads, head_dim] contiguous, float32 or
 // bfloat16 (dtype code); bias: [batch, seq] float32 additive key bias.
-// seq <= 256, head_dim <= 64.
+// seq <= 256, head_dim <= 64 (bfloat16: a multiple of 8, 16-byte aligned).
 extern "C" int ldot_attention(const void* q, const void* k, const void* v,
                               const float* bias, void* out, int batch,
                               int seq, int heads, int head_dim, float scale,
@@ -170,8 +170,21 @@ extern "C" int ldot_attention(const void* q, const void* k, const void* v,
   if (dtype == ldot::kFloat32)
     return launch<float>(q, k, v, bias, out, batch, seq, heads, head_dim,
                          scale, defer, s);
-  if (dtype == ldot::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, bias, out, batch, seq, heads,
-                                 head_dim, scale, defer, s);
+  if (dtype == ldot::kBFloat16) {
+    const ldot::AttnMma a{static_cast<const __nv_bfloat16*>(q),
+                          static_cast<const __nv_bfloat16*>(k),
+                          static_cast<const __nv_bfloat16*>(v),
+                          bias,
+                          static_cast<__nv_bfloat16*>(out),
+                          seq,
+                          heads,
+                          head_dim,
+                          scale,
+                          nullptr,
+                          1.f,
+                          0u,
+                          0};
+    return ldot::attention_mma(a, batch, defer ? 0 : 1, s);
+  }
   return cudaErrorInvalidValue;
 }

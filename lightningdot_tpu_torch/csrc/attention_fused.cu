@@ -5,7 +5,10 @@
 // Replaces the TPU kernels lightningdot_tpu/ops/experimental/
 // attention_fused.py::_fwd_kernel (:117) and ::_bwd_kernel (:136), launched
 // by _call (:221), and reproduces their rounding points (the plain twins are
-// ops/attention_fused.py::_fused_attn_fwd_math and ::_fused_attn_bwd_math):
+// ops/attention_fused.py::_fused_attn_fwd_math and ::_fused_attn_bwd_math).
+// The bfloat16 forward runs on the tensor cores (attention_mma.cu, the same
+// rounding points, float32 sums in another order); the float32 forward and
+// both backward dtypes run on the FMA kernels below:
 //   forward:  s = (q.k) * scale + key_bias, float32 softmax e / sum(e),
 //             p rounded to T, then p * keep * (1/(1-rate) rounded to T),
 //             out = dropped . v accumulated in float32;
@@ -13,14 +16,11 @@
 //             keep * (1/(1-rate) in float32), left in float32; ds = p * (dp -
 //             sum(dp * p)); ds * scale rounded to T before dq = ds . k and
 //             dk = ds^T . q.
-// The keep mask comes from counter-based Philox4x32-10 keyed on the 64-bit
-// seed, one draw per (batch item, head, row, column): element (b, h, i, j)
-// takes word j % 4 of philox(counter (j / 4, i, h, b), key (seed lo, seed
-// hi)) and is kept iff it is below (1 - rate) * 2^32. The mask is a pure
-// function of its coordinates, so the forward and both backward kernels,
-// each blocked its own way, regenerate the same mask in registers; it never
-// reaches memory. The seed is read from device memory, so a layer never
-// waits on the host.
+// The keep mask comes from counter-based Philox4x32-10 (philox.cuh), one
+// draw per (batch item, head, row, column), a pure function of its
+// coordinates: the forward and both backward kernels, each blocked its own
+// way, regenerate the same mask in registers; it never reaches memory. The
+// seed is read from device memory, so a layer never waits on the host.
 //
 // Bound: at the training shapes (B 64, S 32 / 64 / 104, up to 256; H 12,
 // D 64) the forward moves 4 B S H D elements and does 4 B H S^2 D flops,
@@ -34,14 +34,15 @@
 // softmax row is reduced in one warp in the twin's order (lane-strided
 // partial sums, then a butterfly: ops/attention.py::_warp_order_sum).
 //   fwd:  grid (B*H, ceil(S/32) query tiles); 173 KB of shared memory at S
-//         256;
+//         256 (float32 only);
 //   bwd1: grid (B*H, query tiles): dq, and per row the softmax max and sum
 //         and sum(dp * p) for the second kernel; 215 KB at S 256;
 //   bwd2: grid (B*H, ceil(S/32) key tiles): dv and dk, recomputing p from
 //         the first kernel's row statistics (bit-equal to its own); 218 KB.
 #include <cstdint>
 
-#include "common.cuh"
+#include "attention_mma.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -65,36 +66,8 @@ struct Args {
   int dropout;              // rate > 0
 };
 
-// Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32_R(10, ...))
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-  constexpr unsigned kM0 = 0xD2511F53u, kM1 = 0xCD9E8D57u;
-  constexpr unsigned kW0 = 0x9E3779B9u, kW1 = 0xBB67AE85u;
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k.x += kW0;
-      k.y += kW1;
-    }
-    const unsigned hi0 = __umulhi(kM0, c.x), lo0 = kM0 * c.x;
-    const unsigned hi1 = __umulhi(kM1, c.z), lo1 = kM1 * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ uint2 seed_key(const long long* seed) {
-  const unsigned long long s = static_cast<unsigned long long>(*seed);
-  return make_uint2(static_cast<unsigned>(s), static_cast<unsigned>(s >> 32));
-}
-
-__device__ __forceinline__ bool keep_draw(uint2 key, int b, int h, int i,
-                                          int j, unsigned thresh) {
-  const uint4 r = philox4x32_10(
-      make_uint4(static_cast<unsigned>(j) >> 2, i, h, b), key);
-  const int w = j & 3;
-  const unsigned bits = w == 0 ? r.x : w == 1 ? r.y : w == 2 ? r.z : r.w;
-  return bits < thresh;
-}
+using ldot::keep_draw;
+using ldot::seed_key;
 
 // the dropped probability: p rounded to T, then * keep * mscale in T
 template <typename T>
@@ -438,7 +411,8 @@ bool bad_shape(int batch, int seq, int heads, int head_dim) {
 
 // q, k, v, out: [batch, seq, heads * head_dim] contiguous, float32 or
 // bfloat16 (dtype code); bias: [batch, seq] float32; seed: one int64 on the
-// device. seq <= 256, head_dim <= 64.
+// device. seq <= 256, head_dim <= 64 (bfloat16: a multiple of 8, 16-byte
+// aligned).
 extern "C" int ldot_attention_train_fwd(
     const void* q, const void* k, const void* v, const float* bias,
     const long long* seed, void* out, int batch, int seq, int heads,
@@ -449,8 +423,22 @@ extern "C" int ldot_attention_train_fwd(
                0.f, thresh, dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ldot::kFloat32) return launch_fwd<float>(a, batch, out, s);
-  if (dtype == ldot::kBFloat16)
-    return launch_fwd<__nv_bfloat16>(a, batch, out, s);
+  if (dtype == ldot::kBFloat16) {
+    const ldot::AttnMma m{static_cast<const __nv_bfloat16*>(q),
+                          static_cast<const __nv_bfloat16*>(k),
+                          static_cast<const __nv_bfloat16*>(v),
+                          bias,
+                          static_cast<__nv_bfloat16*>(out),
+                          seq,
+                          heads,
+                          head_dim,
+                          scale,
+                          seed,
+                          mscale,
+                          thresh,
+                          dropout};
+    return ldot::attention_mma(m, batch, 1, s);
+  }
   return cudaErrorInvalidValue;
 }
 

@@ -6,7 +6,9 @@ All sources under ``lightningdot_tpu_torch/csrc/`` are compiled with
 runs at first use, under an exclusive file lock (processes that start
 together never load a half-written library), and again whenever a source is
 newer than the library. Each source compiles in its own ``nvcc`` process,
-all started together; one more ``nvcc`` links them.
+all started together; one more ``nvcc`` links them. ptxas's report of each
+kernel's registers, shared memory and spills is kept beside the objects,
+``csrc/build/<source>.log`` (:func:`ptxas_report`).
 
 Nothing here runs at import: the CPU tests import every module of the
 package on a machine without ``nvcc``.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -97,11 +100,13 @@ def _compile() -> None:
         obj = BUILD_DIR / f"{src.stem}.o"
         objs.append(obj)
         procs.append((src, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+             str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
     for src, proc in procs:
         out, _ = proc.communicate(timeout=900)
+        (BUILD_DIR / f"{src.stem}.log").write_text(out)
         if proc.returncode != 0:
             failed.append(f"{src.name}:\n{out}")
     if failed:
@@ -126,6 +131,22 @@ def build() -> Path:
             _compile()
             build_seconds = time.perf_counter() - t0
     return LIB_PATH
+
+
+def ptxas_report(stem: str) -> dict:
+    """{kernel's mangled name: (registers, spill store bytes, spill load
+    bytes)} from the last build's ptxas report of ``csrc/<stem>.cu``."""
+    report, name, spills = {}, None, (0, 0)
+    for line in (BUILD_DIR / f"{stem}.log").read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            name, spills = m.group(1), (0, 0)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            report[name] = (int(m.group(1)), *spills)
+            name = None
+    return report
 
 
 def lib() -> ctypes.CDLL:

@@ -2,10 +2,14 @@
 
 Counterpart of lightningdot_tpu/ops/attention.py, deterministic (no
 dropout) and in the projection-native ``bshd`` layout only: q, k, v are
-[batch, seq, heads, head_dim]. The kernel (``csrc/attention.cu``) replaces
-the TPU kernel ``_attn_kernel`` (lightningdot_tpu/ops/attention.py:87,
-launched by ``_attention_pallas``). Unlike the TPU dispatch, which sent
-only batch * heads <= 128 to the kernel, every CUDA call takes the kernel.
+[batch, seq, heads, head_dim]. The kernels replace the TPU kernel
+``_attn_kernel`` (lightningdot_tpu/ops/attention.py:87, launched by
+``_attention_pallas``), split by dtype in the C entry point: bfloat16 runs
+on the tensor cores (``csrc/attention_mma.cu``: the twin's rounding points,
+float32 sums in another order, so within a bf16 ulp of the twin rather than
+bit-equal), float32 on FMA units (``csrc/attention.cu``, bit-equal to the
+twin). Unlike the TPU dispatch, which sent only batch * heads <= 128 to the
+kernel, every CUDA call takes a kernel.
 :func:`attention_nodrop` adds the gradient of ``_attention_nodrop``
 (:136-163) for training at dropout 0 and in eval mode under autograd.
 
@@ -22,11 +26,21 @@ import torch
 from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.fused import attention_vjp
 
-# csrc/attention.cu holds one head's k and v and a 32-row tile of q and of
-# the scores in shared memory: 173 KB at S = 256, D = 64 (CAP_LEN_BUCKETS,
-# const.py, reach 256)
+# both kernels hold one head's k and v in shared memory (csrc/attention.cu
+# 173 KB in float32 at S = 256, D = 64; csrc/attention_mma.cu 73 KB in
+# bfloat16); CAP_LEN_BUCKETS (const.py) reach 256
 MAX_SEQ = 256
 MAX_HEAD_DIM = 64
+
+
+def check_tensor_core_operands(what: str, head_dim: int,
+                               *tensors: torch.Tensor) -> None:
+    """The bfloat16 kernel (``csrc/attention_mma.cu``) stages each head
+    row in 16-byte copies: head_dim must be a multiple of 8 and every
+    operand 16-byte aligned."""
+    if head_dim % 8 or any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: bfloat16 needs head_dim % 8 == 0 (got "
+                         f"{head_dim}) and 16-byte aligned q, k, v")
 
 
 def _warp_order_sum(x: torch.Tensor) -> torch.Tensor:
@@ -78,10 +92,11 @@ def _attention_math(q, k, v, bias, scale, defer: Optional[bool] = None):
 def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    key_bias: torch.Tensor, scale: float,
                    defer: bool) -> torch.Tensor:
-    """Launch the attention kernel.
+    """Launch the attention kernel of q's dtype.
 
-    q, k, v: contiguous [B, S, H, D] CUDA tensors of one dtype;
-    key_bias: float32 [B, S], added to every query row's scores.
+    q, k, v: contiguous [B, S, H, D] CUDA tensors of one dtype (bfloat16:
+    D a multiple of 8, 16-byte aligned); key_bias: float32 [B, S], added to
+    every query row's scores.
     """
     what = "attention kernel"
     _build.require_cuda(what, q, k, v, key_bias)
@@ -99,6 +114,8 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if key_bias.dtype != torch.float32 or key_bias.shape != (b, s):
         raise ValueError(f"{what}: key bias must be float32 [{b}, {s}], got "
                          f"{key_bias.dtype} {tuple(key_bias.shape)}")
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_operands(what, d, q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _build.check(_build.lib().ldot_attention(

@@ -6,8 +6,12 @@ kernels (``csrc/attention_fused.cu``) replace the TPU kernels
 ``_fwd_kernel`` (:117) and ``_bwd_kernel`` (:136), launched by ``_call``
 (:221) from ``fused_attention_train`` (:283-308), JAX's training attention
 under ``LDOT_ATTN_KERNEL=1`` (lightningdot_tpu/models/encoder.py:308-324).
-In the port it is the training attention of every tower at a dropout rate
-above 0, on both devices: the kernels on CUDA, the twins on the CPU.
+The bfloat16 forward runs on the tensor cores (``csrc/attention_mma.cu``,
+the kernel of bfloat16 ``multi_head_attention`` with a normalize-and-drop
+epilogue): the twin's rounding points, float32 sums in another order. The
+float32 forward and the backward run on FMA units. In the port it is the
+training attention of every tower at a dropout rate above 0, on both
+devices: the kernels on CUDA, the twins on the CPU.
 
 q, k and v are the raw projections, [B, S, H*D]; the head split is done by
 strides. The keep mask comes from counter-based Philox4x32-10
@@ -30,7 +34,8 @@ import torch
 
 from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.activations import weak_const
-from lightningdot_tpu_torch.ops.attention import _warp_order_sum
+from lightningdot_tpu_torch.ops.attention import (_warp_order_sum,
+                                                  check_tensor_core_operands)
 
 # csrc/attention_fused.cu keeps one head's K and V (or Q and G) and a
 # 32-row tile in shared memory: up to 218 KB at S 256, D 64
@@ -210,10 +215,13 @@ def _check(what, tensors, seed, bias2d, nh):
 def attention_train_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bias2d: torch.Tensor, seed: torch.Tensor, *, nh: int,
                         rate: float, scale: float) -> torch.Tensor:
-    """Launch the forward kernel on contiguous CUDA tensors: q, k, v [B, S,
-    H*D] of one dtype, ``bias2d`` float32 [B, S], ``seed`` int64 [1]."""
+    """Launch the forward kernel of q's dtype on contiguous CUDA tensors:
+    q, k, v [B, S, H*D] of one dtype (bfloat16: head_dim a multiple of 8,
+    16-byte aligned), ``bias2d`` float32 [B, S], ``seed`` int64 [1]."""
     what = "attention_train_fwd kernel"
     code, b, s, d = _check(what, (q, k, v), seed, bias2d, nh)
+    if q.dtype == torch.bfloat16:
+        check_tensor_core_operands(what, d, q, k, v)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         _build.check(_build.lib().ldot_attention_train_fwd(

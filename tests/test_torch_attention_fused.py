@@ -310,8 +310,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_kernels_match_twins_on_card(dtype):
     """Both kernels within the kernels' tolerance of their twins at rate
-    0.1 at a training shape, and the forward kernel's mask (read with q = k
-    = 0 and v = I) equal to ``philox_keep``."""
+    0.1 at a training shape and at a ragged one (keys padded to 48, head
+    rows to 64), and the forward kernel's mask (read with q = k = 0 and v =
+    I) equal to ``philox_keep``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -319,20 +320,24 @@ def test_fused_kernels_match_twins_on_card(dtype):
     tol = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}[tdt]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    b, s, nh, d = 8, 64, 12, 64
-    q, k, v, g = (torch.randn((b, s, nh * d), device=dev, generator=gen)
-                  .to(tdt) for _ in range(4))
-    bias = torch.zeros((b, s), device=dev)
-    bias[0, 40:] = -10000.0
     seed = SEED.to(dev)
+    for b, s, nh, d in ((8, 64, 12, 64), (3, 37, 12, 32)):
+        q, k, v, g = (torch.randn((b, s, nh * d), device=dev, generator=gen)
+                      .to(tdt) for _ in range(4))
+        bias = torch.zeros((b, s), device=dev)
+        bias[0, 20:] = -10000.0
+        kw = dict(nh=nh, rate=0.1, scale=d ** -0.5)
+        out = af.attention_train_fwd(q, k, v, bias, seed, **kw)
+        want = af._fused_attn_fwd_math(q, k, v, bias, seed, nh, 0.1,
+                                       d ** -0.5)
+        assert _rel(_np(out.cpu()), _np(want.cpu())) <= tol
+        for a, w in zip(af.attention_train_bwd(q, k, v, bias, seed, g, **kw),
+                        af._fused_attn_bwd_math(q, k, v, bias, seed, g, nh,
+                                                0.1, d ** -0.5)):
+            assert _rel(_np(a.cpu()), _np(w.cpu())) <= tol
+    b, s, nh, d = 8, 64, 12, 64
     kw = dict(nh=nh, rate=0.1, scale=0.125)
-    out = af.attention_train_fwd(q, k, v, bias, seed, **kw)
-    want = af._fused_attn_fwd_math(q, k, v, bias, seed, nh, 0.1, 0.125)
-    assert _rel(_np(out.cpu()), _np(want.cpu())) <= tol
-    for a, w in zip(af.attention_train_bwd(q, k, v, bias, seed, g, **kw),
-                    af._fused_attn_bwd_math(q, k, v, bias, seed, g, nh, 0.1,
-                                            0.125)):
-        assert _rel(_np(a.cpu()), _np(w.cpu())) <= tol
+    bias = torch.zeros((b, s), device=dev)
     zeros = torch.zeros((b, s, nh * d), device=dev, dtype=tdt)
     eye = torch.eye(s, device=dev, dtype=tdt)[None, :, None, :].expand(
         b, s, nh, d).reshape(b, s, nh * d).contiguous()

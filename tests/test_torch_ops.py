@@ -197,11 +197,14 @@ def test_kernels_match_twins_on_card(dtype):
     xd = x.to(dev).to(tdt)
     _close(layernorm.layer_norm(xd, scale, bias).cpu(),
            layernorm._ln_math(xd.float(), scale, bias, 1e-12).cpu(), tol)
-    q, k, v, b = (torch.from_numpy(a).to(dev)
-                  for a in _attention_inputs(4, 32, 12, 64, seed=7))
-    q, k, v = (t.to(tdt) for t in (q, k, v))
-    _close(attention.multi_head_attention(q, k, v, b).cpu(),
-           attention._attention_math(q, k, v, b, 0.125).cpu(), tol)
+    # a query bucket, and a ragged one: keys padded to 48, head rows to 64
+    for shape in ((4, 32, 12, 64), (3, 37, 12, 32)):
+        q, k, v, b = (torch.from_numpy(a).to(dev)
+                      for a in _attention_inputs(*shape, seed=7))
+        q, k, v = (t.to(tdt) for t in (q, k, v))
+        _close(attention.multi_head_attention(q, k, v, b).cpu(),
+               attention._attention_math(q, k, v, b,
+                                         shape[-1] ** -0.5).cpu(), tol)
     args = [torch.from_numpy(a).to(dev)
             for a in _ffn_inputs(32, h=768, inter=3072)]
     for i in (0, 1, 3):
