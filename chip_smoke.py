@@ -12,7 +12,7 @@ Phases, each of which exits non-zero on failure (no result is printed):
 2. kernels: each hand-written kernel against its plain PyTorch twin on the
    card, at the shapes of the paths below (the encode and training batches
    included:
-   attention at [128, 32|64|104], the bf16 FFN at 4,096-13,312 rows; the
+   attention at [128, 32|64|104], the bf16 FFN at 16-13,312 rows; the
    int8 FFN bit-equal to its twin) and at S 37, 65, 105 and 128 and head
    dim 32 for the ragged paths, with its median time beside the twin's
    (CUDA graph, CUDA events); the approximate top-k beside torch.topk over
@@ -58,17 +58,24 @@ in float32 and bfloat16, ``adamw`` over every parameter of both towers
 with a float32 and a bfloat16 first moment, bit for bit, and the fused
 training attention (``attention_train_fwd``/``_bwd``) at rate 0.1 at
 [64, 32|37|64|104], [8, 256] and head dim 32, after ``mask`` rows that read
-the kernels' Philox keep masks (q = k = 0 and v = I, or g = I) against
-``philox_keep`` bit for bit. The float32 attention forwards (S up to 256)
-are held bit for bit; the bfloat16 ones, on the tensor cores, within a
-bf16 ulp of their twins, no less accurate than the twins against the
-float32 computation, and the same bits on a second launch. Each row carries
-its bound (bytes or operations at the card's published rates) and, where
-one PyTorch call computes the same function, that call's time.
+the kernels' Philox keep masks against ``philox_keep`` bit for bit: the
+forward's (q = k = 0, v = I), the dk/dv kernel's (g = I) and the dq
+kernel's (k = I, g v^T = 1). The float32 kernels of the attention and the
+training attention are held bit for bit; the bfloat16 tensor-core kernels
+(the attention forwards, the training attention's backward, the FFN)
+within a bf16 ulp of their twins, no less accurate than the twins against
+the float32 computation, and the same bits on a second launch; the
+``resources`` rows print their registers and spills. Each row carries its
+bound (bytes or operations at the card's published rates) and, where one
+PyTorch call computes the same function, that call's time.
 
 Each path's kernel launch counters are reset just before it and read just
-after it. Then one JSON line listing the kernels, and as the last line
-``{"ok": true, "device": {...}}``. The script imports no JAX.
+after it: the bf16 query, encode and training paths must go through the
+tensor-core FFN (``ffn_mma``) and backward (``attention_train_bwd_mma``)
+and through neither FMA form; the float32 checks of the query tower and
+of a training step against the CPU (``text_f32``, ``itm_train_f32``)
+through the FMA forms. Then one JSON line listing the kernels, and as the
+last line ``{"ok": true, "device": {...}}``. The script imports no JAX.
 """
 from __future__ import annotations
 
@@ -135,12 +142,31 @@ INT8_RANK_RTOL = 5e-3
 IMAGES = 4096
 IMG_BATCH = 128
 NUM_BB = 36
-# the kernels each path must launch
-PATH_KERNELS = {"text_bf16": ("layernorm", "attention", "ffn"),
-                "image_bf16": ("layernorm", "attention", "ffn"),
+# the kernels each path must launch: the bf16 paths the tensor-core FFN
+# and backward, the float32 checks (the query tower against the CPU, the
+# training step at attention dropout 0.1 against the CPU) their FMA forms
+PATH_KERNELS = {"text_f32": ("layernorm", "attention", "ffn"),
+                "text_bf16": ("layernorm", "attention", "ffn_mma"),
+                "image_bf16": ("layernorm", "attention", "ffn_mma"),
                 "int8_serving": ("layernorm", "attention", "ffn_int8"),
-                "itm_train": ("layernorm", "ffn", "ffn_dh1", "adamw",
-                              "attention_train_fwd", "attention_train_bwd")}
+                "itm_train": ("layernorm", "ffn_mma", "ffn_dh1", "adamw",
+                              "attention_train_fwd",
+                              "attention_train_bwd_mma"),
+                "itm_train_f32": ("layernorm", "ffn", "ffn_dh1", "adamw",
+                                  "attention_train_fwd",
+                                  "attention_train_bwd")}
+# the FMA forms that a bf16 path must not launch
+FMA_KERNELS = ("ffn", "attention_train_bwd")
+
+
+def hold_path(path, counts):
+    """Emit a path's launch counts; fail if a kernel it must launch did not
+    run, or (bf16 paths) an FMA form did."""
+    emit(phase="main_path_launches", path=path, **counts)
+    check(all(counts[k] > 0 for k in PATH_KERNELS[path]),
+          f"{path}: a kernel of the path was not launched: {counts}")
+    check(path.endswith("f32") or all(counts[k] == 0 for k in FMA_KERNELS),
+          f"{path}: the bf16 path went through an FMA kernel: {counts}")
 # the Philox keep masks: at rate 0.1 the kept fraction of the >= 1e6 draws
 # read from the kernels must be 0.9 within this
 KEEP_FRACTION_TOL = 0.005
@@ -426,31 +452,44 @@ def kernel_phase(device_name):
         # query rows (batch x length), the training rows (text 2,048 and
         # image 4,096), then in bfloat16 the encode batches: 128 captions x
         # 32, 128 images x 64 and x 104
+        half = dtype == torch.bfloat16
+        ffn_name = "ffn_mma" if half else "ffn"
         for n in (16, 32, 256, 2048, 4096) + (
-                (8192, 13312) if dtype == torch.bfloat16 else ()):
+                (8192, 13312) if half else ()):
             x = randn(n, 768, dtype=dtype)
             w1 = randn(768, 3072, scale=0.02, dtype=dtype)
             b1 = randn(3072, scale=0.02)
             w2 = randn(3072, 768, scale=0.02, dtype=dtype)
             b2 = randn(768, scale=0.02)
             io = (2 * n * 768 + 2 * 768 * 3072) * isz + (768 + 3072) * 4
+            # bfloat16 on the tensor cores: held as the bf16 attention rows
+            # (a bf16 ulp, as accurate as the twin against the float32
+            # computation of the same inputs, the same bits again)
+            held = dict(
+                reference=lambda: ffn._ffn_math(x.float(), w1.float(), b1,
+                                                w2.float(), b2)[0],
+                repeat=True) if half else {}
             rows.append(compare(
-                "ffn", (n, 768, 3072), dtype,
+                ffn_name, (n, 768, 3072), dtype,
                 lambda: ffn.ffn_gelu(x, w1, b1, w2, b2),
                 lambda: ffn._ffn_math(x, w1, b1, w2, b2)[0], device_name,
-                (io, 4 * n * 768 * 3072, _peak(dtype)), mode="forward"))
+                (io, 4 * n * 768 * 3072, _peak(dtype)), mode="forward",
+                **held))
             if n in (2048, 4096):
                 # the training forward also writes h1 and gelu(h1)
-                def twin_h1():
+                def twin_h1(x=x, w1=w1, w2=w2):
                     out, h1 = ffn._ffn_math(x, w1, b1, w2, b2)
                     return out, h1, ffn.gelu(h1)
 
+                held = dict(reference=lambda: twin_h1(
+                    x.float(), w1.float(), w2.float()),
+                            repeat=True) if half else {}
                 rows.append(compare(
-                    "ffn", (n, 768, 3072), dtype,
+                    ffn_name, (n, 768, 3072), dtype,
                     lambda: ffn.ffn_cuda(x, w1, b1, w2, b2, with_h1=True),
                     twin_h1, device_name,
                     (io + 2 * n * 3072 * isz, 4 * n * 768 * 3072,
-                     _peak(dtype)), mode="train"))
+                     _peak(dtype)), mode="train", **held))
                 gr = randn(n, 768, dtype=dtype)
                 h1 = randn(n, 3072, dtype=dtype)
                 rows.append(compare(
@@ -527,59 +566,82 @@ def fused_attention_rows(dtype, device_name, randn):
             return torch.autograd.grad(out, leaves, g4)
 
         rows.append(compare(
-            "attention_train_bwd", (b, s, 12, d), dtype,
+            "attention_train_bwd_mma" if half else "attention_train_bwd",
+            (b, s, 12, d), dtype,
             lambda: af.attention_train_bwd(q, k, v, bias, seed, g, **kw),
             lambda: af._fused_attn_bwd_math(q, k, v, bias, seed, g, 12, 0.1,
                                             d ** -0.5), device_name,
             (7 * elems * isz + b * s * 4, 5 * flops, _peak(dtype)),
-            library=sdpa_fwd_bwd, rate=0.1, library_rate=0.0))
+            library=sdpa_fwd_bwd, exact=not half,
+            reference=(lambda: af._fused_attn_bwd_math(
+                q.float(), k.float(), v.float(), bias, seed, g.float(), 12,
+                0.1, d ** -0.5)) if half else None, repeat=True, rate=0.1,
+            library_rate=0.0))
     return rows
 
 
 def mask_rows(device_name):
     """The kernels' Philox keep masks, read through the kernels themselves
-    at rate 0.1, [32, 64] x 12 heads (1,572,864 draws): the forward with q =
-    k = 0 and v = I (every probability 1/64, so out = the dropped
-    probabilities) and the backward with g = I (dv = the dropped
-    probabilities, transposed), each against ``philox_keep`` bit for bit;
-    the kept fraction; one seed repeats, another differs."""
+    at rate 0.1, [32, 64] x 12 heads (1,572,864 draws), each against
+    ``philox_keep`` bit for bit: the forward with q = k = 0 and v = I (every
+    probability 1/64, so out = the dropped probabilities); the backward's
+    dk/dv kernel with g = I (dv = the dropped probabilities, transposed);
+    its dq kernel with q = 0, k = I and g v^T = 1 everywhere (g and v the
+    first unit vector): dp = keep * mscale, so each dq row (= its ds row)
+    takes two values, the larger exactly where kept, and a row with a
+    single value is all kept. Then the kept fraction; one seed repeats,
+    another differs."""
     from lightningdot_tpu_torch.ops import attention_fused as af
 
     dev = torch.device("cuda")
     b, s, nh, d = 32, 64, 12, 64
     kw = dict(nh=nh, rate=0.1, scale=0.125)
     zero_bias = torch.zeros((b, s), device=dev)
+
+    def heads(x):
+        return x.view(b, s, nh, d).permute(0, 2, 1, 3)
+
     for dtype in (torch.float32, torch.bfloat16):
         z = torch.zeros((b, s, nh * d), device=dev, dtype=dtype)
         eye = (torch.eye(s, device=dev, dtype=dtype)[None, :, None, :]
                .expand(b, s, nh, d).reshape(b, s, nh * d).contiguous())
+        unit = torch.zeros((b, s, nh, d), device=dev, dtype=dtype)
+        unit[..., 0] = 1
+        unit = unit.reshape(b, s, nh * d)
 
         def masks(seed):
             out = af.attention_train_fwd(z, z, eye, zero_bias, seed, **kw)
             _, _, dv = af.attention_train_bwd(z, z, z, zero_bias, seed, eye,
                                               **kw)
-            return (out.view(b, s, nh, d).permute(0, 2, 1, 3) != 0,
-                    dv.view(b, s, nh, d).permute(0, 2, 3, 1) != 0)
+            dq, _, _ = af.attention_train_bwd(z, eye, unit, zero_bias, seed,
+                                              unit, **kw)
+            dq = heads(dq).float()
+            top = dq.amax(dim=-1, keepdim=True)
+            single = (dq == top).all(dim=-1, keepdim=True)
+            return (heads(out) != 0, heads(dv).transpose(-1, -2) != 0,
+                    (dq == top) | single)
 
         seed = torch.tensor([20261016], device=dev)
-        fwd, bwd = masks(seed)
-        again, _ = masks(seed.clone())
-        other, _ = masks(seed + 1)
+        fwd, bwd, bwd_q = masks(seed)
+        again, _, _ = masks(seed.clone())
+        other, _, _ = masks(seed + 1)
         want = af.philox_keep(seed, b, nh, s, s, 0.1)
         torch.cuda.synchronize()
         row = dict(phase="mask", dtype=str(dtype).replace("torch.", ""),
                    draws=want.numel(), rate=0.1,
                    fwd_equal=bool(torch.equal(fwd, want)),
                    bwd_equal=bool(torch.equal(bwd, want)),
+                   bwd_dq_equal=bool(torch.equal(bwd_q, want)),
                    differ_fwd=int((fwd != want).sum()),
                    differ_bwd=int((bwd != want).sum()),
+                   differ_bwd_dq=int((bwd_q != want).sum()),
                    keep_fraction=fwd.float().mean().item(),
                    same_seed_repeats=bool(torch.equal(fwd, again)),
                    other_seed_differs=not bool(torch.equal(fwd, other)),
                    other_seed_agreement=(fwd == other).float().mean().item(),
                    device=device_name)
         emit(**row)
-        check(row["fwd_equal"] and row["bwd_equal"],
+        check(row["fwd_equal"] and row["bwd_equal"] and row["bwd_dq_equal"],
               f"kernel masks differ from philox_keep: {row}")
         check(abs(row["keep_fraction"] - 0.9) <= KEEP_FRACTION_TOL,
               f"keep fraction {row['keep_fraction']} at rate 0.1")
@@ -809,6 +871,9 @@ def main_path(args, tok, device_name):
          queries=len(CAPTIONS))
     check(vec_err <= F32_VEC_ATOL, f"float32 vectors differ by {vec_err}")
     del r32, ref
+    counts_f32 = launch_counts()
+    hold_path("text_f32", counts_f32)
+    reset_launch_counts()
 
     # bfloat16, the serving configuration: plant each query's embedding
     r16 = Retriever(model(torch.bfloat16), tok, device=DEVICE)
@@ -854,14 +919,12 @@ def main_path(args, tok, device_name):
              p50_ms=p50[batch], p90_ms=float(np.percentile(lat, 90)),
              reps=len(lat), device=device_name)
     counts = launch_counts()
-    emit(phase="main_path_launches", path="text_bf16", **counts)
-    check(all(counts[k] > 0 for k in PATH_KERNELS["text_bf16"]),
-          f"a kernel was not launched on the main path: {counts}")
+    hold_path("text_bf16", counts)
     for batch in (1, 64):
         emit_profile("text_bf16", batch, lambda: r16.retrieve_batch_arrays(
             batches[batch], top=TOP), p50[batch])
-    return r16, dict(counts=counts, state=state, cfg=cfg, vec16=vec16,
-                     p50=p50)
+    return r16, dict(counts=counts, counts_f32=counts_f32, state=state,
+                     cfg=cfg, vec16=vec16, p50=p50)
 
 
 def serve_phase(r16):
@@ -1006,9 +1069,7 @@ def image_phase(args, ctx, device_name):
              seq_len=1 + (63 if d.num_bb == NUM_BB else 103),
              device=device_name)
     counts = launch_counts()
-    emit(phase="main_path_launches", path="image_bf16", **counts)
-    check(all(counts[k] > 0 for k in PATH_KERNELS["image_bf16"]),
-          f"a kernel was not launched on the image path: {counts}")
+    hold_path("image_bf16", counts)
     names = data.names + data100.names
     img = np.stack([vecs[n] for n in names])
     check(img.shape == (len(names), cfg.hidden_size)
@@ -1115,9 +1176,7 @@ def int8_phase(args, tok, ctx, img, device_name):
              p90_ms=float(np.percentile(lat, 90)), reps=len(lat),
              bf16_p50_ms=ctx["p50"][batch], device=device_name)
     counts = launch_counts()
-    emit(phase="main_path_launches", path="int8_serving", **counts)
-    check(all(counts[k] > 0 for k in PATH_KERNELS["int8_serving"]),
-          f"a kernel was not launched on the int8 path: {counts}")
+    hold_path("int8_serving", counts)
     for row in (lat_rows[0], lat_rows[-1]):
         emit_profile("int8_serving", row["batch"],
                      lambda: r8.retrieve_batch_arrays(row["queries"],
@@ -1370,11 +1429,9 @@ def train_phase(args, device_name):
          loss_first=losses[0], loss_last=losses[-1],
          grad_norm_last=float(metrics["grad_norm"]), device=device_name)
     check(all(np.isfinite(losses)), f"non-finite training loss: {losses}")
-    emit(phase="main_path_launches", path="itm_train", **counts)
+    hold_path("itm_train", counts)
     emit(phase="launches_per_step", path="itm_train", steps=TRAIN_STEPS,
          **{k: n / TRAIN_STEPS for k, n in counts.items()})
-    check(all(counts[k] > 0 for k in PATH_KERNELS["itm_train"]),
-          f"a kernel was not launched on the training path: {counts}")
     emit_profile("itm_train", TRAIN_BATCH,
                  lambda: step(batches[0], dropout_gen), p50, calls=3)
     composition_control(step, batches, dropout_gen)
@@ -1484,10 +1541,14 @@ def train_phase(args, device_name):
         st = make_itm_train_step(m, make_optimizer(m, 2e-5,
                                                    max_grad_norm=2.0),
                                  device=dev)
+        reset_launch_counts()
         loss = float(st(small, torch.Generator().manual_seed(
             args.seed + 4))["loss"])
+        if dev == DEVICE:
+            counts_f32 = launch_counts()
         drop[dev] = (loss, _grads(m))
         del m, st
+    hold_path("itm_train_f32", counts_f32)
     # the control: TF32 products on the card, the generators the step makes
     # from the same seed (the step itself refuses TF32 in float32)
     m = build(torch.float32, 0.0, attn_dropout=0.1).to(DEVICE)
@@ -1543,7 +1604,7 @@ def train_phase(args, device_name):
     check(row["loss_rel"] <= TRAIN_BF16_LOSS_RTOL
           and row["grad_cosine"] >= TRAIN_BF16_COSINE_MIN,
           f"bfloat16 training vs float32: {row}")
-    return dict(counts=counts, n_params=n_params)
+    return dict(counts=counts, counts_f32=counts_f32, n_params=n_params)
 
 
 REPLACES = {
@@ -1551,6 +1612,8 @@ REPLACES = {
                   "lightningdot_tpu/ops/layernorm.py:30"),
     "attention": ("lightningdot_tpu_torch/csrc/attention_mma.cu",
                   "lightningdot_tpu/ops/attention.py:87"),
+    "ffn_mma": ("lightningdot_tpu_torch/csrc/ffn_mma.cu",
+                "lightningdot_tpu/ops/ffn.py:77"),
     "ffn": ("lightningdot_tpu_torch/csrc/ffn.cu",
             "lightningdot_tpu/ops/ffn.py:77"),
     "ffn_int8": ("lightningdot_tpu_torch/csrc/ffn_int8.cu",
@@ -1562,6 +1625,9 @@ REPLACES = {
     "attention_train_fwd": (
         "lightningdot_tpu_torch/csrc/attention_mma.cu",
         "lightningdot_tpu/ops/experimental/attention_fused.py:117"),
+    "attention_train_bwd_mma": (
+        "lightningdot_tpu_torch/csrc/attention_mma_bwd.cu",
+        "lightningdot_tpu/ops/experimental/attention_fused.py:136"),
     "attention_train_bwd": (
         "lightningdot_tpu_torch/csrc/attention_fused.cu",
         "lightningdot_tpu/ops/experimental/attention_fused.py:136"),
@@ -1569,22 +1635,26 @@ REPLACES = {
 # the row each kernel reports in the kernels line: the serving shape (batch
 # 64, 32 tokens, bf16) for the serving kernels; the training step's image
 # tower (64 x 64 rows, bf16) for dh1 and the training attention; every
-# parameter with a float32 first moment for AdamW. The bf16 attention
+# parameter with a float32 first moment for AdamW; the float32 FMA forms of
+# the FFN and the backward at the bf16 rows' shapes. The bf16 attention
 # forwards run the tensor-core kernel, the source named above
 REPORT_ROW = {"layernorm": ([2048, 768], "bfloat16"),
               "attention": ([64, 32, 12, 64], "bfloat16"),
-              "ffn": ([2048, 768, 3072], "bfloat16"),
+              "ffn_mma": ([2048, 768, 3072], "bfloat16"),
+              "ffn": ([2048, 768, 3072], "float32"),
               "ffn_int8": ([2048, 768, 3072], "bfloat16"),
               "ffn_dh1": ([4096, 768, 3072], "bfloat16"),
               "adamw": (None, "float32"),
               "attention_train_fwd": ([64, 64, 12, 64], "bfloat16"),
-              "attention_train_bwd": ([64, 64, 12, 64], "bfloat16")}
+              "attention_train_bwd_mma": ([64, 64, 12, 64], "bfloat16"),
+              "attention_train_bwd": ([64, 64, 12, 64], "float32")}
 # the path whose launch count the kernels line reports for each kernel
 REPORT_PATH = {"layernorm": "text_bf16", "attention": "text_bf16",
-               "ffn": "text_bf16", "ffn_int8": "int8_serving",
-               "ffn_dh1": "itm_train", "adamw": "itm_train",
-               "attention_train_fwd": "itm_train",
-               "attention_train_bwd": "itm_train"}
+               "ffn_mma": "text_bf16", "ffn": "text_f32",
+               "ffn_int8": "int8_serving", "ffn_dh1": "itm_train",
+               "adamw": "itm_train", "attention_train_fwd": "itm_train",
+               "attention_train_bwd_mma": "itm_train",
+               "attention_train_bwd": "itm_train_f32"}
 
 
 def main() -> int:
@@ -1607,8 +1677,10 @@ def main() -> int:
     _build.lib()
     emit(phase="build", seconds=time.perf_counter() - t0,
          nvcc_seconds=_build.build_seconds)
-    # the tensor-core attention's register file: one kernel per bucket of
-    # keys (32, 64, 128, 256) and epilogue (0 deferred, 1 normalized)
+    # the tensor-core kernels' register files: the attention forward, one
+    # kernel per bucket of keys (32, 64, 128, 256) and epilogue (0
+    # deferred, 1 normalized); the backward's dq and dk/dv kernels; the
+    # FFN's GEMM (epilogue 0 fc1, 1 fc2) and its split pass
     for name, (regs, spill_st, spill_ld) in sorted(
             _build.ptxas_report("attention_mma").items()):
         keys, epilogue = re.search(r"kernelILi(\d+)ELi(\d)E", name).groups()
@@ -1616,6 +1688,14 @@ def main() -> int:
              epilogue=("deferred", "normalized")[int(epilogue)],
              registers=regs, spill_store_bytes=spill_st,
              spill_load_bytes=spill_ld)
+    for stem in ("attention_mma_bwd", "ffn_mma"):
+        for name, (regs, spill_st, spill_ld) in sorted(
+                _build.ptxas_report(stem).items()):
+            entry = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d)E)?", name)
+            emit(phase="resources", kernel=stem, entry=entry.group(1) + (
+                f"<{entry.group(2)}>" if entry.group(2) else ""),
+                 registers=regs, spill_store_bytes=spill_st,
+                 spill_load_bytes=spill_ld)
 
     mask_rows(device_name)
     rows = kernel_phase(device_name)
@@ -1629,12 +1709,14 @@ def main() -> int:
         r16, ctx = main_path(args, tok, device_name)
         serve_phase(r16)
         del r16
-        paths = {"text_bf16": ctx["counts"]}
+        paths = {"text_f32": ctx["counts_f32"], "text_bf16": ctx["counts"]}
         img = image_phase(args, ctx, device_name)
         paths["image_bf16"] = img["counts"]
         paths["int8_serving"] = int8_phase(args, tok, ctx, img, device_name)
         del ctx, img
-    paths["itm_train"] = train_phase(args, device_name)["counts"]
+    train = train_phase(args, device_name)
+    paths["itm_train"] = train["counts"]
+    paths["itm_train_f32"] = train["counts_f32"]
     check(all(any(c[name] > 0 for c in paths.values()) for name in REPLACES),
           f"a kernel was launched on no path: {paths}")
 

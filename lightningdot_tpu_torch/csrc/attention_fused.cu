@@ -6,9 +6,10 @@
 // attention_fused.py::_fwd_kernel (:117) and ::_bwd_kernel (:136), launched
 // by _call (:221), and reproduces their rounding points (the plain twins are
 // ops/attention_fused.py::_fused_attn_fwd_math and ::_fused_attn_bwd_math).
-// The bfloat16 forward runs on the tensor cores (attention_mma.cu, the same
-// rounding points, float32 sums in another order); the float32 forward and
-// both backward dtypes run on the FMA kernels below:
+// bfloat16 runs on the tensor cores (the forward in attention_mma.cu, the
+// backward in attention_mma_bwd.cu: the same rounding points, float32 sums
+// in another order); float32 runs on the FMA kernels below, bit-equal to the
+// twins:
 //   forward:  s = (q.k) * scale + key_bias, float32 softmax e / sum(e),
 //             p rounded to T, then p * keep * (1/(1-rate) rounded to T),
 //             out = dropped . v accumulated in float32;
@@ -26,8 +27,8 @@
 // D 64) the forward moves 4 B S H D elements and does 4 B H S^2 D flops,
 // the backward 7 B S H D elements and 10 B H S^2 D flops (the recomputed
 // scores twice): between 10 and 100 flops per byte, so the float32 FMA rate
-// bounds them, not the memory. This first design is simple rather than
-// fast: float32 FMA from shared memory, no tensor cores. Each block stages
+// bounds these float32 kernels, not the memory. The design is simple rather
+// than fast: float32 FMA from shared memory. Each block stages
 // one head's K and V (or Q and G) whole and a 32-row tile of the other side
 // in shared memory as float32, rows padded by one word where threads of a
 // warp walk across rows, and keeps 32 whole rows of scores, so every
@@ -443,7 +444,9 @@ extern "C" int ldot_attention_train_fwd(
 }
 
 // as above, with g, dq, dk, dv: [batch, seq, heads * head_dim] and stats:
-// float32 scratch of 3 * batch * heads * seq (per-row max, sum, sum(dp p))
+// float32 scratch of 3 * batch * heads * seq (per-row max, sum, sum(dp p));
+// bfloat16 on the tensor cores (the same needs as the forward, g, dq, dk and
+// dv 16-byte aligned too)
 extern "C" int ldot_attention_train_bwd(
     const void* q, const void* k, const void* v, const float* bias,
     const long long* seed, const void* g, void* dq, void* dk, void* dv,
@@ -456,7 +459,26 @@ extern "C" int ldot_attention_train_bwd(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ldot::kFloat32)
     return launch_bwd<float>(a, batch, g, dq, dk, dv, stats, s);
-  if (dtype == ldot::kBFloat16)
-    return launch_bwd<__nv_bfloat16>(a, batch, g, dq, dk, dv, stats, s);
+  if (dtype == ldot::kBFloat16) {
+    const ldot::AttnMmaBwd m{static_cast<const __nv_bfloat16*>(q),
+                             static_cast<const __nv_bfloat16*>(k),
+                             static_cast<const __nv_bfloat16*>(v),
+                             static_cast<const __nv_bfloat16*>(g),
+                             bias,
+                             seed,
+                             static_cast<__nv_bfloat16*>(dq),
+                             static_cast<__nv_bfloat16*>(dk),
+                             static_cast<__nv_bfloat16*>(dv),
+                             stats,
+                             seq,
+                             heads,
+                             head_dim,
+                             scale,
+                             mscale,
+                             mscale_f32,
+                             thresh,
+                             dropout};
+    return ldot::attention_mma_bwd(m, batch, s);
+  }
   return cudaErrorInvalidValue;
 }

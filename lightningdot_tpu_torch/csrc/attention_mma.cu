@@ -40,9 +40,10 @@
 // 128- and 256-key buckets (66 / 79 / 114 / 182 normalized), no spills: 16
 // blocks of 2 warps per SM at S 32, then 6 / 4 / 2 blocks of 4 warps, the
 // registers the limit (shared memory would allow 9 / 5 / 3). The products
-// are mma.sync m16n8k16 (bf16
-// in, float32 accumulate): Q K^T with Q by ldmatrix.x4 and K read
-// non-transposed from its [S][D] rows; P V with the score accumulators
+// are mma.sync m16n8k16 (bf16 in, float32 accumulate; the staging,
+// ldmatrix and mma helpers are mma.cuh's, shared with the backward and the
+// FFN): Q K^T with Q by ldmatrix.x4 and K read non-transposed from its
+// [S][D] rows; P V with the score accumulators
 // repacked in registers as the A fragments (two n8 tiles per k16 step) and
 // V by ldmatrix.trans. The softmax runs in registers: a row's values sit on
 // a quad of 4 lanes, reduced by __shfl_xor 1 and 2; no score reaches shared
@@ -56,6 +57,7 @@
 #include <cstdint>
 
 #include "attention_mma.cuh"
+#include "mma.cuh"
 #include "philox.cuh"
 
 namespace {
@@ -82,79 +84,9 @@ size_t smem_bytes(int rows, int spad) {
          static_cast<size_t>(spad) * sizeof(float);
 }
 
-// byte offset of 16-byte chunk ch (0..7) of staged row r: the chunks are
-// permuted by r % 8, so the 8 rows that one ldmatrix matrix reads fall in 8
-// distinct groups of 4 banks
-__device__ __forceinline__ uint32_t swz(int r, int ch) {
-  return static_cast<uint32_t>(r * kRowBytes + ((ch ^ (r & 7)) << 4));
-}
-
-// 16 bytes global -> shared; ok = false reads nothing and writes zeros
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), c 16 x 8 float32
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16-exact floats as one A-fragment register (lo in the low half)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [r0, r0 + n) of one head of x ([B, S, H*D] at `base`, rows `rs`
-// elements apart) into the staging buffer at dst; zeros from row `valid`
-// on and from chunk `chunks` (= D / 8) on
-__device__ __forceinline__ void stage(const __nv_bfloat16* x, size_t base,
-                                      size_t rs, int r0, int n, int valid,
-                                      int chunks, uint32_t dst) {
-  for (int c = threadIdx.x; c < n * 8; c += blockDim.x) {
-    const int r = c >> 3;
-    const int ch = c & 7;
-    const bool ok = r < valid && ch < chunks;
-    const __nv_bfloat16* src =
-        ok ? x + base + static_cast<size_t>(r0 + r) * rs + ch * 8 : x;
-    cp_async16(dst + swz(r, ch), src, ok);
-  }
-}
+using ldot::cp_async_commit;
+using ldot::cp_async_wait;
+using ldot::mma_bf16;
 
 // KB: key blocks of 16 the score registers hold (the bucket of padded(S)
 // / 16); EPI: the epilogue
@@ -182,10 +114,10 @@ __global__ void __launch_bounds__(kMaxRows / 16 * 32)
   const int chunks = D / 8;
 
   // (Q, K), then V: V arrives while Q K^T runs
-  stage(a.q, base, rs, i0, rows, S - i0, chunks, sq);
-  stage(a.k, base, rs, 0, spad, S, chunks, sk);
+  ldot::stage<8>(a.q, base, rs, i0, rows, S - i0, chunks, sq);
+  ldot::stage<8>(a.k, base, rs, 0, spad, S, chunks, sk);
   cp_async_commit();
-  stage(a.v, base, rs, 0, spad, S, chunks, sv);
+  ldot::stage<8>(a.v, base, rs, 0, spad, S, chunks, sv);
   cp_async_commit();
   for (int j = threadIdx.x; j < spad; j += blockDim.x)
     sbias[j] = j < S ? a.bias[static_cast<size_t>(b) * S + j] : -INFINITY;
@@ -212,14 +144,12 @@ __global__ void __launch_bounds__(kMaxRows / 16 * 32)
     for (int ks = 0; ks < kMaxHeadDim / 16; ++ks) {
       if (ks < nks) {
         uint32_t qa[4];
-        ldsm_x4(qa, sq + swz(wr + (lane & 15), 2 * ks + (lane >> 4)));
-        const int m = lane >> 3;
+        ldot::load_a<8>(qa, sq, wr, ks, lane);
 #pragma unroll
         for (int kb = 0; kb < KB; ++kb) {
           if (kb < nkb) {
             uint32_t kf[4];
-            ldsm_x4(kf, sk + swz(16 * kb + (lane & 7) + ((m >> 1) << 3),
-                                 2 * ks + (m & 1)));
+            ldot::load_b_nk<8>(kf, sk, 16 * kb, ks, lane);
             mma_bf16(acc[2 * kb], qa, kf[0], kf[1]);
             mma_bf16(acc[2 * kb + 1], qa, kf[2], kf[3]);
           }
@@ -278,22 +208,9 @@ __global__ void __launch_bounds__(kMaxRows / 16 * 32)
 #pragma unroll
       for (int n = 0; n < 2 * KB; ++n) {
         if (n < 2 * nkb) {
-          // the Philox words of the lane's 4 elements: one call per lane
-          // covers the quad's 2 rows x 2 groups of 4 columns (counter
-          // (column / 4, row, head, item)); lanes t and t ^ 1 share a
-          // group and swap the words of the row the other drew
+          // the Philox words of the lane's 4 elements (philox.cuh)
           unsigned w[4] = {0u, 0u, 0u, 0u};
-          if (a.dropout) {
-            const uint4 r = ldot::philox4x32_10(
-                make_uint4(2 * n + (t >> 1), row + 8 * (t & 1), h, b), key);
-            const bool odd = t & 1;
-            const unsigned s0 = __shfl_xor_sync(kFull, odd ? r.x : r.z, 1);
-            const unsigned s1 = __shfl_xor_sync(kFull, odd ? r.y : r.w, 1);
-            w[0] = odd ? s0 : r.x;
-            w[1] = odd ? s1 : r.y;
-            w[2] = odd ? r.z : s0;
-            w[3] = odd ? r.w : s1;
-          }
+          if (a.dropout) ldot::keep_words_qk(w, key, row, 8 * n, t, h, b);
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             float p = ldot::round_to<__nv_bfloat16>(
@@ -320,21 +237,16 @@ __global__ void __launch_bounds__(kMaxRows / 16 * 32)
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   }
-  const int m = lane >> 3;
 #pragma unroll
   for (int kb = 0; kb < KB; ++kb) {
     if (kb < nkb) {
-      const uint32_t pa[4] = {
-          pack_bf16(acc[2 * kb][0], acc[2 * kb][1]),
-          pack_bf16(acc[2 * kb][2], acc[2 * kb][3]),
-          pack_bf16(acc[2 * kb + 1][0], acc[2 * kb + 1][1]),
-          pack_bf16(acc[2 * kb + 1][2], acc[2 * kb + 1][3])};
+      uint32_t pa[4];
+      ldot::repack_a(pa, acc[2 * kb], acc[2 * kb + 1]);
 #pragma unroll
       for (int dp = 0; dp < kMaxHeadDim / 16; ++dp) {
         if (dp < nks) {
           uint32_t vf[4];
-          ldsm_x4_trans(vf, sv + swz(16 * kb + (lane & 7) + ((m & 1) << 3),
-                                     2 * dp + (m >> 1)));
+          ldot::load_b_kn<8>(vf, sv, 16 * dp, kb, lane);
           mma_bf16(o[2 * dp], pa, vf[0], vf[1]);
           mma_bf16(o[2 * dp + 1], pa, vf[2], vf[3]);
         }
@@ -390,10 +302,6 @@ cudaError_t launch_bucket(const ldot::AttnMma& a, int batch,
   return launch<16, EPI>(a, batch, stream);
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 }  // namespace
 
 namespace ldot {
@@ -402,8 +310,9 @@ cudaError_t attention_mma(const AttnMma& a, int batch, int normalize,
                           cudaStream_t stream) {
   if (batch <= 0 || a.seq <= 0 || a.heads <= 0 || a.head_dim <= 0 ||
       a.seq > kMaxSeq || a.head_dim > kMaxHeadDim || a.head_dim % 8 != 0 ||
-      !aligned16(a.q) || !aligned16(a.k) || !aligned16(a.v) ||
-      !aligned16(a.out) || (a.dropout && !normalize))
+      !ldot::aligned16(a.q) || !ldot::aligned16(a.k) ||
+      !ldot::aligned16(a.v) || !ldot::aligned16(a.out) ||
+      (a.dropout && !normalize))
     return cudaErrorInvalidValue;
   if (normalize) return launch_bucket<kNormalized>(a, batch, stream);
   return launch_bucket<kDeferred>(a, batch, stream);

@@ -1,11 +1,14 @@
-// Fused feed-forward block, forward:
+// Fused feed-forward block, forward, in float32:
 //   out = gelu(x W1 + b1) W2 + b2,  x [rows, H], W1 [H, I], W2 [I, H],
 // and, for the backward, optionally h1 = x W1 + b1 and inter = gelu(h1)
-// [rows, I] (both in the compute dtype).
+// [rows, I].
 //
-// Replaces the TPU kernel lightningdot_tpu/ops/ffn.py::_ffn_kernel
-// (launched by _ffn_pallas; with_h1 and with_inter under the default
-// "store" policy when the training path needs a gradient). Numerics follow
+// Replaces, in float32, the TPU kernel lightningdot_tpu/ops/ffn.py::
+// _ffn_kernel (launched by _ffn_pallas; with_h1 and with_inter under the
+// default "store" policy when the training path needs a gradient); bfloat16
+// runs on the tensor cores (ffn_mma.cu). float32 serves the checks of the
+// card against the CPU (the tensor cores have no float32 product). The
+// kernel stays generic in its element type T. Numerics follow
 // ops/ffn.py::_ffn_math: both products accumulate in float32, b1 is added
 // in float32 and h1 is rounded to the compute dtype, the erf GELU is
 // evaluated op by op with the compute dtype's rounding after each op (as
@@ -257,9 +260,9 @@ cudaError_t dispatch(const void* x, const void* w1, const float* b1,
 
 }  // namespace
 
-// x, out: [rows, H]; w1: [H, I]; w2: [I, H] (all contiguous, float32 or
-// bfloat16 by dtype code); b1 [I], b2 [H] float32. h1, inter: [rows, I] in
-// the compute dtype, both given or both null. workspace: float32
+// x, out: [rows, H]; w1: [H, I]; w2: [I, H] (all contiguous float32, dtype
+// code 0; any other code is refused); b1 [I], b2 [H] float32. h1, inter:
+// [rows, I] float32, both given or both null. workspace: float32
 // [splits, rows, H] when splits > 1 (unused otherwise). H % 32 == 0,
 // H <= 1024, I % 32 == 0, 1 <= splits <= I / 32.
 extern "C" int ldot_ffn(const void* x, const void* w1, const float* b1,
@@ -275,8 +278,5 @@ extern "C" int ldot_ffn(const void* x, const void* w1, const float* b1,
   if (dtype == ldot::kFloat32)
     return dispatch<float>(x, w1, b1, w2, b2, out, h1, inter, workspace,
                            rows, H, I, splits, s);
-  if (dtype == ldot::kBFloat16)
-    return dispatch<__nv_bfloat16>(x, w1, b1, w2, b2, out, h1, inter,
-                                   workspace, rows, H, I, splits, s);
-  return cudaErrorInvalidValue;
+  return cudaErrorInvalidValue;   // bfloat16: ldot_ffn_mma (ffn_mma.cu)
 }

@@ -3,15 +3,21 @@
 Counterpart of lightningdot_tpu/ops. Each op takes its kernel for a CUDA
 tensor (raising on a shape or dtype the kernel does not take) and its twin
 for a CPU tensor. Each kernel wrapper counts its launches in a
-``launches`` attribute; :func:`launch_counts` reads them all.
+``launches`` attribute; :func:`launch_counts` reads them all. Where a dtype
+has a kernel of its own (the FFN and the training attention's backward:
+bfloat16 on the tensor cores, float32 on FMA units), each has its own
+wrapper and count ("ffn" / "ffn_mma", "attention_train_bwd" /
+"attention_train_bwd_mma").
 """
 from lightningdot_tpu_torch.ops.activations import gelu  # noqa: F401
 from lightningdot_tpu_torch.ops.adamw import adamw_, adamw_cuda  # noqa: F401
 from lightningdot_tpu_torch.ops.attention import (  # noqa: F401
     attention_cuda, attention_nodrop, multi_head_attention)
 from lightningdot_tpu_torch.ops.attention_fused import (  # noqa: F401
-    attention_train_bwd, attention_train_fwd, fused_attention_train)
-from lightningdot_tpu_torch.ops.ffn import ffn_cuda, ffn_gelu  # noqa: F401
+    attention_train_bwd, attention_train_bwd_fma, attention_train_bwd_mma,
+    attention_train_fwd, fused_attention_train)
+from lightningdot_tpu_torch.ops.ffn import (  # noqa: F401
+    ffn_cuda, ffn_fma_cuda, ffn_gelu, ffn_mma_cuda)
 from lightningdot_tpu_torch.ops.ffn_dh1 import ffn_dh1_cuda  # noqa: F401
 from lightningdot_tpu_torch.ops.ffn_int8 import (  # noqa: F401
     ffn_gelu_int8, ffn_int8_cuda)
@@ -22,12 +28,14 @@ from lightningdot_tpu_torch.ops.matmul import mm_f32, mm_int8  # noqa: F401
 KERNEL_WRAPPERS = {
     "layernorm": layer_norm_cuda,
     "attention": attention_cuda,
-    "ffn": ffn_cuda,
+    "ffn": ffn_fma_cuda,
+    "ffn_mma": ffn_mma_cuda,
     "ffn_int8": ffn_int8_cuda,
     "ffn_dh1": ffn_dh1_cuda,
     "adamw": adamw_cuda,
     "attention_train_fwd": attention_train_fwd,
-    "attention_train_bwd": attention_train_bwd,
+    "attention_train_bwd": attention_train_bwd_fma,
+    "attention_train_bwd_mma": attention_train_bwd_mma,
 }
 
 

@@ -48,6 +48,9 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, out, h1, inter, workspace, rows, H, I, splits,
     # dtype, stream
     "ldot_ffn": (_P,) * 9 + (_I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, out, h1, inter, workspace, rows, H, I, splits1,
+    # per1, splits2, per2, stream
+    "ldot_ffn_mma": (_P,) * 9 + (_I,) * 7 + (_P,),
     # g, h1, w2, dh1, rows, H, I, dtype, stream
     "ldot_ffn_dh1": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     # table, chunks, n_chunks, scale, step_size, lr, b1, 1 - b1, b2,

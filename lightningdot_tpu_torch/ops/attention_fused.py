@@ -6,10 +6,11 @@ kernels (``csrc/attention_fused.cu``) replace the TPU kernels
 ``_fwd_kernel`` (:117) and ``_bwd_kernel`` (:136), launched by ``_call``
 (:221) from ``fused_attention_train`` (:283-308), JAX's training attention
 under ``LDOT_ATTN_KERNEL=1`` (lightningdot_tpu/models/encoder.py:308-324).
-The bfloat16 forward runs on the tensor cores (``csrc/attention_mma.cu``,
-the kernel of bfloat16 ``multi_head_attention`` with a normalize-and-drop
-epilogue): the twin's rounding points, float32 sums in another order. The
-float32 forward and the backward run on FMA units. In the port it is the
+bfloat16 runs on the tensor cores: the forward in ``csrc/attention_mma.cu``
+(the kernel of bfloat16 ``multi_head_attention`` with a normalize-and-drop
+epilogue), the backward in ``csrc/attention_mma_bwd.cu``; both keep the
+twins' rounding points and sum in float32 in another order. float32 runs
+on FMA units, bit-equal to the twins. In the port it is the
 training attention of every tower at a dropout rate above 0, on both
 devices: the kernels on CUDA, the twins on the CPU.
 
@@ -38,7 +39,8 @@ from lightningdot_tpu_torch.ops.attention import (_warp_order_sum,
                                                   check_tensor_core_operands)
 
 # csrc/attention_fused.cu keeps one head's K and V (or Q and G) and a
-# 32-row tile in shared memory: up to 218 KB at S 256, D 64
+# 32-row tile in shared memory as float32: up to 218 KB at S 256, D 64
+# (csrc/attention_mma_bwd.cu 81 KB in bfloat16)
 MAX_SEQ = 256
 MAX_HEAD_DIM = 64
 
@@ -237,15 +239,12 @@ def attention_train_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 attention_train_fwd.launches = 0
 
 
-def attention_train_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        bias2d: torch.Tensor, seed: torch.Tensor,
-                        g: torch.Tensor, *, nh: int, rate: float,
-                        scale: float):
-    """Launch the backward kernels (dq with the per-row statistics, then dk
-    and dv) on contiguous CUDA tensors as :func:`attention_train_fwd`
-    takes them, ``g`` the output's cotangent. Returns (dq, dk, dv)."""
-    what = "attention_train_bwd kernel"
+def _launch_bwd(what, dtype, q, k, v, bias2d, seed, g, nh, rate, scale):
     code, b, s, d = _check(what, (q, k, v, g), seed, bias2d, nh)
+    if q.dtype != dtype:
+        raise TypeError(f"{what}: takes {dtype}, got {q.dtype}")
+    if dtype == torch.bfloat16:
+        check_tensor_core_operands(what, d, q, k, v, g)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     stats = torch.empty((3, b * nh, s), dtype=torch.float32, device=q.device)
     inv = 1.0 / (1.0 - rate) if rate > 0 else 1.0
@@ -256,11 +255,54 @@ def attention_train_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.data_ptr(), stats.data_ptr(), b, s, nh, d, scale,
             weak_const(inv, q.dtype), inv, keep_threshold(rate),
             int(rate > 0), code, _build.stream_ptr(q)), what)
-    attention_train_bwd.launches += 1
     return dq, dk, dv
 
 
-attention_train_bwd.launches = 0
+def attention_train_bwd_fma(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, bias2d: torch.Tensor,
+                            seed: torch.Tensor, g: torch.Tensor, *, nh: int,
+                            rate: float, scale: float):
+    """Launch the float32 backward kernels (``csrc/attention_fused.cu``: dq
+    with the per-row statistics, then dk and dv) on contiguous CUDA tensors
+    as :func:`attention_train_fwd` takes them, ``g`` the output's
+    cotangent. Returns (dq, dk, dv)."""
+    grads = _launch_bwd("attention_train_bwd kernel", torch.float32, q, k,
+                        v, bias2d, seed, g, nh, rate, scale)
+    attention_train_bwd_fma.launches += 1
+    return grads
+
+
+attention_train_bwd_fma.launches = 0
+
+
+def attention_train_bwd_mma(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, bias2d: torch.Tensor,
+                            seed: torch.Tensor, g: torch.Tensor, *, nh: int,
+                            rate: float, scale: float):
+    """Launch the bfloat16 backward on the tensor cores
+    (``csrc/attention_mma_bwd.cu``: a dq kernel with the per-row
+    statistics, then a dk/dv kernel) on contiguous CUDA tensors: head_dim a
+    multiple of 8, q, k, v and g 16-byte aligned. Returns (dq, dk, dv)."""
+    grads = _launch_bwd("attention_train_bwd tensor-core kernel",
+                        torch.bfloat16, q, k, v, bias2d, seed, g, nh, rate,
+                        scale)
+    attention_train_bwd_mma.launches += 1
+    return grads
+
+
+attention_train_bwd_mma.launches = 0
+
+
+def attention_train_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        bias2d: torch.Tensor, seed: torch.Tensor,
+                        g: torch.Tensor, *, nh: int, rate: float,
+                        scale: float):
+    """The backward kernels of q's dtype: bfloat16 on the tensor cores
+    (:func:`attention_train_bwd_mma`), float32 on FMA units
+    (:func:`attention_train_bwd_fma`). Returns (dq, dk, dv)."""
+    launch = (attention_train_bwd_mma if q.dtype == torch.bfloat16
+              else attention_train_bwd_fma)
+    return launch(q, k, v, bias2d, seed, g, nh=nh, rate=rate, scale=scale)
 
 
 class _FusedAttention(torch.autograd.Function):

@@ -1,20 +1,26 @@
-"""Fused FFN (dense -> erf GELU -> dense) with its gradient: a CUDA kernel
-and its plain PyTorch twin.
+"""Fused FFN (dense -> erf GELU -> dense) with its gradient: CUDA kernels
+and their plain PyTorch twin.
 
 Counterpart of lightningdot_tpu/ops/ffn.py (``_ffn_math``, ``_ffn`` and its
-custom VJP ``_ffn_fwd``/``_ffn_bwd``, :193-241). The kernel
-(``csrc/ffn.cu``) replaces the TPU kernel ``_ffn_kernel``
-(lightningdot_tpu/ops/ffn.py:77, launched by ``_ffn_pallas``): without a
-gradient it writes the output only; under autograd also h1 and gelu(h1)
-(``with_h1``/``with_inter`` under the default "store" policy, :176-181).
-The backward's dh1 goes through ``ops/ffn_dh1.py``'s kernel; its three
-weight products are plain float32-accumulated products, as JAX leaves them
-to XLA. The TPU dispatch gates (rows >= 256 and the VMEM fit) are not
-carried over: every CUDA call takes the kernel.
+custom VJP ``_ffn_fwd``/``_ffn_bwd``, :193-241). The kernels replace the TPU
+kernel ``_ffn_kernel`` (lightningdot_tpu/ops/ffn.py:77, launched by
+``_ffn_pallas``), split by dtype in :func:`ffn_cuda`: bfloat16 runs on the
+tensor cores (``csrc/ffn_mma.cu``, :func:`ffn_mma_cuda`: the twin's
+rounding points, float32 sums in another order, so within a bf16 ulp of the
+twin rather than bit-equal), float32 on FMA units (``csrc/ffn.cu``,
+:func:`ffn_fma_cuda`). Without a gradient they write the output only; under
+autograd also h1 and gelu(h1) (``with_h1``/``with_inter`` under the default
+"store" policy, :176-181). The backward's dh1 goes through
+``ops/ffn_dh1.py``'s kernel; its three weight products are plain
+float32-accumulated products, as JAX leaves them to XLA. The TPU dispatch
+gates (rows >= 256 and the VMEM fit) are not carried over: every CUDA call
+takes a kernel.
 
 Weights are in the JAX package's [in, out] layout: w1 [H, I], w2 [I, H].
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -23,10 +29,13 @@ from lightningdot_tpu_torch.ops.activations import gelu
 from lightningdot_tpu_torch.ops.ffn_dh1 import ffn_dh1
 from lightningdot_tpu_torch.ops.matmul import mm_f32
 
-# csrc/ffn.cu: 16-row tiles, 32-column chunks of the intermediate
+# csrc/ffn.cu (float32): 16-row tiles, 32-column chunks of the intermediate
 _TILE_ROWS = 16
 _CHUNK = 32
 MAX_HIDDEN = 1024
+# csrc/ffn_mma.cu (bfloat16): 128 x 128 output tiles, k tiles of 64
+GEMM_TILE = 128
+GEMM_K_TILE = 64
 
 
 def _ffn_math(x, w1, b1, w2, b2):
@@ -38,7 +47,8 @@ def _ffn_math(x, w1, b1, w2, b2):
 
 
 def ffn_splits(rows: int, inter: int, num_sms: int) -> int:
-    """How many blocks share one row tile's intermediate dimension.
+    """How many blocks share one row tile's intermediate dimension in the
+    float32 kernel.
 
     Enough that the grid covers every SM about twice, at most one 32-wide
     chunk per block; then evened out so that no split is empty.
@@ -50,13 +60,53 @@ def ffn_splits(rows: int, inter: int, num_sms: int) -> int:
     return -(-n_chunks // per)
 
 
-def ffn_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-             w2: torch.Tensor, b2: torch.Tensor, *, with_h1: bool = False):
-    """Launch the fused FFN kernel on a [rows, H] CUDA tensor -> out, or
-    with ``with_h1`` (out, h1, gelu(h1)), the last two [rows, I]."""
-    what = "ffn kernel"
+class GemmPlan(NamedTuple):
+    """One launch of ``csrc/ffn_mma.cu``'s GEMM, C [m, n] = A [m, k] B [k,
+    n]: a grid of (col_tiles, row_tiles, splits) blocks, split z reducing k
+    tiles [z per, (z + 1) per)."""
+    row_tiles: int
+    col_tiles: int
+    splits: int
+    per: int
+
+
+def gemm_plan(m: int, n: int, k: int, num_sms: int) -> GemmPlan:
+    """The tensor-core GEMM's tiles and reduction split: enough splits that
+    the grid covers every SM about once when the output has too few tiles
+    (few rows), at most one k tile per split; then evened out so that no
+    split is empty (covering every SM twice, as the float32 kernel's
+    ``ffn_splits`` does, was slower on an H100 at 256 and 2,048 rows in a
+    development comparison). The kernel refuses a plan that leaves a k
+    tile out or a split empty."""
+    row_tiles = -(-m // GEMM_TILE)
+    col_tiles = -(-n // GEMM_TILE)
+    k_tiles = -(-k // GEMM_K_TILE)
+    splits = max(1, min(k_tiles,
+                        -(-num_sms // (row_tiles * col_tiles))))
+    per = -(-k_tiles // splits)
+    return GemmPlan(row_tiles, col_tiles, -(-k_tiles // per), per)
+
+
+def gemm_blocks(plan: GemmPlan, m: int, n: int, k: int):
+    """Yield each block's (rows, columns, k range) as the kernel computes
+    them from its block index (``gemm_kernel``), clipped to the matrix."""
+    k_tiles = -(-k // GEMM_K_TILE)
+    for z in range(plan.splits):
+        kt0 = z * plan.per
+        nkt = min(plan.per, k_tiles - kt0)
+        for y in range(plan.row_tiles):
+            for x in range(plan.col_tiles):
+                yield (range(y * GEMM_TILE, min(m, (y + 1) * GEMM_TILE)),
+                       range(x * GEMM_TILE, min(n, (x + 1) * GEMM_TILE)),
+                       range(kt0 * GEMM_K_TILE,
+                             min(k, (kt0 + nkt) * GEMM_K_TILE)))
+
+
+def _check_ffn(what, x2d, w1, b1, w2, b2, dtype):
     _build.require_cuda(what, x2d, w1, b1, w2, b2)
     code = _build.dtype_code(x2d, what)
+    if x2d.dtype != dtype:
+        raise TypeError(f"{what}: takes {dtype}, got {x2d.dtype}")
     rows, h = x2d.shape
     inter = w1.shape[1]
     if w1.dtype != x2d.dtype or w2.dtype != x2d.dtype:
@@ -68,6 +118,30 @@ def ffn_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                          f"form an FFN")
     if b1.dtype != torch.float32 or b2.dtype != torch.float32:
         raise TypeError(f"{what}: biases must be float32")
+    return code, rows, h, inter
+
+
+def check_mma_operands(what: str, h: int, inter: int,
+                       *tensors: torch.Tensor) -> None:
+    """The tensor-core kernel (``csrc/ffn_mma.cu``) copies whole 16-byte
+    chunks of rows: H and I must be multiples of 8, and x, w1 and w2
+    16-byte aligned."""
+    if h % 8 or inter % 8:
+        raise ValueError(f"{what}: needs H and I multiples of 8, got H={h}, "
+                         f"I={inter}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{what}: x, w1 and w2 must be 16-byte aligned")
+
+
+def ffn_fma_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor, *,
+                 with_h1: bool = False):
+    """Launch the float32 FFN kernel (``csrc/ffn.cu``) on a [rows, H] CUDA
+    tensor -> out, or with ``with_h1`` (out, h1, gelu(h1)), the last two
+    [rows, I]."""
+    what = "ffn kernel"
+    code, rows, h, inter = _check_ffn(what, x2d, w1, b1, w2, b2,
+                                      torch.float32)
     if h % 32 or h > MAX_HIDDEN or inter % _CHUNK:
         raise ValueError(f"{what}: needs H % 32 == 0, H <= {MAX_HIDDEN} and "
                          f"I % {_CHUNK} == 0, got H={h}, I={inter}")
@@ -87,11 +161,58 @@ def ffn_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             inter_out.data_ptr() if with_h1 else None,
             workspace.data_ptr() if workspace is not None else None,
             rows, h, inter, splits, code, _build.stream_ptr(x2d)), what)
-    ffn_cuda.launches += 1
+    ffn_fma_cuda.launches += 1
     return (out, h1, inter_out) if with_h1 else out
 
 
-ffn_cuda.launches = 0
+ffn_fma_cuda.launches = 0
+
+
+def ffn_mma_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                 w2: torch.Tensor, b2: torch.Tensor, *,
+                 with_h1: bool = False):
+    """Launch the bfloat16 tensor-core FFN (``csrc/ffn_mma.cu``: fc1 with
+    the bias-GELU epilogue, then fc2, each split as :func:`gemm_plan` says)
+    on a [rows, H] CUDA tensor -> out, or with ``with_h1`` (out, h1,
+    gelu(h1)). H and I must be multiples of 8 and x, w1, w2 16-byte
+    aligned (the kernel copies whole 16-byte chunks)."""
+    what = "ffn tensor-core kernel"
+    _, rows, h, inter = _check_ffn(what, x2d, w1, b1, w2, b2,
+                                   torch.bfloat16)
+    check_mma_operands(what, h, inter, x2d, w1, w2)
+    sms = _build.num_sms(x2d.device)
+    fc1, fc2 = gemm_plan(rows, inter, h, sms), gemm_plan(rows, h, inter, sms)
+    out = torch.empty_like(x2d)
+    inter_out = x2d.new_empty((rows, inter))
+    h1 = x2d.new_empty((rows, inter)) if with_h1 else None
+    ws = max(fc1.splits * rows * inter if fc1.splits > 1 else 0,
+             fc2.splits * rows * h if fc2.splits > 1 else 0)
+    workspace = (torch.empty(ws, dtype=torch.float32, device=x2d.device)
+                 if ws else None)
+    with torch.cuda.device(x2d.device):
+        _build.check(_build.lib().ldot_ffn_mma(
+            x2d.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), out.data_ptr(),
+            h1.data_ptr() if with_h1 else None, inter_out.data_ptr(),
+            workspace.data_ptr() if workspace is not None else None,
+            rows, h, inter, fc1.splits, fc1.per, fc2.splits, fc2.per,
+            _build.stream_ptr(x2d)), what)
+    ffn_mma_cuda.launches += 1
+    return (out, h1, inter_out) if with_h1 else out
+
+
+ffn_mma_cuda.launches = 0
+
+
+def ffn_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+             w2: torch.Tensor, b2: torch.Tensor, *, with_h1: bool = False):
+    """The FFN kernel of x's dtype on a [rows, H] CUDA tensor: bfloat16 on
+    the tensor cores (:func:`ffn_mma_cuda`), float32 on FMA units
+    (:func:`ffn_fma_cuda`). -> out, or with ``with_h1`` (out, h1,
+    gelu(h1))."""
+    if x2d.dtype == torch.bfloat16:
+        return ffn_mma_cuda(x2d, w1, b1, w2, b2, with_h1=with_h1)
+    return ffn_fma_cuda(x2d, w1, b1, w2, b2, with_h1=with_h1)
 
 
 def ffn_bwd(g, x2d, w1, w2, h1, inter):

@@ -1,11 +1,13 @@
-"""The padding rule of the bfloat16 tensor-core attention forward
-(``lightningdot_tpu_torch/csrc/attention_mma.cu``), held on the CPU through
-the twins: the kernel pads the keys to a multiple of 16 (a -inf key bias,
-zero K and V rows) and each head row to 64 (zeros), and must give the
-unpadded result. The kernel itself runs only on the card (chip_smoke.py and
-the ``cuda``-marked tests); here the twins, fed the padded operands, show
-that the rule is exact, and the unpadded twins are held against JAX's
-``_attention_math`` at those lengths.
+"""The padding rule of the bfloat16 tensor-core attention kernels (the
+forward, ``lightningdot_tpu_torch/csrc/attention_mma.cu``, and the training
+backward, ``attention_mma_bwd.cu``), held on the CPU through the twins: the
+kernels pad the keys to a multiple of 16 (a -inf key bias, zero K and V
+rows; the backward also zero query and G rows) and each head row to 64
+(zeros), and must give the unpadded result. The kernels themselves run
+only on the card (chip_smoke.py and the ``cuda``-marked tests); here the
+twins, fed the padded operands, show that the rule is exact, and the
+unpadded twins are held against JAX's ``_attention_math`` at those
+lengths.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -107,6 +109,44 @@ def test_fused_fwd_twin_is_padding_invariant(s, dtype):
     # the mask is live: the result differs from rate 0
     assert not torch.equal(want, af._fused_attn_fwd_math(
         flat(q), flat(k), flat(v), bias, SEED, NH, 0.0, SCALE))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", LENGTHS)
+def test_fused_bwd_twin_is_padding_invariant(s, dtype):
+    """``_fused_attn_bwd_math`` at rate 0.1 on the tensor-core backward's
+    padded operands (``csrc/attention_mma_bwd.cu``) gives the unpadded dq,
+    dk and dv: keys padded to a multiple of 16 with a -inf bias and zero K
+    and V rows, query rows zero-filled with zero G rows, head rows padded to
+    64. A padded key's probability is exactly 0, and a padded query row's
+    zero G makes its dp, its ds and its dV terms exactly 0, so no padded
+    element reaches a real one."""
+    arrays = _inputs(s, seed=s + 3)
+    q, k, v = _torch(arrays[:3], dtype)
+    bias = torch.from_numpy(arrays[3])
+    g = _torch([np.random.default_rng(s + 4).standard_normal(
+        (B, s, NH, D)).astype(np.float32)], dtype)[0]
+
+    def flat(x):
+        return x.reshape(x.shape[0], x.shape[1], -1)
+
+    want = af._fused_attn_bwd_math(flat(q), flat(k), flat(v), bias, SEED,
+                                   flat(g), NH, 0.1, SCALE)
+    # one sequence axis: queries and keys pad together, G rows with zeros
+    qp, kp, vp, bp = _pad(q, k, v, bias)
+    extra = kp.shape[1] - s
+    f = torch.nn.functional
+    qp = f.pad(qp, (0, 0, 0, 0, 0, extra))
+    gp = f.pad(g, (0, D_PAD - D, 0, 0, 0, extra))
+    got = af._fused_attn_bwd_math(flat(qp), flat(kp), flat(vp), bp, SEED,
+                                  flat(gp), NH, 0.1, SCALE)
+    for x, w in zip(got, want):
+        x = x.view(B, s + extra, NH, D_PAD)
+        assert x.dtype == w.dtype and torch.isfinite(x).all()
+        assert _rel_l2(x[:, :s, :, :D], w.view(B, s, NH, D)) <= PAD_REL_L2
+    # the mask is live: the result differs from rate 0
+    assert not torch.equal(want[2], af._fused_attn_bwd_math(
+        flat(q), flat(k), flat(v), bias, SEED, flat(g), NH, 0.0, SCALE)[2])
 
 
 @pytest.mark.parametrize("defer", [True, False])

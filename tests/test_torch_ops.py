@@ -17,8 +17,8 @@ from lightningdot_tpu.ops import attention as jattn
 from lightningdot_tpu.ops import ffn as jffn
 from lightningdot_tpu.ops import layernorm as jln
 from lightningdot_tpu.ops.activations import gelu as jgelu
-from lightningdot_tpu_torch.ops import (attention, ffn, ffn_int8,
-                                        launch_counts, layernorm)
+from lightningdot_tpu_torch.ops import (attention, attention_fused, ffn,
+                                        ffn_int8, launch_counts, layernorm)
 from lightningdot_tpu_torch.ops.activations import gelu
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 1e-5),
@@ -161,6 +161,37 @@ def test_ffn_splits_cover_the_card_without_empty_splits(rows, inter, sms,
     assert per * (splits - 1) < n_chunks <= per * splits
 
 
+@pytest.mark.parametrize("n,k", [(3072, 768), (768, 3072)])   # fc1, fc2
+@pytest.mark.parametrize("rows", [32, 256, 2048, 4096, 13312,
+                                  1, 31, 130, 257])
+def test_ffn_gemm_plan_covers_every_tile_and_k_slice_once(rows, n, k):
+    """The tensor-core FFN's GEMM plan (csrc/ffn_mma.cu, blocks as the
+    kernel reads its block index): every 128 x 128 output tile and every k
+    tile of 64 is reduced by exactly one block, no split is empty, the
+    ranges stop at the matrix's edges, and the kernel's plan check
+    (``plan_ok``) holds. Few rows split the reduction to cover the card."""
+    plan = ffn.gemm_plan(rows, n, k, 132)
+    k_tiles = -(-k // ffn.GEMM_K_TILE)
+    assert (plan.splits - 1) * plan.per < k_tiles <= plan.splits * plan.per
+    count = np.zeros((plan.row_tiles, plan.col_tiles, k_tiles), np.int64)
+    row_ends, col_ends = set(), set()
+    for r, c, kr in ffn.gemm_blocks(plan, rows, n, k):
+        assert len(r) and len(c) and len(kr)
+        assert len(r) <= ffn.GEMM_TILE and len(c) <= ffn.GEMM_TILE
+        assert r.start % ffn.GEMM_TILE == 0 and c.start % ffn.GEMM_TILE == 0
+        assert kr.start % ffn.GEMM_K_TILE == 0
+        count[r.start // ffn.GEMM_TILE, c.start // ffn.GEMM_TILE,
+              kr.start // ffn.GEMM_K_TILE:
+              -(-kr.stop // ffn.GEMM_K_TILE)] += 1
+        row_ends.add(r.stop)
+        col_ends.add(c.stop)
+    assert (count == 1).all()
+    assert max(row_ends) == rows and max(col_ends) == n
+    if rows * n <= 256 * 3072:     # few tiles: the reduction is split
+        assert plan.splits > 1     # to about one block per SM
+        assert plan.row_tiles * plan.col_tiles * plan.splits >= 132 // 2
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros(4, 32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
@@ -176,10 +207,44 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ffn_int8.ffn_int8_cuda(x.to(torch.bfloat16), w, torch.ones(64),
                                torch.zeros(64), w, torch.ones(64),
                                torch.zeros(64))
+    # the dtype-split wrappers: the tensor-core FFN and backward (bf16),
+    # the FMA backward (f32), each refusing a CPU tensor before any launch
+    xb, w1b, w2b = (t.to(torch.bfloat16) for t in (x, torch.zeros(32, 64),
+                                                   torch.zeros(64, 32)))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ffn.ffn_mma_cuda(xb, w1b, torch.zeros(64), w2b, torch.zeros(32))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        ffn.ffn_cuda(xb, w1b, torch.zeros(64), w2b, torch.zeros(32),
+                     with_h1=True)
+    qkv = torch.zeros(1, 4, 16)
+    for fn, dt in ((attention_fused.attention_train_bwd_fma, torch.float32),
+                   (attention_fused.attention_train_bwd_mma, torch.bfloat16),
+                   (attention_fused.attention_train_bwd, torch.bfloat16)):
+        t = qkv.to(dt)
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            fn(t, t, t, torch.zeros(1, 4), torch.zeros(1, dtype=torch.int64),
+               t, nh=2, rate=0.1, scale=0.35)
+    # their operand checks: whole 16-byte chunks (a width or head dim that
+    # is a multiple of 8) and 16-byte aligned operands
+    ffn.check_mma_operands("k", 768, 3072, xb, w1b, w2b)
+    for h, inter in ((36, 3072), (768, 3076)):
+        with pytest.raises(ValueError, match="multiples of 8"):
+            ffn.check_mma_operands("k", h, inter, xb, w1b, w2b)
+    shifted = w1b.reshape(-1)[1:]                   # 2 bytes past a chunk
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ffn.check_mma_operands("k", 768, 3072, xb, shifted, w2b)
+    g = torch.zeros(4, 4, 2 * 72, dtype=torch.bfloat16)
+    attention.check_tensor_core_operands("k", 72, g, g, g, g)
+    with pytest.raises(ValueError, match="head_dim % 8"):
+        attention.check_tensor_core_operands("k", 36, g, g, g, g)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        attention.check_tensor_core_operands("k", 64, g, g, g,
+                                             g.reshape(-1)[1:])
     assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0,
-                               "ffn_int8": 0, "ffn_dh1": 0, "adamw": 0,
-                               "attention_train_fwd": 0,
-                               "attention_train_bwd": 0}
+                               "ffn_mma": 0, "ffn_int8": 0, "ffn_dh1": 0,
+                               "adamw": 0, "attention_train_fwd": 0,
+                               "attention_train_bwd": 0,
+                               "attention_train_bwd_mma": 0}
 
 
 @pytest.mark.cuda
