@@ -13,7 +13,8 @@ Phases, each of which exits non-zero on failure (no result is printed):
    card, at the shapes of the paths below (the encode and training batches
    included:
    attention at [128, 32|64|104], the bf16 FFN at 16-13,312 rows; the
-   int8 FFN bit-equal to its twin) and at S 37, 65, 105 and 128 and head
+   int8 FFN at 16-4,096 rows and a ragged 37, bit-equal to its twin and
+   to itself on a second launch) and at S 37, 65, 105 and 128 and head
    dim 32 for the ragged paths, with its median time beside the twin's
    (CUDA graph, CUDA events); the approximate top-k beside torch.topk over
    the corpus;
@@ -53,8 +54,10 @@ Phases, each of which exits non-zero on failure (no result is printed):
    ``train_phase``).
 
 The kernel rows also hold the training kernels at the step's shapes: the
-FFN forward writing h1 and gelu(h1) and ``ffn_dh1`` at 2,048 and 4,096 rows
-in float32 and bfloat16, ``adamw`` over every parameter of both towers
+FFN forward writing h1 and gelu(h1) and dh1 at 2,048 and 4,096 rows (in
+bfloat16 on the tensor cores, ``ffn_dh1_mma``, also at 256 rows, a split
+plan, and 130, a ragged one; in float32 on FMA units, ``ffn_dh1``),
+``adamw`` over every parameter of both towers
 with a float32 and a bfloat16 first moment, bit for bit, and the fused
 training attention (``attention_train_fwd``/``_bwd``) at rate 0.1 at
 [64, 32|37|64|104], [8, 256] and head dim 32, after ``mask`` rows that read
@@ -62,20 +65,21 @@ the kernels' Philox keep masks against ``philox_keep`` bit for bit: the
 forward's (q = k = 0, v = I), the dk/dv kernel's (g = I) and the dq
 kernel's (k = I, g v^T = 1). The float32 kernels of the attention and the
 training attention are held bit for bit; the bfloat16 tensor-core kernels
-(the attention forwards, the training attention's backward, the FFN)
-within a bf16 ulp of their twins, no less accurate than the twins against
-the float32 computation, and the same bits on a second launch; the
+(the attention forwards, the training attention's backward, the FFN and
+dh1) within a bf16 ulp of their twins, no less accurate than the twins
+against the float32 computation, and the same bits on a second launch; the
 ``resources`` rows print their registers and spills. Each row carries its
 bound (bytes or operations at the card's published rates) and, where one
 PyTorch call computes the same function, that call's time.
 
 Each path's kernel launch counters are reset just before it and read just
 after it: the bf16 query, encode and training paths must go through the
-tensor-core FFN (``ffn_mma``) and backward (``attention_train_bwd_mma``)
-and through neither FMA form; the float32 checks of the query tower and
-of a training step against the CPU (``text_f32``, ``itm_train_f32``)
-through the FMA forms. Then one JSON line listing the kernels, and as the
-last line ``{"ok": true, "device": {...}}``. The script imports no JAX.
+tensor-core FFN (``ffn_mma``), dh1 (``ffn_dh1_mma``) and backward
+(``attention_train_bwd_mma``) and through no FMA form; the float32 checks
+of the query tower and of a training step against the CPU (``text_f32``,
+``itm_train_f32``) through the FMA forms. Then one JSON line listing the
+kernels, and as the last line ``{"ok": true, "device": {...}}``. The script
+imports no JAX.
 """
 from __future__ import annotations
 
@@ -142,21 +146,22 @@ INT8_RANK_RTOL = 5e-3
 IMAGES = 4096
 IMG_BATCH = 128
 NUM_BB = 36
-# the kernels each path must launch: the bf16 paths the tensor-core FFN
-# and backward, the float32 checks (the query tower against the CPU, the
-# training step at attention dropout 0.1 against the CPU) their FMA forms
+# the kernels each path must launch: the bf16 paths the tensor-core FFN,
+# dh1 and attention backward, the float32 checks (the query tower against
+# the CPU, the training step at attention dropout 0.1 against the CPU) their
+# FMA forms
 PATH_KERNELS = {"text_f32": ("layernorm", "attention", "ffn"),
                 "text_bf16": ("layernorm", "attention", "ffn_mma"),
                 "image_bf16": ("layernorm", "attention", "ffn_mma"),
                 "int8_serving": ("layernorm", "attention", "ffn_int8"),
-                "itm_train": ("layernorm", "ffn_mma", "ffn_dh1", "adamw",
+                "itm_train": ("layernorm", "ffn_mma", "ffn_dh1_mma", "adamw",
                               "attention_train_fwd",
                               "attention_train_bwd_mma"),
                 "itm_train_f32": ("layernorm", "ffn", "ffn_dh1", "adamw",
                                   "attention_train_fwd",
                                   "attention_train_bwd")}
 # the FMA forms that a bf16 path must not launch
-FMA_KERNELS = ("ffn", "attention_train_bwd")
+FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
 
 
 def hold_path(path, counts):
@@ -490,14 +495,22 @@ def kernel_phase(device_name):
                     twin_h1, device_name,
                     (io + 2 * n * 3072 * isz, 4 * n * 768 * 3072,
                      _peak(dtype)), mode="train", **held))
-                gr = randn(n, 768, dtype=dtype)
-                h1 = randn(n, 3072, dtype=dtype)
-                rows.append(compare(
-                    "ffn_dh1", (n, 768, 3072), dtype,
-                    lambda: ffn_dh1.ffn_dh1_cuda(gr, h1, w2),
-                    lambda: ffn_dh1._dh1_math(gr, h1, w2), device_name,
-                    ((n * 768 + 2 * n * 3072 + 3072 * 768) * isz,
-                     2 * n * 768 * 3072, _peak(dtype))))
+        # dh1 at the training rows (text 2,048, image 4,096) and, in
+        # bfloat16, a split plan (256 rows) and a ragged one (130): bf16 on
+        # the tensor cores, held as the bf16 FFN rows; float32 on FMA units
+        for n in (130, 256, 2048, 4096) if half else (2048, 4096):
+            gr = randn(n, 768, dtype=dtype)
+            h1 = randn(n, 3072, dtype=dtype)
+            w2 = randn(3072, 768, scale=0.02, dtype=dtype)
+            held = dict(reference=lambda: ffn_dh1._dh1_math(
+                gr.float(), h1.float(), w2.float()),
+                        repeat=True) if half else {}
+            rows.append(compare(
+                "ffn_dh1_mma" if half else "ffn_dh1", (n, 768, 3072), dtype,
+                lambda: ffn_dh1.ffn_dh1_cuda(gr, h1, w2),
+                lambda: ffn_dh1._dh1_math(gr, h1, w2), device_name,
+                ((n * 768 + 2 * n * 3072 + 3072 * 768) * isz,
+                 2 * n * 768 * 3072, _peak(dtype)), **held))
     # the int8 FFN takes bfloat16 activations only; per-channel int8
     # weights, quantized as QuantizedDense does, in the [in, out] view of
     # out-major storage
@@ -505,7 +518,9 @@ def kernel_phase(device_name):
     w2q, s2 = ffn_int8._quant_rows(randn(768, 3072, scale=0.02))
     w1, w2, s1, s2 = w1q.t(), w2q.t(), s1[:, 0], s2[:, 0]
     b1, b2 = randn(3072, scale=0.02), randn(768, scale=0.02)
-    for n in (16, 32, 256, 2048, 4096):
+    # the query batches (16-32 rows), a split plan (256), the encode and
+    # training rows, and a ragged count: bit-equal, the same bits again
+    for n in (16, 32, 37, 256, 2048, 4096):
         x = randn(n, 768, dtype=torch.bfloat16)
         rows.append(compare(
             "ffn_int8", (n, 768, 3072), torch.bfloat16,
@@ -513,7 +528,8 @@ def kernel_phase(device_name):
             lambda: ffn_int8._ffn_int8_math(x, w1, s1, b1, w2, s2, b2),
             device_name,
             (2 * n * 768 * 2 + 2 * 768 * 3072 + (768 + 3072) * 8,
-             4 * n * 768 * 3072, PEAK_OPS["int8"]), exact=True))
+             4 * n * 768 * 3072, PEAK_OPS["int8"]), exact=True,
+            repeat=True))
     rows += adamw_rows(device_name)
     return rows
 
@@ -1618,6 +1634,8 @@ REPLACES = {
             "lightningdot_tpu/ops/ffn.py:77"),
     "ffn_int8": ("lightningdot_tpu_torch/csrc/ffn_int8.cu",
                  "lightningdot_tpu/ops/experimental/ffn_int8_pallas.py:24"),
+    "ffn_dh1_mma": ("lightningdot_tpu_torch/csrc/ffn_mma.cu",
+                    "lightningdot_tpu/ops/experimental/ffn_dh1.py:28"),
     "ffn_dh1": ("lightningdot_tpu_torch/csrc/ffn_dh1.cu",
                 "lightningdot_tpu/ops/experimental/ffn_dh1.py:28"),
     "adamw": ("lightningdot_tpu_torch/csrc/adamw.cu",
@@ -1636,14 +1654,15 @@ REPLACES = {
 # 64, 32 tokens, bf16) for the serving kernels; the training step's image
 # tower (64 x 64 rows, bf16) for dh1 and the training attention; every
 # parameter with a float32 first moment for AdamW; the float32 FMA forms of
-# the FFN and the backward at the bf16 rows' shapes. The bf16 attention
+# the FFN, dh1 and the backward at the bf16 rows' shapes. The bf16 attention
 # forwards run the tensor-core kernel, the source named above
 REPORT_ROW = {"layernorm": ([2048, 768], "bfloat16"),
               "attention": ([64, 32, 12, 64], "bfloat16"),
               "ffn_mma": ([2048, 768, 3072], "bfloat16"),
               "ffn": ([2048, 768, 3072], "float32"),
               "ffn_int8": ([2048, 768, 3072], "bfloat16"),
-              "ffn_dh1": ([4096, 768, 3072], "bfloat16"),
+              "ffn_dh1_mma": ([4096, 768, 3072], "bfloat16"),
+              "ffn_dh1": ([4096, 768, 3072], "float32"),
               "adamw": (None, "float32"),
               "attention_train_fwd": ([64, 64, 12, 64], "bfloat16"),
               "attention_train_bwd_mma": ([64, 64, 12, 64], "bfloat16"),
@@ -1651,7 +1670,8 @@ REPORT_ROW = {"layernorm": ([2048, 768], "bfloat16"),
 # the path whose launch count the kernels line reports for each kernel
 REPORT_PATH = {"layernorm": "text_bf16", "attention": "text_bf16",
                "ffn_mma": "text_bf16", "ffn": "text_f32",
-               "ffn_int8": "int8_serving", "ffn_dh1": "itm_train",
+               "ffn_int8": "int8_serving", "ffn_dh1_mma": "itm_train",
+               "ffn_dh1": "itm_train_f32",
                "adamw": "itm_train", "attention_train_fwd": "itm_train",
                "attention_train_bwd_mma": "itm_train",
                "attention_train_bwd": "itm_train_f32"}
@@ -1680,7 +1700,8 @@ def main() -> int:
     # the tensor-core kernels' register files: the attention forward, one
     # kernel per bucket of keys (32, 64, 128, 256) and epilogue (0
     # deferred, 1 normalized); the backward's dq and dk/dv kernels; the
-    # FFN's GEMM (epilogue 0 fc1, 1 fc2) and its split pass
+    # FFN's GEMM (epilogue 0 fc1, 1 fc2, 2 dh1) and its split pass; the
+    # int8 FFN's GEMM (0 fc1, 1 fc2) and its split pass
     for name, (regs, spill_st, spill_ld) in sorted(
             _build.ptxas_report("attention_mma").items()):
         keys, epilogue = re.search(r"kernelILi(\d+)ELi(\d)E", name).groups()
@@ -1688,7 +1709,7 @@ def main() -> int:
              epilogue=("deferred", "normalized")[int(epilogue)],
              registers=regs, spill_store_bytes=spill_st,
              spill_load_bytes=spill_ld)
-    for stem in ("attention_mma_bwd", "ffn_mma"):
+    for stem in ("attention_mma_bwd", "ffn_mma", "ffn_int8"):
         for name, (regs, spill_st, spill_ld) in sorted(
                 _build.ptxas_report(stem).items()):
             entry = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d)E)?", name)

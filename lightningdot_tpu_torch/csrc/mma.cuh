@@ -1,8 +1,9 @@
 // Tensor-core building blocks shared by the port's bfloat16 kernels (the
 // attention forward, attention_mma.cu; the training attention's backward,
-// attention_mma_bwd.cu; the FFN, ffn_mma.cu): cp.async staging into
-// swizzled shared memory, ldmatrix, and mma.sync m16n8k16 (bf16 in,
-// float32 accumulate), for sm_90a.
+// attention_mma_bwd.cu; the FFN and dh1, ffn_mma.cu) and the int8 FFN
+// (ffn_int8.cu): cp.async staging into swizzled shared memory, ldmatrix,
+// mma.sync m16n8k16 (bf16 in, float32 accumulate) and m16n8k32 (int8 in,
+// int32 accumulate), for sm_90a.
 //
 // The mma C layout, which every kernel's epilogue and repack follows: lane
 // = 4 g + t holds c[0], c[1] at row g, columns 2t, 2t + 1 of the 16 x 8
@@ -70,6 +71,18 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4],
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b: a 16 x 32 int8 (row), b 32 x 8 int8 (col), c 16 x 8 int32,
+// exact. The fragments lie as those of mma_bf16 when a 16-byte chunk holds
+// 16 int8 values instead of 8 bf16 ones, so load_a and load_b_nk load them
+// unchanged, with ks counting k32 steps
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -4,10 +4,10 @@ Counterpart of lightningdot_tpu/ops. Each op takes its kernel for a CUDA
 tensor (raising on a shape or dtype the kernel does not take) and its twin
 for a CPU tensor. Each kernel wrapper counts its launches in a
 ``launches`` attribute; :func:`launch_counts` reads them all. Where a dtype
-has a kernel of its own (the FFN and the training attention's backward:
-bfloat16 on the tensor cores, float32 on FMA units), each has its own
-wrapper and count ("ffn" / "ffn_mma", "attention_train_bwd" /
-"attention_train_bwd_mma").
+has a kernel of its own (the FFN, its backward's dh1 and the training
+attention's backward: bfloat16 on the tensor cores, float32 on FMA units),
+each has its own wrapper and count ("ffn" / "ffn_mma", "ffn_dh1" /
+"ffn_dh1_mma", "attention_train_bwd" / "attention_train_bwd_mma").
 """
 from lightningdot_tpu_torch.ops.activations import gelu  # noqa: F401
 from lightningdot_tpu_torch.ops.adamw import adamw_, adamw_cuda  # noqa: F401
@@ -18,7 +18,8 @@ from lightningdot_tpu_torch.ops.attention_fused import (  # noqa: F401
     attention_train_fwd, fused_attention_train)
 from lightningdot_tpu_torch.ops.ffn import (  # noqa: F401
     ffn_cuda, ffn_fma_cuda, ffn_gelu, ffn_mma_cuda)
-from lightningdot_tpu_torch.ops.ffn_dh1 import ffn_dh1_cuda  # noqa: F401
+from lightningdot_tpu_torch.ops.ffn_dh1 import (  # noqa: F401
+    ffn_dh1_cuda, ffn_dh1_fma_cuda, ffn_dh1_mma_cuda)
 from lightningdot_tpu_torch.ops.ffn_int8 import (  # noqa: F401
     ffn_gelu_int8, ffn_int8_cuda)
 from lightningdot_tpu_torch.ops.layernorm import (  # noqa: F401
@@ -31,7 +32,8 @@ KERNEL_WRAPPERS = {
     "ffn": ffn_fma_cuda,
     "ffn_mma": ffn_mma_cuda,
     "ffn_int8": ffn_int8_cuda,
-    "ffn_dh1": ffn_dh1_cuda,
+    "ffn_dh1": ffn_dh1_fma_cuda,
+    "ffn_dh1_mma": ffn_dh1_mma_cuda,
     "adamw": adamw_cuda,
     "attention_train_fwd": attention_train_fwd,
     "attention_train_bwd": attention_train_bwd_fma,

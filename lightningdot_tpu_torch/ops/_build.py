@@ -51,14 +51,16 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, out, h1, inter, workspace, rows, H, I, splits1,
     # per1, splits2, per2, stream
     "ldot_ffn_mma": (_P,) * 9 + (_I,) * 7 + (_P,),
-    # g, h1, w2, dh1, rows, H, I, dtype, stream
-    "ldot_ffn_dh1": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # g, h1, w2, dh1, rows, H, I, stream (float32)
+    "ldot_ffn_dh1": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # g, h1, w2, dh1, workspace, rows, H, I, splits, per, stream (bfloat16)
+    "ldot_ffn_dh1_mma": (_P,) * 5 + (_I,) * 5 + (_P,),
     # table, chunks, n_chunks, scale, step_size, lr, b1, 1 - b1, b2,
     # 1 - b2, eps, m_bf16, stream
     "ldot_adamw": (_P, _P, _I, _P, _F, _F, _F, _F, _F, _F, _F, _I, _P),
-    # x, w1t, s1, b1, w2t, s2, b2, out, inter, chunk_max, row_scale,
-    # workspace, rows, H, I, splits, stream
-    "ldot_ffn_int8": (_P,) * 12 + (_I, _I, _I, _I, _P),
+    # x, w1t, s1, b1, w2t, s2, b2, out, inter, tile_max, row_scale,
+    # workspace, rows, H, I, cols, splits, per, stream
+    "ldot_ffn_int8": (_P,) * 12 + (_I,) * 6 + (_P,),
     # q, k, v, bias, seed, out, batch, seq, heads, head_dim, scale, mscale,
     # thresh, dropout, dtype, stream
     "ldot_attention_train_fwd": (_P,) * 6 + (_I, _I, _I, _I, _F, _F, _U, _I,

@@ -20,22 +20,18 @@ Weights are in the JAX package's [in, out] layout: w1 [H, I], w2 [I, H].
 """
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
 from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.activations import gelu
 from lightningdot_tpu_torch.ops.ffn_dh1 import ffn_dh1
+from lightningdot_tpu_torch.ops.gemm import check_mma_operands, gemm_plan
 from lightningdot_tpu_torch.ops.matmul import mm_f32
 
 # csrc/ffn.cu (float32): 16-row tiles, 32-column chunks of the intermediate
 _TILE_ROWS = 16
 _CHUNK = 32
 MAX_HIDDEN = 1024
-# csrc/ffn_mma.cu (bfloat16): 128 x 128 output tiles, k tiles of 64
-GEMM_TILE = 128
-GEMM_K_TILE = 64
 
 
 def _ffn_math(x, w1, b1, w2, b2):
@@ -60,48 +56,6 @@ def ffn_splits(rows: int, inter: int, num_sms: int) -> int:
     return -(-n_chunks // per)
 
 
-class GemmPlan(NamedTuple):
-    """One launch of ``csrc/ffn_mma.cu``'s GEMM, C [m, n] = A [m, k] B [k,
-    n]: a grid of (col_tiles, row_tiles, splits) blocks, split z reducing k
-    tiles [z per, (z + 1) per)."""
-    row_tiles: int
-    col_tiles: int
-    splits: int
-    per: int
-
-
-def gemm_plan(m: int, n: int, k: int, num_sms: int) -> GemmPlan:
-    """The tensor-core GEMM's tiles and reduction split: enough splits that
-    the grid covers every SM about once when the output has too few tiles
-    (few rows), at most one k tile per split; then evened out so that no
-    split is empty (covering every SM twice, as the float32 kernel's
-    ``ffn_splits`` does, was slower on an H100 at 256 and 2,048 rows in a
-    development comparison). The kernel refuses a plan that leaves a k
-    tile out or a split empty."""
-    row_tiles = -(-m // GEMM_TILE)
-    col_tiles = -(-n // GEMM_TILE)
-    k_tiles = -(-k // GEMM_K_TILE)
-    splits = max(1, min(k_tiles,
-                        -(-num_sms // (row_tiles * col_tiles))))
-    per = -(-k_tiles // splits)
-    return GemmPlan(row_tiles, col_tiles, -(-k_tiles // per), per)
-
-
-def gemm_blocks(plan: GemmPlan, m: int, n: int, k: int):
-    """Yield each block's (rows, columns, k range) as the kernel computes
-    them from its block index (``gemm_kernel``), clipped to the matrix."""
-    k_tiles = -(-k // GEMM_K_TILE)
-    for z in range(plan.splits):
-        kt0 = z * plan.per
-        nkt = min(plan.per, k_tiles - kt0)
-        for y in range(plan.row_tiles):
-            for x in range(plan.col_tiles):
-                yield (range(y * GEMM_TILE, min(m, (y + 1) * GEMM_TILE)),
-                       range(x * GEMM_TILE, min(n, (x + 1) * GEMM_TILE)),
-                       range(kt0 * GEMM_K_TILE,
-                             min(k, (kt0 + nkt) * GEMM_K_TILE)))
-
-
 def _check_ffn(what, x2d, w1, b1, w2, b2, dtype):
     _build.require_cuda(what, x2d, w1, b1, w2, b2)
     code = _build.dtype_code(x2d, what)
@@ -119,18 +73,6 @@ def _check_ffn(what, x2d, w1, b1, w2, b2, dtype):
     if b1.dtype != torch.float32 or b2.dtype != torch.float32:
         raise TypeError(f"{what}: biases must be float32")
     return code, rows, h, inter
-
-
-def check_mma_operands(what: str, h: int, inter: int,
-                       *tensors: torch.Tensor) -> None:
-    """The tensor-core kernel (``csrc/ffn_mma.cu``) copies whole 16-byte
-    chunks of rows: H and I must be multiples of 8, and x, w1 and w2
-    16-byte aligned."""
-    if h % 8 or inter % 8:
-        raise ValueError(f"{what}: needs H and I multiples of 8, got H={h}, "
-                         f"I={inter}")
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{what}: x, w1 and w2 must be 16-byte aligned")
 
 
 def ffn_fma_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

@@ -1,13 +1,18 @@
 """The FFN backward through the GELU, ``dh1 = (g W2^T -> compute dtype) *
-gelu'(h1)``: a CUDA kernel and its plain PyTorch twin.
+gelu'(h1)``: CUDA kernels and their plain PyTorch twin.
 
 Counterpart of the default branch of ``_ffn_bwd``
 (lightningdot_tpu/ops/ffn.py:236-237, with ``_gelu_grad`` at :204-209).
-The kernel (``csrc/ffn_dh1.cu``) replaces the TPU kernel ``_dh1_kernel``
+The kernels replace the TPU kernel ``_dh1_kernel``
 (lightningdot_tpu/ops/experimental/ffn_dh1.py:28, launched by
 ``dh1_pallas`` at :37-58), with exact erf where the TPU kernel used a
-polynomial. Shapes: g [rows, H], h1 [rows, I], w2 [I, H] in the JAX
-package's [in, out] layout; float32 or bfloat16, all one dtype.
+polynomial, split by dtype in :func:`ffn_dh1_cuda`: bfloat16 runs on the
+tensor cores, as an epilogue of the FFN's GEMM (``csrc/ffn_mma.cu``,
+:func:`ffn_dh1_mma_cuda`: the twin's rounding points, float32 sums in
+another order, so within a bf16 ulp of the twin), float32 on FMA units
+(``csrc/ffn_dh1.cu``, :func:`ffn_dh1_fma_cuda`, a check-only path). Shapes:
+g [rows, H], h1 [rows, I], w2 [I, H] in the JAX package's [in, out] layout;
+float32 or bfloat16, all one dtype.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import torch
 
 from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.activations import SQRT_HALF, weak_const
+from lightningdot_tpu_torch.ops.gemm import check_mma_operands, gemm_plan
 from lightningdot_tpu_torch.ops.matmul import mm_f32
 
 _DEPTH = 32   # csrc/ffn_dh1.cu stages H in slices of 32
@@ -39,34 +45,76 @@ def _dh1_math(g, h1, w2):
     return mm_f32(g, w2.t()).to(g.dtype) * _gelu_grad(h1)
 
 
-def ffn_dh1_cuda(g: torch.Tensor, h1: torch.Tensor,
-                 w2: torch.Tensor) -> torch.Tensor:
-    """Launch the dh1 kernel on CUDA tensors g [rows, H], h1 [rows, I],
-    w2 [I, H]."""
-    what = "ffn_dh1 kernel"
+def _check_dh1(what, g, h1, w2, dtype):
     _build.require_cuda(what, g, h1, w2)
-    code = _build.dtype_code(g, what)
+    if g.dtype != dtype or h1.dtype != dtype or w2.dtype != dtype:
+        raise TypeError(f"{what}: g, h1 and w2 must be {dtype}, got "
+                        f"{g.dtype}, {h1.dtype}, {w2.dtype}")
     rows, h = g.shape
     inter = w2.shape[0]
-    if h1.dtype != g.dtype or w2.dtype != g.dtype:
-        raise TypeError(f"{what}: g, h1 and w2 must share one dtype, got "
-                        f"{g.dtype}, {h1.dtype}, {w2.dtype}")
     if h1.shape != (rows, inter) or w2.shape != (inter, h):
         raise ValueError(f"{what}: shapes g {tuple(g.shape)}, h1 "
                          f"{tuple(h1.shape)}, w2 {tuple(w2.shape)} do not "
                          f"match")
+    return rows, h, inter
+
+
+def ffn_dh1_fma_cuda(g: torch.Tensor, h1: torch.Tensor,
+                     w2: torch.Tensor) -> torch.Tensor:
+    """Launch the float32 dh1 kernel (``csrc/ffn_dh1.cu``) on CUDA tensors
+    g [rows, H], h1 [rows, I], w2 [I, H]; H a multiple of 32."""
+    what = "ffn_dh1 kernel"
+    rows, h, inter = _check_dh1(what, g, h1, w2, torch.float32)
     if h % _DEPTH:
         raise ValueError(f"{what}: needs H % {_DEPTH} == 0, got H={h}")
     dh1 = torch.empty_like(h1)
     with torch.cuda.device(g.device):
         _build.check(_build.lib().ldot_ffn_dh1(
             g.data_ptr(), h1.data_ptr(), w2.data_ptr(), dh1.data_ptr(),
-            rows, h, inter, code, _build.stream_ptr(g)), what)
-    ffn_dh1_cuda.launches += 1
+            rows, h, inter, _build.stream_ptr(g)), what)
+    ffn_dh1_fma_cuda.launches += 1
     return dh1
 
 
-ffn_dh1_cuda.launches = 0
+ffn_dh1_fma_cuda.launches = 0
+
+
+def ffn_dh1_mma_cuda(g: torch.Tensor, h1: torch.Tensor,
+                     w2: torch.Tensor) -> torch.Tensor:
+    """Launch the bfloat16 dh1 on the tensor cores (``csrc/ffn_mma.cu``'s
+    GEMM with W2 read as stored, [I, H], and the gelu' epilogue; the
+    reduction over H split as :func:`gemm_plan` says) on CUDA tensors g
+    [rows, H], h1 [rows, I], w2 [I, H]. H and I must be multiples of 8 and
+    every operand 16-byte aligned (the kernel copies whole 16-byte
+    chunks)."""
+    what = "ffn_dh1 tensor-core kernel"
+    rows, h, inter = _check_dh1(what, g, h1, w2, torch.bfloat16)
+    check_mma_operands(what, h, inter, g, h1, w2)
+    plan = gemm_plan(rows, inter, h, _build.num_sms(g.device))
+    dh1 = torch.empty_like(h1)
+    workspace = (torch.empty(plan.splits * rows * inter, dtype=torch.float32,
+                             device=g.device) if plan.splits > 1 else None)
+    with torch.cuda.device(g.device):
+        _build.check(_build.lib().ldot_ffn_dh1_mma(
+            g.data_ptr(), h1.data_ptr(), w2.data_ptr(), dh1.data_ptr(),
+            workspace.data_ptr() if workspace is not None else None,
+            rows, h, inter, plan.splits, plan.per, _build.stream_ptr(g)),
+            what)
+    ffn_dh1_mma_cuda.launches += 1
+    return dh1
+
+
+ffn_dh1_mma_cuda.launches = 0
+
+
+def ffn_dh1_cuda(g: torch.Tensor, h1: torch.Tensor,
+                 w2: torch.Tensor) -> torch.Tensor:
+    """The dh1 kernel of g's dtype on CUDA tensors: bfloat16 on the tensor
+    cores (:func:`ffn_dh1_mma_cuda`), float32 on FMA units
+    (:func:`ffn_dh1_fma_cuda`)."""
+    if g.dtype == torch.bfloat16:
+        return ffn_dh1_mma_cuda(g, h1, w2)
+    return ffn_dh1_fma_cuda(g, h1, w2)
 
 
 def ffn_dh1(g: torch.Tensor, h1: torch.Tensor,

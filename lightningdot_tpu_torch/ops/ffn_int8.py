@@ -14,16 +14,20 @@ torch Linear layout, as ``models.quantized.QuantizedDense`` holds them).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.activations import gelu
+from lightningdot_tpu_torch.ops.gemm import (GEMM_TILE, INT8_K_TILE,
+                                             INT8_ROW_TILE, GemmPlan,
+                                             check_mma_operands, gemm_plan)
 from lightningdot_tpu_torch.ops.matmul import mm_int8
 
-# csrc/ffn_int8.cu: 16-row tiles, 64 output columns per block, k staged 64
-# deep
-_TILE_ROWS = 16
-_COLS = 64
+# csrc/ffn_int8.cu: fc1 keeps all of H's k tiles of its rows in shared
+# memory
+MAX_HIDDEN = 2048
 
 
 # "/ 127" as the served JAX package computes it: under jit XLA turns the
@@ -54,15 +58,30 @@ def _ffn_int8_math(x2d, w1, s1, b1, w2, s2, b2):
     return (mm_int8(iq, w2).float() * is_ * s2 + b2).to(torch.bfloat16)
 
 
-def ffn_int8_splits(rows: int, hidden: int, inter: int, num_sms: int) -> int:
-    """How many blocks share fc2's reduction over I for one (row tile,
-    64-column chunk): enough that the grid covers every SM about twice, then
-    evened out so that no split is empty."""
-    k_chunks = inter // _COLS
-    blocks = -(-rows // _TILE_ROWS) * (hidden // _COLS)
-    splits = max(1, min(k_chunks, -(-2 * num_sms // blocks)))
-    per = -(-k_chunks // splits)
-    return -(-k_chunks // per)
+class Int8Plan(NamedTuple):
+    """The launches of ``csrc/ffn_int8.cu`` (64 x 128 output tiles, k tiles
+    of 128 int8 values): fc1 over [rows, I], unsplit, each block taking
+    ``fc1_cols`` column tiles of one row tile; fc2 over [rows, H]."""
+    fc1: GemmPlan
+    fc1_cols: int
+    fc2: GemmPlan
+
+
+def ffn_int8_plan(rows: int, hidden: int, inter: int,
+                  num_sms: int) -> Int8Plan:
+    """fc1 never splits its reduction over H (its GELU epilogue and the row
+    maxima need whole sums); its blocks quantize their rows of x once and
+    keep them in shared memory for a group of column tiles, as many as
+    leave about two blocks per SM (one tile each at few rows). fc2 splits
+    its reduction over I as :func:`gemm_plan` says, into int32 partials
+    that a second pass sums."""
+    fc1 = GemmPlan(-(-rows // INT8_ROW_TILE), -(-inter // GEMM_TILE), 1,
+                   -(-hidden // INT8_K_TILE))
+    cols = max(1, round(fc1.row_tiles * fc1.col_tiles / (2 * num_sms)))
+    cols = -(-fc1.col_tiles // -(-fc1.col_tiles // cols))   # evened out
+    return Int8Plan(fc1, cols, gemm_plan(
+        rows, hidden, inter, num_sms, k_tile=INT8_K_TILE,
+        row_tile=INT8_ROW_TILE))
 
 
 def _out_major(w: torch.Tensor, what: str, name: str) -> None:
@@ -75,8 +94,10 @@ def _out_major(w: torch.Tensor, what: str, name: str) -> None:
 def ffn_int8_cuda(x2d: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
                   b1: torch.Tensor, w2: torch.Tensor, s2: torch.Tensor,
                   b2: torch.Tensor) -> torch.Tensor:
-    """Launch the fused int8 FFN kernel on a [rows, H] bfloat16 CUDA
-    tensor."""
+    """Launch the int8 FFN on the tensor cores (``csrc/ffn_int8.cu``: fc1
+    with the dequant-GELU epilogue, then fc2, split as
+    :func:`ffn_int8_plan` says) on a [rows, H] bfloat16 CUDA tensor. H and I
+    must be multiples of 16, x and the weights 16-byte aligned."""
     what = "ffn_int8 kernel"
     _build.require_cuda(what, x2d, w1.t(), s1, b1, w2.t(), s2, b2)
     if x2d.dtype != torch.bfloat16 or x2d.dim() != 2:
@@ -95,17 +116,18 @@ def ffn_int8_cuda(x2d: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
         if t.dtype != torch.float32 or t.shape != (n,):
             raise ValueError(f"{what}: {name} must be float32 [{n}], got "
                              f"{t.dtype} {tuple(t.shape)}")
-    if h % _COLS or inter % _COLS:
-        raise ValueError(f"{what}: needs H and I multiples of {_COLS}, got "
-                         f"H={h}, I={inter}")
+    check_mma_operands(what, h, inter, x2d, w1, w2, multiple=16)
+    if h > MAX_HIDDEN:
+        raise ValueError(f"{what}: needs H <= {MAX_HIDDEN}, got H={h}")
     dev = x2d.device
-    splits = ffn_int8_splits(rows, h, inter, _build.num_sms(dev))
+    fc1, cols, fc2 = ffn_int8_plan(rows, h, inter, _build.num_sms(dev))
     out = torch.empty_like(x2d)
-    # one allocation for the scratch: the bf16 intermediate [rows, I], the
-    # chunk maxima [rows, I / 64], the row scales [rows] (float32) and the
-    # int32 partials [splits, rows, H] when fc2 splits K
-    parts = (2 * rows * inter, 4 * rows * (inter // _COLS), 4 * rows,
-             4 * splits * rows * h if splits > 1 else 0)
+    # one allocation for the scratch: the bf16 intermediate [rows, I], fc1's
+    # row maxima per column tile [rows, I / 128], the row scales [rows]
+    # (float32) and the int32 partials [splits, rows, H] when fc2 splits
+    split = fc2.splits > 1
+    parts = (2 * rows * inter, 4 * rows * fc1.col_tiles, 4 * rows,
+             4 * fc2.splits * rows * h if split else 0)
     starts = [0]
     for n in parts[:-1]:
         starts.append(starts[-1] + -(-n // 256) * 256)
@@ -116,8 +138,10 @@ def ffn_int8_cuda(x2d: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
         _build.check(_build.lib().ldot_ffn_int8(
             x2d.data_ptr(), w1.data_ptr(), s1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), s2.data_ptr(), b2.data_ptr(), out.data_ptr(),
-            ptrs[0], ptrs[1], ptrs[2], ptrs[3] if splits > 1 else None,
-            rows, h, inter, splits, _build.stream_ptr(x2d)), what)
+            ptrs[0], ptrs[1], ptrs[2], ptrs[3] if split else None,
+            rows, h, inter, cols, fc2.splits, fc2.per,
+            _build.stream_ptr(x2d)),
+            what)
     ffn_int8_cuda.launches += 1
     return out
 

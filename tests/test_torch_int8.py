@@ -34,7 +34,8 @@ from lightningdot_tpu_torch.models import (BiEncoder, QuantizedTextEncoder,
                                            TextEncoder, load_tower_,
                                            tower_state_dict_from_jax)
 from lightningdot_tpu_torch.models.quantized import _dense_int8
-from lightningdot_tpu_torch.ops import ffn_int8, launch_counts
+from lightningdot_tpu_torch.ops import ffn_int8, gemm, launch_counts
+from lightningdot_tpu_torch.ops.activations import gelu
 from lightningdot_tpu_torch.serving import (Retriever, approx_bin_width,
                                             approx_topk, ranking_equivalent)
 
@@ -115,16 +116,126 @@ def test_quant_rows_matches_jax():
     np.testing.assert_array_equal(s.numpy(), np.asarray(js))
 
 
-@pytest.mark.parametrize("rows,inter,sms,expect", [
-    (32, 3072, 132, 10), (16, 3072, 132, 16), (2048, 3072, 132, 1),
-    (256, 3072, 132, 2)])
-def test_ffn_int8_splits_cover_the_card_without_empty_splits(rows, inter,
-                                                             sms, expect):
-    splits = ffn_int8.ffn_int8_splits(rows, 768, inter, sms)
-    assert splits == expect
-    k_chunks = inter // 64
-    per = -(-k_chunks // splits)
-    assert per * (splits - 1) < k_chunks <= per * splits
+@pytest.mark.parametrize("rows,cols,splits", [
+    (16, 1, 12), (32, 1, 12), (37, 1, 12), (256, 1, 6), (2048, 3, 1),
+    (4096, 6, 1)])
+def test_ffn_int8_plan_covers_every_tile_and_k_slice_once(rows, cols,
+                                                          splits):
+    """The int8 FFN's two GEMM launches (csrc/ffn_int8.cu, blocks as the
+    kernel reads its block index, k tiles of 128): fc1 reduces all of H in
+    one block per 64 x 128 tile, a block taking a group of column tiles
+    (about two blocks per SM; one tile each at few rows); fc2 splits its
+    reduction over I at few rows, to about one block per SM, with no split
+    empty; every output tile and k tile is reduced exactly once."""
+    k_tile, row_tile = gemm.INT8_K_TILE, gemm.INT8_ROW_TILE
+    fc1, fc1_cols, fc2 = ffn_int8.ffn_int8_plan(rows, 768, 3072, 132)
+    assert fc1 == gemm.GemmPlan(-(-rows // row_tile), 24, 1, 6)
+    assert fc1_cols == cols and fc2.splits == splits
+    groups = -(-fc1.col_tiles // cols)            # fc1's grid, x
+    covered = [t for x in range(groups)
+               for t in range(x * cols, min((x + 1) * cols, fc1.col_tiles))]
+    assert sorted(covered) == list(range(fc1.col_tiles))
+    assert groups * fc1.row_tiles <= 2 * 132 or cols == 1
+    for plan, n, k in ((fc1, 3072, 768), (fc2, 768, 3072)):
+        k_tiles = -(-k // k_tile)
+        assert (plan.splits - 1) * plan.per < k_tiles <= plan.splits * plan.per
+        count = np.zeros((plan.row_tiles, plan.col_tiles, k_tiles), np.int64)
+        for z, r, c, kr in gemm.gemm_blocks(plan, rows, n, k, k_tile=k_tile,
+                                            row_tile=row_tile):
+            assert len(r) and len(c) and len(kr)
+            assert kr.start == z * plan.per * k_tile
+            count[r.start // row_tile, c.start // 128,
+                  kr.start // k_tile:-(-kr.stop // k_tile)] += 1
+        assert (count == 1).all()
+    if rows <= 256:
+        assert fc2.row_tiles * fc2.col_tiles * fc2.splits >= 132 // 2
+
+
+def _int32_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """An exact int8 product in int32, independent of ``mm_int8``."""
+    out = torch.matmul(a.long(), b.long())
+    assert out.abs().max() < 2 ** 31
+    return out.to(torch.int32)
+
+
+def _ffn_int8_blocks(x, w1, s1, b1, w2, s2, b2, num_sms):
+    """A CPU model of csrc/ffn_int8.cu: fc1 block by block as
+    ``ffn_int8_plan`` lays them out, each quantizing its rows of x on load
+    by the row's scale over all of H, writing its tile of gelu(h1) and each
+    row's max |gelu(h1)| over the tile's columns; the intermediate's row
+    scale taken as the max of those tile maxima; fc2 block by block and
+    split by split, each requantizing its k range of the intermediate on
+    load into int32 partials, summed split by split, then dequantized."""
+    rows, h = x.shape
+    inter = w1.shape[1]
+    tile, k_tile = gemm.GEMM_TILE, gemm.INT8_K_TILE
+    blocks = dict(k_tile=k_tile, row_tile=gemm.INT8_ROW_TILE)
+    fc1, _, fc2 = ffn_int8.ffn_int8_plan(rows, h, inter, num_sms)
+    xf = x.float()
+    xs = torch.clamp(xf.abs().amax(-1, keepdim=True), min=1e-8) * \
+        ffn_int8.INV_127
+    g = torch.empty((rows, inter), dtype=torch.bfloat16)
+    tile_max = torch.zeros((rows, fc1.col_tiles))
+    for _, r, c, kr in gemm.gemm_blocks(fc1, rows, inter, h, **blocks):
+        assert kr == range(h)
+        r, c = slice(r.start, r.stop), slice(c.start, c.stop)
+        xq = torch.round(xf[r] / xs[r]).clamp(-127, 127).to(torch.int8)
+        acc = _int32_mm(xq, w1[:, c])
+        h1 = (acc.float() * xs[r] * s1[c] + b1[c]).to(torch.bfloat16)
+        g[r, c] = gelu(h1)
+        tile_max[r, c.start // tile] = g[r, c].float().abs().amax(-1)
+    gs = torch.clamp(tile_max.amax(-1, keepdim=True), min=1e-8) * \
+        ffn_int8.INV_127
+    partial = torch.zeros((fc2.splits, rows, h), dtype=torch.int32)
+    for z, r, c, kr in gemm.gemm_blocks(fc2, rows, h, inter, **blocks):
+        r, c, kr = (slice(x.start, x.stop) for x in (r, c, kr))
+        gq = torch.round(g[r, kr].float() / gs[r]).clamp(-127, 127)
+        partial[z, r, c] = _int32_mm(gq.to(torch.int8), w2[kr, c])
+    acc = partial[0].clone()
+    for z in range(1, fc2.splits):
+        acc += partial[z]
+    return (acc.float() * gs * s2 + b2).to(torch.bfloat16), fc2.splits
+
+
+@pytest.mark.parametrize("rows,sms,splits", [
+    (16, 132, 3), (37, 132, 3), (130, 8, 2), (300, 6, 1), (300, 12, 2)])
+def test_ffn_int8_block_plan_reproduces_twin_bit_for_bit(rows, sms, splits):
+    """Tiles, splits and the row scale as the kernel computes them give the
+    twin's bits: int32 sums are exact in any order and the max of the tile
+    maxima is the row's max. H 256 and I 384 make 2 and 3 column tiles and
+    3 k tiles of fc2; ragged row counts and (by the SM count) split and
+    unsplit fc2 plans."""
+    _, targs = _ffn_int8_args(rows, h=256, inter=384, seed=8)
+    got, used = _ffn_int8_blocks(*targs, num_sms=sms)
+    assert used == splits
+    want = ffn_int8._ffn_int8_math(*targs)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_quant_fast_rounds_as_ieee_division():
+    """csrc/ffn_int8.cu's quant_fast, in float32 on the CPU: v * (1 /
+    scale) rounded by adding 1.5 * 2**23, with the IEEE division taken only
+    within 1e-4 of a half-integer, gives round(v / scale) (the twin's
+    ``_quant_rows``) for every bf16 value of rows scaled by their own max,
+    from 1e-3 to 1e2 and at the 1e-8 floor; the sum's low byte is the int8
+    value, unclipped."""
+    rng = np.random.default_rng(3)
+    magic = np.float32(1.5 * 2 ** 23)
+    near_half = np.float32(0.5) - np.float32(1e-4)
+    for e in (-3, -1, 0, 2, -10):
+        x = torch.from_numpy(
+            (rng.standard_normal((256, 768)) * 10.0 ** e).astype(np.float32)
+        ).to(torch.bfloat16).float()
+        want, scale = ffn_int8._quant_rows(x)
+        q = x * (1.0 / scale)
+        t = q + magic
+        n = t - magic
+        near = (q - n).abs() > near_half
+        assert near.float().mean() < 0.01
+        got = torch.where(near, want.float(), n)
+        low = (t.view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8)
+        assert torch.equal(got, want.float())
+        assert torch.equal(torch.where(near, want, low), want)
 
 
 def test_ffn_int8_wrapper_checks_layout():
@@ -432,11 +543,15 @@ def test_int8_approx_retriever_ranks_planted_first(setup):
 @pytest.mark.cuda
 def test_ffn_int8_kernel_matches_twin_on_card():
     """The CUDA kernel against its twin on the card at the serving width:
-    the same roundings in the same order, so equal bit for bit."""
+    the same roundings in the same order, so equal bit for bit, and to
+    itself on a second launch; at a query batch (32 rows, fc2 split), a
+    ragged count and 2,048 rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
-    _, targs = _ffn_int8_args(32, h=768, inter=3072, seed=6)
-    args = [t.cuda() for t in targs]
-    got = ffn_int8.ffn_gelu_int8(*args)
-    want = ffn_int8._ffn_int8_math(*args)
-    assert torch.equal(got, want)
+    for rows in (32, 37, 2048):
+        _, targs = _ffn_int8_args(rows, h=768, inter=3072, seed=6)
+        args = [t.cuda() for t in targs]
+        got = ffn_int8.ffn_gelu_int8(*args)
+        want = ffn_int8._ffn_int8_math(*args)
+        assert torch.equal(got, want)
+        assert torch.equal(ffn_int8.ffn_gelu_int8(*args), got)

@@ -18,7 +18,8 @@ from lightningdot_tpu.ops import ffn as jffn
 from lightningdot_tpu.ops import layernorm as jln
 from lightningdot_tpu.ops.activations import gelu as jgelu
 from lightningdot_tpu_torch.ops import (attention, attention_fused, ffn,
-                                        ffn_int8, launch_counts, layernorm)
+                                        ffn_dh1, ffn_int8, gemm,
+                                        launch_counts, layernorm)
 from lightningdot_tpu_torch.ops.activations import gelu
 
 DTYPES = {"float32": (torch.float32, jnp.float32, 1e-5),
@@ -161,28 +162,35 @@ def test_ffn_splits_cover_the_card_without_empty_splits(rows, inter, sms,
     assert per * (splits - 1) < n_chunks <= per * splits
 
 
-@pytest.mark.parametrize("n,k", [(3072, 768), (768, 3072)])   # fc1, fc2
-@pytest.mark.parametrize("rows", [32, 256, 2048, 4096, 13312,
-                                  1, 31, 130, 257])
+# fc1 and fc2 of the FFN at its row counts; dh1 = g W2^T
+# (ops/ffn_dh1.py::ffn_dh1_mma_cuda), fc1's shape with W2 as B, at the
+# training rows and a split (256) and ragged (130) count
+@pytest.mark.parametrize("rows,n,k", [
+    pytest.param(rows, n, k, id=f"{rows}-{n}-{k}")
+    for rows in (32, 256, 2048, 4096, 13312, 1, 31, 130, 257)
+    for n, k in ((3072, 768), (768, 3072))] + [
+    pytest.param(rows, 3072, 768, id=f"{rows}-dh1")
+    for rows in (130, 256, 2048, 4096)])
 def test_ffn_gemm_plan_covers_every_tile_and_k_slice_once(rows, n, k):
     """The tensor-core FFN's GEMM plan (csrc/ffn_mma.cu, blocks as the
     kernel reads its block index): every 128 x 128 output tile and every k
     tile of 64 is reduced by exactly one block, no split is empty, the
     ranges stop at the matrix's edges, and the kernel's plan check
     (``plan_ok``) holds. Few rows split the reduction to cover the card."""
-    plan = ffn.gemm_plan(rows, n, k, 132)
-    k_tiles = -(-k // ffn.GEMM_K_TILE)
+    k_tile = gemm.GEMM_K_TILE
+    plan = gemm.gemm_plan(rows, n, k, 132, k_tile=k_tile)
+    k_tiles = -(-k // k_tile)
+    tile = gemm.GEMM_TILE
     assert (plan.splits - 1) * plan.per < k_tiles <= plan.splits * plan.per
     count = np.zeros((plan.row_tiles, plan.col_tiles, k_tiles), np.int64)
     row_ends, col_ends = set(), set()
-    for r, c, kr in ffn.gemm_blocks(plan, rows, n, k):
+    for z, r, c, kr in gemm.gemm_blocks(plan, rows, n, k, k_tile=k_tile):
         assert len(r) and len(c) and len(kr)
-        assert len(r) <= ffn.GEMM_TILE and len(c) <= ffn.GEMM_TILE
-        assert r.start % ffn.GEMM_TILE == 0 and c.start % ffn.GEMM_TILE == 0
-        assert kr.start % ffn.GEMM_K_TILE == 0
-        count[r.start // ffn.GEMM_TILE, c.start // ffn.GEMM_TILE,
-              kr.start // ffn.GEMM_K_TILE:
-              -(-kr.stop // ffn.GEMM_K_TILE)] += 1
+        assert len(r) <= tile and len(c) <= tile
+        assert r.start % tile == 0 and c.start % tile == 0
+        assert kr.start == z * plan.per * k_tile
+        count[r.start // tile, c.start // tile,
+              kr.start // k_tile:-(-kr.stop // k_tile)] += 1
         row_ends.add(r.stop)
         col_ends.add(c.stop)
     assert (count == 1).all()
@@ -216,6 +224,15 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors only"):
         ffn.ffn_cuda(xb, w1b, torch.zeros(64), w2b, torch.zeros(32),
                      with_h1=True)
+    # dh1: g [4, 32], h1 [4, 64], w2 [64, 32], on the tensor cores (bf16),
+    # on FMA units (f32) and through the dtype dispatch
+    for fn, dt in ((ffn_dh1.ffn_dh1_mma_cuda, torch.bfloat16),
+                   (ffn_dh1.ffn_dh1_fma_cuda, torch.float32),
+                   (ffn_dh1.ffn_dh1_cuda, torch.bfloat16),
+                   (ffn_dh1.ffn_dh1_cuda, torch.float32)):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            fn(x.to(dt), torch.zeros(4, 64, dtype=dt),
+               torch.zeros(64, 32, dtype=dt))
     qkv = torch.zeros(1, 4, 16)
     for fn, dt in ((attention_fused.attention_train_bwd_fma, torch.float32),
                    (attention_fused.attention_train_bwd_mma, torch.bfloat16),
@@ -233,6 +250,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     shifted = w1b.reshape(-1)[1:]                   # 2 bytes past a chunk
     with pytest.raises(ValueError, match="16-byte aligned"):
         ffn.check_mma_operands("k", 768, 3072, xb, shifted, w2b)
+    # the int8 GEMM copies 16 int8 values a chunk
+    gemm.check_mma_operands("k", 768, 3072, xb, multiple=16)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        gemm.check_mma_operands("k", 776, 3072, xb, multiple=16)
     g = torch.zeros(4, 4, 2 * 72, dtype=torch.bfloat16)
     attention.check_tensor_core_operands("k", 72, g, g, g, g)
     with pytest.raises(ValueError, match="head_dim % 8"):
@@ -242,6 +263,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                              g.reshape(-1)[1:])
     assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0,
                                "ffn_mma": 0, "ffn_int8": 0, "ffn_dh1": 0,
+                               "ffn_dh1_mma": 0,
                                "adamw": 0, "attention_train_fwd": 0,
                                "attention_train_bwd": 0,
                                "attention_train_bwd_mma": 0}
@@ -275,6 +297,13 @@ def test_kernels_match_twins_on_card(dtype):
     for i in (0, 1, 3):
         args[i] = args[i].to(tdt)
     _close(ffn.ffn_gelu(*args).cpu(), ffn._ffn_math(*args)[0].cpu(), tol)
+    # dh1 (bf16 on the tensor cores, f32 on FMA units) at a ragged row
+    # count that splits the reduction over H
+    g, h1 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             .to(dev).to(tdt) for s in ((130, 768), (130, 3072)))
+    w2 = args[3]
+    _close(ffn_dh1.ffn_dh1(g, h1, w2).cpu(),
+           ffn_dh1._dh1_math(g, h1, w2).cpu(), tol)
 
 
 def test_kernel_build_rebuilds_only_when_a_source_is_newer(tmp_path,
