@@ -11,7 +11,9 @@ Phases, each of which exits non-zero on failure (no result is printed):
    CUDA kernels built from ``lightningdot_tpu_torch/csrc`` (build time);
 2. kernels: each hand-written kernel against its plain PyTorch twin on the
    card, at the shapes of the paths below (the encode and training batches
-   included:
+   included: the LayerNorm forward at 32-16,384 rows, with its
+   mask-and-add prologue at 32-4,096 rows bit-equal to the kernel on the
+   twin's u, its backward at 130-4,096 rows;
    attention at [128, 32|64|104], the bf16 FFN at 16-13,312 rows; the
    int8 FFN at 16-4,096 rows and a ragged 37, bit-equal to its twin and
    to itself on a second launch) and at S 37, 65, 105 and 128 and head
@@ -77,7 +79,8 @@ after it: the bf16 query, encode and training paths must go through the
 tensor-core FFN (``ffn_mma``), dh1 (``ffn_dh1_mma``) and backward
 (``attention_train_bwd_mma``) and through no FMA form; the float32 checks
 of the query tower and of a training step against the CPU (``text_f32``,
-``itm_train_f32``) through the FMA forms. Then one JSON line listing the
+``itm_train_f32``) through the FMA forms; the training paths through the
+LayerNorm backward kernel (``layernorm_bwd``). Then one JSON line listing the
 kernels, and as the last line ``{"ok": true, "device": {...}}``. The script
 imports no JAX.
 """
@@ -154,11 +157,11 @@ PATH_KERNELS = {"text_f32": ("layernorm", "attention", "ffn"),
                 "text_bf16": ("layernorm", "attention", "ffn_mma"),
                 "image_bf16": ("layernorm", "attention", "ffn_mma"),
                 "int8_serving": ("layernorm", "attention", "ffn_int8"),
-                "itm_train": ("layernorm", "ffn_mma", "ffn_dh1_mma", "adamw",
-                              "attention_train_fwd",
+                "itm_train": ("layernorm", "layernorm_bwd", "ffn_mma",
+                              "ffn_dh1_mma", "adamw", "attention_train_fwd",
                               "attention_train_bwd_mma"),
-                "itm_train_f32": ("layernorm", "ffn", "ffn_dh1", "adamw",
-                                  "attention_train_fwd",
+                "itm_train_f32": ("layernorm", "layernorm_bwd", "ffn",
+                                  "ffn_dh1", "adamw", "attention_train_fwd",
                                   "attention_train_bwd")}
 # the FMA forms that a bf16 path must not launch
 FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
@@ -392,8 +395,7 @@ def _peak(dtype):
 
 
 def kernel_phase(device_name):
-    from lightningdot_tpu_torch.ops import (attention, ffn, ffn_dh1,
-                                            ffn_int8, layernorm)
+    from lightningdot_tpu_torch.ops import attention, ffn, ffn_dh1, ffn_int8
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -405,21 +407,7 @@ def kernel_phase(device_name):
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         isz = torch.finfo(dtype).bits // 8
-        # query batches, encode batches of 128 (S 64 and 104), the training
-        # batches (64 x 32 text rows, 64 x 64 image rows), and more
-        for n in (32, 2048, 4096, 8192, 13312, 16384):
-            x = randn(n, 768, scale=3.0, dtype=dtype) + 1
-            scale = torch.rand(768, device=dev, generator=g) + 0.5
-            bias = randn(768)
-            rows.append(compare(
-                "layernorm", (n, 768), dtype,
-                lambda: layernorm.layer_norm_cuda(x, scale, bias, 1e-12),
-                lambda: layernorm._ln_math(x.float(), scale, bias,
-                                           1e-12).to(dtype), device_name,
-                (2 * n * 768 * isz + 2 * 768 * 4, 8 * n * 768,
-                 PEAK_OPS["f32"]),
-                library=lambda: f.layer_norm(x, (768,), scale.to(dtype),
-                                             bias.to(dtype), 1e-12)))
+        rows += layernorm_rows(dtype, device_name, randn)
         # query buckets; the encode batches (captions at S 32, images at 1
         # + R with R = bucket_len(num_bb + 1) - 1, itm_fast_collate: S 64
         # at num_bb 36, 104 at 100); and for later slices S 65 and 105 (R
@@ -531,6 +519,117 @@ def kernel_phase(device_name):
              4 * n * 768 * 3072, PEAK_OPS["int8"]), exact=True,
             repeat=True))
     rows += adamw_rows(device_name)
+    return rows
+
+
+def layernorm_rows(dtype, device_name, randn):
+    """B1 at the paths' row counts. The forward kernel against its twin at
+    32-16,384 rows (the query batches, the training batches of 64 x 32
+    text and 64 x 64 image rows, the encode batches of 128 at S 64 and
+    104), and with its prologue (res; res and a rate-0.1 mask) at 32, 2,048
+    and 4,096 rows: within the twin's tolerance and bit-equal to the kernel
+    run on the twin's u. The backward kernel at 130 (ragged), 2,048 and
+    4,096 rows, without res (the plain LayerNorm sites), with res (rate 0)
+    and with res and a rate-0.1 mask (the training sites); both at the
+    training step's projection head too (64 rows of 1,536, a row over two
+    warps), without res. The backward's dx and du are held as the
+    bf16 tensor-core rows are held (a bf16 ulp, as accurate against the
+    float32 computation as the twin, the same bits again; float32 within
+    1e-5), dscale and dbias within 1e-5 of their peak, repeat-equal.
+    Library: ``F.layer_norm`` (forward; on the prologue rows it normalizes
+    the twin's u, without the add and the mask); aten's
+    ``native_layer_norm_backward`` with the statistics computed outside the
+    timed call (backward; without the recompute of u and the mask)."""
+    from lightningdot_tpu_torch.ops import layernorm as ln
+
+    dev = torch.device("cuda")
+    f = torch.nn.functional
+    gen = torch.Generator(device=dev).manual_seed(5)
+    isz = torch.finfo(dtype).bits // 8
+    half = dtype == torch.bfloat16
+    eps, h = 1e-12, 768
+    rows = []
+
+    def params(h=h):
+        return (torch.rand(h, device=dev, generator=gen) + 0.5, randn(h))
+
+    for n, h in ([(n, 768) for n in (32, 2048, 4096, 8192, 13312, 16384)]
+                 + [(64, 1536)]):
+        x = randn(n, h, scale=3.0, dtype=dtype) + 1
+        scale, bias = params(h)
+        rows.append(compare(
+            "layernorm", (n, h), dtype,
+            lambda: ln.layer_norm_cuda(x, scale, bias, eps),
+            lambda: ln.ln_fwd_math(x, scale, bias, eps), device_name,
+            (2 * n * h * isz + 2 * h * 4, 8 * n * h, PEAK_OPS["f32"]),
+            library=lambda: f.layer_norm(x, (h,), scale.to(dtype),
+                                         bias.to(dtype), eps)))
+    h = 768
+    for n in (32, 2048, 4096):
+        x = randn(n, h, scale=3.0, dtype=dtype) + 1
+        res = randn(n, h, dtype=dtype)
+        keep = torch.rand(n, h, device=dev, generator=gen) < 0.9
+        scale, bias = params()
+        for variant, k, rate in (("res", None, 0.0), ("res_keep", keep, 0.1)):
+            u = ln.dal_input(x, res, k, rate)
+            same = torch.equal(ln.layer_norm_cuda(x, scale, bias, eps, res,
+                                                  k, rate),
+                               ln.layer_norm_cuda(u, scale, bias, eps))
+            nbytes = 3 * n * h * isz + 2 * h * 4 + (0 if k is None else n * h)
+            rows.append(compare(
+                "layernorm", (n, h), dtype,
+                lambda: ln.layer_norm_cuda(x, scale, bias, eps, res, k,
+                                           rate),
+                lambda: ln.ln_fwd_math(x, scale, bias, eps, res, k, rate),
+                device_name, (nbytes, 11 * n * h, PEAK_OPS["f32"]),
+                library=lambda: f.layer_norm(u, (h,), scale.to(dtype),
+                                             bias.to(dtype), eps),
+                variant=variant, equal_to_kernel_on_twin_u=same))
+            check(same, f"layernorm {variant} ({n}, {h}) {dtype}: the "
+                        f"prologue's u differs from the twin's")
+    for n, h in ((130, 768), (2048, 768), (4096, 768), (64, 1536)):
+        x = randn(n, h, scale=3.0, dtype=dtype) + 1
+        res, g = randn(n, h, dtype=dtype), randn(n, h, dtype=dtype)
+        keep = torch.rand(n, h, device=dev, generator=gen) < 0.9
+        scale, bias = params(h)
+        variants = (("ln", None, None, 0.0), ("res", res, None, 0.0),
+                    ("res_keep", res, keep, 0.1))
+        for variant, r, k, rate in variants[:1 if h > 768 else 3]:
+            args = (x, scale, g, eps, r, k, rate)
+
+            def pick(out, k=k):
+                """dx and du (one tensor without a mask)."""
+                return out[1] if k is None else out[:2]
+
+            got, again = (ln.layer_norm_bwd_cuda(*args) for _ in range(2))
+            want = ln.ln_bwd_math(*args)
+            param_err = max((a - w).abs().max().item()
+                            / w.abs().max().item()
+                            for a, w in zip(got[2:], want[2:]))
+            param_same = all(torch.equal(a, b)
+                             for a, b in zip(got[2:], again[2:]))
+            u = ln.dal_input(x, r, k, rate)
+            w16, b16 = scale.to(dtype), bias.to(dtype)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(u, [h], w16,
+                                                             b16, eps)
+            acts = 2 + (r is not None) + 1 + (k is not None)
+            rows.append(compare(
+                "layernorm_bwd", (n, h), dtype,
+                lambda: pick(ln.layer_norm_bwd_cuda(*args)),
+                lambda: pick(ln.ln_bwd_math(*args)), device_name,
+                (acts * n * h * isz + (0 if k is None else n * h)
+                 + 3 * h * 4, 20 * n * h, PEAK_OPS["f32"]),
+                library=lambda: torch.ops.aten.native_layer_norm_backward(
+                    g, u, [h], mean, rstd, w16, b16, [True, True, True]),
+                reference=(lambda: pick(ln.ln_bwd_math(
+                    x.float(), scale, g.float(), eps,
+                    None if r is None else r.float(), k, rate)))
+                if half else None, repeat=True, variant=variant,
+                params_rel_err=param_err, params_rel_tol=1e-5,
+                params_deterministic=param_same))
+            check(param_err <= 1e-5 and param_same,
+                  f"layernorm_bwd {variant} ({n}, {h}) {dtype}: dscale and "
+                  f"dbias off by {param_err} or not repeat-equal")
     return rows
 
 
@@ -1626,6 +1725,9 @@ def train_phase(args, device_name):
 REPLACES = {
     "layernorm": ("lightningdot_tpu_torch/csrc/layernorm.cu",
                   "lightningdot_tpu/ops/layernorm.py:30"),
+    # the jnp VJP that XLA fuses on the TPU (with fused.py's _dal_bwd)
+    "layernorm_bwd": ("lightningdot_tpu_torch/csrc/layernorm.cu",
+                      "lightningdot_tpu/ops/layernorm.py:74"),
     "attention": ("lightningdot_tpu_torch/csrc/attention_mma.cu",
                   "lightningdot_tpu/ops/attention.py:87"),
     "ffn_mma": ("lightningdot_tpu_torch/csrc/ffn_mma.cu",
@@ -1657,6 +1759,7 @@ REPLACES = {
 # the FFN, dh1 and the backward at the bf16 rows' shapes. The bf16 attention
 # forwards run the tensor-core kernel, the source named above
 REPORT_ROW = {"layernorm": ([2048, 768], "bfloat16"),
+              "layernorm_bwd": ([4096, 768], "bfloat16"),
               "attention": ([64, 32, 12, 64], "bfloat16"),
               "ffn_mma": ([2048, 768, 3072], "bfloat16"),
               "ffn": ([2048, 768, 3072], "float32"),
@@ -1667,8 +1770,12 @@ REPORT_ROW = {"layernorm": ([2048, 768], "bfloat16"),
               "attention_train_fwd": ([64, 64, 12, 64], "bfloat16"),
               "attention_train_bwd_mma": ([64, 64, 12, 64], "bfloat16"),
               "attention_train_bwd": ([64, 64, 12, 64], "float32")}
+# the LayerNorm rows' variant the kernels line reports: the forward without
+# a prologue; the backward of the training sites (res and a mask)
+REPORT_VARIANT = {"layernorm_bwd": "res_keep"}
 # the path whose launch count the kernels line reports for each kernel
-REPORT_PATH = {"layernorm": "text_bf16", "attention": "text_bf16",
+REPORT_PATH = {"layernorm": "text_bf16", "layernorm_bwd": "itm_train",
+               "attention": "text_bf16",
                "ffn_mma": "text_bf16", "ffn": "text_f32",
                "ffn_int8": "int8_serving", "ffn_dh1_mma": "itm_train",
                "ffn_dh1": "itm_train_f32",
@@ -1709,6 +1816,17 @@ def main() -> int:
              epilogue=("deferred", "normalized")[int(epilogue)],
              registers=regs, spill_store_bytes=spill_st,
              spill_load_bytes=spill_ld)
+    # the LayerNorm kernels: <dtype, vectors per thread, res, keep>
+    for name, (regs, spill_st, spill_ld) in sorted(
+            _build.ptxas_report("layernorm").items()):
+        entry = re.search(r"(layernorm_\w+?_kernel)", name).group(1)
+        targs = re.findall(r"L[ib](\d+)E", name)
+        if targs:
+            dt = "bf16" if "bfloat16" in name else "f32"
+            entry += f"<{','.join([dt] + targs)}>"
+        emit(phase="resources", kernel="layernorm", entry=entry,
+             registers=regs, spill_store_bytes=spill_st,
+             spill_load_bytes=spill_ld)
     for stem in ("attention_mma_bwd", "ffn_mma", "ffn_int8"):
         for name, (regs, spill_st, spill_ld) in sorted(
                 _build.ptxas_report(stem).items()):
@@ -1747,6 +1865,7 @@ def main() -> int:
         rep = [r for r in rows if r["kernel"] == name
                and (shape is None or r["shape"] == shape)
                and r["dtype"] == dtype and r.get("mode") != "train"
+               and r.get("variant") == REPORT_VARIANT.get(name)
                and r.get("m_dtype", "float32") == "float32"][0]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

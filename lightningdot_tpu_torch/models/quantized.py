@@ -25,6 +25,7 @@ from lightningdot_tpu_torch.models.encoder import (Dense, LayerNorm,
 from lightningdot_tpu_torch.ops import (ffn_gelu_int8, gelu, mm_int8,
                                         multi_head_attention)
 from lightningdot_tpu_torch.ops.ffn_int8 import _quant_rows
+from lightningdot_tpu_torch.ops.fused import dropout_add_ln
 
 
 def _dense_int8(x: torch.Tensor, kernel: torch.Tensor, scale: torch.Tensor,
@@ -98,11 +99,16 @@ class _QuantizedLayer(nn.Module):
         ctx = multi_head_attention(self.query(h).view(heads),
                                    self.key(h).view(heads),
                                    self.value(h).view(heads), mask_bias)
-        a = self.attn_ln(self.output(ctx.reshape(b, s, hidden)) + h)
-        fc1, fc2 = self.intermediate, self.mlp_output
+        # ln(x + res) (serving.py:122, 127): both operands are bfloat16, so
+        # the LayerNorm kernel takes the residual in its prologue
+        ln = self.attn_ln
+        a = dropout_add_ln(self.output(ctx.reshape(b, s, hidden)), h,
+                           ln.weight, ln.bias, None, rate=0.0, eps=ln.eps)
+        fc1, fc2, ln = self.intermediate, self.mlp_output, self.mlp_ln
         o = ffn_gelu_int8(a, fc1.kernel, fc1.scale, fc1.bias, fc2.kernel,
                           fc2.scale, fc2.bias)
-        return self.mlp_ln(o + a)
+        return dropout_add_ln(o, a, ln.weight, ln.bias, None, rate=0.0,
+                              eps=ln.eps)
 
 
 class QuantizedTextEncoder(nn.Module):

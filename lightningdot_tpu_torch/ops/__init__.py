@@ -23,11 +23,12 @@ from lightningdot_tpu_torch.ops.ffn_dh1 import (  # noqa: F401
 from lightningdot_tpu_torch.ops.ffn_int8 import (  # noqa: F401
     ffn_gelu_int8, ffn_int8_cuda)
 from lightningdot_tpu_torch.ops.layernorm import (  # noqa: F401
-    layer_norm, layer_norm_cuda)
+    layer_norm, layer_norm_bwd_cuda, layer_norm_cuda)
 from lightningdot_tpu_torch.ops.matmul import mm_f32, mm_int8  # noqa: F401
 
 KERNEL_WRAPPERS = {
     "layernorm": layer_norm_cuda,
+    "layernorm_bwd": layer_norm_bwd_cuda,
     "attention": attention_cuda,
     "ffn": ffn_fma_cuda,
     "ffn_mma": ffn_mma_cuda,

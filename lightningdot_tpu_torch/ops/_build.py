@@ -40,8 +40,12 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
-    # x, scale, bias, out, rows, hidden, eps, dtype, stream
-    "ldot_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
+    # x, res, keep, scale, bias, out, rows, hidden, eps, keep_scale, dtype,
+    # stream
+    "ldot_layernorm": (_P,) * 6 + (_I, _I, _F, _F, _I, _P),
+    # x, res, keep, scale, g, du, dx, partial, dscale, dbias, rows, hidden,
+    # blocks, eps, keep_scale, dtype, stream
+    "ldot_layernorm_bwd": (_P,) * 10 + (_I, _I, _I, _F, _F, _I, _P),
     # q, k, v, bias, out, batch, seq, heads, head_dim, scale, defer, dtype,
     # stream
     "ldot_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),

@@ -2,9 +2,12 @@
 (counterpart of lightningdot_tpu/ops/fused.py).
 
 * :func:`dropout_add_ln` -- ``LayerNorm(dropout(x) + res)``
-  (``dropout_add_ln``, :93-148): the forward runs the LayerNorm kernel, the
-  backward recomputes the LayerNorm input (``_dal_bwd``, :114-126) and keeps
-  only the keep mask, JAX's default "store" policy (:59-66).
+  (``dropout_add_ln``, :93-148): one launch of the LayerNorm kernel with its
+  mask-and-add prologue forward, one of the backward kernel (and its
+  summing pass) backward, which recomputes the LayerNorm input
+  (``_dal_bwd``, :114-126) and keeps only the keep mask, JAX's default
+  "store" policy (:59-66). Twins: ``ops/layernorm.py``'s
+  ``ln_fwd_math``/``ln_bwd_math``.
 * :func:`attention_prob_dropout` -- attention with dropout on the
   probabilities (``attention_prob_dropout``, :173-291): normalized float32
   softmax, probabilities rounded to the compute dtype before the mask
@@ -25,8 +28,8 @@ from typing import Optional
 
 import torch
 
-from lightningdot_tpu_torch.ops.layernorm import (_ln_forward, layer_norm,
-                                                  layer_norm_bwd)
+from lightningdot_tpu_torch.ops.layernorm import (_ln_backward, _ln_forward,
+                                                  apply_keep)
 
 
 def keep_mask(shape, rate: float, generator: torch.Generator
@@ -37,47 +40,34 @@ def keep_mask(shape, rate: float, generator: torch.Generator
                       device=generator.device) < 1.0 - rate
 
 
-def apply_keep(x: torch.Tensor, keep: torch.Tensor, rate: float
-               ) -> torch.Tensor:
-    """Inverted dropout given the keep mask: ``x * keep * scale`` in x's
-    dtype, the scale ``1 / (1 - rate)`` rounded to that dtype
-    (``_apply_keep``, lightningdot_tpu/ops/fused.py:74-77)."""
-    return x * keep.to(x.dtype) * torch.tensor(1.0 / (1.0 - rate),
-                                               dtype=x.dtype)
-
-
-def _dal_input(x, res, keep, rate):
-    return (x if keep is None else apply_keep(x, keep, rate)) + res
-
-
 class _DropoutAddLN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, res, scale, bias, keep, rate, eps):
         ctx.save_for_backward(x, res, scale, keep)
         ctx.rate, ctx.eps = rate, eps
-        return _ln_forward(_dal_input(x, res, keep, rate), scale, bias, eps)
+        return _ln_forward(x, scale, bias, eps, res, keep, rate)
 
     @staticmethod
     def backward(ctx, g):
-        x, res, scale, keep = ctx.saved_tensors
-        u = _dal_input(x, res, keep, ctx.rate)       # recomputed, not stored
-        du, dscale, dbias = layer_norm_bwd(u, scale, g, ctx.eps)
-        dx = du if keep is None else apply_keep(du, keep, ctx.rate)
-        return dx, du, dscale, dbias, None, None, None
+        x, res, scale, keep = ctx.saved_tensors      # u is recomputed
+        dx, dres, dscale, dbias = _ln_backward(x, scale, g, ctx.eps, res,
+                                               keep, ctx.rate)
+        return dx, dres, dscale, dbias, None, None, None
 
 
 def dropout_add_ln(x: torch.Tensor, res: torch.Tensor, scale: torch.Tensor,
                    bias: torch.Tensor, keep: Optional[torch.Tensor], *,
                    rate: float, eps: float) -> torch.Tensor:
     """``LayerNorm(dropout(x) + res)`` with float32 statistics, cast back to
-    x's dtype. Without a gradient and without a mask it is
-    ``layer_norm(x + res)``, the inference path."""
+    x's dtype, in one launch of the LayerNorm kernel on the card. Without a
+    gradient and without a mask it is ``layer_norm(x + res)``, the inference
+    path (the int8 tower's too)."""
     if keep is not None and rate <= 0.0:
         raise ValueError("dropout_add_ln: a keep mask needs rate > 0")
     needs_grad = torch.is_grad_enabled() and any(
         t.requires_grad for t in (x, res, scale, bias))
     if not needs_grad:
-        return layer_norm(_dal_input(x, res, keep, rate), scale, bias, eps)
+        return _ln_forward(x, scale, bias, eps, res, keep, rate)
     return _DropoutAddLN.apply(x, res, scale, bias, keep, rate, eps)
 
 

@@ -204,6 +204,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     x = torch.zeros(4, 32)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         layernorm.layer_norm_cuda(x, torch.ones(32), torch.zeros(32), 1e-12)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        layernorm.layer_norm_bwd_cuda(x, torch.ones(32), x, 1e-12)
     q = torch.zeros(1, 4, 2, 8)
     with pytest.raises(ValueError, match="CUDA tensors only"):
         attention.attention_cuda(q, q, q, torch.zeros(1, 4), 0.3, False)
@@ -261,7 +263,8 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="16-byte aligned"):
         attention.check_tensor_core_operands("k", 64, g, g, g,
                                              g.reshape(-1)[1:])
-    assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0,
+    assert launch_counts() == {"layernorm": 0, "layernorm_bwd": 0,
+                               "attention": 0, "ffn": 0,
                                "ffn_mma": 0, "ffn_int8": 0, "ffn_dh1": 0,
                                "ffn_dh1_mma": 0,
                                "adamw": 0, "attention_train_fwd": 0,

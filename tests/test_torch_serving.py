@@ -241,7 +241,8 @@ def test_http_server_serves_the_port_retriever(setup):
 
 def test_launch_counters_stay_zero_on_cpu(setup):
     setup["port"].retrieve_batch(_queries(3, 5, seed=5), top=4)
-    assert launch_counts() == {"layernorm": 0, "attention": 0, "ffn": 0,
+    assert launch_counts() == {"layernorm": 0, "layernorm_bwd": 0,
+                               "attention": 0, "ffn": 0,
                                "ffn_mma": 0, "ffn_int8": 0, "ffn_dh1": 0,
                                "ffn_dh1_mma": 0,
                                "adamw": 0, "attention_train_fwd": 0,
