@@ -34,7 +34,13 @@ Phases, each of which exits non-zero on failure (no result is printed):
      idle share against the p50, the costliest device kernels;
 4. serve: ``serving_native.serve_retriever`` over the bfloat16 Retriever
    answers concurrent /search requests, each ``ranking_equivalent`` to a
-   direct ``retrieve_batch``;
+   direct ``retrieve_batch``; then the port's HTTP front end
+   (``serving_http.RetrievalServer`` over ``serving_frontend.
+   BatchingFrontend``, ``max_batch`` 64) answers a burst that coalesces
+   into fewer device calls than requests, held the same way
+   (``serve_http``); then ``serving_native.run_loadgen`` drives
+   ``serve_retriever`` at two offered rates, 2 s each: achieved QPS,
+   p50/p99 latency, no errors (``loadgen``);
 5. image: corpus encoding with both towers in bfloat16 through
    ``get_model_encoded_vecs`` over 4,224 synthetic images (num_bb 36 and
    100), images/s; float32 on the card against the CPU plain path, bfloat16
@@ -53,7 +59,18 @@ Phases, each of which exits non-zero on failure (no result is printed):
    against a fresh model, the loss falling on a fixed batch, float32 card
    vs CPU (at dropout 0, and at attention dropout 0.1 with one step seed on
    both devices) and bfloat16 vs float32, each bound beside a control (see
-   ``train_phase``).
+   ``train_phase``);
+8. eval: ``cli/eval_itm.main`` of the port on the card at
+   configs/coco_eval.json's model (BERT-base cased + UNITER-base,
+   ``project_dim`` 768, bf16, batch 80) over synthetic DBs written by the
+   port's writers (500 images x 5 captions, 10-100 regions of 2,048
+   features, captions of up to 60 tokens): recall@{1,5,10} both ways,
+   loss, correct ratio, pairs/s and distinct images/s, the batches' shapes
+   (each held by the kernel rows); each index's rankings against NumPy's
+   exact top-k of the same vectors, recall recomputed on the host, the
+   native HNSW index's recall equal to the flat index's, a profiler pass
+   over one batch, and float32 on the card against the CPU on 32 images x
+   2 captions (recall equal, vectors within ``F32_VEC_ATOL``).
 
 The kernel rows also hold the training kernels at the step's shapes: the
 FFN forward writing h1 and gelu(h1) and dh1 at 2,048 and 4,096 rows (in
@@ -80,7 +97,8 @@ tensor-core FFN (``ffn_mma``), dh1 (``ffn_dh1_mma``) and backward
 (``attention_train_bwd_mma``) and through no FMA form; the float32 checks
 of the query tower and of a training step against the CPU (``text_f32``,
 ``itm_train_f32``) through the FMA forms; the training paths through the
-LayerNorm backward kernel (``layernorm_bwd``). Then one JSON line listing the
+LayerNorm backward kernel (``layernorm_bwd``); the bf16 evaluation
+(``eval``) through the tensor-core FFN and no FMA form. Then one JSON line listing the
 kernels, and as the last line ``{"ok": true, "device": {...}}``. The script
 imports no JAX.
 """
@@ -162,7 +180,8 @@ PATH_KERNELS = {"text_f32": ("layernorm", "attention", "ffn"),
                               "attention_train_bwd_mma"),
                 "itm_train_f32": ("layernorm", "layernorm_bwd", "ffn",
                                   "ffn_dh1", "adamw", "attention_train_fwd",
-                                  "attention_train_bwd")}
+                                  "attention_train_bwd"),
+                "eval": ("layernorm", "attention", "ffn_mma")}
 # the FMA forms that a bf16 path must not launch
 FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
 
@@ -230,6 +249,32 @@ BF16_COSINE_MIN = 0.999
 # up to 9.4e-4 of the peak score, so rankings are held at 2e-3 of it (the
 # serve phase also prints the embedding jitter itself)
 SERVE_RANK_RTOL = 2e-3
+# the loadgen phase: two offered rates, as shares of the rate that the
+# bf16 batch-64 p50 implies (64 / p50), 2 s each over 8 connections; the
+# full sweep is scripts/bench_torch_serving.py's
+LOADGEN_SHARES = (0.3, 0.8)
+LOADGEN_SECONDS = 2.0
+# evaluation (cli/eval_itm.py at configs/coco_eval.json's model and data
+# settings): synthetic DBs of EVAL_IMAGES images with EVAL_CAPTIONS
+# captions each (the COCO test split has 5,000 x 5, cut for the run's
+# time; widths are not cut), 10-100 regions an image (conf_th 0.2,
+# min_bb 10, max_bb 100), captions of 4-58 ids (max_txt_len 60); and the
+# float32 card-vs-CPU check on EVAL_F32_IMAGES x EVAL_F32_CAPTIONS
+EVAL_IMAGES = 500
+EVAL_CAPTIONS = 5
+# its encode shapes (valid_batch_size, sequence): captions at S 64 (up to
+# 60 tokens) and images at 1 + 103 (100 regions); the kernel rows hold
+# attention, LayerNorm and the bf16 FFN at these shapes, and the eval
+# phase checks that its batches ran at no other
+EVAL_BATCH = 80
+EVAL_SEQS = (64, 104)
+EVAL_ROWS = tuple(EVAL_BATCH * s for s in EVAL_SEQS)
+EVAL_F32_IMAGES = 32
+EVAL_F32_CAPTIONS = 2
+# the flat index against NumPy's exact top-k of the same vectors: ids may
+# differ only among scores tied within this share of the peak score
+# (float32 on both sides, only the summation order differs)
+EVAL_TIE_RTOL = 1e-5
 
 CAPTIONS = [
     "A man riding a horse on the beach .",
@@ -422,7 +467,8 @@ def kernel_phase(device_name):
                         + [(b, s, 64) for b in (1, 64)
                            for s in (65, 105, 128)]
                         + [(b, s, 64) for b in (8, 64) for s in (192, 256)]
-                        + [(64, 37, 64), (64, 64, 32)]):
+                        + [(64, 37, 64), (64, 64, 32)]
+                        + [(EVAL_BATCH, s, 64) for s in EVAL_SEQS]):
             q, k, v = (randn(b, s, 12, d, dtype=dtype) for _ in range(3))
             lens = torch.randint(1, s + 1, (b,), device=dev, generator=g)
             mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
@@ -444,11 +490,12 @@ def kernel_phase(device_name):
         rows += fused_attention_rows(dtype, device_name, randn)
         # query rows (batch x length), the training rows (text 2,048 and
         # image 4,096), then in bfloat16 the encode batches: 128 captions x
-        # 32, 128 images x 64 and x 104
+        # 32, 128 images x 64 and x 104, and the eval batches of 80 x 64
+        # and 80 x 104
         half = dtype == torch.bfloat16
         ffn_name = "ffn_mma" if half else "ffn"
         for n in (16, 32, 256, 2048, 4096) + (
-                (8192, 13312) if half else ()):
+                (8192, 13312) + EVAL_ROWS if half else ()):
             x = randn(n, 768, dtype=dtype)
             w1 = randn(768, 3072, scale=0.02, dtype=dtype)
             b1 = randn(3072, scale=0.02)
@@ -526,9 +573,10 @@ def layernorm_rows(dtype, device_name, randn):
     """B1 at the paths' row counts. The forward kernel against its twin at
     32-16,384 rows (the query batches, the training batches of 64 x 32
     text and 64 x 64 image rows, the encode batches of 128 at S 64 and
-    104), and with its prologue (res; res and a rate-0.1 mask) at 32, 2,048
-    and 4,096 rows: within the twin's tolerance and bit-equal to the kernel
-    run on the twin's u. The backward kernel at 130 (ragged), 2,048 and
+    104, the eval batches of 80 at S 64 and 104), and with its prologue
+    (res; res and a rate-0.1 mask) at 32, 2,048 and 4,096 rows: within
+    the twin's tolerance and bit-equal to the kernel run on the twin's u.
+    The backward kernel at 130 (ragged), 2,048 and
     4,096 rows, without res (the plain LayerNorm sites), with res (rate 0)
     and with res and a rate-0.1 mask (the training sites); both at the
     training step's projection head too (64 rows of 1,536, a row over two
@@ -553,8 +601,8 @@ def layernorm_rows(dtype, device_name, randn):
     def params(h=h):
         return (torch.rand(h, device=dev, generator=gen) + 0.5, randn(h))
 
-    for n, h in ([(n, 768) for n in (32, 2048, 4096, 8192, 13312, 16384)]
-                 + [(64, 1536)]):
+    for n, h in ([(n, 768) for n in (32, 2048, 4096, 8192, 13312, 16384)
+                  + EVAL_ROWS] + [(64, 1536)]):
         x = randn(n, h, scale=3.0, dtype=dtype) + 1
         scale, bias = params(h)
         rows.append(compare(
@@ -1088,6 +1136,336 @@ def serve_phase(r16):
     check(stats["errors"] == 0, f"server errors: {stats}")
 
 
+def serve_http_phase(r16):
+    """The port's HTTP front end (``serving_http.RetrievalServer`` over
+    ``serving_frontend.BatchingFrontend``, ``max_batch`` 64) answers a
+    burst of concurrent /search requests: they coalesce into fewer device
+    calls than requests, and each ranking is ``ranking_equivalent`` to a
+    direct ``retrieve_batch``."""
+    from lightningdot_tpu_torch.serving_frontend import BatchingFrontend
+    from lightningdot_tpu_torch.serving_http import RetrievalServer
+
+    fe = BatchingFrontend(r16, max_batch=64, max_top=TOP)
+    t0 = time.perf_counter()
+    fe.warmup()
+    warm_s = time.perf_counter() - t0
+    queries = CAPTIONS + [c.replace(" .", " at night .") for c in CAPTIONS]
+    out = [None] * len(queries)
+    errors = []
+    with RetrievalServer(fe) as srv:
+        start = threading.Barrier(len(queries))
+
+        def call(i):
+            url = f"{srv.address}/search?q={quote(queries[i])}&top=10"
+            start.wait()
+            try:
+                with urllib.request.urlopen(url, timeout=120) as r:
+                    out[i] = [tuple(x)
+                              for x in json.loads(r.read())["results"]]
+            except Exception as e:  # reported below, fails the phase
+                errors.append(f"{queries[i]!r}: {e!r}")
+
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(queries))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        check(not any(t.is_alive() for t in threads), "a request hung")
+        check(not errors, f"requests failed: {errors}")
+    want = [r16.retrieve_batch([q], top=10)[0] for q in queries]
+    atol = hold_rankings(out, want, SERVE_RANK_RTOL, "HTTP served vs direct")
+    emit(phase="serve_http", server="serving_http", requests=len(queries),
+         requests_served=fe.requests_served,
+         batches_dispatched=fe.batches_dispatched, warmup_s=warm_s,
+         max_rank_score_delta=max_rank_delta(out, want), rank_atol=atol)
+    check(fe.requests_served == len(queries)
+          and fe.batches_dispatched < fe.requests_served,
+          f"requests not coalesced: {fe.batches_dispatched} batches for "
+          f"{fe.requests_served} requests")
+
+
+def loadgen_phase(r16, p50_64_ms, device_name):
+    """``serving_native.run_loadgen`` against ``serve_retriever(r16)`` at
+    ``LOADGEN_SHARES`` of the rate the batch-64 p50 implies: achieved QPS
+    and latency quantiles; no errors on either side."""
+    from lightningdot_tpu_torch.serving_native import (run_loadgen,
+                                                       serve_retriever)
+
+    saturation = 64 / (p50_64_ms / 1e3)
+    srv = serve_retriever(r16)
+    try:
+        for share in LOADGEN_SHARES:
+            before = srv.stats()
+            stats = run_loadgen(srv.port, rate=share * saturation,
+                                duration_s=LOADGEN_SECONDS, conns=8, top=TOP)
+            after = srv.stats()
+            batches = after["batches"] - before["batches"]
+            emit(phase="loadgen", share=share, saturation_per_s=saturation,
+                 offered_per_s=stats["offered_per_s"],
+                 achieved_per_s=stats["achieved_per_s"],
+                 completed=stats["completed"], p50_ms=stats["p50_ms"],
+                 p99_ms=stats["p99_ms"], loadgen_errors=stats["errors"],
+                 server_errors=after["errors"] - before["errors"],
+                 mean_batch=(after["batched_requests"]
+                             - before["batched_requests"]) / max(batches, 1),
+                 seconds=LOADGEN_SECONDS, conns=8, device=device_name)
+            check(stats["errors"] == 0 and after["errors"] == before["errors"]
+                  and stats["completed"] > 0, f"loadgen errors: {stats}, "
+                  f"server {after}")
+    finally:
+        srv.stop()
+
+
+def write_eval_dbs(root: Path, n_img: int, per_img: int, seed: int):
+    """An image DB and a text DB in the reference's layout, written with
+    the port's writers (``write_feat_db``, ``write_txt_db``): ``n_img``
+    images of 10-100 regions of ``IMG_DIM`` float16 features (confidences
+    that keep every region at conf_th 0.2), ``per_img`` captions of 4-58
+    ids each."""
+    from lightningdot_tpu_torch.data.feat_db import write_feat_db
+    from lightningdot_tpu_torch.data.txt_db import write_txt_db
+
+    rng = np.random.default_rng(seed)
+    records, examples = {}, {}
+    for i in range(n_img):
+        fname = f"coco_test_{i:06d}.npz"
+        nbb = int(rng.integers(10, 101))
+        xy = rng.random((nbb, 2), dtype=np.float32) * 0.5
+        wh = rng.random((nbb, 2), dtype=np.float32) * 0.5
+        records[fname] = {
+            "features": rng.standard_normal((nbb, IMG_DIM),
+                                            dtype=np.float32).astype(
+                                                np.float16),
+            "norm_bb": np.concatenate([xy, xy + wh, wh], axis=1),
+            "conf": np.full((nbb,), 0.7, np.float32)}
+        for c in range(per_img):
+            examples[f"txt_{i:06d}_{c}"] = {
+                "input_ids": rng.integers(106, 28996, int(
+                    rng.integers(4, 59))).tolist(), "img_fname": fname}
+    img_dir, txt_dir = root / "img", root / "txt_db"
+    write_feat_db(str(img_dir), records, conf_th=0.2, max_bb=100, min_bb=10)
+    write_txt_db(str(txt_dir), examples, {"CLS": 101, "SEP": 102,
+                                          "MASK": 103,
+                                          "v_range": [106, 28996]})
+    return str(txt_dir), str(img_dir)
+
+
+def run_eval_cli(cmds):
+    """``cli/eval_itm.main(cmds)``, keeping what its evaluator returned
+    (the model, the vectors, the rankings) and the shapes of the batches
+    it encoded beside the CLI's results."""
+    from lightningdot_tpu_torch.cli import eval_itm
+
+    kept = {}
+    real = eval_itm.eval_model_on_dataloader
+
+    kept["shapes"] = set()
+
+    def logged(loader):
+        for b in loader:
+            kept["shapes"].add((b["txts"]["input_ids"].shape,
+                                b["imgs"]["attention_mask"].shape))
+            yield b
+
+    def keep(model, loader, **kw):
+        t = time.perf_counter()
+        kept["result"] = real(model, logged(loader), **kw)
+        kept["seconds"] = time.perf_counter() - t
+        kept["model"], kept["loader"] = model, loader
+        return kept["result"]
+
+    eval_itm.eval_model_on_dataloader = keep
+    try:
+        t = time.perf_counter()
+        out = eval_itm.main(cmds)["test"]
+        kept["cli_seconds"] = time.perf_counter() - t
+    finally:
+        eval_itm.eval_model_on_dataloader = real
+    return out, kept
+
+
+def _exact_rankings(queries, keys, corpus, k):
+    """{query id: (ids, scores)} of NumPy's exact float32 top-k."""
+    scores = queries[1] @ corpus.T
+    top = np.argsort(-scores, axis=1, kind="stable")[:, :k]
+    return {q: ([keys[j] for j in row], scores[i, row])
+            for i, (q, row) in enumerate(zip(queries[0], top))}
+
+
+def hold_index(ranked, exact, vectors_q, keys, corpus, what):
+    """Each query's ranked ids equal NumPy's exact top-k, ties aside: both
+    lists, scored by NumPy, must be ``ranking_equivalent`` within
+    ``EVAL_TIE_RTOL`` of the peak score. Returns (queries whose ids
+    differ at all, the atol)."""
+    from lightningdot_tpu_torch.serving import ranking_equivalent
+
+    col = {key: j for j, key in enumerate(keys)}
+    peak = max(float(np.abs(s).max()) for _, s in exact.values())
+    atol = EVAL_TIE_RTOL * max(1.0, peak)
+    differ = 0
+    for q, got_ids in ranked.items():
+        want_ids, want_s = exact[q]
+        if list(got_ids) == want_ids:
+            continue
+        differ += 1
+        vq = vectors_q[q]
+        got = [(i, float(corpus[col[i]] @ vq)) for i in got_ids]
+        ok, why = ranking_equivalent(got, list(zip(want_ids, want_s)),
+                                     atol=atol)
+        check(ok, f"{what}: query {q}: {why}")
+    return differ, atol
+
+
+def eval_phase(args, device_name):
+    """The port's ``cli/eval_itm.main`` on the card at
+    configs/coco_eval.json's model (BERT-base cased + UNITER-base,
+    ``project_dim`` 768, bf16, ``valid_batch_size`` 80) over synthetic DBs
+    written by the port's writers: recall, loss, correct ratio, seconds,
+    pairs/s and images/s, the batches' shapes (``EVAL_SEQS``, which the
+    kernel rows hold); each index against NumPy's exact top-k of the
+    same vectors; recall recomputed on the host; the HNSW index's recall
+    against the flat index's; the path's launches; a profiler pass over
+    one batch; then the same evaluation in float32, card against CPU, on
+    a small split."""
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training.evaluator import (BatchEncoder,
+                                                           build_index)
+    from lightningdot_tpu_torch.utils import metrics
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        txt_dir, img_dir = write_eval_dbs(Path(tmp) / "test", EVAL_IMAGES,
+                                          EVAL_CAPTIONS, args.seed + 3)
+        emit(phase="setup_eval", seconds=time.perf_counter() - t0,
+             images=EVAL_IMAGES, captions=EVAL_IMAGES * EVAL_CAPTIONS)
+        cmds = ["--config", "configs/coco_eval.json", "--itm_global_file",
+                "", "--test_txt_db", txt_dir, "--test_img_db", img_dir]
+        reset_launch_counts()
+        res, kept = run_eval_cli(cmds)
+        counts = launch_counts()
+        hold_path("eval", counts)
+        result = kept["result"]
+        held = {((EVAL_BATCH, t), (EVAL_BATCH, i)) for t in EVAL_SEQS
+                for i in EVAL_SEQS}
+        check(kept["shapes"] <= held, f"eval batches at {kept['shapes']}, "
+              f"the kernel rows hold {held}")
+        emit(phase="eval", images=EVAL_IMAGES,
+             captions=EVAL_IMAGES * EVAL_CAPTIONS, batch=EVAL_BATCH,
+             shapes=sorted(kept["shapes"]),
+             recall_txt2img=res["recall_txt"],
+             recall_img2txt=res["recall_img"], loss=res["loss"],
+             correct_ratio=res["correct_ratio"],
+             eval_seconds=kept["seconds"], cli_seconds=kept["cli_seconds"],
+             # each caption's pair encodes its image, as the evaluator
+             # does: 5 encodes per distinct image
+             pairs_per_s=EVAL_IMAGES * EVAL_CAPTIONS / kept["seconds"],
+             images_per_s=EVAL_IMAGES / kept["seconds"],
+             device=device_name)
+        check(np.isfinite(res["loss"]) and all(
+            set(d) == {1, 5, 10} and 0 <= d[1] <= d[5] <= d[10] <= 1
+            for d in (res["recall_txt"], res["recall_img"])),
+            f"eval results malformed: {res}")
+
+        # the indexes against NumPy's exact top-k, and recall on the host
+        txt = result.embeddings["txt"]
+        img = result.embeddings["img"]
+        t_keys, i_keys = list(txt), list(img)
+        t_mat, i_mat = np.stack(list(txt.values())), np.stack(
+            list(img.values()))
+        check(t_mat.shape[1] == i_mat.shape[1] == 768
+              and np.isfinite(t_mat).all() and np.isfinite(i_mat).all(),
+              "eval vectors malformed")
+        loader = kept["loader"]
+        txt_ids = list(loader.dataset.ids)
+        fnames = [loader.dataset.train_imgs[i] for i in range(len(txt_ids))]
+        exact_t = _exact_rankings((txt_ids, np.stack([txt[t] for t in
+                                                      txt_ids])),
+                                  i_keys, i_mat, 100)
+        exact_i = _exact_rankings((fnames, np.stack([img[f] for f in
+                                                     fnames])),
+                                  t_keys, t_mat, 100)
+        differ_t, atol_t = hold_index(result.rank_results[0], exact_t, txt,
+                                      i_keys, i_mat, "image index")
+        differ_i, atol_i = hold_index(result.rank_results[1], exact_i, img,
+                                      t_keys, t_mat, "text index")
+        gt = dict(zip(txt_ids, fnames))
+        host_t = metrics.recall_from_ranked_ids(
+            txt_ids, {q: r[0] for q, r in exact_t.items()}, gt)
+        host_i = metrics.recall_any_from_ranked_ids(
+            fnames, {q: r[0] for q, r in exact_i.items()},
+            loader.dataset.txt_db.img2txts)
+
+        # the native HNSW index over the same vectors
+        t = time.perf_counter()
+        hnsw_img = build_index(768, hnsw=True)
+        hnsw_img.index_data(list(img.items()))
+        hnsw_txt = build_index(768, hnsw=True)
+        hnsw_txt.index_data(list(txt.items()))
+        build_s = time.perf_counter() - t
+        rank_t = {q: r[0] for q, r in zip(txt_ids, hnsw_img.search_knn(
+            np.stack([txt[q] for q in txt_ids]), 100))}
+        rank_i = {q: r[0] for q, r in zip(fnames, hnsw_txt.search_knn(
+            np.stack([img[f] for f in fnames]), 100))}
+        hnsw_t = metrics.recall_from_ranked_ids(txt_ids, rank_t, gt)
+        hnsw_i = metrics.recall_any_from_ranked_ids(
+            fnames, rank_i, loader.dataset.txt_db.img2txts)
+        emit(phase="eval_index_check", queries=len(txt_ids),
+             image_index_queries_differing=differ_t,
+             text_index_queries_differing=differ_i,
+             tie_atol=[atol_t, atol_i],
+             host_recall_txt2img=host_t, host_recall_img2txt=host_i,
+             hnsw_recall_txt2img=hnsw_t, hnsw_recall_img2txt=hnsw_i,
+             hnsw_build_s=build_s)
+        check(host_t == res["recall_txt"] and host_i == res["recall_img"],
+              f"host recall {host_t} {host_i} vs the CLI's {res}")
+        check(hnsw_t == res["recall_txt"] and hnsw_i == res["recall_img"],
+              f"HNSW recall {hnsw_t} {hnsw_i} vs the flat index's {res}")
+
+        # one encode batch under the profiler, staged as the evaluator
+        # stages it (pinned buffers, a side stream)
+        encoder = BatchEncoder(kept["model"])
+        batch = next(iter(loader))
+
+        def encode():
+            encoder(encoder.put(batch))
+
+        lat = []
+        for _ in range(6):
+            t = time.perf_counter()
+            encode()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+        emit_profile("eval", EVAL_BATCH, encode, statistics.median(lat[1:]),
+                     calls=3)
+        del encoder, batch, kept, result
+
+        # float32: the card against the plain path on the CPU
+        txt_dir, img_dir = write_eval_dbs(Path(tmp) / "f32", EVAL_F32_IMAGES,
+                                          EVAL_F32_CAPTIONS, args.seed + 4)
+        cmds = ["--config", "configs/coco_eval.json", "--itm_global_file",
+                "", "--test_txt_db", txt_dir, "--test_img_db", img_dir,
+                "--compute_dtype", "f32", "--valid_batch_size", "32"]
+        card, kept_card = run_eval_cli(cmds)
+        cpu, kept_cpu = run_eval_cli(cmds + ["--device", "cpu"])
+        errs = [float(np.abs(np.stack(list(kept_card["result"].embeddings[
+            side].values())) - np.stack(list(kept_cpu["result"].embeddings[
+                side].values()))).max()) for side in ("txt", "img")]
+        emit(phase="eval_f32_check", images=EVAL_F32_IMAGES,
+             captions=EVAL_F32_IMAGES * EVAL_F32_CAPTIONS,
+             recall_card=[card["recall_txt"], card["recall_img"]],
+             recall_cpu=[cpu["recall_txt"], cpu["recall_img"]],
+             loss_card=card["loss"], loss_cpu=cpu["loss"],
+             max_vec_err=max(errs), vec_atol=F32_VEC_ATOL,
+             cpu_seconds=kept_cpu["seconds"])
+        check(card["recall_txt"] == cpu["recall_txt"]
+              and card["recall_img"] == cpu["recall_img"],
+              f"float32 recall card {card} vs cpu {cpu}")
+        check(max(errs) <= F32_VEC_ATOL,
+              f"float32 eval vectors differ by {max(errs)}")
+    return counts
+
+
 class SynthImages:
     """Items in the format of the ITM datasets (what
     ``lightningdot_tpu_torch/data/itm.py::itm_fast_collate`` takes), made
@@ -1192,7 +1570,8 @@ def image_phase(args, ctx, device_name):
           "image vectors malformed")
     encoder = BatchEncoder(m16)
     batch = next(iter(image_loader(data, IMG_BATCH)))
-    emit_profile("image_bf16", IMG_BATCH, lambda: encoder(batch),
+    emit_profile("image_bf16", IMG_BATCH,
+                 lambda: encoder(encoder.put(batch)),
                  1e3 * IMG_BATCH / rates["num_bb_36"], calls=3)
 
     # float32 on the card against the plain path on the CPU, and bfloat16
@@ -1201,10 +1580,11 @@ def image_phase(args, ctx, device_name):
     for d in (data, data100):
         batch = itm_fast_collate([d[i] for i in range(4)],
                                  CollateConfig(fixed_batch=4))
-        _, card, _ = BatchEncoder(model(torch.float32, DEVICE))(batch)
-        _, cpu, _ = BatchEncoder(model(torch.float32, "cpu"),
-                                 device="cpu")(batch)
-        _, half, _ = encoder(batch)
+        f32_card = BatchEncoder(model(torch.float32, DEVICE))
+        f32_cpu = BatchEncoder(model(torch.float32, "cpu"), device="cpu")
+        _, card, _ = f32_card(f32_card.put(batch))
+        _, cpu, _ = f32_cpu(f32_cpu.put(batch))
+        _, half, _ = encoder(encoder.put(batch))
         errs.append(float((card.cpu() - cpu).abs().max()))
         cosines.append(float(torch.nn.functional.cosine_similarity(
             half, card, dim=1).min()))
@@ -1847,12 +2227,15 @@ def main() -> int:
              seconds=time.perf_counter() - t0)
         r16, ctx = main_path(args, tok, device_name)
         serve_phase(r16)
+        serve_http_phase(r16)
+        loadgen_phase(r16, ctx["p50"][64], device_name)
         del r16
         paths = {"text_f32": ctx["counts_f32"], "text_bf16": ctx["counts"]}
         img = image_phase(args, ctx, device_name)
         paths["image_bf16"] = img["counts"]
         paths["int8_serving"] = int8_phase(args, tok, ctx, img, device_name)
         del ctx, img
+    paths["eval"] = eval_phase(args, device_name)
     train = train_phase(args, device_name)
     paths["itm_train"] = train["counts"]
     paths["itm_train_f32"] = train["counts_f32"]

@@ -4,9 +4,9 @@ The JAX package (``lightningdot_tpu``) is the reference; this package runs
 the same models on an NVIDIA H100 through hand-written CUDA kernels, each
 with a plain PyTorch twin that the CPU takes. It imports torch and nothing
 of ``jax`` or ``lightningdot_tpu``: what it needs of the JAX package's
-JAX-free modules (the config, the padding ladders, the tokenizer, the ITM
-collate, the native server's front end) it keeps as its own copies, each
-naming its counterpart. Its entry points run on the card unless the
+JAX-free modules (the config, the data readers and loaders, the tokenizer,
+the metrics, the HNSW index, the serving front ends) it keeps as its own
+copies, each naming its counterpart. Its entry points run on the card unless the
 caller passes ``device="cpu"``.
 
 Exports are lazy, so importing the package loads nothing heavy.
@@ -22,6 +22,9 @@ _EXPORTS = {
     "FusedAdamW": "lightningdot_tpu_torch.training.optim",
     "make_itm_train_step": "lightningdot_tpu_torch.training.itm_step",
     "Retriever": "lightningdot_tpu_torch.serving",
+    "BatchingFrontend": "lightningdot_tpu_torch.serving_frontend",
+    "RetrievalServer": "lightningdot_tpu_torch.serving_http",
+    "DenseFlatIndex": "lightningdot_tpu_torch.index",
     "get_model_encoded_vecs": "lightningdot_tpu_torch.serving",
     "ranking_equivalent": "lightningdot_tpu_torch.serving",
 }

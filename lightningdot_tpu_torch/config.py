@@ -1,15 +1,23 @@
-"""The transformer architecture configuration (the port's copy of
-``EncoderConfig``, lightningdot_tpu/config.py:24-70).
+"""Configuration (the port's copy of lightningdot_tpu/config.py:24-247).
 
-It accepts the same JSON schema as the reference's ``config/img_base.json``
-and ``config/bert_base.json`` and HF bert configs (UniterConfig,
-uniter_model/model/model.py:23-115). The CLI option groups of the JAX
-module come with the command-line programs that use them.
+Two layers, mirroring the reference:
+
+  * :class:`EncoderConfig`: the transformer architecture config, accepting
+    the same JSON schema as the reference's ``config/img_base.json`` and
+    ``config/bert_base.json`` and HF bert configs (UniterConfig,
+    uniter_model/model/model.py:23-115).
+  * argparse param groups + JSON overlay where CLI flags win: the
+    semantics of ``parse_with_config`` (dvl/options.py:96-109) and the
+    grouped registrars ``default_params`` / ``add_itm_params``
+    (dvl/options.py:15-81), holding the flags the port reads.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import sys
+from typing import Any, Optional, Sequence
 
 
 @dataclasses.dataclass
@@ -63,3 +71,112 @@ class EncoderConfig:
     def out_size(self) -> int:
         """Embedding dim a tower produces (bi_encoder.py:125-128,193-196)."""
         return self.project_dim if self.project_dim > 0 else self.hidden_size
+
+
+BERT_BASE_UNCASED = EncoderConfig(vocab_size=30522)
+BERT_BASE_CASED = EncoderConfig(vocab_size=28996)
+
+
+# ---------------------------------------------------------------------------
+# Run options: argparse groups + JSON overlay (dvl/options.py parity)
+# ---------------------------------------------------------------------------
+
+def default_params(parser: argparse.ArgumentParser) -> None:
+    """Core flags (dvl/options.py:15-47): the ones the port reads now.
+    The training flags come with the training driver; a reference config
+    JSON loads all the same, since :func:`parse_with_config` sets every
+    key it holds."""
+    parser.add_argument("--txt_model_type", default="bert-base", type=str)
+    parser.add_argument("--txt_model_config", default="bert-base-cased", type=str)
+    parser.add_argument("--txt_checkpoint", default=None, type=str)
+    parser.add_argument("--img_model_type", default="uniter-base", type=str)
+    parser.add_argument("--img_model_config", default="./configs/img_base.json", type=str)
+    parser.add_argument("--img_checkpoint", default=None, type=str)
+    parser.add_argument("--biencoder_checkpoint", default=None, type=str)
+
+    parser.add_argument("--train_batch_size", default=80, type=int)
+    parser.add_argument("--valid_batch_size", default=80, type=int)
+    parser.add_argument("--loader_workers", default=4, type=int,
+                        help="parallel whole-batch collate threads for the "
+                        "loaders (order-preserving)")
+
+    parser.add_argument("--seed", default=42, type=int)
+    parser.add_argument("--max_txt_len", default=64, type=int)
+    parser.add_argument("--config", default=None, type=str)
+    parser.add_argument("--itm_global_file", default=None, type=str)
+    parser.add_argument("--hnsw_index", action="store_true")
+    parser.add_argument("--compute_dtype", default="bf16",
+                        choices=["bf16", "f32"])
+
+
+def add_itm_params(parser: argparse.ArgumentParser) -> None:
+    """ITM / retrieval flags (dvl/options.py:50-81) that the port reads,
+    with the path remapping of :func:`map_db_dirs`."""
+    parser.add_argument("--conf_th", default=0.2, type=float)
+    parser.add_argument("--caption_score_weight", default=0.0, type=float)
+    parser.add_argument("--num_hard_negatives", default=0, type=int)
+    parser.add_argument("--max_bb", default=100, type=int)
+    parser.add_argument("--min_bb", default=10, type=int)
+    parser.add_argument("--num_bb", default=36, type=int)
+    parser.add_argument("--txt_db_mapping", default=None, type=str)
+    parser.add_argument("--img_db_mapping", default=None, type=str)
+    parser.add_argument("--pretrain_mapping", default=None, type=str)
+    parser.add_argument("--val_txt_db", default=None, type=str)
+    parser.add_argument("--val_img_db", default=None, type=str)
+    parser.add_argument("--test_txt_db", default=None, type=str)
+    parser.add_argument("--test_img_db", default=None, type=str)
+    parser.add_argument("--inf_minibatch_size", default=400, type=int)
+    parser.add_argument("--project_dim", default=0, type=int)
+
+
+def parse_with_config(parser: argparse.ArgumentParser,
+                      cmds: Optional[Sequence[str]] = None) -> argparse.Namespace:
+    """Parse CLI args, overlay a JSON config; CLI flags win.
+
+    Semantics of dvl/options.py:96-109: any key present in the JSON config is
+    applied unless the same flag was explicitly given on the command line.
+    """
+    argv = list(sys.argv[1:]) if cmds is None else list(cmds)
+    args = parser.parse_args(argv)
+    if args.config is not None:
+        with open(args.config) as f:
+            config_args = json.load(f)
+        override_keys = {arg[2:].split("=")[0] for arg in argv
+                         if arg.startswith("--")}
+        for k, v in config_args.items():
+            if k not in override_keys:
+                setattr(args, k, v)
+    return args
+
+
+def map_db_dirs(args: argparse.Namespace) -> None:
+    """Container path remapping (dvl/options.py:112-132): rewrite
+    /pretrain, /db and /img prefixes via the *_mapping flags."""
+    for k, v in list(vars(args).items()):
+        if not isinstance(v, str):
+            continue
+        if v.startswith("/pretrain") and getattr(args, "pretrain_mapping",
+                                                 None):
+            setattr(args, k, v.replace("/pretrain", args.pretrain_mapping, 1))
+        if v.startswith("/db") and getattr(args, "txt_db_mapping", None):
+            setattr(args, k, v.replace("/db", args.txt_db_mapping, 1))
+        if v.startswith("/img") and getattr(args, "img_db_mapping", None):
+            setattr(args, k, v.replace("/img", args.img_db_mapping, 1))
+    if getattr(args, "img_db_mapping", None) and \
+            isinstance(getattr(args, "train_img_dbs", None), list):
+        args.train_img_dbs = [
+            p.replace("/img", args.img_db_mapping, 1)
+            if p.startswith("/img") else p for p in args.train_img_dbs]
+    if getattr(args, "txt_db_mapping", None) and \
+            isinstance(getattr(args, "train_txt_dbs", None), list):
+        args.train_txt_dbs = [
+            p.replace("/db", args.txt_db_mapping, 1)
+            if p.startswith("/db") else p for p in args.train_txt_dbs]
+
+
+def print_args(args: Any, log=print) -> None:
+    """Configuration banner (dvl/options.py:137-142)."""
+    log(" **************** CONFIGURATION **************** ")
+    for key, val in sorted(vars(args).items()):
+        log(f"{key:<30} -->   {val}")
+    log(" **************** END CONFIGURATION **************** ")

@@ -1,8 +1,8 @@
-"""The ITM collate (the port's copy of ``CollateConfig`` and
-``itm_fast_collate``, lightningdot_tpu/data/itm.py:115-192; reference
-dvl/data/itm.py:203-288).
+"""The ITM dataset and collate (the port's copies of ``ItmFastDataset``,
+``CollateConfig`` and ``itm_fast_collate``,
+lightningdot_tpu/data/itm.py:27-192; reference dvl/data/itm.py:30-288).
 
-Items are dicts in the format of the JAX package's ``ItmFastDataset``:
+Items are the dicts of :class:`ItmFastDataset`:
 ``input_ids``, ``img`` (``fname``, ``img_feat`` [R, 2048], ``img_pos_feat``
 [R, 7], ``num_bb``, ``caption_ids``), ``neg_imgs``/``neg_txts`` (hard
 negatives or None) and ``txt_id``. The collate pads up the ladders of
@@ -12,14 +12,106 @@ negatives or None) and ``txt_id``. The collate pads up the ladders of
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
 from lightningdot_tpu_torch import const
+from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
 from lightningdot_tpu_torch.data.padding import (bucket_len, pad_feats,
                                                  pad_ids, pad_mask,
                                                  position_ids)
+from lightningdot_tpu_torch.data.txt_db import TxtTokDb, get_ids_and_lens
+
+
+class ItmFastDataset:
+    """The port's copy of ``ItmFastDataset`` (lightningdot_tpu/data/itm.py:
+    27-112; reference dvl/data/itm.py:30-122): one item per text of the
+    text DB, paired with its image, and per-epoch resampling of hard
+    negatives (``new_epoch``)."""
+
+    def __init__(self, txt_db: TxtTokDb, img_db: DetectFeatDb,
+                 num_hard_negatives: int = 0, img_meta: Optional[dict] = None,
+                 tokenizer=None):
+        self.txt_db = txt_db
+        self.img_db = img_db
+        self.txt_lens, self.ids = get_ids_and_lens(txt_db)
+        self.ids_2_idx = {idx: i for i, idx in enumerate(self.ids)}
+        self.num_hard_negatives = num_hard_negatives
+        if img_meta is not None and tokenizer is None:
+            raise ValueError("img_meta (caption blending) requires a "
+                             "tokenizer — fail here, not deep in a "
+                             "dataloader worker")
+        self.img_meta = img_meta
+        self.tokenizer = tokenizer
+        self.train_imgs: Optional[List[str]] = None
+        self.neg_imgs: Optional[List[Optional[List[str]]]] = None
+        self.lens: List[int] = []
+
+    def new_epoch(self, hard_negatives_img: Optional[dict] = None,
+                  hard_negatives_txt: Optional[dict] = None) -> None:
+        """Resample labels/negatives each epoch (itm.py:51-66)."""
+        txt2img = self.txt_db.txt2img  # cached map beats per-record decode
+        self.lens = []
+        self.train_imgs, self.neg_imgs = [], []
+        self.train_txts, self.neg_txts = [], []
+        for id_, tl in zip(self.ids, self.txt_lens):
+            img_fname = txt2img[id_]
+            self.train_imgs.append(img_fname)
+            self.train_txts.append(id_)
+            if hard_negatives_img is not None and self.num_hard_negatives > 0:
+                if hard_negatives_txt is None:
+                    raise ValueError(
+                        "hard_negatives_img and hard_negatives_txt must be "
+                        "provided together (one-sided negatives would "
+                        "crash mid-iteration)")
+                self.neg_imgs.append(
+                    list(hard_negatives_img[id_][:self.num_hard_negatives]))
+                self.neg_txts.append(
+                    list(hard_negatives_txt[img_fname][:self.num_hard_negatives]))
+            else:
+                self.neg_imgs.append(None)
+                self.neg_txts.append(None)
+            self.lens.append(tl + self.img_db.name2nbb[img_fname])
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def _caption_ids(self, img_fname: str) -> Optional[List[int]]:
+        """Concatenated multi-caption ids (itm.py:111-114)."""
+        if self.img_meta is None:
+            return None
+        toks = [self.tokenizer.encode(c, add_special_tokens=False)
+                + [self.tokenizer.sep_token_id]
+                for c in self.img_meta[img_fname]["caption_multiple"]]
+        return [self.tokenizer.cls_token_id] + sum(toks, [])
+
+    def _img_entry(self, fname: str) -> Dict[str, Any]:
+        feat, pos, nbb = self.img_db.get_img_feat(fname)
+        return {"fname": fname, "img_feat": feat, "img_pos_feat": pos,
+                "num_bb": nbb, "caption_ids": self._caption_ids(fname)}
+
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        if self.train_imgs is None:
+            self.new_epoch()
+        id_ = self.ids[i]
+        example = self.txt_db[id_]
+        img_fname = self.train_imgs[i]
+
+        item = {
+            "txt_id": id_,
+            "input_ids": self.txt_db.combine_inputs(example["input_ids"]),
+            "img": self._img_entry(img_fname),
+            "neg_imgs": None,
+            "neg_txts": None,
+        }
+        if self.neg_imgs[i] is not None:
+            item["neg_imgs"] = [self._img_entry(f) for f in self.neg_imgs[i]]
+            item["neg_txts"] = [
+                self.txt_db.combine_inputs(
+                    self.txt_db[t]["input_ids"])
+                for t in self.neg_txts[i]]
+        return item
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,6 @@
 """Models of the port (counterpart of lightningdot_tpu/models)."""
 from lightningdot_tpu_torch.models.bi_encoder import (  # noqa: F401
-    BiEncoder, dot_product_scores)
+    BiEncoder, BiEncoderNllLoss, dot_product_scores)
 from lightningdot_tpu_torch.models.encoder import (  # noqa: F401
     ImageEncoder, ImgEmbeddings, TextEncoder, attention_bias, init_tower_)
 from lightningdot_tpu_torch.models.quantized import (  # noqa: F401

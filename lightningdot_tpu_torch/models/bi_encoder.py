@@ -1,10 +1,11 @@
-"""Two-tower bi-encoder (counterpart of
-lightningdot_tpu/models/bi_encoder.py:37-48,93-167).
+"""Two-tower bi-encoder and its in-batch loss (counterpart of
+lightningdot_tpu/models/bi_encoder.py:37-167).
 
 Built in eval mode; ``train()`` turns dropout on, with the masks drawn from
-the generators passed to :meth:`BiEncoder.apply`. The ITM loss is
-``training/itm_step.py``; the pre-training heads are a later slice of the
-port (ROADMAP.md, queue A).
+the generators passed to :meth:`BiEncoder.apply`. The training step's
+bidirectional loss is ``training/itm_step.py``; :class:`BiEncoderNllLoss`
+is the one-directional form the evaluator reports. The pre-training heads
+are a later slice of the port (ROADMAP.md, queue A).
 """
 from __future__ import annotations
 
@@ -23,6 +24,53 @@ def dot_product_scores(q_vectors: torch.Tensor,
     """q [n1, D] x ctx [n2, D] -> float32 [n1, n2] (reference
     bi_encoder.py:54-68), accumulated in float32."""
     return mm_f32(q_vectors, ctx_vectors.t())
+
+
+class BiEncoderNllLoss:
+    """In-batch contrastive NLL (the port's ``BiEncoderNllLoss.calc``,
+    lightningdot_tpu/models/bi_encoder.py:51-91; reference
+    dvl/models/bi_encoder.py:613-665)."""
+
+    @staticmethod
+    def calc(q_vectors: torch.Tensor, ctx_vectors: torch.Tensor,
+             caption_vectors: Optional[torch.Tensor], positive_idx,
+             hard_negative_idx=None, caption_score_weight: float = 0.1,
+             reduction: str = "mean", col_valid=None):
+        """Returns (loss, correct_prediction_count, scores), float32 on the
+        vectors' device.
+
+        ``positive_idx``: int [n_q] of the positive ctx column per query.
+        ``col_valid``: optional [n_ctx] 0/1 mask: invalid context columns
+        (fixed-size batch padding duplicates) are excluded from every OTHER
+        row's softmax denominator (each row's own positive stays unmasked).
+        ``hard_negative_idx`` is accepted for the reference's signature and
+        unused, as there.
+        """
+        del hard_negative_idx
+        scores = dot_product_scores(q_vectors, ctx_vectors)
+        if caption_vectors is not None and caption_score_weight != 0:
+            scores_cap = dot_product_scores(q_vectors, caption_vectors)
+            scores = ((1 - caption_score_weight) * scores
+                      + caption_score_weight * scores_cap)
+        positive_idx = torch.as_tensor(positive_idx, dtype=torch.int64,
+                                       device=scores.device)
+        if col_valid is not None:
+            col_valid = torch.as_tensor(col_valid, dtype=scores.dtype,
+                                        device=scores.device)
+            col_mask = (1.0 - col_valid)[None, :] * -1e30
+            diag = torch.nn.functional.one_hot(
+                positive_idx, scores.shape[1]).to(scores.dtype)
+            scores = scores + col_mask * (1.0 - diag)
+        log_probs = torch.log_softmax(scores, dim=1)
+        nll = -log_probs.gather(1, positive_idx[:, None])[:, 0]
+        if reduction == "mean":
+            loss = nll.mean()
+        elif reduction == "sum":
+            loss = nll.sum()
+        else:
+            loss = nll
+        correct = (log_probs.argmax(dim=1) == positive_idx).sum()
+        return loss, correct, scores
 
 
 class BiEncoder(nn.Module):

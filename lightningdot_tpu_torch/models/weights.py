@@ -114,11 +114,19 @@ def load_tower_(tower: torch.nn.Module, sd: Mapping[str, Any]) -> None:
     or :class:`~lightningdot_tpu_torch.models.encoder.ImageEncoder`,
     strictly: a missing or unexpected key raises. The index buffers that HF
     ``BertModel`` serializes (``*.position_ids``) are dropped."""
+    tower.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
+                           for k, v in tower_keys(sd).items()})
+
+
+def tower_keys(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A tower state dict under the port's key names, as
+    :func:`load_tower_` reads it: :func:`normalize_keys`, the serialized
+    index buffers dropped, and ``bert.`` put in front of a bare
+    ``BertModel``'s keys."""
     sd = {k: v for k, v in normalize_keys(sd).items()
           if not k.endswith((".position_ids", ".token_type_ids"))}
     if not any(k.startswith("bert.") for k in sd):
         sd = {f"bert.{k}": v for k, v in sd.items()
               if not k.startswith("encode_proj.")} | {
             k: v for k, v in sd.items() if k.startswith("encode_proj.")}
-    tower.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
-                           for k, v in sd.items()})
+    return sd

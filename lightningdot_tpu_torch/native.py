@@ -1,11 +1,13 @@
-"""Build and load the repository's native C++ libraries (``native/``) for
-the port's tokenizer and HTTP server (counterpart of
-lightningdot_tpu/native_build.py).
+"""Build and load the repository's native C++ libraries and tools
+(``native/``) for the port's tokenizer, HTTP server, key-value reader, HNSW
+index and load generator (counterpart of lightningdot_tpu/native_build.py).
 
 ``load_native(name)`` runs ``make`` for ``native/build/lib<name>.so`` alone,
 under an exclusive file lock (processes that start together never load a
 half-linked file), and loads it; None where it cannot be built, so that the
-callers take their pure-Python paths.
+callers take their pure-Python paths. ``build_native(target)`` builds any
+other target of ``native/Makefile`` under the same lock and raises where it
+cannot.
 """
 from __future__ import annotations
 
@@ -26,6 +28,18 @@ def _make(target: str) -> None:
         fcntl.flock(lock, fcntl.LOCK_EX)
         subprocess.run(["make", "-C", str(NATIVE_DIR), target], check=True,
                        capture_output=True, timeout=180)
+
+
+def build_native(target: str) -> Path:
+    """``native/<target>`` (e.g. ``build/ldloadgen``), built first if
+    missing or stale; a failed build raises ``RuntimeError`` with make's
+    output."""
+    try:
+        _make(target)
+    except subprocess.CalledProcessError as e:
+        raise RuntimeError(f"make {target} failed: {e.stdout!r} "
+                           f"{e.stderr!r}") from e
+    return NATIVE_DIR / target
 
 
 def load_native(name: str) -> Optional[ctypes.CDLL]:

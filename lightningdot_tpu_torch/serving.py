@@ -27,7 +27,8 @@ from lightningdot_tpu_torch.models.bi_encoder import (BiEncoder,
 from lightningdot_tpu_torch.models.quantized import QuantizedTextEncoder
 from lightningdot_tpu_torch.ops import mm_int8
 from lightningdot_tpu_torch.ops.ffn_int8 import INV_127
-from lightningdot_tpu_torch.training.evaluator import BatchEncoder
+from lightningdot_tpu_torch.training.evaluator import (BatchEncoder,
+                                                       encoded_batches)
 
 QUERY_LEN_BUCKETS = (16, 32, 64)
 # batch sizes are padded up this ladder, as in the JAX package, so a server
@@ -376,20 +377,25 @@ def get_model_encoded_vecs(model: BiEncoder, dataloader, *,
     {'img_embed': {img_fname: vec}, 'caption_embed': {img_fname: vec},
     'txt_embed': {txt_id: vec}, 'img_name': [img_fname, ...]}, float32
     numpy vectors. The model's weights are its own (the JAX function takes
-    them as ``params``); it runs on ``device`` (:class:`BatchEncoder`)."""
+    them as ``params``); it runs on ``device`` (:class:`BatchEncoder`).
+    Batches are staged as the evaluator stages them
+    (:func:`encoded_batches`), and the vectors stay on the device until
+    one pull at the end."""
     encoder = BatchEncoder(model, device=device)
-    img_embedding, caption_embedding, query_embedding = {}, {}, {}
-    labels_img_name: List[Any] = []
-    for batch in dataloader:
-        txt, img, cap = encoder(batch)
+    fnames: List[Any] = []
+    tids: List[Any] = []
+    chunks: Dict[str, List[torch.Tensor]] = {"img": [], "cap": [], "txt": []}
+    for batch, txt, img, cap in encoded_batches(encoder, dataloader):
         n_valid = batch["n_valid"]
-        fnames = batch["img_fname"][:n_valid]
-        tids = batch["txt_index"][:n_valid]
-        img_embedding.update(zip(fnames, img[:n_valid].cpu().numpy()))
-        if cap is not None:
-            caption_embedding.update(zip(fnames,
-                                         cap[:n_valid].cpu().numpy()))
-        query_embedding.update(zip(tids, txt[:n_valid].cpu().numpy()))
-        labels_img_name.extend(fnames)
-    return {"img_embed": img_embedding, "caption_embed": caption_embedding,
-            "txt_embed": query_embedding, "img_name": labels_img_name}
+        fnames.extend(batch["img_fname"][:n_valid])
+        tids.extend(batch["txt_index"][:n_valid])
+        for key, vec in (("img", img), ("cap", cap), ("txt", txt)):
+            if vec is not None:
+                chunks[key].append(vec[:n_valid])
+    rows = {k: torch.cat(v).cpu().numpy() if v else []
+            for k, v in chunks.items()}
+    # dict semantics of the reference: later duplicates overwrite
+    return {"img_embed": dict(zip(fnames, rows["img"])),
+            "caption_embed": dict(zip(fnames, rows["cap"])),
+            "txt_embed": dict(zip(tids, rows["txt"])),
+            "img_name": fnames}

@@ -1,6 +1,7 @@
 """Native (C++) HTTP serving front end over the port's Retriever (the
 port's copy of ``serve_retriever`` and ``NativeRetrievalServer``,
-lightningdot_tpu/serving_native.py:35-162).
+lightningdot_tpu/serving_native.py:35-162), and of ``run_loadgen``
+(:164-185), the open-loop load generator over ``native/ldloadgen.cc``.
 
 ``native/ldserve.cc`` does socket IO, HTTP parsing, micro-batch assembly
 and JSON formatting; Python (and the card) is entered once per batch
@@ -17,12 +18,14 @@ shape of the same capability.
 from __future__ import annotations
 
 import ctypes
+import json
+import subprocess
 import weakref
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
-from lightningdot_tpu_torch.native import load_native
+from lightningdot_tpu_torch.native import build_native, load_native
 
 _CB = ctypes.CFUNCTYPE(
     ctypes.c_int, ctypes.c_void_p, ctypes.POINTER(ctypes.c_char),
@@ -157,3 +160,23 @@ def serve_retriever(retriever, port: int = 0, max_batch: int = 64,
     return NativeRetrievalServer(
         retriever.ids, retriever.retrieve_batch_arrays, port=port,
         max_batch=max_batch, max_wait_ms=max_wait_ms, max_top=max_top)
+
+
+def run_loadgen(port: int, rate: float, duration_s: float = 5.0,
+                conns: int = 8, top: int = 100,
+                timeout: Optional[float] = None) -> dict:
+    """Run the native open-loop load generator (``native/build/ldloadgen``,
+    built through :func:`~lightningdot_tpu_torch.native.build_native`)
+    against ``127.0.0.1:port`` at ``rate`` requests/s over ``conns``
+    connections for ``duration_s`` seconds; returns its stats dict
+    (offered and achieved rates, latency quantiles, errors). A failed
+    build or run raises ``RuntimeError``."""
+    exe = build_native("build/ldloadgen")
+    out = subprocess.run(
+        [str(exe), str(port), str(rate), str(duration_s), str(conns),
+         str(top)],
+        capture_output=True, text=True,
+        timeout=timeout or (duration_s + 30))
+    if out.returncode != 0:
+        raise RuntimeError(f"ldloadgen failed: {out.stdout} {out.stderr}")
+    return json.loads(out.stdout.strip().splitlines()[-1])

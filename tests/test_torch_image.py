@@ -192,7 +192,8 @@ def test_bi_encoder_apply_matches_jax(dtype):
     imgs = {"input_ids": cls, "attention_mask": mask, "img_feat": feat,
             "img_pos_feat": pos}
     batch = {"txts": txts, "imgs": imgs, "caps": None}
-    got = BatchEncoder(model, device="cpu")(batch)
+    encoder = BatchEncoder(model, device="cpu")
+    got = encoder(encoder.put(batch))
     want = jmodel.apply(jax.tree.map(jnp.asarray, params),
                         jax.tree.map(jnp.asarray, batch))
     assert got[2] is None and want[2] is None
@@ -213,9 +214,9 @@ def test_batch_encoder_checks_token_ids():
     model = BiEncoder(cfg, cfg)
     cls, mask, feat, pos, _ = _img_batch(cfg)
     with pytest.raises(ValueError, match="vocabulary"):
-        BatchEncoder(model, device="cpu")({"imgs": {"input_ids": cls,
-                                      "attention_mask": mask,
-                                      "img_feat": feat, "img_pos_feat": pos}})
+        BatchEncoder(model, device="cpu").put({"imgs": {
+            "input_ids": cls, "attention_mask": mask, "img_feat": feat,
+            "img_pos_feat": pos}})
 
 
 @pytest.fixture(scope="module")

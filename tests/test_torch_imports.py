@@ -38,7 +38,8 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "lightningdot_tpu")
 
 
-@pytest.mark.parametrize("path", _port_modules() + [ROOT / "chip_smoke.py"],
+@pytest.mark.parametrize("path", _port_modules() + [
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "bench_torch_serving.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_the_jax_package(path):
     """An ``ast`` walk: no ``import``/``from`` of jax or lightningdot_tpu,
@@ -222,10 +223,42 @@ def test_entry_points_run_on_the_card_by_default(monkeypatch):
     r = Retriever(model, _Tok(), device="cpu")
     r.set_corpus(["a", "b"], np.eye(2, 32, dtype=np.float32))
     assert len(r.retrieve_query("a dog", top=2)) == 2
-    txt, img, _ = BatchEncoder(model, device="cpu")(_batch())
+    encoder = BatchEncoder(model, device="cpu")
+    txt, img, _ = encoder(encoder.put(_batch()))
     assert txt.shape == img.shape == (3, 32) and txt.device.type == "cpu"
     model.train()
     step = make_itm_train_step(model, opt, device="cpu")
     metrics = step(_batch())
     assert np.isfinite(metrics["loss"].item())
     assert metrics["grad_norm"].device.type == "cpu"
+
+
+def test_run_loadgen_copy_matches_jax():
+    """The port's ``run_loadgen`` and the JAX package's drive the same
+    native load generator against one native server (a stand-in device
+    returning fixed arrays) and agree on what was served; a dead port
+    raises in both."""
+    from lightningdot_tpu.serving_native import run_loadgen as jrun
+    from lightningdot_tpu_torch.serving_native import (NativeRetrievalServer,
+                                                       run_loadgen)
+
+    def retrieve(queries, k):
+        n = len(queries)
+        return (np.tile(np.arange(k, dtype=np.int32), (n, 1)),
+                np.tile(np.linspace(1, 0, k, dtype=np.float32), (n, 1)))
+
+    srv = NativeRetrievalServer([f"img_{i}" for i in range(50)], retrieve,
+                                max_batch=8, max_top=10)
+    try:
+        got = run_loadgen(srv.port, rate=400, duration_s=0.5, conns=2,
+                          top=10)
+        want = jrun(srv.port, rate=400, duration_s=0.5, conns=2, top=10)
+    finally:
+        srv.stop()
+    assert got.keys() == want.keys()
+    for stats in (got, want):
+        assert stats["errors"] == 0 and stats["completed"] >= 150
+        assert stats["offered_per_s"] == 400
+    for run in (run_loadgen, jrun):
+        with pytest.raises(RuntimeError, match="ldloadgen failed"):
+            run(srv.port, rate=100, duration_s=0.2, conns=1)

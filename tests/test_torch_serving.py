@@ -1,5 +1,6 @@
 """The port's Retriever (lightningdot_tpu_torch.serving) against the JAX
-package's, on the same weights, and behind the JAX package's servers.
+package's, on the same weights, and behind the native server (both
+packages' copies) and the port's HTTP front end.
 
 Model: ``tiny_biencoder`` of tests/test_serving.py (float32), its JAX
 weights carried to the port with ``tower_state_dict_from_jax``. Rankings
@@ -230,8 +231,8 @@ def test_native_server_serves_the_port_retriever(setup, package):
 
 
 def test_http_server_serves_the_port_retriever(setup):
-    from lightningdot_tpu.serving_frontend import BatchingFrontend
-    from lightningdot_tpu.serving_http import RetrievalServer
+    from lightningdot_tpu_torch.serving_frontend import BatchingFrontend
+    from lightningdot_tpu_torch.serving_http import RetrievalServer
 
     port = setup["port"]
     with RetrievalServer(BatchingFrontend(port, max_batch=8,
