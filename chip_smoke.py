@@ -109,6 +109,7 @@ import functools
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -126,6 +127,7 @@ import torch
 CORPUS_SIZE = 123_287          # COCO images (train + restval + val + test)
 MODEL = dict(vocab_size=28996, project_dim=0)   # BERT-base cased
 IMG_DIM = 2048                 # Faster R-CNN region features
+IMG_LABEL_DIM = 1601           # detection classes of the MRC soft labels
 DEVICE = "cuda"
 TOP = 100
 # kernel vs twin: float32 within 1e-5 and bfloat16 within one bf16 ulp
@@ -182,6 +184,11 @@ PATH_KERNELS = {"text_f32": ("layernorm", "attention", "ffn"),
                                   "ffn_dh1", "adamw", "attention_train_fwd",
                                   "attention_train_bwd"),
                 "eval": ("layernorm", "attention", "ffn_mma")}
+# the training drivers (cli/train_itm.py, cli/pretrain.py): every bf16
+# training kernel, and the attention forward of their evaluations
+PATH_KERNELS.update({
+    path: PATH_KERNELS["itm_train"] + ("attention",)
+    for path in ("train_itm_cli", "pretrain")})
 # the FMA forms that a bf16 path must not launch
 FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
 
@@ -275,6 +282,33 @@ EVAL_F32_CAPTIONS = 2
 # differ only among scores tied within this share of the peak score
 # (float32 on both sides, only the summation order differs)
 EVAL_TIE_RTOL = 1e-5
+# the training drivers' phases: synthetic images x 5 captions (COCO's
+# train split has 113,287 images, its test split 5,000; cut for the run's
+# time, widths not cut), 2 epochs of cli/train_itm.py; for cli/pretrain.py
+# images with soft labels, PRE_UPDATES updates of 6 micro-batches
+FT_CONFIG = "configs/coco_ft.json"
+EVAL_CONFIG = "configs/coco_eval.json"
+PRE_CONFIG = "configs/pretrain_alldata_base.json"
+FT_TRAIN_IMAGES = 200
+FT_VAL_IMAGES = 100
+PRE_TRAIN_IMAGES = 240
+PRE_VAL_IMAGES = 48
+PRE_UPDATES = 2
+# pre-training, bfloat16 vs float32 at full depth per task: |loss delta| /
+# loss and the cosine of the whole gradient. An H100 run read 1.5e-2 /
+# 0.9930 (itm), 1.3e-5 / 0.99988 (mlm), 2.3e-6 / 0.99997 (mrfr) and 1.9e-4
+# / 0.99996 (mrckl); each bound sits 4-9 times above its reading. The
+# control, which every bound must refuse, is the float32 reference with its
+# weights and layer outputs rounded to PRE_CONTROL_MANTISSA_BITS mantissa
+# bits (bf16 keeps 7); it read 0.25 / 0.738, 1.5e-4 / 0.9925, 1.5e-3 /
+# 0.9928 and 4.4e-3 / 0.9928
+PRE_BF16_BOUNDS = {"itm": (6e-2, 0.98), "mlm": (5e-5, 0.999),
+                   "mrfr": (2e-5, 0.9997), "mrckl": (1e-3, 0.9997)}
+PRE_CONTROL_MANTISSA_BITS = 3
+# (groups, calls per group) of the kernel rows held at the shapes the
+# drivers' phases recorded: fewer than the other rows' (7, 10), for the
+# number of shapes
+RECORDED_TIMING = (3, 5)
 
 CAPTIONS = [
     "A man riding a horse on the beach .",
@@ -386,14 +420,15 @@ def _flat(out):
 
 def compare(name, shape, dtype, kernel, twin, device_name, work,
             library=None, exact=False, reference=None, repeat=False,
-            **extra):
+            timing=(7, 10), **extra):
     """Hold a kernel against its twin on the same inputs and time both (and
     ``library``, one PyTorch call computing the same function, where there
     is one); ``work`` = (bytes, operations, peak rate) for the bound;
     ``exact``: bit for bit; ``reference``: the float32 computation of the
     same inputs, against which the kernel's relative L2 error may be at most
     ``ACCURACY_RATIO`` times the twin's; ``repeat``: a second launch must
-    give the same bits."""
+    give the same bits; ``timing`` = (groups, calls per group) of
+    :func:`time_ms`."""
     got, want = kernel(), twin()
     again = kernel() if repeat else None
     torch.cuda.synchronize()
@@ -418,9 +453,10 @@ def compare(name, shape, dtype, kernel, twin, device_name, work,
     row = dict(phase="kernel", kernel=name, shape=list(shape),
                dtype=str(dtype).replace("torch.", ""), **extra,
                max_abs_err=err, tol=tol, differ_frac=differ, **held,
-               ms=time_ms(kernel), plain_ms=time_ms(twin), bound_ms=bound_ms,
-               bound_by=bound_by,
-               library_ms=None if library is None else time_ms(library),
+               ms=time_ms(kernel, *timing), plain_ms=time_ms(twin, *timing),
+               bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=None if library is None else time_ms(library,
+                                                               *timing),
                device=device_name)
     emit(**row)
     check(err <= tol, f"{name} {shape} {dtype}: error {err} > {tol}")
@@ -439,28 +475,122 @@ def _peak(dtype):
     return PEAK_OPS["bf16" if dtype == torch.bfloat16 else "f32"]
 
 
-def kernel_phase(device_name):
-    from lightningdot_tpu_torch.ops import attention, ffn, ffn_dh1, ffn_int8
-
+def make_randn(seed):
+    """(randn, generator): normal tensors on the card from one seeded
+    generator, in a given dtype and scale."""
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-    f = torch.nn.functional
+    g = torch.Generator(device=dev).manual_seed(seed)
 
     def randn(*shape, scale=1.0, dtype=torch.float32):
         return (torch.randn(shape, device=dev, generator=g) * scale).to(dtype)
 
+    return randn, g
+
+
+def attention_row(b, s, d, dtype, device_name, randn, g, **kw):
+    """B2 at [b, s, 12 heads, d] with ragged key masks: float32 bit for bit
+    (every row sums in the twin's order); bfloat16 within the tolerance,
+    as accurate as the twin, deterministic. Library: SDPA."""
+    from lightningdot_tpu_torch.ops import attention
+
+    dev = torch.device("cuda")
+    isz = torch.finfo(dtype).bits // 8
+    q, k, v = (randn(b, s, 12, d, dtype=dtype) for _ in range(3))
+    lens = torch.randint(1, s + 1, (b,), device=dev, generator=g)
+    mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
+    bias = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+    half = dtype == torch.bfloat16
+    return compare(
+        "attention", (b, s, 12, d), dtype,
+        lambda: attention.multi_head_attention(q, k, v, bias),
+        lambda: attention._attention_math(q, k, v, bias, d ** -0.5),
+        device_name,
+        (4 * b * s * 12 * d * isz + b * s * 4, 4 * b * 12 * s * s * d,
+         _peak(dtype)),
+        library=lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=bias.to(dtype)), exact=not half,
+        reference=(lambda: attention._attention_math(
+            q.float(), k.float(), v.float(), bias, d ** -0.5))
+        if half else None, repeat=True, **kw)
+
+
+def ffn_rows(n, dtype, device_name, randn, train, **kw):
+    """B3 over n rows (768 -> 3072 -> 768): the forward, and where
+    ``train`` the training forward that also writes h1 and gelu(h1).
+    bfloat16 on the tensor cores within a bf16 ulp, as accurate as the twin
+    against the float32 computation of the same inputs, the same bits
+    again; float32 on FMA units within 1e-5."""
+    from lightningdot_tpu_torch.ops import ffn
+
+    isz = torch.finfo(dtype).bits // 8
+    half = dtype == torch.bfloat16
+    name = "ffn_mma" if half else "ffn"
+    x = randn(n, 768, dtype=dtype)
+    w1 = randn(768, 3072, scale=0.02, dtype=dtype)
+    b1 = randn(3072, scale=0.02)
+    w2 = randn(3072, 768, scale=0.02, dtype=dtype)
+    b2 = randn(768, scale=0.02)
+    io = (2 * n * 768 + 2 * 768 * 3072) * isz + (768 + 3072) * 4
+    held = dict(
+        reference=lambda: ffn._ffn_math(x.float(), w1.float(), b1,
+                                        w2.float(), b2)[0],
+        repeat=True) if half else {}
+    rows = [compare(
+        name, (n, 768, 3072), dtype,
+        lambda: ffn.ffn_gelu(x, w1, b1, w2, b2),
+        lambda: ffn._ffn_math(x, w1, b1, w2, b2)[0], device_name,
+        (io, 4 * n * 768 * 3072, _peak(dtype)), mode="forward", **held,
+        **kw)]
+    if train:
+        def twin_h1(x=x, w1=w1, w2=w2):
+            out, h1 = ffn._ffn_math(x, w1, b1, w2, b2)
+            return out, h1, ffn.gelu(h1)
+
+        held = dict(reference=lambda: twin_h1(
+            x.float(), w1.float(), w2.float()), repeat=True) if half else {}
+        rows.append(compare(
+            name, (n, 768, 3072), dtype,
+            lambda: ffn.ffn_cuda(x, w1, b1, w2, b2, with_h1=True),
+            twin_h1, device_name,
+            (io + 2 * n * 3072 * isz, 4 * n * 768 * 3072, _peak(dtype)),
+            mode="train", **held, **kw))
+    return rows
+
+
+def dh1_row(n, dtype, device_name, randn, **kw):
+    """B6, dh1 over n rows: bf16 on the tensor cores (``ffn_dh1_mma``),
+    held as the bf16 FFN rows; float32 on FMA units (``ffn_dh1``)."""
+    from lightningdot_tpu_torch.ops import ffn_dh1
+
+    isz = torch.finfo(dtype).bits // 8
+    half = dtype == torch.bfloat16
+    gr = randn(n, 768, dtype=dtype)
+    h1 = randn(n, 3072, dtype=dtype)
+    w2 = randn(3072, 768, scale=0.02, dtype=dtype)
+    held = dict(reference=lambda: ffn_dh1._dh1_math(
+        gr.float(), h1.float(), w2.float()), repeat=True) if half else {}
+    return compare(
+        "ffn_dh1_mma" if half else "ffn_dh1", (n, 768, 3072), dtype,
+        lambda: ffn_dh1.ffn_dh1_cuda(gr, h1, w2),
+        lambda: ffn_dh1._dh1_math(gr, h1, w2), device_name,
+        ((n * 768 + 2 * n * 3072 + 3072 * 768) * isz,
+         2 * n * 768 * 3072, _peak(dtype)), **held, **kw)
+
+
+def kernel_phase(device_name):
+    from lightningdot_tpu_torch.ops import ffn_int8
+
+    randn, g = make_randn(0)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
-        isz = torch.finfo(dtype).bits // 8
         rows += layernorm_rows(dtype, device_name, randn)
         # query buckets; the encode batches (captions at S 32, images at 1
         # + R with R = bucket_len(num_bb + 1) - 1, itm_fast_collate: S 64
         # at num_bb 36, 104 at 100); and for later slices S 65 and 105 (R
         # bucketed without the [CLS] slot, itm.py:261), 128 (the longest
         # text bucket), 192 and 256 (caption buckets); S 37 and head dim 32
-        # for the ragged paths (keys padded to 48, head rows to 64). float32
-        # bit for bit (every row sums in the twin's order); bfloat16 within
-        # the tolerance, as accurate as the twin, deterministic
+        # for the ragged paths (keys padded to 48, head rows to 64)
         for b, s, d in ([(b, s, 64) for b in (1, 8, 64, 256)
                          for s in (16, 32, 64)]
                         + [(128, s, 64) for s in (32, 64, 104)]
@@ -469,83 +599,21 @@ def kernel_phase(device_name):
                         + [(b, s, 64) for b in (8, 64) for s in (192, 256)]
                         + [(64, 37, 64), (64, 64, 32)]
                         + [(EVAL_BATCH, s, 64) for s in EVAL_SEQS]):
-            q, k, v = (randn(b, s, 12, d, dtype=dtype) for _ in range(3))
-            lens = torch.randint(1, s + 1, (b,), device=dev, generator=g)
-            mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
-            bias = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
-            half = dtype == torch.bfloat16
-            rows.append(compare(
-                "attention", (b, s, 12, d), dtype,
-                lambda: attention.multi_head_attention(q, k, v, bias),
-                lambda: attention._attention_math(q, k, v, bias, d ** -0.5),
-                device_name,
-                (4 * b * s * 12 * d * isz + b * s * 4,
-                 4 * b * 12 * s * s * d, _peak(dtype)),
-                library=lambda: f.scaled_dot_product_attention(
-                    q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                    attn_mask=bias.to(dtype)), exact=not half,
-                reference=(lambda: attention._attention_math(
-                    q.float(), k.float(), v.float(), bias, d ** -0.5))
-                if half else None, repeat=True))
+            rows.append(attention_row(b, s, d, dtype, device_name, randn, g))
         rows += fused_attention_rows(dtype, device_name, randn)
         # query rows (batch x length), the training rows (text 2,048 and
-        # image 4,096), then in bfloat16 the encode batches: 128 captions x
-        # 32, 128 images x 64 and x 104, and the eval batches of 80 x 64
-        # and 80 x 104
+        # image 4,096, also with h1 and gelu(h1) out), then in bfloat16 the
+        # encode batches: 128 captions x 32, 128 images x 64 and x 104, and
+        # the eval batches of 80 x 64 and 80 x 104
         half = dtype == torch.bfloat16
-        ffn_name = "ffn_mma" if half else "ffn"
         for n in (16, 32, 256, 2048, 4096) + (
                 (8192, 13312) + EVAL_ROWS if half else ()):
-            x = randn(n, 768, dtype=dtype)
-            w1 = randn(768, 3072, scale=0.02, dtype=dtype)
-            b1 = randn(3072, scale=0.02)
-            w2 = randn(3072, 768, scale=0.02, dtype=dtype)
-            b2 = randn(768, scale=0.02)
-            io = (2 * n * 768 + 2 * 768 * 3072) * isz + (768 + 3072) * 4
-            # bfloat16 on the tensor cores: held as the bf16 attention rows
-            # (a bf16 ulp, as accurate as the twin against the float32
-            # computation of the same inputs, the same bits again)
-            held = dict(
-                reference=lambda: ffn._ffn_math(x.float(), w1.float(), b1,
-                                                w2.float(), b2)[0],
-                repeat=True) if half else {}
-            rows.append(compare(
-                ffn_name, (n, 768, 3072), dtype,
-                lambda: ffn.ffn_gelu(x, w1, b1, w2, b2),
-                lambda: ffn._ffn_math(x, w1, b1, w2, b2)[0], device_name,
-                (io, 4 * n * 768 * 3072, _peak(dtype)), mode="forward",
-                **held))
-            if n in (2048, 4096):
-                # the training forward also writes h1 and gelu(h1)
-                def twin_h1(x=x, w1=w1, w2=w2):
-                    out, h1 = ffn._ffn_math(x, w1, b1, w2, b2)
-                    return out, h1, ffn.gelu(h1)
-
-                held = dict(reference=lambda: twin_h1(
-                    x.float(), w1.float(), w2.float()),
-                            repeat=True) if half else {}
-                rows.append(compare(
-                    ffn_name, (n, 768, 3072), dtype,
-                    lambda: ffn.ffn_cuda(x, w1, b1, w2, b2, with_h1=True),
-                    twin_h1, device_name,
-                    (io + 2 * n * 3072 * isz, 4 * n * 768 * 3072,
-                     _peak(dtype)), mode="train", **held))
+            rows += ffn_rows(n, dtype, device_name, randn,
+                             train=n in (2048, 4096))
         # dh1 at the training rows (text 2,048, image 4,096) and, in
-        # bfloat16, a split plan (256 rows) and a ragged one (130): bf16 on
-        # the tensor cores, held as the bf16 FFN rows; float32 on FMA units
+        # bfloat16, a split plan (256 rows) and a ragged one (130)
         for n in (130, 256, 2048, 4096) if half else (2048, 4096):
-            gr = randn(n, 768, dtype=dtype)
-            h1 = randn(n, 3072, dtype=dtype)
-            w2 = randn(3072, 768, scale=0.02, dtype=dtype)
-            held = dict(reference=lambda: ffn_dh1._dh1_math(
-                gr.float(), h1.float(), w2.float()),
-                        repeat=True) if half else {}
-            rows.append(compare(
-                "ffn_dh1_mma" if half else "ffn_dh1", (n, 768, 3072), dtype,
-                lambda: ffn_dh1.ffn_dh1_cuda(gr, h1, w2),
-                lambda: ffn_dh1._dh1_math(gr, h1, w2), device_name,
-                ((n * 768 + 2 * n * 3072 + 3072 * 768) * isz,
-                 2 * n * 768 * 3072, _peak(dtype)), **held))
+            rows.append(dh1_row(n, dtype, device_name, randn))
     # the int8 FFN takes bfloat16 activations only; per-channel int8
     # weights, quantized as QuantizedDense does, in the [in, out] view of
     # out-major storage
@@ -569,177 +637,197 @@ def kernel_phase(device_name):
     return rows
 
 
+def _ln_params(h, randn, gen):
+    return (torch.rand(h, device="cuda", generator=gen) + 0.5, randn(h))
+
+
+def _ln_mask_inputs(n, h, dtype, randn, gen, variant):
+    """(res, keep, rate) of a LayerNorm site: none (``None``/``ln``), a
+    residual (``res``), or a residual and a rate-0.1 mask
+    (``res_keep``)."""
+    if variant in (None, "ln"):
+        return None, None, 0.0
+    res = randn(n, h, dtype=dtype)
+    if variant == "res":
+        return res, None, 0.0
+    return res, torch.rand(n, h, device="cuda", generator=gen) < 0.9, 0.1
+
+
+def ln_fwd_row(n, h, dtype, device_name, randn, gen, variant=None, **kw):
+    """B1's forward over [n, h], plain or with its mask-and-add prologue
+    (``variant`` res or res_keep): within the twin's tolerance, and with a
+    prologue bit-equal to the kernel run on the twin's u. Library:
+    ``F.layer_norm`` (on the twin's u, without the add and the mask)."""
+    from lightningdot_tpu_torch.ops import layernorm as ln
+
+    isz = torch.finfo(dtype).bits // 8
+    eps = 1e-12
+    x = randn(n, h, scale=3.0, dtype=dtype) + 1
+    res, keep, rate = _ln_mask_inputs(n, h, dtype, randn, gen, variant)
+    scale, bias = _ln_params(h, randn, gen)
+    u = ln.dal_input(x, res, keep, rate)
+    held = {}
+    if variant is not None:
+        same = torch.equal(
+            ln.layer_norm_cuda(x, scale, bias, eps, res, keep, rate),
+            ln.layer_norm_cuda(u, scale, bias, eps))
+        check(same, f"layernorm {variant} ({n}, {h}) {dtype}: the "
+                    f"prologue's u differs from the twin's")
+        held = dict(variant=variant, equal_to_kernel_on_twin_u=same)
+    nbytes = ((2 if res is None else 3) * n * h * isz + 2 * h * 4
+              + (0 if keep is None else n * h))
+    return compare(
+        "layernorm", (n, h), dtype,
+        lambda: ln.layer_norm_cuda(x, scale, bias, eps, res, keep, rate),
+        lambda: ln.ln_fwd_math(x, scale, bias, eps, res, keep, rate),
+        device_name, (nbytes, (8 if res is None else 11) * n * h,
+                      PEAK_OPS["f32"]),
+        library=lambda: torch.nn.functional.layer_norm(
+            u, (h,), scale.to(dtype), bias.to(dtype), eps), **held, **kw)
+
+
+def ln_bwd_row(n, h, variant, dtype, device_name, randn, gen, **kw):
+    """B1's backward kernel over [n, h] (``variant`` ln, res or
+    res_keep): dx and du held as the bf16 tensor-core rows are (a bf16 ulp,
+    as accurate against the float32 computation as the twin, the same bits
+    again; float32 within 1e-5), dscale and dbias within 1e-5 of their
+    peak and repeat-equal. Library: aten's ``native_layer_norm_backward``
+    with the statistics computed outside the timed call (without the
+    recompute of u and the mask)."""
+    from lightningdot_tpu_torch.ops import layernorm as ln
+
+    isz = torch.finfo(dtype).bits // 8
+    half = dtype == torch.bfloat16
+    eps = 1e-12
+    x = randn(n, h, scale=3.0, dtype=dtype) + 1
+    g = randn(n, h, dtype=dtype)
+    r, k, rate = _ln_mask_inputs(n, h, dtype, randn, gen, variant)
+    scale, bias = _ln_params(h, randn, gen)
+    args = (x, scale, g, eps, r, k, rate)
+
+    def pick(out):
+        """dx and du (one tensor without a mask)."""
+        return out[1] if k is None else out[:2]
+
+    got, again = (ln.layer_norm_bwd_cuda(*args) for _ in range(2))
+    want = ln.ln_bwd_math(*args)
+    param_err = max((a - w).abs().max().item() / w.abs().max().item()
+                    for a, w in zip(got[2:], want[2:]))
+    param_same = all(torch.equal(a, b) for a, b in zip(got[2:], again[2:]))
+    u = ln.dal_input(x, r, k, rate)
+    w16, b16 = scale.to(dtype), bias.to(dtype)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(u, [h], w16, b16, eps)
+    acts = 2 + (r is not None) + 1 + (k is not None)
+    row = compare(
+        "layernorm_bwd", (n, h), dtype,
+        lambda: pick(ln.layer_norm_bwd_cuda(*args)),
+        lambda: pick(ln.ln_bwd_math(*args)), device_name,
+        (acts * n * h * isz + (0 if k is None else n * h) + 3 * h * 4,
+         20 * n * h, PEAK_OPS["f32"]),
+        library=lambda: torch.ops.aten.native_layer_norm_backward(
+            g, u, [h], mean, rstd, w16, b16, [True, True, True]),
+        reference=(lambda: pick(ln.ln_bwd_math(
+            x.float(), scale, g.float(), eps,
+            None if r is None else r.float(), k, rate))) if half else None,
+        repeat=True, variant=variant, params_rel_err=param_err,
+        params_rel_tol=1e-5, params_deterministic=param_same, **kw)
+    check(param_err <= 1e-5 and param_same,
+          f"layernorm_bwd {variant} ({n}, {h}) {dtype}: dscale and "
+          f"dbias off by {param_err} or not repeat-equal")
+    return row
+
+
 def layernorm_rows(dtype, device_name, randn):
     """B1 at the paths' row counts. The forward kernel against its twin at
     32-16,384 rows (the query batches, the training batches of 64 x 32
     text and 64 x 64 image rows, the encode batches of 128 at S 64 and
     104, the eval batches of 80 at S 64 and 104), and with its prologue
-    (res; res and a rate-0.1 mask) at 32, 2,048 and 4,096 rows: within
-    the twin's tolerance and bit-equal to the kernel run on the twin's u.
-    The backward kernel at 130 (ragged), 2,048 and
-    4,096 rows, without res (the plain LayerNorm sites), with res (rate 0)
-    and with res and a rate-0.1 mask (the training sites); both at the
-    training step's projection head too (64 rows of 1,536, a row over two
-    warps), without res. The backward's dx and du are held as the
-    bf16 tensor-core rows are held (a bf16 ulp, as accurate against the
-    float32 computation as the twin, the same bits again; float32 within
-    1e-5), dscale and dbias within 1e-5 of their peak, repeat-equal.
-    Library: ``F.layer_norm`` (forward; on the prologue rows it normalizes
-    the twin's u, without the add and the mask); aten's
-    ``native_layer_norm_backward`` with the statistics computed outside the
-    timed call (backward; without the recompute of u and the mask)."""
-    from lightningdot_tpu_torch.ops import layernorm as ln
-
-    dev = torch.device("cuda")
-    f = torch.nn.functional
-    gen = torch.Generator(device=dev).manual_seed(5)
-    isz = torch.finfo(dtype).bits // 8
-    half = dtype == torch.bfloat16
-    eps, h = 1e-12, 768
+    (res; res and a rate-0.1 mask) at 32, 2,048 and 4,096 rows. The
+    backward kernel at 130 (ragged), 2,048 and 4,096 rows, without res
+    (the plain LayerNorm sites), with res (rate 0) and with res and a
+    rate-0.1 mask (the training sites); both at the training step's
+    projection head too (64 rows of 1,536, a row over two warps), without
+    res."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
-
-    def params(h=h):
-        return (torch.rand(h, device=dev, generator=gen) + 0.5, randn(h))
-
     for n, h in ([(n, 768) for n in (32, 2048, 4096, 8192, 13312, 16384)
                   + EVAL_ROWS] + [(64, 1536)]):
-        x = randn(n, h, scale=3.0, dtype=dtype) + 1
-        scale, bias = params(h)
-        rows.append(compare(
-            "layernorm", (n, h), dtype,
-            lambda: ln.layer_norm_cuda(x, scale, bias, eps),
-            lambda: ln.ln_fwd_math(x, scale, bias, eps), device_name,
-            (2 * n * h * isz + 2 * h * 4, 8 * n * h, PEAK_OPS["f32"]),
-            library=lambda: f.layer_norm(x, (h,), scale.to(dtype),
-                                         bias.to(dtype), eps)))
-    h = 768
+        rows.append(ln_fwd_row(n, h, dtype, device_name, randn, gen))
     for n in (32, 2048, 4096):
-        x = randn(n, h, scale=3.0, dtype=dtype) + 1
-        res = randn(n, h, dtype=dtype)
-        keep = torch.rand(n, h, device=dev, generator=gen) < 0.9
-        scale, bias = params()
-        for variant, k, rate in (("res", None, 0.0), ("res_keep", keep, 0.1)):
-            u = ln.dal_input(x, res, k, rate)
-            same = torch.equal(ln.layer_norm_cuda(x, scale, bias, eps, res,
-                                                  k, rate),
-                               ln.layer_norm_cuda(u, scale, bias, eps))
-            nbytes = 3 * n * h * isz + 2 * h * 4 + (0 if k is None else n * h)
-            rows.append(compare(
-                "layernorm", (n, h), dtype,
-                lambda: ln.layer_norm_cuda(x, scale, bias, eps, res, k,
-                                           rate),
-                lambda: ln.ln_fwd_math(x, scale, bias, eps, res, k, rate),
-                device_name, (nbytes, 11 * n * h, PEAK_OPS["f32"]),
-                library=lambda: f.layer_norm(u, (h,), scale.to(dtype),
-                                             bias.to(dtype), eps),
-                variant=variant, equal_to_kernel_on_twin_u=same))
-            check(same, f"layernorm {variant} ({n}, {h}) {dtype}: the "
-                        f"prologue's u differs from the twin's")
+        for variant in ("res", "res_keep"):
+            rows.append(ln_fwd_row(n, 768, dtype, device_name, randn, gen,
+                                   variant))
     for n, h in ((130, 768), (2048, 768), (4096, 768), (64, 1536)):
-        x = randn(n, h, scale=3.0, dtype=dtype) + 1
-        res, g = randn(n, h, dtype=dtype), randn(n, h, dtype=dtype)
-        keep = torch.rand(n, h, device=dev, generator=gen) < 0.9
-        scale, bias = params(h)
-        variants = (("ln", None, None, 0.0), ("res", res, None, 0.0),
-                    ("res_keep", res, keep, 0.1))
-        for variant, r, k, rate in variants[:1 if h > 768 else 3]:
-            args = (x, scale, g, eps, r, k, rate)
-
-            def pick(out, k=k):
-                """dx and du (one tensor without a mask)."""
-                return out[1] if k is None else out[:2]
-
-            got, again = (ln.layer_norm_bwd_cuda(*args) for _ in range(2))
-            want = ln.ln_bwd_math(*args)
-            param_err = max((a - w).abs().max().item()
-                            / w.abs().max().item()
-                            for a, w in zip(got[2:], want[2:]))
-            param_same = all(torch.equal(a, b)
-                             for a, b in zip(got[2:], again[2:]))
-            u = ln.dal_input(x, r, k, rate)
-            w16, b16 = scale.to(dtype), bias.to(dtype)
-            _, mean, rstd = torch.ops.aten.native_layer_norm(u, [h], w16,
-                                                             b16, eps)
-            acts = 2 + (r is not None) + 1 + (k is not None)
-            rows.append(compare(
-                "layernorm_bwd", (n, h), dtype,
-                lambda: pick(ln.layer_norm_bwd_cuda(*args)),
-                lambda: pick(ln.ln_bwd_math(*args)), device_name,
-                (acts * n * h * isz + (0 if k is None else n * h)
-                 + 3 * h * 4, 20 * n * h, PEAK_OPS["f32"]),
-                library=lambda: torch.ops.aten.native_layer_norm_backward(
-                    g, u, [h], mean, rstd, w16, b16, [True, True, True]),
-                reference=(lambda: pick(ln.ln_bwd_math(
-                    x.float(), scale, g.float(), eps,
-                    None if r is None else r.float(), k, rate)))
-                if half else None, repeat=True, variant=variant,
-                params_rel_err=param_err, params_rel_tol=1e-5,
-                params_deterministic=param_same))
-            check(param_err <= 1e-5 and param_same,
-                  f"layernorm_bwd {variant} ({n}, {h}) {dtype}: dscale and "
-                  f"dbias off by {param_err} or not repeat-equal")
+        for variant in ("ln", "res", "res_keep")[:1 if h > 768 else 3]:
+            rows.append(ln_bwd_row(n, h, variant, dtype, device_name, randn,
+                                   gen))
     return rows
 
 
-def fused_attention_rows(dtype, device_name, randn):
-    """The fused training attention at rate 0.1 against its twins (the
-    same seed) at the training shapes, batch 64 at text S 32 and image S
-    64 and 104, at [8, 256] (the longest caption bucket), and at S 37 and
-    head dim 32 for the ragged paths. The forward is held as the attention
-    rows are (float32 bit for bit; bfloat16 by tolerance, accuracy against
-    float32 and determinism). Library: SDPA with the additive mask at
-    dropout 0 (forward; forward and backward for the backward row, captured
-    in a CUDA graph like every timed call)."""
+def train_attention_rows(b, s, d, dtype, device_name, randn, gen, **kw):
+    """B5 at rate 0.1 over [b, s, 12 heads, d], forward and backward,
+    against their twins with the same seed; float32 bit for bit, bfloat16
+    as the attention rows. Library: SDPA with the additive mask at dropout
+    0 (forward; forward and backward for the backward row, captured in a
+    CUDA graph like every timed call)."""
     from lightningdot_tpu_torch.ops import attention_fused as af
 
     dev = torch.device("cuda")
     f = torch.nn.functional
-    gen = torch.Generator(device=dev).manual_seed(7)
     isz = torch.finfo(dtype).bits // 8
     seed = torch.tensor([0x5EED_0000_1234], device=dev)
-    rows = []
     half = dtype == torch.bfloat16
+    q, k, v, g = (randn(b, s, 12 * d, dtype=dtype) for _ in range(4))
+    lens = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
+    bias = ((torch.arange(s, device=dev)[None, :] >= lens[:, None])
+            .float() * -10000.0)
+    rate = dict(nh=12, rate=0.1, scale=d ** -0.5)
+    heads = [t.view(b, s, 12, d).transpose(1, 2) for t in (q, k, v)]
+    mask4 = bias[:, None, None, :].to(dtype)
+    elems, flops = b * s * 12 * d, 2 * b * 12 * s * s * d
+    rows = [compare(
+        "attention_train_fwd", (b, s, 12, d), dtype,
+        lambda: af.attention_train_fwd(q, k, v, bias, seed, **rate),
+        lambda: af._fused_attn_fwd_math(q, k, v, bias, seed, 12, 0.1,
+                                        d ** -0.5), device_name,
+        (4 * elems * isz + b * s * 4, 2 * flops, _peak(dtype)),
+        library=lambda: f.scaled_dot_product_attention(
+            *heads, attn_mask=mask4), exact=not half,
+        reference=(lambda: af._fused_attn_fwd_math(
+            q.float(), k.float(), v.float(), bias, seed, 12, 0.1,
+            d ** -0.5)) if half else None, repeat=True, rate=0.1,
+        library_rate=0.0, **kw)]
+    leaves = [t.detach().clone().requires_grad_() for t in heads]
+    g4 = g.view(b, s, 12, d).transpose(1, 2)
+
+    def sdpa_fwd_bwd():
+        out = f.scaled_dot_product_attention(*leaves, attn_mask=mask4)
+        return torch.autograd.grad(out, leaves, g4)
+
+    rows.append(compare(
+        "attention_train_bwd_mma" if half else "attention_train_bwd",
+        (b, s, 12, d), dtype,
+        lambda: af.attention_train_bwd(q, k, v, bias, seed, g, **rate),
+        lambda: af._fused_attn_bwd_math(q, k, v, bias, seed, g, 12, 0.1,
+                                        d ** -0.5), device_name,
+        (7 * elems * isz + b * s * 4, 5 * flops, _peak(dtype)),
+        library=sdpa_fwd_bwd, exact=not half,
+        reference=(lambda: af._fused_attn_bwd_math(
+            q.float(), k.float(), v.float(), bias, seed, g.float(), 12,
+            0.1, d ** -0.5)) if half else None, repeat=True, rate=0.1,
+        library_rate=0.0, **kw))
+    return rows
+
+
+def fused_attention_rows(dtype, device_name, randn):
+    """The fused training attention at the training shapes: batch 64 at
+    text S 32 and image S 64 and 104, [8, 256] (the longest caption
+    bucket), and S 37 and head dim 32 for the ragged paths."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = []
     for b, s, d in ((64, 32, 64), (64, 37, 64), (64, 64, 64), (64, 104, 64),
                     (8, 256, 64), (64, 64, 32)):
-        q, k, v, g = (randn(b, s, 12 * d, dtype=dtype) for _ in range(4))
-        lens = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
-        bias = ((torch.arange(s, device=dev)[None, :] >= lens[:, None])
-                .float() * -10000.0)
-        kw = dict(nh=12, rate=0.1, scale=d ** -0.5)
-        heads = [t.view(b, s, 12, d).transpose(1, 2) for t in (q, k, v)]
-        mask4 = bias[:, None, None, :].to(dtype)
-        elems, flops = b * s * 12 * d, 2 * b * 12 * s * s * d
-        rows.append(compare(
-            "attention_train_fwd", (b, s, 12, d), dtype,
-            lambda: af.attention_train_fwd(q, k, v, bias, seed, **kw),
-            lambda: af._fused_attn_fwd_math(q, k, v, bias, seed, 12, 0.1,
-                                            d ** -0.5), device_name,
-            (4 * elems * isz + b * s * 4, 2 * flops, _peak(dtype)),
-            library=lambda: f.scaled_dot_product_attention(
-                *heads, attn_mask=mask4), exact=not half,
-            reference=(lambda: af._fused_attn_fwd_math(
-                q.float(), k.float(), v.float(), bias, seed, 12, 0.1,
-                d ** -0.5)) if half else None, repeat=True, rate=0.1,
-            library_rate=0.0))
-        leaves = [t.detach().clone().requires_grad_() for t in heads]
-        g4 = g.view(b, s, 12, d).transpose(1, 2)
-
-        def sdpa_fwd_bwd():
-            out = f.scaled_dot_product_attention(*leaves, attn_mask=mask4)
-            return torch.autograd.grad(out, leaves, g4)
-
-        rows.append(compare(
-            "attention_train_bwd_mma" if half else "attention_train_bwd",
-            (b, s, 12, d), dtype,
-            lambda: af.attention_train_bwd(q, k, v, bias, seed, g, **kw),
-            lambda: af._fused_attn_bwd_math(q, k, v, bias, seed, g, 12, 0.1,
-                                            d ** -0.5), device_name,
-            (7 * elems * isz + b * s * 4, 5 * flops, _peak(dtype)),
-            library=sdpa_fwd_bwd, exact=not half,
-            reference=(lambda: af._fused_attn_bwd_math(
-                q.float(), k.float(), v.float(), bias, seed, g.float(), 12,
-                0.1, d ** -0.5)) if half else None, repeat=True, rate=0.1,
-            library_rate=0.0))
+        rows += train_attention_rows(b, s, d, dtype, device_name, randn, gen)
     return rows
 
 
@@ -913,20 +1001,17 @@ def _kind(name: str) -> str:
     return "other"
 
 
-def device_profile(fn, calls):
-    """torch.profiler over ``calls`` calls of ``fn``: device busy time per
-    call (the union of the device's kernel and copy intervals), the eight
-    costliest device kernels, as [name, ms per call, launches per call],
-    and the device events per call by kind (``_kind``)."""
-    from torch.profiler import ProfilerActivity, profile
+def _profile_activities():
+    from torch.profiler import ProfilerActivity
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+
+def _device_stats(prof, calls):
+    """Device busy time per call (the union of the device's kernel and
+    copy intervals), the eight costliest device kernels, as [name, ms per
+    call, launches per call], and the device events per call by kind
+    (``_kind``), of a finished profiler over ``calls`` calls."""
     spans, by_name, kinds = [], {}, {}
     for e in prof.events():
         if str(e.device_type) != "DeviceType.CUDA":
@@ -948,13 +1033,31 @@ def device_profile(fn, calls):
                 launches_per_call={k: n / calls for k, n in kinds.items()})
 
 
+def device_profile(fn, calls):
+    """torch.profiler over ``calls`` calls of ``fn`` (after one warm-up
+    call): ``_device_stats``."""
+    from torch.profiler import profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=_profile_activities()) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return _device_stats(prof, calls)
+
+
 def emit_profile(path, batch, fn, wall_ms, calls=10):
     """One profiler row; the idle share is against ``wall_ms``, measured
     without the profiler."""
-    prof = device_profile(fn, calls)
-    busy = prof["busy_ms"]
+    emit_profile_stats(path, batch, device_profile(fn, calls), wall_ms)
+
+
+def emit_profile_stats(path, batch, stats, wall_ms, **extra):
+    busy = stats["busy_ms"]
     emit(phase="profile", path=path, batch=batch, wall_ms=wall_ms,
-         idle_share=None if busy is None else 1.0 - busy / wall_ms, **prof)
+         idle_share=None if busy is None else 1.0 - busy / wall_ms,
+         **extra, **stats)
 
 
 def make_tokenizer(workdir: Path, words):
@@ -1217,12 +1320,14 @@ def loadgen_phase(r16, p50_64_ms, device_name):
         srv.stop()
 
 
-def write_eval_dbs(root: Path, n_img: int, per_img: int, seed: int):
+def write_eval_dbs(root: Path, n_img: int, per_img: int, seed: int,
+                   soft_labels: bool = False):
     """An image DB and a text DB in the reference's layout, written with
     the port's writers (``write_feat_db``, ``write_txt_db``): ``n_img``
     images of 10-100 regions of ``IMG_DIM`` float16 features (confidences
-    that keep every region at conf_th 0.2), ``per_img`` captions of 4-58
-    ids each."""
+    that keep every region at conf_th 0.2; with ``soft_labels``, each
+    region's float32 distribution over the ``IMG_LABEL_DIM`` detection
+    classes, as MRC reads it), ``per_img`` captions of 4-58 ids each."""
     from lightningdot_tpu_torch.data.feat_db import write_feat_db
     from lightningdot_tpu_torch.data.txt_db import write_txt_db
 
@@ -1239,6 +1344,9 @@ def write_eval_dbs(root: Path, n_img: int, per_img: int, seed: int):
                                                 np.float16),
             "norm_bb": np.concatenate([xy, xy + wh, wh], axis=1),
             "conf": np.full((nbb,), 0.7, np.float32)}
+        if soft_labels:
+            sl = rng.random((nbb, IMG_LABEL_DIM), dtype=np.float32)
+            records[fname]["soft_labels"] = sl / sl.sum(-1, keepdims=True)
         for c in range(per_img):
             examples[f"txt_{i:06d}_{c}"] = {
                 "input_ids": rng.integers(106, 28996, int(
@@ -2102,6 +2210,723 @@ def train_phase(args, device_name):
     return dict(counts=counts, counts_f32=counts_f32, n_params=n_params)
 
 
+class ShapeRecorder:
+    """Record the bfloat16 shapes at which the towers and the pre-training
+    heads call the kernels' ops, by wrapping those ops where
+    ``models/encoder.py`` calls them: the training attention ("attention
+    train", [B, S], forward and backward), the attention ("attention",
+    [B, S]), the FFN (rows; with gradient: the forward writing h1 and dh1),
+    ``dropout_add_ln`` and ``layer_norm`` (rows, hidden, prologue variant;
+    with gradient: the backward kernel too). :func:`hold_recorded` holds a
+    kernel row at each."""
+
+    OPS = ("fused_attention_train", "multi_head_attention",
+           "attention_nodrop", "ffn_gelu", "dropout_add_ln", "layer_norm")
+
+    def __init__(self):
+        self.seen = set()
+
+    @staticmethod
+    def _grad(*tensors):
+        return torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+    def _key(self, name, args, kw):
+        x = args[0]
+        if x.dtype != torch.bfloat16 or not x.is_cuda:
+            return None
+        if name == "fused_attention_train":
+            return ("attention_train", x.shape[0], x.shape[1])
+        if name in ("multi_head_attention", "attention_nodrop"):
+            return ("attention", x.shape[0], x.shape[1])
+        rows, h = x.numel() // x.shape[-1], x.shape[-1]
+        if name == "ffn_gelu":
+            return ("ffn", rows, self._grad(*args))
+        if name == "dropout_add_ln":
+            keep = args[4] if len(args) > 4 else kw.get("keep")
+            return ("layernorm", rows, h,
+                    "res" if keep is None else "res_keep",
+                    self._grad(*args[:4]))
+        return ("layernorm", rows, h, None, self._grad(*args[:3]))
+
+    def __enter__(self):
+        from lightningdot_tpu_torch.models import encoder
+
+        self._real = {n: getattr(encoder, n) for n in self.OPS}
+
+        def wrap(name):
+            real = self._real[name]
+
+            def op(*args, **kw):
+                key = self._key(name, args, kw)
+                if key is not None:
+                    self.seen.add(key)
+                return real(*args, **kw)
+
+            return op
+
+        for name in self.OPS:
+            setattr(encoder, name, wrap(name))
+        return self
+
+    def __exit__(self, *exc):
+        from lightningdot_tpu_torch.models import encoder
+
+        for name, real in self._real.items():
+            setattr(encoder, name, real)
+
+
+def hold_recorded(path, seen, device_name):
+    """A kernel row (against its twin, with its bound, library call and
+    time at ``RECORDED_TIMING``) at every bfloat16 shape a path recorded:
+    B2 at each [B, S]; B5's forward and backward at each training [B, S];
+    B3 at each row count, with h1 out and B6's dh1 where a gradient ran;
+    B1's forward at each (rows, hidden, variant) and its backward where a
+    gradient ran. Returns the rows and the kernel shapes."""
+    bf16 = torch.bfloat16
+    randn, gen = make_randn(11)
+    kw = dict(timing=RECORDED_TIMING, path=path)
+    ffn_rows_seen = {}
+    ln_fwd, ln_bwd = set(), set()
+    attention, train_attention = set(), set()
+    for key in seen:
+        kind = key[0]
+        if kind == "attention":
+            attention.add(key[1:])
+        elif kind == "attention_train":
+            train_attention.add(key[1:])
+        elif kind == "ffn":
+            ffn_rows_seen[key[1]] = ffn_rows_seen.get(key[1], False) or key[2]
+        else:
+            _, rows, h, variant, grad = key
+            ln_fwd.add((rows, h, variant))
+            if grad:
+                ln_bwd.add((rows, h, variant or "ln"))
+    rows = []
+    for b, s in sorted(attention):
+        rows.append(attention_row(b, s, 64, bf16, device_name, randn, gen,
+                                  **kw))
+    for b, s in sorted(train_attention):
+        rows += train_attention_rows(b, s, 64, bf16, device_name, randn, gen,
+                                     **kw)
+    for n, train in sorted(ffn_rows_seen.items()):
+        rows += ffn_rows(n, bf16, device_name, randn, train, **kw)
+        if train:
+            rows.append(dh1_row(n, bf16, device_name, randn, **kw))
+    for n, h, variant in sorted(ln_fwd, key=str):
+        rows.append(ln_fwd_row(n, h, bf16, device_name, randn, gen, variant,
+                               **kw))
+    for n, h, variant in sorted(ln_bwd, key=str):
+        rows.append(ln_bwd_row(n, h, variant, bf16, device_name, randn, gen,
+                               **kw))
+    shapes = sorted({(r["kernel"], tuple(r["shape"]), r.get("variant"),
+                      r.get("mode")) for r in rows}, key=str)
+    emit(phase="held_shapes", path=path, rows=len(rows),
+         attention=sorted(attention), attention_train=sorted(train_attention),
+         ffn_rows=sorted(ffn_rows_seen.items()),
+         layernorm=sorted(ln_fwd, key=str),
+         layernorm_bwd=sorted(ln_bwd, key=str))
+    return rows, shapes
+
+
+class StepProbe:
+    """Wrap a driver's step: the wall time of each call (the card
+    synchronized after it), its losses, and a torch.profiler window over
+    ``profile_calls`` calls from call ``profile_at`` on (those calls are not
+    in the latencies). ``after_eval`` is called at the first step after
+    ``mark_eval()``."""
+
+    def __init__(self, profile_at=4, profile_calls=3):
+        self.lat, self.losses = [], []
+        self.profile_at, self.profile_calls = profile_at, profile_calls
+        self.stats = None
+        self.calls = 0
+        self._prof = None
+
+    def wrap(self, step):
+        from torch.profiler import profile
+
+        def probed(*args, **kw):
+            i = self.calls
+            self.calls += 1
+            if i == self.profile_at:
+                torch.cuda.synchronize()
+                self._prof = profile(activities=_profile_activities())
+                self._prof.__enter__()
+            t = time.perf_counter()
+            out = step(*args, **kw)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            in_window = self.profile_at <= i < (self.profile_at
+                                                + self.profile_calls)
+            if not in_window:
+                self.lat.append(wall)
+            if i == self.profile_at + self.profile_calls - 1:
+                self._prof.__exit__(None, None, None)
+                self.stats = _device_stats(self._prof, self.profile_calls)
+            self.losses.append(out["loss"])
+            return out
+
+        return probed
+
+
+def _patched(module, name, make):
+    """Context: ``module.name`` replaced by ``make(original)``."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        real = getattr(module, name)
+        setattr(module, name, make(real))
+        try:
+            yield
+        finally:
+            setattr(module, name, real)
+
+    return ctx()
+
+
+def train_itm_cli_phase(args, device_name):
+    """The port's ``cli/train_itm.main`` on the card at configs/coco_ft.json
+    (BERT-base cased + UNITER-base, ``project_dim`` 768, bf16, batch 64,
+    ``valid_batch_size`` 256, linear warmup, clip 2.0) over synthetic DBs
+    written by the port's writers: a train split of ``FT_TRAIN_IMAGES`` x 5
+    captions and a val/test split of ``FT_VAL_IMAGES`` x 5, for 2 epochs,
+    once with a hard negative mined before each epoch and once with two
+    micro-batches per update. Held: finite losses, biencoder.best/last
+    written, the port's ``eval_itm`` on biencoder.last gives the driver's
+    final recall, a model loaded from biencoder.last gives the trained
+    model's vectors bit for bit, dropout live after each evaluation (two
+    passes under different generators differ), the path's launches, and a
+    kernel row at every bf16 shape the runs recorded. Printed: ms/step p50
+    and pairs/s, seconds per epoch (training, evaluation, mining), a
+    profile row over three steps inside the driver."""
+    from lightningdot_tpu_torch.cli import eval_itm, train_itm
+    from lightningdot_tpu_torch.config import parse_with_config
+    from lightningdot_tpu_torch.data.feat_db import ImageDbGroup
+    from lightningdot_tpu_torch.data.itm import CollateConfig, itm_fast_collate
+    from lightningdot_tpu_torch.models.factory import build_biencoder
+    from lightningdot_tpu_torch.training.trainer_utils import load_dataset
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training.itm_step import batch_to_device
+
+    counts = {}
+    recorder = ShapeRecorder()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train = write_eval_dbs(Path(tmp) / "train", FT_TRAIN_IMAGES, 5,
+                               args.seed + 5)
+        val = write_eval_dbs(Path(tmp) / "val", FT_VAL_IMAGES, 5,
+                             args.seed + 6)
+        emit(phase="setup_train_itm_cli", seconds=time.perf_counter() - t0,
+             train_pairs=FT_TRAIN_IMAGES * 5, val_pairs=FT_VAL_IMAGES * 5,
+             reduced=[f"train split {FT_TRAIN_IMAGES} x 5 synthetic pairs "
+                      f"(COCO train+restval: 113,287 x 5)",
+                      f"val and test split {FT_VAL_IMAGES} x 5 (COCO: "
+                      f"5,000 x 5)", "2 epochs (coco_ft.json: 20)",
+                      "random weights (no uniter-base.pt)"])
+        base = ["--config", FT_CONFIG, "--itm_global_file", "",
+                "--img_checkpoint", "none", "--seed", str(args.seed),
+                "--train_txt_dbs", train[0], "--train_img_dbs", train[1],
+                "--val_txt_db", val[0], "--val_img_db", val[1],
+                "--test_txt_db", val[0], "--test_img_db", val[1],
+                "--num_train_epochs", "2", "--device", DEVICE]
+        for run, extra in (("hard_negatives", ["--num_hard_negatives", "1",
+                                               "--sample_init_hard_negatives"]),
+                           ("accumulation",
+                            ["--gradient_accumulation_steps", "2"])):
+            out = str(Path(tmp) / run)
+            probe = StepProbe()
+            # "eval" after each per-epoch evaluation, then, at the next
+            # step: training mode and two passes under other generators
+            # that differ
+            live = []
+
+            def make_step(real, probe=probe, live=live):
+                def build(model, *a, **k):
+                    step = probe.wrap(real(model, *a, **k))
+
+                    def checked(batch, generator=None):
+                        if live and live[-1] == "eval":
+                            sub = batch_to_device(batch, torch.device(DEVICE))
+                            with torch.no_grad():
+                                outs = [model.apply(sub, [
+                                    torch.Generator(DEVICE).manual_seed(
+                                        s + i) for i in range(3)])[0]
+                                    for s in (1, 7)]
+                            live[-1] = (model.training
+                                        and not torch.equal(*outs))
+                        return step(batch, generator)
+
+                    return checked
+
+                return build
+
+            def mark_eval(real, live=live):
+                def evaluate(*a, **k):
+                    res = real(*a, **k)
+                    live.append("eval")
+                    return res
+
+                return evaluate
+
+            reset_launch_counts()
+            t = time.perf_counter()
+            with recorder, _patched(train_itm, "make_itm_train_step",
+                                    make_step), \
+                    _patched(train_itm, "eval_model_on_dataloader",
+                             mark_eval):
+                results, model = train_itm.main(base + extra + [
+                    "--output_dir", out])
+            cli_s = time.perf_counter() - t
+            counts = {k: counts.get(k, 0) + v
+                      for k, v in launch_counts().items()}
+            losses = [float(x) for x in probe.losses]
+            p50 = statistics.median(probe.lat)
+            epochs = results["epochs"]
+            emit(phase="train_itm_cli", run=run, steps=probe.calls,
+                 ms_per_step_p50=p50, pairs_per_s=64 * 1e3 / p50,
+                 loss_first=losses[0], loss_last=losses[-1],
+                 best_val_recall_mean=results["best_val_recall_mean"],
+                 init_mine_s=results["init_mine_s"],
+                 epoch_seconds=[{k: e[k] for k in ("train_s", "eval_s",
+                                                   "mine_s", "steps")}
+                                for e in epochs], cli_seconds=cli_s,
+                 device=device_name)
+            check(all(np.isfinite(losses)), f"{run}: non-finite loss")
+            check(all(os.path.exists(os.path.join(out, f"biencoder.{n}.pt"))
+                      for n in ("best", "last")),
+                  f"{run}: biencoder.best/last not written")
+            # held against the driver
+            evaluated = [x for x in live if x != "eval"]
+            emit(phase="train_itm_cli_dropout_live", run=run,
+                 after_evaluations=evaluated)
+            check(evaluated and all(evaluated),
+                  f"{run}: dropout not live after an evaluation: {live}")
+            got = eval_itm.main([
+                "--config", EVAL_CONFIG, "--itm_global_file", "",
+                "--test_txt_db", val[0], "--test_img_db", val[1],
+                "--valid_batch_size", "256", "--device", DEVICE,
+                "--biencoder_checkpoint",
+                os.path.join(out, "biencoder.last")])["test"]
+            last = epochs[-1]
+            same = (got["recall_txt"] == last["recall_txt"]
+                    and got["recall_img"] == last["recall_img"])
+            ckpt_args = parse_with_config(
+                train_itm.build_parser(),
+                base + ["--biencoder_checkpoint",
+                        os.path.join(out, "biencoder.last")])
+            fresh = build_biencoder(ckpt_args).to(DEVICE).eval()
+            model.eval()
+            ds = load_dataset(ImageDbGroup(0.2, 100, 10, 36), val[0], val[1],
+                              ckpt_args, is_train=False)
+            ds.new_epoch()
+            sub = batch_to_device(itm_fast_collate(
+                [ds[i] for i in range(16)], CollateConfig()),
+                torch.device(DEVICE))
+            with torch.no_grad():
+                bits = all(torch.equal(a, b) for a, b in zip(
+                    model.apply(sub)[:2], fresh.apply(sub)[:2]))
+            emit(phase="train_itm_cli_checkpoint", run=run,
+                 eval_cli_recall=[got["recall_txt"], got["recall_img"]],
+                 driver_recall=[last["recall_txt"], last["recall_img"]],
+                 recall_equal=same, vectors_bit_equal=bits)
+            check(same, f"{run}: eval_itm on biencoder.last {got} vs the "
+                        f"driver's {last}")
+            check(bits, f"{run}: biencoder.last does not give the trained "
+                        f"model's vectors")
+            emit_profile_stats("train_itm_cli", 64, probe.stats, p50, run=run)
+            del model, fresh
+    hold_path("train_itm_cli", counts)
+    rows, _ = hold_recorded("train_itm_cli", recorder.seen, device_name)
+    return dict(counts=counts, rows=rows)
+
+
+def _real_tokens(batch):
+    """Tokens of a pre-training batch's real rows: text and image tokens
+    under their attention masks."""
+    n = batch["n_valid"]
+    return int(np.asarray(batch["txts"]["attention_mask"])[:n].sum()
+               + np.asarray(batch["imgs"]["attention_mask"])[:n].sum())
+
+
+def _flat_grad(model):
+    return torch.cat([(p.grad if p.grad is not None
+                       else torch.zeros_like(p)).reshape(-1).float()
+                      for p in model.parameters()])
+
+
+def _same_state(m1, o1, m2, o2):
+    """Two models' parameters and two FusedAdamW's count and moments are
+    equal bit for bit."""
+    if not all(torch.equal(p, q) for p, q in zip(m1.parameters(),
+                                                 m2.parameters())):
+        return False
+    s1, s2 = o1.state_dict(), o2.state_dict()
+    if s1["count"] != s2["count"] or (s1["m"] is None) != (s2["m"] is None):
+        return False
+    return s1["m"] is None or all(
+        torch.equal(s1[k][n], s2[k][n]) for k in ("m", "v") for n in s1[k])
+
+
+def _loss_and_grad(model, batch, task):
+    from lightningdot_tpu_torch.training.pretrain_step import task_loss
+
+    model.zero_grad()
+    loss, _ = task_loss(model, batch, task)
+    loss.backward()
+    return loss.item(), _flat_grad(model)
+
+
+def _round_mantissa(x, bits):
+    """float32 ``x`` rounded to ``bits`` mantissa bits (to nearest, ties
+    away from zero), its exponent range kept."""
+    drop = 23 - bits
+    i = x.view(torch.int32)
+    return ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32)
+
+
+def _coarse_reading(model, batch, task, bits):
+    """(loss, flat gradient) of the float32 model at a lower precision:
+    every weight and the output of every dense layer, LayerNorm and
+    transformer layer rounded to ``bits`` mantissa bits, the gradient
+    passed straight through the rounding. The weights are restored
+    after."""
+    from lightningdot_tpu_torch.models.encoder import (BertLayer, Dense,
+                                                       LayerNorm)
+
+    def coarse(mod, inp, out):
+        return out + (_round_mantissa(out.detach().contiguous(), bits)
+                      - out).detach()
+
+    params = list(model.parameters())
+    kept = [p.detach().clone() for p in params]
+    hooks = [m.register_forward_hook(coarse) for m in model.modules()
+             if isinstance(m, (BertLayer, Dense, LayerNorm))]
+    model.bert.compute_dtype = torch.float32
+    try:
+        with torch.no_grad():
+            for p in params:
+                p.copy_(_round_mantissa(p.detach(), bits))
+        return _loss_and_grad(model, batch, task)
+    finally:
+        for h in hooks:
+            h.remove()
+        with torch.no_grad():
+            for p, k in zip(params, kept):
+                p.copy_(k)
+
+
+def pretrain_phase(args, device_name):
+    """The port's ``cli/pretrain.main`` on the card at
+    configs/pretrain_alldata_base.json's model and optimizer (BERT-base
+    cased + UNITER-base, ``project_dim`` 768, bf16, 10,240-token batches,
+    accumulation 6, betas (0.9, 0.98), eps 1e-6, decay 0.01, clip 5.0) with
+    one dataset of its four tasks at coco_cap's ``mix_ratio`` (itm 16, mlm
+    8, mrfr 4, mrckl 4) over synthetic DBs with 1,601-way soft labels
+    (``PRE_TRAIN_IMAGES`` x 5 captions to train, ``PRE_VAL_IMAGES`` x 5 to
+    validate), for ``PRE_UPDATES`` updates. Held: finite losses and
+    validation metrics, the path's launches, a kernel row at every bf16
+    shape recorded; a resume through ``latest_step_checkpoint`` and
+    ``fast_forward``: the restored weights and optimizer state, the task
+    stream, and the next update's losses, weights and optimizer state equal
+    the uninterrupted run's; per task, float32 card vs CPU (loss, every
+    gradient leaf) at 2 layers a tower, with TF32 products as the control,
+    and bf16 vs f32 at full depth (loss, gradient cosine) within
+    ``PRE_BF16_BOUNDS``, whose control (coarse precision) each bound must
+    refuse. Printed: ms per update and tokens/s per task, a profile row per
+    task."""
+    from dataclasses import replace
+
+    from lightningdot_tpu_torch.cli import pretrain as cli
+    from lightningdot_tpu_torch.config import parse_with_config
+    from lightningdot_tpu_torch.data.feat_db import ImageDbGroup
+    from lightningdot_tpu_torch.data.loader import MetaLoader
+    from lightningdot_tpu_torch.data.pretrain import PretrainCollateConfig
+    from lightningdot_tpu_torch.models.bi_encoder import (
+        BiEncoder, BiEncoderForPretraining, init_pretrain_heads_)
+    from lightningdot_tpu_torch.models.encoder import init_tower_
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training import checkpoints
+    from lightningdot_tpu_torch.training.pretrain_step import (
+        make_pretrain_step, pretrain_batch_to_device, task_loss)
+    from lightningdot_tpu_torch.utils.runtime import step_generator
+
+    recorder = ShapeRecorder()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        train = write_eval_dbs(Path(tmp) / "train", PRE_TRAIN_IMAGES, 5,
+                               args.seed + 7, soft_labels=True)
+        val = write_eval_dbs(Path(tmp) / "val", PRE_VAL_IMAGES, 5,
+                             args.seed + 8, soft_labels=True)
+        with open(PRE_CONFIG) as f:
+            cfg = json.load(f)
+        spec = next(d for d in cfg["train_datasets"]
+                    if d["name"] == "coco_cap")
+        out = str(Path(tmp) / "out")
+        cfg.update(
+            output_dir=out, img_checkpoint="none", seed=args.seed,
+            num_train_steps=PRE_UPDATES, valid_steps=PRE_UPDATES,
+            train_datasets=[dict(spec, db=[train[0]], img=[train[1]])],
+            val_datasets=[{"name": "coco_cap", "db": [val[0]],
+                           "img": [val[1]], "tasks": spec["tasks"]}])
+        cfg_path = str(Path(tmp) / "pretrain.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        emit(phase="setup_pretrain", seconds=time.perf_counter() - t0,
+             train_examples=PRE_TRAIN_IMAGES * 5,
+             val_examples=PRE_VAL_IMAGES * 5, tasks=spec["tasks"],
+             mix_ratio=spec["mix_ratio"],
+             train_batch_tokens=cfg["train_batch_size"],
+             accum=cfg["gradient_accumulation_steps"],
+             reduced=["one dataset, coco_cap, of the config's four",
+                      f"{PRE_TRAIN_IMAGES} x 5 synthetic examples with "
+                      f"random soft labels to train, {PRE_VAL_IMAGES} x 5 "
+                      f"to validate",
+                      f"{PRE_UPDATES} updates (num_train_steps 300,000)",
+                      "random weights (no uniter-base.pt)",
+                      "the float32 card-vs-CPU check at 2 layers a tower, "
+                      "16 examples a task"])
+
+        kept = {"losses": []}
+
+        def make_opt(real):
+            def build(model, opts):
+                out = real(model, opts)
+                kept["opt"] = out[0]
+                return out
+            return build
+
+        def make_step(real):
+            def build(*a, **k):
+                step_for_task = real(*a, **k)
+
+                def for_task(task):
+                    step = step_for_task(task)
+
+                    def run(batch, generator=None):
+                        metrics = step(batch, generator)
+                        kept["losses"].append((task, metrics["loss"]))
+                        return metrics
+                    return run
+                return for_task
+            return build
+
+        reset_launch_counts()
+        t = time.perf_counter()
+        with recorder, _patched(cli, "build_optimizer", make_opt), \
+                _patched(cli, "make_pretrain_step", make_step):
+            results, model = cli.main(["--config", cfg_path, "--device",
+                                       DEVICE])
+        cli_s = time.perf_counter() - t
+        counts = launch_counts()
+        losses = [(task, float(x)) for task, x in kept["losses"]]
+        emit(phase="pretrain", updates=PRE_UPDATES,
+             micro_batches=len(losses), losses=losses, validation=results,
+             cli_seconds=cli_s, device=device_name)
+        check(all(np.isfinite(x) for _, x in losses)
+              and all(np.isfinite(v) for r in results.values()
+                      for v in r.values()), "pretrain: non-finite loss")
+        hold_path("pretrain", counts)
+        opt = kept["opt"]
+        opts = parse_with_config(cli.build_parser(), ["--config", cfg_path])
+        accum = opts.gradient_accumulation_steps
+
+        # resume: a fresh model and optimizer from the newest checkpoint
+        # equal the uninterrupted ones bit for bit; a task stream
+        # fast-forwarded equals one iterated through the micro-batches the
+        # driver ran (step and RNG); then each side takes the next update
+        # on the iterated stream's next window (data iterators restart on
+        # resume, as in the JAX package, so a fast-forwarded stream's
+        # batches are not the uninterrupted run's), and the losses, the
+        # weights and the optimizer state after it are equal
+        found = checkpoints.latest_step_checkpoint(os.path.join(out, "ckpt"))
+        check(found is not None and found[1] == PRE_UPDATES,
+              f"pretrain: newest checkpoint {found}")
+        resumed = cli.build_model(opts, torch.bfloat16).to(DEVICE)
+        ropt, _ = cli.build_optimizer(resumed, opts)
+        checkpoints.load_checkpoint(found[0], model=resumed, optimizer=ropt)
+        restored = _same_state(resumed, ropt, model, opt)
+        loaders = cli.create_dataloaders(
+            opts.train_datasets, True, opts,
+            ImageDbGroup(opts.conf_th, opts.max_bb, opts.min_bb,
+                         opts.num_bb), PretrainCollateConfig())
+        ran = MetaLoader(loaders, accum_steps=accum, seed=opts.seed)
+        it = iter(ran)
+        for _ in range(PRE_UPDATES * accum):
+            next(it)
+        ff = MetaLoader(loaders, accum_steps=accum, seed=opts.seed)
+        ff.fast_forward(PRE_UPDATES * accum)
+        forwarded = (ff.step == ran.step
+                     and ff._rng.getstate() == ran._rng.getstate())
+        window = [next(it) for _ in range(accum)]
+        name = window[0][0]
+        task = name.split("_")[0]
+        seen_losses = {}
+        with recorder:
+            for who, m, o in (("resumed", resumed, ropt),
+                              ("uninterrupted", model, opt)):
+                m.train()
+                step = make_pretrain_step(m, o, accum_steps=accum,
+                                          device=DEVICE)(task)
+                seen_losses[who] = [float(step(b, step_generator(
+                    opts.seed, PRE_UPDATES * accum + i))["loss"])
+                    for i, (_, b) in enumerate(window)]
+        weight_diff = max(float((p - q).abs().max()) for p, q in zip(
+            resumed.parameters(), model.parameters()))
+        after = _same_state(resumed, ropt, model, opt)
+        emit(phase="pretrain_resume", step=found[1], next_task=name,
+             window_tasks=[n for n, _ in window], losses=seen_losses,
+             restored_equal=restored, fast_forward_equal=forwarded,
+             weights_max_abs_diff_after=weight_diff, state_equal_after=after,
+             count=[ropt.count, opt.count])
+        check(restored and forwarded and after and weight_diff == 0.0
+              and all(n == name for n, _ in window)
+              and seen_losses["resumed"] == seen_losses["uninterrupted"]
+              and ropt.count == opt.count == PRE_UPDATES + 1,
+              f"pretrain: the resume differs: restored {restored}, "
+              f"fast-forward {forwarded}, after {after}, weights "
+              f"{weight_diff}, losses {seen_losses}")
+        del resumed, ropt
+
+        # per task: ms per update and tokens/s, a profile row
+        staged = {}
+        with recorder:
+            for t in spec["tasks"]:
+                loader = loaders[f"{t}_coco_cap"][0]
+                host = []
+                for b in loader:
+                    host.append(b)
+                    if len(host) == accum:
+                        break
+                check(len(host) == accum, f"pretrain {t}: a short loader")
+                batches = [pretrain_batch_to_device(b, torch.device(DEVICE))
+                           for b in host]
+                staged[t] = batches
+                step = make_pretrain_step(model, opt, accum_steps=accum,
+                                          device=DEVICE)(t)
+                tokens = sum(_real_tokens(b) for b in host)
+
+                def update(step=step, batches=batches):
+                    for i, b in enumerate(batches):
+                        step(b, step_generator(opts.seed, 10 ** 6 + i))
+
+                update()
+                torch.cuda.synchronize()
+                lat = []
+                for _ in range(2):
+                    t1 = time.perf_counter()
+                    update()
+                    torch.cuda.synchronize()
+                    lat.append((time.perf_counter() - t1) * 1e3)
+                ms = statistics.median(lat)
+                emit(phase="pretrain_task", task=t, micro_batches=accum,
+                     ms_per_update=ms, tokens_per_update=tokens,
+                     tokens_per_s=tokens * 1e3 / ms,
+                     batch_rows=[int(b["sample_size"]) for b in host],
+                     txt_len=[int(b["txts"]["input_ids"].shape[1])
+                              for b in host],
+                     img_len=[int(b["imgs"]["attention_mask"].shape[1])
+                              for b in host], device=device_name)
+                emit_profile_stats(f"pretrain_{t}", accum,
+                                   device_profile(update, 1), ms)
+
+            # bfloat16 against float32 at full depth, no dropout, per task,
+            # beside the control: the float32 reference with its weights and
+            # layer outputs rounded to PRE_CONTROL_MANTISSA_BITS bits, which
+            # each bound must refuse
+            model.eval()
+            for t in spec["tasks"]:
+                read = {}
+                for who, dtype in (("bf16", torch.bfloat16),
+                                   ("f32", torch.float32)):
+                    model.bert.compute_dtype = dtype
+                    read[who] = _loss_and_grad(model, staged[t][0], t)
+                read["control"] = _coarse_reading(
+                    model, staged[t][0], t, PRE_CONTROL_MANTISSA_BITS)
+                model.bert.compute_dtype = torch.bfloat16
+                l32, g32 = read["f32"]
+                loss_max, cos_min = PRE_BF16_BOUNDS[t]
+
+                def held(who):
+                    loss, grad = read[who]
+                    rel = abs(loss - l32) / abs(l32)
+                    cos = float(grad.double() @ g32.double()
+                                / (grad.double().norm() * g32.double().norm()))
+                    return rel, cos
+
+                rel, cos = held("bf16")
+                ctrl_rel, ctrl_cos = held("control")
+                row = dict(phase="pretrain_bf16_vs_f32", task=t,
+                           loss_bf16=read["bf16"][0], loss_f32=l32,
+                           loss_rel=rel, loss_rel_max=loss_max,
+                           grad_cosine=cos, grad_cosine_min=cos_min,
+                           control=f"float32 with weights and layer "
+                                   f"outputs rounded to "
+                                   f"{PRE_CONTROL_MANTISSA_BITS} mantissa bits",
+                           control_loss_rel=ctrl_rel,
+                           control_grad_cosine=ctrl_cos)
+                emit(**row)
+                check(rel <= loss_max and cos >= cos_min,
+                      f"pretrain {t}: bfloat16 vs float32: {row}")
+                check(ctrl_rel > loss_max and ctrl_cos < cos_min,
+                      f"pretrain {t}: a bound passes its control: {row}")
+                del read
+        del model, opt, staged
+
+        # float32 card vs CPU per task, full widths at 2 layers a tower
+        cut = dict(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                   attention_probs_dropout_prob=0.0)
+        cfgs = [replace(cli.resolve_encoder_config(c, project_dim=768),
+                        **cut) for c in (opts.txt_model_config,
+                                         opts.img_model_config)]
+        small = BiEncoderForPretraining(BiEncoder(*cfgs))
+        gen = torch.Generator().manual_seed(args.seed + 9)
+        init_tower_(small.bert.txt_model, gen)
+        init_tower_(small.bert.img_model, gen)
+        init_pretrain_heads_(small, gen)
+        weights = small.state_dict()
+        for t in spec["tasks"]:
+            loader = loaders[f"{t}_coco_cap"][0]
+            batch = loader.collate_fn([loader.dataset[i] for i in range(16)])
+            read = {}
+            for dev, tf32 in ((DEVICE, False), ("cpu", False),
+                              (DEVICE, True)):
+                m = BiEncoderForPretraining(BiEncoder(*cfgs))
+                m.load_state_dict(weights)
+                m.to(dev)
+                torch.backends.cuda.matmul.allow_tf32 = tf32
+                try:
+                    loss, _ = task_loss(m, pretrain_batch_to_device(
+                        batch, torch.device(dev)), t)
+                    loss.backward()
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+                read[dev, tf32] = (loss.item(), _grads(m))
+                del m
+            (lc, gc_), (lp, gp), (lt, gt) = (read[DEVICE, False],
+                                             read["cpu", False],
+                                             read[DEVICE, True])
+            row = dict(phase="pretrain_f32_card_vs_cpu", task=t, batch=16,
+                       layers=2, loss_card=lc, loss_cpu=lp,
+                       loss_rel=abs(lc - lp) / abs(lp),
+                       loss_rel_max=TRAIN_F32_LOSS_RTOL,
+                       grad_leaf_rel_l2=_leaf_rel_l2(gc_, gp),
+                       grad_rel_l2_max=TRAIN_F32_GRAD_RTOL,
+                       control="float32 card with TF32 products",
+                       control_loss_rel=abs(lt - lp) / abs(lp),
+                       control_grad_leaf_rel_l2=_leaf_rel_l2(gt, gp))
+            emit(**row)
+            check(row["loss_rel"] <= TRAIN_F32_LOSS_RTOL
+                  and row["grad_leaf_rel_l2"] <= TRAIN_F32_GRAD_RTOL,
+                  f"pretrain {t}: float32 card vs cpu: {row}")
+            check(row["control_loss_rel"] > TRAIN_F32_LOSS_RTOL
+                  or row["control_grad_leaf_rel_l2"] > TRAIN_F32_GRAD_RTOL,
+                  f"pretrain {t}: the bounds pass their control: {row}")
+    rows, _ = hold_recorded("pretrain", recorder.seen, device_name)
+    return dict(counts=counts, rows=rows)
+
+
 REPLACES = {
     "layernorm": ("lightningdot_tpu_torch/csrc/layernorm.cu",
                   "lightningdot_tpu/ops/layernorm.py:30"),
@@ -2239,6 +3064,8 @@ def main() -> int:
     train = train_phase(args, device_name)
     paths["itm_train"] = train["counts"]
     paths["itm_train_f32"] = train["counts_f32"]
+    paths["train_itm_cli"] = train_itm_cli_phase(args, device_name)["counts"]
+    paths["pretrain"] = pretrain_phase(args, device_name)["counts"]
     check(all(any(c[name] > 0 for c in paths.values()) for name in REPLACES),
           f"a kernel was launched on no path: {paths}")
 

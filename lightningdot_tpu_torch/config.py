@@ -8,8 +8,8 @@ Two layers, mirroring the reference:
     uniter_model/model/model.py:23-115).
   * argparse param groups + JSON overlay where CLI flags win: the
     semantics of ``parse_with_config`` (dvl/options.py:96-109) and the
-    grouped registrars ``default_params`` / ``add_itm_params``
-    (dvl/options.py:15-81), holding the flags the port reads.
+    grouped registrars ``default_params`` / ``add_itm_params`` /
+    ``add_logging_params`` / ``add_kd_params`` (dvl/options.py:15-93).
 """
 from __future__ import annotations
 
@@ -82,10 +82,11 @@ BERT_BASE_CASED = EncoderConfig(vocab_size=28996)
 # ---------------------------------------------------------------------------
 
 def default_params(parser: argparse.ArgumentParser) -> None:
-    """Core flags (dvl/options.py:15-47): the ones the port reads now.
-    The training flags come with the training driver; a reference config
-    JSON loads all the same, since :func:`parse_with_config` sets every
-    key it holds."""
+    """Core flags shared by the drivers (dvl/options.py:15-47), with the
+    JAX package's defaults. Its TPU knobs (``--kernel_backend``) and the
+    mesh size (``--dp_size``, multi-GPU: ROADMAP A11) are not registered;
+    a config JSON that holds them loads all the same, since
+    :func:`parse_with_config` sets every key it holds."""
     parser.add_argument("--txt_model_type", default="bert-base", type=str)
     parser.add_argument("--txt_model_config", default="bert-base-cased", type=str)
     parser.add_argument("--txt_checkpoint", default=None, type=str)
@@ -96,11 +97,23 @@ def default_params(parser: argparse.ArgumentParser) -> None:
 
     parser.add_argument("--train_batch_size", default=80, type=int)
     parser.add_argument("--valid_batch_size", default=80, type=int)
+    parser.add_argument("--gradient_accumulation_steps", default=1, type=int)
+    parser.add_argument("--learning_rate", default=1e-5, type=float)
+    parser.add_argument("--max_grad_norm", default=2.0, type=float)
     parser.add_argument("--loader_workers", default=4, type=int,
                         help="parallel whole-batch collate threads for the "
                         "loaders (order-preserving)")
+    parser.add_argument("--optim_state_dtype", default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="AdamW first-moment storage dtype (the second "
+                        "moment stays float32)")
+    parser.add_argument("--warmup_steps", default=500, type=int)
+    parser.add_argument("--valid_steps", default=500, type=int)
+    parser.add_argument("--num_train_steps", default=5000, type=int)
+    parser.add_argument("--num_train_epochs", default=0, type=int)
 
     parser.add_argument("--seed", default=42, type=int)
+    parser.add_argument("--output_dir", default="./", type=str)
     parser.add_argument("--max_txt_len", default=64, type=int)
     parser.add_argument("--config", default=None, type=str)
     parser.add_argument("--itm_global_file", default=None, type=str)
@@ -110,14 +123,20 @@ def default_params(parser: argparse.ArgumentParser) -> None:
 
 
 def add_itm_params(parser: argparse.ArgumentParser) -> None:
-    """ITM / retrieval flags (dvl/options.py:50-81) that the port reads,
-    with the path remapping of :func:`map_db_dirs`."""
+    """ITM / retrieval flags (dvl/options.py:50-81), with the path
+    remapping of :func:`map_db_dirs`."""
     parser.add_argument("--conf_th", default=0.2, type=float)
     parser.add_argument("--caption_score_weight", default=0.0, type=float)
     parser.add_argument("--num_hard_negatives", default=0, type=int)
+    parser.add_argument("--sample_init_hard_negatives", action="store_true")
+    parser.add_argument("--hard_negatives_sampling", default="none", type=str,
+                        choices=["none", "random", "top", "top-random",
+                                 "10-20", "20-30"])
     parser.add_argument("--max_bb", default=100, type=int)
     parser.add_argument("--min_bb", default=10, type=int)
     parser.add_argument("--num_bb", default=36, type=int)
+    parser.add_argument("--train_txt_dbs", default=None, type=str)
+    parser.add_argument("--train_img_dbs", default=None, type=str)
     parser.add_argument("--txt_db_mapping", default=None, type=str)
     parser.add_argument("--img_db_mapping", default=None, type=str)
     parser.add_argument("--pretrain_mapping", default=None, type=str)
@@ -127,6 +146,27 @@ def add_itm_params(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--test_img_db", default=None, type=str)
     parser.add_argument("--inf_minibatch_size", default=400, type=int)
     parser.add_argument("--project_dim", default=0, type=int)
+    parser.add_argument("--cls_concat", default="", type=str)
+    parser.add_argument("--fix_txt_encoder", action="store_true")
+    parser.add_argument("--fix_img_encoder", action="store_true")
+    parser.add_argument("--retrieval_mode", default="both",
+                        choices=["img_only", "txt_only", "both"], type=str)
+
+
+def add_logging_params(parser: argparse.ArgumentParser) -> None:
+    """Logging flags (dvl/options.py:83-88)."""
+    parser.add_argument("--log_result_step", default=4, type=int)
+    parser.add_argument("--save_all_epochs", action="store_true")
+    parser.add_argument("--sim_preempt_step", type=int, default=None,
+                        help="fault injection: act as if SIGTERM arrived "
+                             "at this global step (preemption-path tests)")
+
+
+def add_kd_params(parser: argparse.ArgumentParser) -> None:
+    """Knowledge-distillation flags (dvl/options.py:90-93). The teacher
+    comes with the cross-encoder (ROADMAP A9): the drivers raise on
+    ``--teacher_checkpoint``."""
+    parser.add_argument("--teacher_checkpoint", default=None, type=str)
 
 
 def parse_with_config(parser: argparse.ArgumentParser,

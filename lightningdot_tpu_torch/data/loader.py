@@ -14,15 +14,17 @@ uniter_model/data/loader.py):
     event recorded after the copies (the CUDA side-stream copy of
     loader.py:83-138).
 
-The multi-task ``MetaLoader`` and the ``DistributedSampler`` come with
-pre-training and multi-GPU (ROADMAP A8, A11).
+  * :class:`MetaLoader`: pre-training's multi-task sampling
+    (loader.py:293-348).
+
+The ``DistributedSampler`` comes with multi-GPU (ROADMAP A11).
 """
 from __future__ import annotations
 
 import queue
 import random
 import threading
-from typing import Any, Callable, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -102,9 +104,8 @@ class DataLoader:
         # to num_workers=1. Items of one batch stay on one thread. Only use
         # with datasets whose __getitem__ is deterministic (the ITM
         # fine-tune datasets pre-sample their epoch; the pre-train datasets
-        # draw masks from a shared rng in __getitem__ and must keep
-        # num_workers=1). numpy/ldkv release the GIL, so collate threads
-        # genuinely overlap.
+        # draw masks from per-item (seed, epoch, index) rngs). numpy/ldkv
+        # release the GIL, so collate threads genuinely overlap.
         self.num_workers = num_workers
         # called at the start of every epoch (TokenBucketSamplerForItm's
         # new_epoch hook, dvl/data/itm_pre.py:20-29)
@@ -331,3 +332,60 @@ class DevicePrefetcher:
             cur, nxt = nxt, self.put(host_batch)
             yield await_staged(cur)
         yield await_staged(nxt)
+
+
+class MetaLoader:
+    """Multi-task sampling loader (the port's copy of ``MetaLoader``,
+    lightningdot_tpu/data/loader.py:293-348; reference loader.py:13-53).
+
+    loaders: name -> loader or (loader, ratio). The task is re-drawn every
+    ``accum_steps`` steps from a seeded RNG, so one seed gives one task
+    sequence.
+    """
+
+    def __init__(self, loaders: Dict[str, Any], accum_steps: int = 1,
+                 seed: int = 0):
+        self.name2loader = {}
+        self.name2iter = {}
+        self.sampling_pools: List[str] = []
+        for n, l in loaders.items():
+            if isinstance(l, tuple):
+                l, r = l
+            else:
+                r = 1
+            self.name2loader[n] = l
+            self.name2iter[n] = iter(l)
+            self.sampling_pools.extend([n] * r)
+        self.accum_steps = accum_steps
+        self.step = 0
+        self._rng = random.Random(seed)
+
+    def __iter__(self):
+        """Runs indefinitely (loader.py:35-53)."""
+        task = self.sampling_pools[0]
+        while True:
+            if self.step % self.accum_steps == 0:
+                task = self._rng.choice(self.sampling_pools)
+            self.step += 1
+            iter_ = self.name2iter[task]
+            try:
+                batch = next(iter_)
+            except StopIteration:
+                iter_ = iter(self.name2loader[task])
+                try:
+                    batch = next(iter_)
+                except StopIteration:
+                    raise ValueError(
+                        f"task {task!r} loader yielded no batches (empty "
+                        f"dataset or drop_last ate the only batch)") from None
+                self.name2iter[task] = iter_
+            yield task, batch
+
+    def fast_forward(self, n_steps: int) -> None:
+        """Advance the task stream to micro-step ``n_steps`` without
+        touching data: a resumed run continues the task SEQUENCE where the
+        interrupted one stopped (data iterators restart)."""
+        while self.step < n_steps:
+            if self.step % self.accum_steps == 0:
+                self._rng.choice(self.sampling_pools)
+            self.step += 1

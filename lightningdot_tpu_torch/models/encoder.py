@@ -351,15 +351,17 @@ class TextEncoder(nn.Module):
 
     def forward(self, input_ids, attention_mask, position_ids, *,
                 dtype: torch.dtype = torch.float32,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                head: bool = True):
         """-> (sequence [B, S, H], pooled [B, out]) (``encode_text``,
         encoder.py:451). ``generator`` draws the dropout masks in training
-        mode."""
+        mode. ``head=False`` skips the projection head (pooled is then the
+        CLS row), for callers that read only the sequence."""
         emb = self.bert.embeddings(input_ids, position_ids, dtype, generator)
         seq = self.bert.encoder(emb, attention_bias(attention_mask), dtype,
                                 generator)
         pooled = seq[:, 0, :]
-        if self.encode_proj is not None:
+        if head and self.encode_proj is not None:
             pooled = self.projection_head(pooled, dtype)
         return seq, pooled
 
@@ -375,14 +377,16 @@ class ImageEncoder(TextEncoder):
 
     def forward(self, input_ids, attention_mask, img_feat, img_pos_feat, *,
                 img_masks=None, dtype: torch.dtype = torch.float32,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                head: bool = True):
         """-> (sequence [B, 1+R, H], pooled [B, out]) (``encode_image``,
         encoder.py:473-510).
 
         ``input_ids`` [B, 1] holds the [CLS] id (101, dvl/data/itm.py:74)
         at position 0 with type 0; the R regions follow with type 1.
         ``attention_mask`` [B, 1+R]; ``img_feat`` [B, R, img_dim];
-        ``img_pos_feat`` [B, R, 7]; ``img_masks`` optional [B, R] {0, 1}.
+        ``img_pos_feat`` [B, R, 7]; ``img_masks`` optional [B, R] {0, 1};
+        ``head`` as for the text tower.
         """
         bert = self.bert
         txt = bert.embeddings(input_ids, torch.zeros_like(input_ids), dtype,
@@ -393,7 +397,7 @@ class ImageEncoder(TextEncoder):
         seq = bert.encoder(torch.cat([txt, img], dim=1),
                            attention_bias(attention_mask), dtype, generator)
         pooled = seq[:, 0, :]
-        if self.encode_proj is not None:
+        if head and self.encode_proj is not None:
             pooled = self.projection_head(pooled, dtype)
         return seq, pooled
 

@@ -6,8 +6,9 @@ Named configs are the constants of :mod:`lightningdot_tpu_torch.config`;
 anything else is a config JSON path (``configs/img_base.json``). Weights are
 random from a seed, then overlaid with the reference's torch state dicts
 (``.pt``) through :func:`~lightningdot_tpu_torch.models.weights.
-load_tower_`. The JAX package's own checkpoint format comes with the
-training driver (ROADMAP A7), and the cross-encoder with A9.
+load_tower_`, or loaded from a training driver's checkpoint, the port's
+or the JAX package's (``training/checkpoints.py``). The cross-encoder comes
+with A9.
 """
 from __future__ import annotations
 
@@ -84,7 +85,10 @@ def build_biencoder(args, *, seed: int = 0) -> BiEncoder:
                                      project_dim=project_dim)
     dtype = (torch.bfloat16 if getattr(args, "compute_dtype", "bf16") == "bf16"
              else torch.float32)
-    model = BiEncoder(txt_cfg, img_cfg, compute_dtype=dtype)
+    model = BiEncoder(
+        txt_cfg, img_cfg, compute_dtype=dtype,
+        fix_txt_encoder=getattr(args, "fix_txt_encoder", False),
+        fix_img_encoder=getattr(args, "fix_img_encoder", False))
     gen = torch.Generator().manual_seed(seed)
     init_tower_(model.txt_model, gen)
     init_tower_(model.img_model, gen)
@@ -97,12 +101,7 @@ def build_biencoder(args, *, seed: int = 0) -> BiEncoder:
         _overlay(model.img_model, load_torch_state_dict(img_ckpt))
 
     bi_ckpt = _maybe(getattr(args, "biencoder_checkpoint", None))
-    if bi_ckpt:
-        if not bi_ckpt.endswith(".pt"):
-            raise ValueError(
-                f"{bi_ckpt}: the port reads the reference's torch state "
-                f"dicts (.pt); the JAX package's checkpoint format comes "
-                f"with the training driver")
+    if bi_ckpt and bi_ckpt.endswith(".pt"):
         sd = normalize_keys(load_torch_state_dict(bi_ckpt))
         LOGGER.info("loaded %d tensors from %s", len(sd), bi_ckpt)
         for name, tower in (("txt_model", model.txt_model),
@@ -113,5 +112,20 @@ def build_biencoder(args, *, seed: int = 0) -> BiEncoder:
             if not part:
                 raise ValueError(f"{bi_ckpt}: no {prefix}* weights")
             load_tower_(tower, part)
+    elif bi_ckpt:
+        # a training driver's checkpoint: the port's <path>.pt or the JAX
+        # package's <path>.npz, each beside <path>.json
+        from lightningdot_tpu_torch.training.checkpoints import (
+            load_state_dict_strict, read_checkpoint)
+
+        if not os.path.exists(bi_ckpt + ".json"):
+            raise ValueError(
+                f"{bi_ckpt}: no checkpoint there; the port reads the "
+                f"reference's torch state dicts (.pt) and the training "
+                f"drivers' checkpoints (<path>.json beside the port's "
+                f"<path>.pt or the JAX package's <path>.npz)")
+        sd, _, meta = read_checkpoint(bi_ckpt)
+        load_state_dict_strict(model, sd)
+        LOGGER.info("loaded %s (step %s)", bi_ckpt, meta.get("step"))
     return model.eval()
 

@@ -3,8 +3,15 @@ export parts of lightningdot_tpu/models/checkpoint_torch.py).
 
 :func:`tower_state_dict_from_jax` turns a JAX tower pytree (numpy or array
 leaves, layers stacked on axis 0) into the port's state dict, as
-``checkpoint_torch.export_tower`` does. :func:`load_torch_state_dict` and
-:func:`normalize_keys` read the reference's released ``.pt`` files.
+``checkpoint_torch.export_tower`` does; :func:`biencoder_state_dict_from_jax`
+and :func:`pretrain_state_dict_from_jax` do so for a whole bi-encoder and
+for ``BiEncoderForPretraining`` with its heads (``export_bi_encoder``, and
+the inverse of ``map_pretrain_model``, checkpoint_torch.py:271), and
+:func:`unflatten_jax` rebuilds a JAX tree from the flattened keys of the JAX
+package's ``.npz`` checkpoints (``training/checkpoints.py::flatten_tree``).
+:func:`load_torch_state_dict` and :func:`normalize_keys` read the
+reference's released ``.pt`` files; :func:`pretrain_keys` puts a
+reference pre-training state dict under the port's names.
 """
 from __future__ import annotations
 
@@ -130,3 +137,78 @@ def tower_keys(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
               if not k.startswith("encode_proj.")} | {
             k: v for k, v in sd.items() if k.startswith("encode_proj.")}
     return sd
+
+
+def unflatten_jax(flat: Mapping[str, Any], sep: str = "/") -> Dict[str, Any]:
+    """{"txt_model/layers/attn/query/kernel": array, ...} -> nested dicts
+    (the inverse of the JAX package's ``flatten_tree`` over dict trees)."""
+    tree: Dict[str, Any] = {}
+    for key, value in flat.items():
+        node = tree
+        *parents, leaf = key.split(sep)
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = np.asarray(value)
+    return tree
+
+
+def biencoder_state_dict_from_jax(tree: Mapping[str, Any]
+                                  ) -> Dict[str, np.ndarray]:
+    """JAX ``BiEncoder`` params {txt_model, img_model} -> the port's
+    ``BiEncoder`` state dict (``txt_model.*``/``img_model.*``), as
+    ``checkpoint_torch.export_bi_encoder`` writes it."""
+    return {f"{name}.{k}": v for name in ("txt_model", "img_model")
+            for k, v in tower_state_dict_from_jax(tree[name]).items()}
+
+
+def pretrain_state_dict_from_jax(tree: Mapping[str, Any]
+                                 ) -> Dict[str, np.ndarray]:
+    """JAX ``BiEncoderForPretraining`` params {bert, heads} -> the port's
+    state dict: ``bert.txt_model.*``, ``bert.img_model.*`` and the heads
+    under the reference's names (``cls.predictions.*``,
+    ``feat_regress.*``, ``region_classifier.*``, ``itm_output.*``). The
+    tied weights (the MLM decoder, the feature regression's weight) are
+    the towers' own and appear once."""
+    sd = {f"bert.{k}": v
+          for k, v in biencoder_state_dict_from_jax(tree["bert"]).items()}
+    heads = tree["heads"]
+    if "mlm" in heads:
+        mlm = heads["mlm"]
+        _lin(sd, "cls.predictions.transform.dense", mlm["transform"]["dense"])
+        _ln(sd, "cls.predictions.transform.LayerNorm", mlm["transform"]["ln"])
+        sd["cls.predictions.bias"] = np.asarray(mlm["bias"])
+    if "feat_regress" in heads:
+        fr = heads["feat_regress"]
+        _lin(sd, "feat_regress.net.0", fr["dense"])
+        _ln(sd, "feat_regress.net.2", fr["ln"])
+        sd["feat_regress.bias"] = np.asarray(fr["bias"])
+    if "region_classifier" in heads:
+        rc = heads["region_classifier"]
+        _lin(sd, "region_classifier.net.0", rc["dense"])
+        _ln(sd, "region_classifier.net.2", rc["ln"])
+        _lin(sd, "region_classifier.net.3", rc["out"])
+    if "itm_output" in heads:
+        _lin(sd, "itm_output", heads["itm_output"])
+    return sd
+
+
+# keys of a reference pre-training state dict that no port module holds:
+# the tied duplicates (the MLM decoder is the image tower's word table,
+# layer.py:212-215; feat_regress.weight is img_linear's, model.py:390-397),
+# BERT's NSP head, and the mrm-nce heads of the reference's dead branch
+# (checkpoint_torch.py:41-59, map_pretrain_model's skip list)
+_PRETRAIN_SKIP_EXACT = ("cls.predictions.decoder.weight",
+                        "feat_regress.weight")
+_PRETRAIN_SKIP_PREFIXES = ("cls.seq_relationship.", "nce_output.",
+                           "nce_norm.")
+
+
+def pretrain_keys(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A reference ``BiEncoderForPretraining`` state dict under the port's
+    names: :func:`normalize_keys`, the serialized index buffers, the tied
+    duplicates and the heads no port module holds dropped (the skip list
+    of ``map_pretrain_model``)."""
+    return {k: v for k, v in normalize_keys(sd).items()
+            if k not in _PRETRAIN_SKIP_EXACT
+            and not k.startswith(_PRETRAIN_SKIP_PREFIXES)
+            and not k.endswith((".position_ids", ".token_type_ids"))}

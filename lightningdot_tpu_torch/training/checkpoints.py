@@ -1,0 +1,254 @@
+"""Checkpoint save and load (counterpart of
+lightningdot_tpu/training/checkpoints.py:83-234).
+
+Two layouts, as the reference's (SURVEY.md §5):
+
+  * the fine-tune ``CheckpointState`` (dvl/trainer.py:18-63):
+    ``biencoder.{best,last,N,preempt}``;
+  * the pre-training ``ModelSaver`` (uniter_model/utils/save.py:55-76):
+    ``model_step_{N}``, with auto-resume from the newest step
+    (pretrain.py:906-917).
+
+A checkpoint ``<path>`` is two files. ``<path>.pt`` is a torch
+``CheckpointState`` dict: the model's state dict under the reference's
+names in ``model_dict`` (the layout of the JAX package's
+``models/checkpoint_torch.py::save_biencoder_pt``, :440-447, so the JAX
+package's ``load_biencoder_checkpoint`` and ``map_pretrain_model`` read it)
+and the optimizer's update count and moments in ``optimizer_dict``.
+``<path>.json`` is the manifest (step, offset, epoch, extra), written
+last: the data file is renamed into place first, so a save that is cut
+off never truncates a good checkpoint, and discovery keys off the
+manifest. :func:`load_checkpoint` also reads the JAX package's checkpoints
+(``<path>.npz`` of ``model/...`` flattened leaves beside the same
+``.json``). Every load is strict: a missing or extra parameter, or another
+shape, raises (the JAX package's ``unflatten_like``, :38-80).
+"""
+from __future__ import annotations
+
+import glob
+import json
+import os
+import re
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from lightningdot_tpu_torch.models.weights import (
+    biencoder_state_dict_from_jax, pretrain_state_dict_from_jax,
+    unflatten_jax)
+
+SEP = "/"
+
+
+def _cpu_state(model) -> Dict[str, torch.Tensor]:
+    """A copy on the host of a module's state dict (or of a state dict)."""
+    sd = model.state_dict() if isinstance(model, nn.Module) else model
+    return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
+
+
+def _cpu_tree(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True)
+    if isinstance(x, dict):
+        return {k: _cpu_tree(v) for k, v in x.items()}
+    return x
+
+
+def save_checkpoint(path: str, *, model, optimizer=None, step: int = 0,
+                    offset: int = 0, epoch: int = 0,
+                    extra: Optional[dict] = None) -> str:
+    """Write ``<path>.pt`` then ``<path>.json`` (``CheckpointState``),
+    each to a temporary name renamed into place. ``model`` is a module or
+    a state dict; ``optimizer`` a :class:`~lightningdot_tpu_torch.training.
+    optim.FusedAdamW` or its ``state_dict()``."""
+    if optimizer is not None and hasattr(optimizer, "state_dict"):
+        optimizer = optimizer.state_dict()
+    data = {"model_dict": _cpu_state(model),
+            "optimizer_dict": _cpu_tree(optimizer),
+            "scheduler_dict": None, "offset": offset, "epoch": epoch,
+            "encoder_params": None}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".pt.tmp"
+    torch.save(data, tmp)
+    os.replace(tmp, path + ".pt")
+    meta = {"step": step, "offset": offset, "epoch": epoch,
+            "extra": extra or {}}
+    tmp_json = path + ".json.tmp"
+    with open(tmp_json, "w") as f:
+        json.dump(meta, f)
+    os.replace(tmp_json, path + ".json")
+    return path
+
+
+def _jax_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """The model leaves of a JAX ``.npz`` as a state dict under the port's
+    names: a bi-encoder ({txt_model, img_model}), a pre-training model
+    ({bert, heads}), or any other tree leaf by leaf ('/' -> '.')."""
+    tree = unflatten_jax(flat)
+    if set(tree) == {"txt_model", "img_model"}:
+        return biencoder_state_dict_from_jax(tree)
+    if set(tree) == {"bert", "heads"}:
+        return pretrain_state_dict_from_jax(tree)
+    return {k.replace(SEP, "."): np.asarray(v) for k, v in flat.items()}
+
+
+def read_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[dict], dict]:
+    """(model state dict, optimizer state or None, manifest) of the port's
+    ``<path>.pt`` or, where there is none, the JAX package's
+    ``<path>.npz`` (whose optimizer state, an optax tree, is not read:
+    the optimizer state returned is None)."""
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    if os.path.exists(path + ".pt"):
+        data = torch.load(path + ".pt", map_location="cpu",
+                          weights_only=True)
+        return data["model_dict"], data.get("optimizer_dict"), meta
+    if not os.path.exists(path + ".npz"):
+        raise FileNotFoundError(f"{path}: neither {path}.pt nor {path}.npz")
+    with np.load(path + ".npz") as data:
+        mp = f"model{SEP}"
+        flat = {k[len(mp):]: data[k] for k in data.files if k.startswith(mp)}
+    return _jax_state_dict(flat), None, meta
+
+
+def load_state_dict_strict(model: nn.Module, sd: Mapping[str, Any]) -> None:
+    """Copy ``sd`` (tensors or arrays) into ``model``'s parameters and
+    buffers: a parameter the checkpoint lacks, one the model lacks, or
+    another shape raises, naming the key."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(sd))
+    if missing:
+        more = f" (and {len(missing) - 1} more)" if len(missing) > 1 else ""
+        raise KeyError(f"checkpoint missing parameter {missing[0]}{more}")
+    extra = sorted(set(sd) - set(own))
+    if extra:
+        raise KeyError(
+            f"checkpoint has {len(extra)} parameters the model does "
+            f"not: {extra[:5]}{'...' if len(extra) > 5 else ''}")
+    cast = {}
+    for k, v in sd.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.ascontiguousarray(v))
+        if tuple(t.shape) != tuple(own[k].shape):
+            raise ValueError(
+                f"checkpoint leaf {k} has shape {tuple(t.shape)}, model "
+                f"expects {tuple(own[k].shape)}")
+        cast[k] = t.to(own[k].dtype)
+    model.load_state_dict(cast)
+
+
+def load_checkpoint(path: str, *, model: nn.Module, optimizer=None) -> dict:
+    """Load ``<path>`` into ``model`` (strictly) and, where given, into
+    ``optimizer``; returns the manifest. Resuming an optimizer from a
+    checkpoint that holds no state the port reads (the JAX package's
+    ``.npz``, or a save without an optimizer) raises: a fresh update count
+    would restart the learning-rate schedule and the bias correction."""
+    sd, opt, meta = read_checkpoint(path)
+    if optimizer is not None and opt is None:
+        raise ValueError(
+            f"{path}: no optimizer state the port reads (a JAX .npz's optax "
+            "state is not read); cannot resume the optimizer from it")
+    load_state_dict_strict(model, sd)
+    if optimizer is not None:
+        optimizer.load_state_dict(opt)
+    return meta
+
+
+def save_training_meta(output_dir: str, args) -> None:
+    """Dump hps.json + git info (uniter_model/utils/save.py:15-52)."""
+    import subprocess
+
+    os.makedirs(os.path.join(output_dir, "log"), exist_ok=True)
+    os.makedirs(os.path.join(output_dir, "ckpt"), exist_ok=True)
+    hps = {k: v for k, v in vars(args).items()
+           if isinstance(v, (int, float, str, bool, list, dict, type(None)))}
+    with open(os.path.join(output_dir, "log", "hps.json"), "w") as f:
+        json.dump(hps, f, indent=4)
+    try:
+        sha = subprocess.run(["git", "rev-parse", "HEAD"],
+                             capture_output=True, text=True,
+                             timeout=10).stdout.strip()
+        status = subprocess.run(["git", "status", "--short"],
+                                capture_output=True, text=True,
+                                timeout=10).stdout
+        with open(os.path.join(output_dir, "log", "git_info.json"),
+                  "w") as f:
+            json.dump({"git_sha": sha, "git_status": status}, f, indent=4)
+    except Exception:
+        pass
+
+
+class ModelSaver:
+    """Step-numbered saver (save.py:55-76).
+
+    ``save`` copies the weights (and the optimizer's state) to the host
+    before it returns, so a later step that updates them in place cannot
+    reach the checkpoint. With ``async_save=True`` the file is written on
+    a background thread, one save in flight at a time; ``wait()`` (also
+    called by the next save) surfaces the writer's exception.
+    """
+
+    def __init__(self, output_dir: str, prefix: str = "model_step",
+                 async_save: bool = False):
+        self.output_dir = output_dir
+        self.prefix = prefix
+        os.makedirs(output_dir, exist_ok=True)
+        self._executor = (ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="ckpt-save")
+            if async_save else None)
+        self._pending = None
+
+    def save(self, model, step: int, optimizer=None) -> str:
+        path = os.path.join(self.output_dir, f"{self.prefix}_{step}")
+        model = _cpu_state(model)
+        if optimizer is not None:
+            optimizer = _cpu_tree(optimizer.state_dict()
+                                  if hasattr(optimizer, "state_dict")
+                                  else optimizer)
+        if self._executor is None:
+            return save_checkpoint(path, model=model, optimizer=optimizer,
+                                   step=step)
+        self.wait()
+        self._pending = self._executor.submit(
+            save_checkpoint, path, model=model, optimizer=optimizer,
+            step=step)
+        return path
+
+    def wait(self) -> None:
+        """Block until the save in flight (if any) has finished."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            pending.result()
+
+
+class NoOpSaver:
+    """Non-zero-rank saver (reference ``NoOp``, uniter misc.py:14-19):
+    rank 0 writes the checkpoints."""
+
+    def save(self, model, step: int, optimizer=None) -> str:
+        return ""
+
+    def wait(self) -> None:
+        pass
+
+
+def latest_step_checkpoint(output_dir: str, prefix: str = "model_step"
+                           ) -> Optional[Tuple[str, int]]:
+    """Auto-resume discovery (pretrain.py:906-917): the newest
+    ``<prefix>_<N>`` whose manifest and data file both exist. The
+    manifest is renamed into place last, so a checkpoint cut off mid-write
+    is never selected."""
+    pat = re.compile(rf"{re.escape(prefix)}_(\d+)\.json$")
+    best = None
+    for f in glob.glob(os.path.join(output_dir, f"{prefix}_*.json")):
+        m = pat.search(f)
+        stem = f[:-len(".json")]
+        if m and (os.path.exists(stem + ".pt")
+                  or os.path.exists(stem + ".npz")):
+            step = int(m.group(1))
+            if best is None or step > best[1]:
+                best = (stem, step)
+    return best

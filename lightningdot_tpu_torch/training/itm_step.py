@@ -11,7 +11,7 @@ FusedAdamW`). Knowledge distillation against a cross-encoder teacher
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,21 +99,81 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device
                                            "valid_mask")}
 
 
+def pass_generators(generator: Optional[torch.Generator],
+                    device: torch.device
+                    ) -> Optional[List[torch.Generator]]:
+    """The (txt, img, cap) generators of one step on ``device``, seeded
+    from a step's CPU ``generator`` (None: no dropout draws), as JAX splits
+    one key three ways."""
+    if generator is None:
+        return None
+    seeds = torch.randint(0, 2 ** 62, (3,), generator=generator)
+    return [torch.Generator(device=device).manual_seed(int(s))
+            for s in seeds]
+
+
+class GradAccumulator:
+    """``optax.MultiSteps`` (use_grad_mean) over a model's ``.grad``: each
+    micro-batch's gradients go into a running mean, ``acc + (g - acc) /
+    (n + 1)`` as optax computes it (None counts as zeros), and on the
+    ``accum_steps``-th the mean is handed to the optimizer as the
+    parameters' ``.grad`` and the mean starts again from zero. The schedule
+    and the clip thus see the mean, and the optimizer's count advances once
+    per update."""
+
+    def __init__(self, params, accum_steps: int):
+        if accum_steps < 1:
+            raise ValueError(f"accum_steps {accum_steps} < 1")
+        self.params = list(params)
+        self.accum_steps = accum_steps
+        self.mini_step = 0
+        self.acc: Optional[list] = None
+
+    @torch.no_grad()
+    def add(self) -> bool:
+        """Fold the current ``.grad`` in; True when the mean is ready in
+        ``.grad`` for an update."""
+        if self.accum_steps == 1:
+            return True
+        if self.acc is None:
+            self.acc = [torch.zeros_like(p, dtype=torch.float32)
+                        for p in self.params]
+        n = self.mini_step
+        grads = [torch.zeros_like(a) if p.grad is None else p.grad
+                 for p, a in zip(self.params, self.acc)]
+        # multi-tensor ops: a few launches for all parameters
+        step = torch._foreach_sub(grads, self.acc)
+        torch._foreach_div_(step, float(n + 1))
+        torch._foreach_add_(self.acc, step)
+        for p in self.params:
+            p.grad = None
+        self.mini_step = (n + 1) % self.accum_steps
+        if self.mini_step:
+            return False
+        for p, a in zip(self.params, self.acc):
+            p.grad = a
+        self.acc = None
+        return True
+
+
 def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
                         caption_score_weight: float = 0.0,
                         num_hard_negatives: int = 0,
                         kd_fn: Optional[Callable] = None,
+                        accum_steps: int = 1,
                         device: Optional[torch.device] = None) -> Callable:
     """Build ``step(batch, generator=None) -> metrics``
     (``make_itm_train_step``, itm_step.py:172-216).
 
     The model moves to ``device`` (``None``: the card, raising where there is
     none; ``"cpu"`` runs the plain PyTorch path) and takes one optimizer step
-    per call in whatever mode it is in: ``model.train()`` turns dropout on,
-    and ``generator`` (a CPU ``torch.Generator``) then seeds the three
-    passes' generators, as JAX splits one key three ways. ``batch`` is a
-    collated batch (numpy or tensors). The metrics (loss, acc, grad_norm,
-    both directions' losses) stay on the device.
+    per call (per ``accum_steps`` calls: the mean of their gradients, as
+    ``optax.MultiSteps`` wraps the JAX optimizer, cli/train_itm.py:178-183)
+    in whatever mode it is in: ``model.train()`` turns dropout on, and
+    ``generator`` (a CPU ``torch.Generator``) then seeds the three passes'
+    generators, as JAX splits one key three ways. ``batch`` is a collated
+    batch (numpy or tensors). The metrics (loss, acc, grad_norm of the last
+    update, both directions' losses) stay on the device.
 
     float32 compute on the card needs ``torch.backends.cuda.matmul.
     allow_tf32`` off: the JAX package's float32 products are true float32.
@@ -124,6 +184,8 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
             "the port does not have yet (ROADMAP A9)")
     device = resolve_device(device)
     model.to(device)
+    accumulator = GradAccumulator(optimizer.params, accum_steps)
+    last_norm = [torch.zeros((), device=device)]
 
     def step(batch: Dict[str, Any],
              generator: Optional[torch.Generator] = None
@@ -133,18 +195,16 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
             raise RuntimeError("float32 training with TF32 products on: set "
                                "torch.backends.cuda.matmul.allow_tf32 = "
                                "False")
-        generators = None
-        if generator is not None:
-            seeds = torch.randint(0, 2 ** 62, (3,), generator=generator)
-            generators = [torch.Generator(device=device).manual_seed(int(s))
-                          for s in seeds]
         optimizer.zero_grad()
         loss, metrics = itm_loss_fn(
-            model, batch_to_device(batch, device), generators,
+            model, batch_to_device(batch, device),
+            pass_generators(generator, device),
             caption_score_weight=caption_score_weight,
             num_hard_negatives=num_hard_negatives)
         loss.backward()
-        metrics["grad_norm"] = optimizer.step()
+        if accumulator.add():
+            last_norm[0] = optimizer.step()
+        metrics["grad_norm"] = last_norm[0]
         return metrics
 
     return step

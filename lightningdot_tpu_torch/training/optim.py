@@ -15,9 +15,12 @@ bfloat16 first moment, and ``first_lr_step``. :func:`make_optimizer`
 (:147-176) returns the same object with float32 state: its math is the
 same (tests/test_loss.py::test_fused_adamw_matches_optax).
 
-Schedules are evaluated on the host in float32 at the 0-based update index
-(torch LambdaLR convention); ``first_lr_step=1`` shifts them for the UNITER
-post-increment convention.
+Schedules (``schedule_linear``, and pre-training's ``get_lr_sched`` over
+``warmup_linear`` and ``noam_schedule``, optim.py:322-370) are evaluated on
+the host in float32 at the 0-based update index (torch LambdaLR
+convention); ``first_lr_step=1`` shifts them for the UNITER post-increment
+convention. :meth:`FusedAdamW.state_dict` gives the update count and both
+moments for a checkpoint.
 """
 from __future__ import annotations
 
@@ -48,6 +51,50 @@ def schedule_linear(learning_rate: float, warmup_steps: int,
             frac = max(f32(0.0), (f32(training_steps) - step)
                        / f32(max(1, training_steps - warmup_steps)))
         return float(f32(learning_rate) * f32(frac))
+
+    return lr
+
+
+def noam_schedule(step: int, warmup_step: int = 4000) -> float:
+    """sched.py:7-10 (``noam_schedule``, optim.py:322), float32."""
+    f32 = np.float32
+    step = f32(step)
+    if step <= warmup_step:
+        return float(step / f32(warmup_step))
+    return float(f32(warmup_step ** 0.5) * max(step, f32(1.0)) ** f32(-0.5))
+
+
+def warmup_linear(step: int, warmup_step: int, tot_step: int) -> float:
+    """sched.py:13-16 (``warmup_linear``, optim.py:329), float32."""
+    f32 = np.float32
+    step = f32(step)
+    if step < warmup_step:
+        return float(step / f32(max(1, warmup_step)))
+    return float(max(f32(0.0), (f32(tot_step) - step)
+                     / f32(max(1, tot_step - warmup_step))))
+
+
+def get_lr_sched(decay: str, learning_rate: float, warmup_steps: int,
+                 num_train_steps: int) -> Callable[[int], float]:
+    """sched.py:35-52 (``get_lr_sched``, optim.py:350) with the <= 0 ->
+    1e-8 guard: ``linear``, ``invsqrt`` or ``constant``. The VQA schedule
+    comes with VQA (ROADMAP A10)."""
+    f32 = np.float32
+    if decay not in ("linear", "invsqrt", "constant"):
+        if decay == "vqa":
+            raise NotImplementedError("the VQA schedule comes with VQA "
+                                      "(ROADMAP A10)")
+        raise ValueError(f"unknown decay {decay}")
+
+    def lr(step: int) -> float:
+        if decay == "linear":
+            v = f32(learning_rate) * f32(warmup_linear(step, warmup_steps,
+                                                       num_train_steps))
+        elif decay == "invsqrt":
+            v = f32(learning_rate) * f32(noam_schedule(step, warmup_steps))
+        else:
+            v = f32(learning_rate)
+        return float(max(v, f32(1e-8)))
 
     return lr
 
@@ -159,6 +206,38 @@ class FusedAdamW:
                eps=self.eps)
         torch.autograd.graph.increment_version(params)
         return norm
+
+    def state_dict(self) -> Dict[str, object]:
+        """{"count", "m", "v"}: the update count and the moments by
+        parameter name (None before the first update), on their device."""
+        def named(ts):
+            return None if ts is None else dict(zip(self.names, ts))
+
+        return {"count": self.count, "m": named(self.m), "v": named(self.v)}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        """Restore :meth:`state_dict`'s output, strictly: every moment by
+        name and shape, the first in ``state_dtype``."""
+        self.count = int(state["count"])
+        if state["m"] is None:
+            self.m = self.v = None
+            return
+        for key in ("m", "v"):
+            got = state[key]
+            if set(got) != set(self.names):
+                raise KeyError(f"optimizer state {key!r} names other "
+                               f"parameters than the model's")
+        dev = self.params[0].device
+        self.m = [state["m"][n].to(dev, self.state_dtype).clone()
+                  for n in self.names]
+        self.v = [state["v"][n].to(dev, torch.float32).clone()
+                  for n in self.names]
+        for n, p, m in zip(self.names, self.params, self.m):
+            if m.shape != p.shape:
+                raise ValueError(f"optimizer state of {n} has shape "
+                                 f"{tuple(m.shape)}, the parameter "
+                                 f"{tuple(p.shape)}")
 
 
 def make_fused_adamw(model: nn.Module, learning_rate: LearningRate, *,

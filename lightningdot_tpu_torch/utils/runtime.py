@@ -1,0 +1,43 @@
+"""Process-level runtime set-up shared by the drivers (counterpart of
+lightningdot_tpu/utils/runtime.py).
+
+The JAX ``setup_runtime`` turns on XLA's persistent compile cache and picks
+the kernel backend; the port's kernels are built once per checkout
+(``ops/_build.py``) and chosen by the tensors' device, so here it seeds the
+host's generators and sets the float32 product precision. ``dropout_key``
+becomes :func:`step_generator`: a CPU ``torch.Generator`` per global step,
+derived from the run's seed, as the JAX driver folds the step into its key
+(``jax.random.fold_in(rng, global_step)``, cli/train_itm.py:250), so a
+repeated or resumed run draws the same dropout masks at the same step.
+"""
+from __future__ import annotations
+
+import random
+
+import numpy as np
+import torch
+
+
+def setup_runtime(args=None) -> None:
+    """Seed Python's, NumPy's and torch's global generators with
+    ``args.seed``, and turn TF32 products off when ``args.compute_dtype``
+    is ``f32`` (the JAX package's float32 products are true float32)."""
+    if args is None:
+        return
+    seed = getattr(args, "seed", None)
+    if seed is not None:
+        random.seed(seed)
+        np.random.seed(seed)
+        torch.manual_seed(seed)
+    if getattr(args, "compute_dtype", "bf16") == "f32":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+
+def step_generator(seed: int, global_step: int) -> torch.Generator:
+    """The CPU generator that seeds the dropout masks of one training step:
+    a function of (seed, global_step) only."""
+    state = np.random.SeedSequence([int(seed) & 0xFFFFFFFF,
+                                    int(global_step)]).generate_state(2)
+    return torch.Generator().manual_seed(
+        int(state[0]) << 31 | int(state[1]) >> 1)

@@ -262,3 +262,85 @@ def test_run_loadgen_copy_matches_jax():
     for run in (run_loadgen, jrun):
         with pytest.raises(RuntimeError, match="ldloadgen failed"):
             run(srv.port, rate=100, duration_s=0.2, conns=1)
+
+
+# ---------------------------------------------------------------------------
+# the training drivers' copies: logging, preemption, config groups, const
+# ---------------------------------------------------------------------------
+
+def test_logging_copies_match_jax(tmp_path):
+    """``RunningMeter`` (NaN guard included), ``MetricsLogger`` records and
+    ``NoOp`` against lightningdot_tpu/utils/logging.py."""
+    import json
+
+    from lightningdot_tpu.utils import logging as jlog
+    from lightningdot_tpu_torch.utils import logging as plog
+
+    got, want = plog.RunningMeter("loss"), jlog.RunningMeter("loss")
+    assert got.val == want.val == 0.0
+    for v in (3.0, 2.5, float("nan"), 1.0):
+        got(v)
+        want(v)
+        assert got.val == want.val and str(got) == str(want)
+    records = []
+    for mod, name in ((plog, "p.jsonl"), (jlog, "j.jsonl")):
+        sink = mod.MetricsLogger()
+        sink.log_metric("dropped", 1.0)      # no file yet: ignored
+        sink.create(str(tmp_path / name))
+        sink.set_step(5)
+        sink.log_metric("loss", 2.0)
+        sink.log_scalar_dict({"R@1": 0.5}, prefix="val")
+        sink.log_metric("lr", 1e-4, step=9)
+        with open(tmp_path / name) as f:
+            records.append([{k: v for k, v in json.loads(line).items()
+                             if k != "t"} for line in f])
+    assert records[0] == records[1]
+    assert plog.NoOp().anything(1, x=2) is None
+
+
+def test_preemption_copy_matches_jax():
+    from lightningdot_tpu.utils.preemption import PreemptionGuard as JGuard
+    from lightningdot_tpu_torch.utils.preemption import PreemptionGuard
+
+    got, want = PreemptionGuard(sim_after_step=4), JGuard(sim_after_step=4)
+    assert ([got.check(s) for s in range(1, 7)]
+            == [want.check(s) for s in range(1, 7)])
+    assert got.sync() == want.sync()
+
+
+def test_training_config_groups_match_jax():
+    """All four option groups, as the training drivers register them:
+    every port flag is a JAX flag with its default, and a reference
+    config parses to the same values."""
+    import argparse
+
+    from lightningdot_tpu import config as jconfig
+    from lightningdot_tpu_torch import config
+
+    def parser(mod):
+        p = argparse.ArgumentParser()
+        for group in (mod.default_params, mod.add_itm_params,
+                      mod.add_logging_params, mod.add_kd_params):
+            group(p)
+        return p
+
+    cmds = ["--config", str(ROOT / "configs" / "coco_ft.json"),
+            "--num_hard_negatives", "2", "--sample_init_hard_negatives",
+            "--optim_state_dtype", "bfloat16", "--log_result_step", "7"]
+    got = config.parse_with_config(parser(config), cmds)
+    want = config.parse_with_config(parser(jconfig), cmds)
+    assert vars(got).keys() <= vars(want).keys()
+    assert vars(got) == {k: v for k, v in vars(want).items()
+                         if k in vars(got)}
+    # the port registers only the flags it reads: the TPU knob, the
+    # multi-host ones (A11), the KD ones (A9), and flags no driver reads
+    unread = {"kernel_backend", "dp_size", "preempt_check_steps", "T",
+              "kd_loss_weight", "steps_per_hard_neg", "seperate_caption_encoder",
+              "n_workers", "img_meta", "fp16", "negative_size",
+              "compressed_db", "project_name", "expr_name_prefix"}
+    assert vars(want).keys() - vars(got).keys() == unread
+
+
+def test_pretraining_constants_match_jax():
+    for name in ("IMG_LABEL_DIM", "BUCKET_SIZE"):
+        assert getattr(const, name) == getattr(jconst, name), name
