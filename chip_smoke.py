@@ -70,7 +70,25 @@ Phases, each of which exits non-zero on failure (no result is printed):
    exact top-k of the same vectors, recall recomputed on the host, the
    native HNSW index's recall equal to the flat index's, a profiler pass
    over one batch, and float32 on the card against the CPU on 32 images x
-   2 captions (recall equal, vectors within ``F32_VEC_ATOL``).
+   2 captions (recall equal, vectors within ``F32_VEC_ATOL``);
+9. the drivers: ``cli/train_itm`` (``train_itm_cli_phase``) and
+   ``cli/pretrain`` (``pretrain_phase``);
+10. the cross-encoder (ROADMAP A9), each at UNITER-base width
+   (configs/img_base.json) with random weights from ``--seed`` plus
+   ``TEACHER_NOISE``: ``rerank`` (``cli/rerank.main`` over synthetic DBs
+   with a teacher directory the port saved, stage 2 on the fly in bf16;
+   pairs/s; a profile of one 128-pair ``CrossScorer`` block; f32 card vs
+   CPU scores at 2 layers beside TF32; bf16 vs f32 at 12 layers;
+   ``cli/inf_itm``'s results.bin through ``--score_file`` equal to the
+   on-the-fly recall in f32), ``train_teacher`` (``cli/train_teacher.main``
+   in its joint, self-mining and fast variants; learning on a fixed batch;
+   f32 card vs CPU at 2 layers and bf16 vs f32 at 12, each beside a
+   control), ``kd`` (``cli/train_itm.main --teacher_checkpoint`` beside the
+   same driver without KD; the teacher's forward over a step's 640-pair
+   grid) and ``pretrain_kd`` (``cli/pretrain.main`` with a one-tower
+   teacher at ``PRE_KD_LAYERS`` layers, then one update per non-itm task).
+   The driver phases hold a kernel row at every bf16 shape they recorded
+   that no earlier path held.
 
 The kernel rows also hold the training kernels at the step's shapes: the
 FFN forward writing h1 and gelu(h1) and dh1 at 2,048 and 4,096 rows (in
@@ -105,6 +123,7 @@ imports no JAX.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import gc
 import json
@@ -189,6 +208,14 @@ PATH_KERNELS = {"text_f32": ("layernorm", "attention", "ffn"),
 PATH_KERNELS.update({
     path: PATH_KERNELS["itm_train"] + ("attention",)
     for path in ("train_itm_cli", "pretrain")})
+# the cross-encoder paths (ROADMAP A9): re-ranking scores through the
+# inference kernels; teacher training, KD fine-tuning and pre-training KD
+# train through every bf16 training kernel, and their teachers' (and the
+# self-mining scoring pass's) forwards through the attention forward
+PATH_KERNELS["rerank"] = ("layernorm", "attention", "ffn_mma")
+PATH_KERNELS.update({
+    path: PATH_KERNELS["itm_train"] + ("attention",)
+    for path in ("train_teacher", "kd", "pretrain_kd")})
 # the FMA forms that a bf16 path must not launch
 FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
 
@@ -2104,8 +2131,8 @@ def train_phase(args, device_name):
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
         card_model.zero_grad()
-        loss_tf32, _ = itm_loss_fn(card_model,
-                                   batch_to_device(small, DEVICE))
+        loss_tf32 = itm_loss_fn(card_model,
+                                batch_to_device(small, DEVICE))[0]
         loss_tf32.backward()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2161,7 +2188,7 @@ def train_phase(args, device_name):
             for x in seeds]
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        ld_tf32, _ = itm_loss_fn(m, batch_to_device(small, DEVICE), gens)
+        ld_tf32 = itm_loss_fn(m, batch_to_device(small, DEVICE), gens)[0]
         ld_tf32.backward()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2185,7 +2212,7 @@ def train_phase(args, device_name):
 
     # bfloat16 against float32 on the card, same weights and batch
     m = build(torch.bfloat16, 0.0).to(DEVICE)
-    loss16, _ = itm_loss_fn(m, batch_to_device(small, DEVICE))
+    loss16 = itm_loss_fn(m, batch_to_device(small, DEVICE))[0]
     loss16.backward()
     g16 = _grads(m)
     del m
@@ -2276,13 +2303,20 @@ class ShapeRecorder:
             setattr(encoder, name, real)
 
 
+# the recorded shapes already held by a path's kernel rows
+_HELD: set = set()
+
+
 def hold_recorded(path, seen, device_name):
     """A kernel row (against its twin, with its bound, library call and
     time at ``RECORDED_TIMING``) at every bfloat16 shape a path recorded:
     B2 at each [B, S]; B5's forward and backward at each training [B, S];
     B3 at each row count, with h1 out and B6's dh1 where a gradient ran;
     B1's forward at each (rows, hidden, variant) and its backward where a
-    gradient ran. Returns the rows and the kernel shapes."""
+    gradient ran. A shape that an earlier path held is not held again.
+    Returns the rows and the kernel shapes."""
+    seen = set(seen) - _HELD
+    _HELD.update(seen)
     bf16 = torch.bfloat16
     randn, gen = make_randn(11)
     kw = dict(timing=RECORDED_TIMING, path=path)
@@ -2332,13 +2366,13 @@ def hold_recorded(path, seen, device_name):
 class StepProbe:
     """Wrap a driver's step: the wall time of each call (the card
     synchronized after it), its losses, and a torch.profiler window over
-    ``profile_calls`` calls from call ``profile_at`` on (those calls are not
-    in the latencies). ``after_eval`` is called at the first step after
-    ``mark_eval()``."""
+    ``profile_calls`` calls from call ``profile_at`` on. The first ``skip``
+    calls and the profiled ones are not in the latencies."""
 
-    def __init__(self, profile_at=4, profile_calls=3):
+    def __init__(self, profile_at=4, profile_calls=3, skip=0):
         self.lat, self.losses = [], []
         self.profile_at, self.profile_calls = profile_at, profile_calls
+        self.skip = skip
         self.stats = None
         self.calls = 0
         self._prof = None
@@ -2359,7 +2393,7 @@ class StepProbe:
             wall = (time.perf_counter() - t) * 1e3
             in_window = self.profile_at <= i < (self.profile_at
                                                 + self.profile_calls)
-            if not in_window:
+            if not in_window and i >= self.skip:
                 self.lat.append(wall)
             if i == self.profile_at + self.profile_calls - 1:
                 self._prof.__exit__(None, None, None)
@@ -2573,7 +2607,7 @@ def _loss_and_grad(model, batch, task):
     from lightningdot_tpu_torch.training.pretrain_step import task_loss
 
     model.zero_grad()
-    loss, _ = task_loss(model, batch, task)
+    loss = task_loss(model, batch, task)[0]
     loss.backward()
     return loss.item(), _flat_grad(model)
 
@@ -2586,12 +2620,12 @@ def _round_mantissa(x, bits):
     return ((i + (1 << (drop - 1))) & -(1 << drop)).view(torch.float32)
 
 
-def _coarse_reading(model, batch, task, bits):
-    """(loss, flat gradient) of the float32 model at a lower precision:
-    every weight and the output of every dense layer, LayerNorm and
-    transformer layer rounded to ``bits`` mantissa bits, the gradient
-    passed straight through the rounding. The weights are restored
-    after."""
+@contextlib.contextmanager
+def _coarse(model, bits):
+    """Context: the float32 ``model`` at a lower precision, every weight
+    and the output of every dense layer, LayerNorm and transformer layer
+    rounded to ``bits`` mantissa bits, the gradient passed straight
+    through the rounding. The weights are restored after."""
     from lightningdot_tpu_torch.models.encoder import (BertLayer, Dense,
                                                        LayerNorm)
 
@@ -2603,18 +2637,24 @@ def _coarse_reading(model, batch, task, bits):
     kept = [p.detach().clone() for p in params]
     hooks = [m.register_forward_hook(coarse) for m in model.modules()
              if isinstance(m, (BertLayer, Dense, LayerNorm))]
-    model.bert.compute_dtype = torch.float32
     try:
         with torch.no_grad():
             for p in params:
                 p.copy_(_round_mantissa(p.detach(), bits))
-        return _loss_and_grad(model, batch, task)
+        yield
     finally:
         for h in hooks:
             h.remove()
         with torch.no_grad():
             for p, k in zip(params, kept):
                 p.copy_(k)
+
+
+def _coarse_reading(model, batch, task, bits):
+    """(loss, flat gradient) of the float32 model under ``_coarse``."""
+    model.bert.compute_dtype = torch.float32
+    with _coarse(model, bits):
+        return _loss_and_grad(model, batch, task)
 
 
 def pretrain_phase(args, device_name):
@@ -2897,8 +2937,8 @@ def pretrain_phase(args, device_name):
                 m.to(dev)
                 torch.backends.cuda.matmul.allow_tf32 = tf32
                 try:
-                    loss, _ = task_loss(m, pretrain_batch_to_device(
-                        batch, torch.device(dev)), t)
+                    loss = task_loss(m, pretrain_batch_to_device(
+                        batch, torch.device(dev)), t)[0]
                     loss.backward()
                 finally:
                     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2924,6 +2964,727 @@ def pretrain_phase(args, device_name):
                   or row["control_grad_leaf_rel_l2"] > TRAIN_F32_GRAD_RTOL,
                   f"pretrain {t}: the bounds pass their control: {row}")
     rows, _ = hold_recorded("pretrain", recorder.seen, device_name)
+    return dict(counts=counts, rows=rows)
+
+
+# the cross-encoder slice (ROADMAP A9): the teacher is UNITER-base
+# (configs/img_base.json: 12 x 768, 12 heads, vocab 28,996, img_dim 2048)
+TEACHER_CONFIG = "configs/img_base.json"
+# random weights at init scale give nearly one score for every pair (the
+# CLS row of a random tower hardly depends on the input), so the teachers
+# of these phases carry noise of this std on every parameter: the pairs
+# then score apart and rankings mean something
+TEACHER_NOISE = 0.05
+# the re-ranking split: images x captions (COCO's test split is 5,000 x 5)
+# and the small split of the float32 checks
+RERANK_IMAGES = 100
+RERANK_F32_IMAGES = 20
+# teacher training: steps per variant, groups per batch, and the
+# fixed-batch learning check (LEARN_STEPS steps at LEARN_LR; the mean of
+# the last five losses under TEACHER_LEARN_FRAC of the first)
+TEACHER_STEPS = 15
+TEACHER_GROUPS = 8
+TEACHER_LEARN_FRAC = 0.5
+# the KD and pre-training KD phases: the KD run's split, and the depth of
+# the pre-training KD towers and teacher
+KD_IMAGES = 180
+PRE_KD_LAYERS = 4
+# re-ranking checks: float32 rank scores on the card vs the CPU at 2
+# layers (max |delta| over the largest |score|); bf16 vs f32 at 12 layers,
+# the cosine of the centered scores of 128 pairs and the top 10 held with
+# swaps allowed within RERANK_RANK_RTOL of the f32 score spread; its
+# control, float32 with weights and layer outputs rounded to
+# PRE_CONTROL_MANTISSA_BITS mantissa bits, must fail one of the two
+RERANK_F32_RTOL = 1e-4
+RERANK_BF16_COSINE_MIN = 0.99
+RERANK_RANK_RTOL = 5e-2
+# teacher training, bf16 vs f32 at 12 layers on a fixed batch: |loss
+# delta| / loss and the gradient cosine, beside the coarse control
+TEACHER_BF16_BOUNDS = (2e-2, 0.99)
+
+
+def perturb_(model, std, seed):
+    """Add normal noise of ``std`` to every parameter (from a CPU
+    generator seeded with ``seed``)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.add_(torch.randn(p.shape, generator=gen).to(p.device) * std)
+    return model
+
+
+def make_teacher(cfg, seed, noise=TEACHER_NOISE):
+    """A cross-encoder at ``cfg`` with random weights from ``seed`` and
+    ``noise``, on the CPU in eval mode."""
+    from lightningdot_tpu_torch.models.cross_encoder import (
+        CrossEncoder, init_cross_encoder_)
+
+    model = CrossEncoder(cfg)
+    init_cross_encoder_(model, torch.Generator().manual_seed(seed))
+    return perturb_(model, noise, seed + 1).eval()
+
+
+def save_teacher_dir(model, path):
+    """A teacher directory (config.json + model.pt/.json) that both
+    packages' ``load_cross_encoder`` read."""
+    from lightningdot_tpu_torch.training.checkpoints import save_checkpoint
+
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(model.cfg.to_dict(), f)
+    save_checkpoint(os.path.join(path, "model"), model=model)
+    return path
+
+
+def _rank_pairs(txt_dir, img_dir, n):
+    """``n`` (tokens, features, positions) pairs of the split: caption i
+    with image (i * 7) mod images."""
+    from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
+    from lightningdot_tpu_torch.data.txt_db import TxtTokDb
+
+    tdb = TxtTokDb(txt_dir, -1)
+    idb = DetectFeatDb(img_dir, 0.2, 100, 10)
+    ids, imgs = list(tdb.ids), sorted(tdb.img2txts)
+    toks = [tdb.combine_inputs(tdb[ids[i % len(ids)]]["input_ids"])
+            for i in range(n)]
+    feats = [idb.get_img_feat(imgs[(i * 7) % len(imgs)]) for i in range(n)]
+    return toks, [f for f, _, _ in feats], [p for _, p, _ in feats]
+
+
+def _held_selection(got, want, k, tol):
+    """The top ``k`` of ``got`` against ``want``'s: every pair selected by
+    ``got`` scores in ``want`` within ``tol`` of ``want``'s k-th score
+    (ties may swap). Returns (held, equal sets)."""
+    top_got = set(np.argsort(-got)[:k].tolist())
+    order = np.argsort(-want)
+    kth = want[order[k - 1]]
+    held = all(want[i] >= kth - tol for i in top_got)
+    return held, top_got == set(order[:k].tolist())
+
+
+def rerank_phase(args, device_name):
+    """Two-stage retrieval at full width: the port's ``cli/rerank.main`` on
+    the card over synthetic DBs of ``RERANK_IMAGES`` x 5 captions (stage 1
+    the coco_eval.json bi-encoder, stage 2 a UNITER-base teacher directory
+    that the port saved, scored on the fly in bf16): recall dicts, stage-2
+    pairs/s, the path's launches and a kernel row at every bf16 shape it
+    recorded; a profile of one ``CrossScorer`` block of 128 pairs; float32
+    rank scores on the card against the CPU at 2 layers, beside TF32 as
+    the control; bf16 against f32 at 12 layers (score cosine, top-10
+    selections), beside float32 at 3 mantissa bits as the control;
+    ``cli/inf_itm``'s results.bin on a small split fed back
+    through ``--score_file``, whose recall dicts equal the on-the-fly
+    run's, both in float32."""
+    from dataclasses import replace
+
+    from lightningdot_tpu_torch.cli import inf_itm, rerank
+    from lightningdot_tpu_torch.models.factory import resolve_encoder_config
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training import cross_scorer
+
+    recorder = ShapeRecorder()
+    cfg = resolve_encoder_config(TEACHER_CONFIG)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        txt_dir, img_dir = write_eval_dbs(Path(tmp) / "db", RERANK_IMAGES, 5,
+                                          args.seed + 11)
+        small = write_eval_dbs(Path(tmp) / "small", RERANK_F32_IMAGES, 5,
+                               args.seed + 12)
+        teacher = make_teacher(cfg, args.seed + 13)
+        tdir = save_teacher_dir(teacher, str(Path(tmp) / "teacher"))
+        emit(phase="setup_rerank", seconds=time.perf_counter() - t0,
+             images=RERANK_IMAGES, captions=RERANK_IMAGES * 5,
+             teacher_noise=TEACHER_NOISE,
+             reduced=[f"{RERANK_IMAGES} x 5 synthetic pairs (COCO test: "
+                      f"5,000 x 5)", "random weights with noise (no "
+                      "released teacher or LightningDot.pt)",
+                      f"the float32 score-file check on {RERANK_F32_IMAGES}"
+                      f" x 5", "the float32 card-vs-CPU check at 2 layers"])
+        base = ["--config", EVAL_CONFIG, "--itm_global_file", "",
+                "--valid_batch_size", str(EVAL_BATCH)]
+        timed = {"pairs": 0, "seconds": 0.0}
+        real_score = cross_scorer.CrossScorer.score_pairs
+
+        def score_pairs(self, toks, *a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real_score(self, toks, *a)
+            timed["seconds"] += time.perf_counter() - t
+            timed["pairs"] += len(toks)
+            return out
+
+        reset_launch_counts()
+        cross_scorer.CrossScorer.score_pairs = score_pairs
+        try:
+            with recorder:
+                t = time.perf_counter()
+                out = rerank.main(base + [
+                    "--test_txt_db", txt_dir, "--test_img_db", img_dir,
+                    "--teacher_checkpoint", tdir, "--device", DEVICE])
+                cli_s = time.perf_counter() - t
+        finally:
+            cross_scorer.CrossScorer.score_pairs = real_score
+        counts = launch_counts()
+        emit(phase="rerank", images=RERANK_IMAGES,
+             stage2_pairs=timed["pairs"], stage2_seconds=timed["seconds"],
+             stage2_pairs_per_s=timed["pairs"] / timed["seconds"],
+             cli_seconds=cli_s, recall=out, device=device_name)
+        check(timed["pairs"] == 100 * RERANK_IMAGES * 6,
+              f"rerank: stage 2 scored {timed['pairs']} pairs")
+        check(all(np.isfinite(v) for r in out.values() for v in r.values()),
+              f"rerank: {out}")
+        hold_path("rerank", counts)
+
+        # one CrossScorer block of 128 pairs: p50 and a profile
+        model = teacher.to(DEVICE)
+        model.compute_dtype = torch.bfloat16
+        scorer = cross_scorer.CrossScorer(model, device=DEVICE)
+        pairs = _rank_pairs(txt_dir, img_dir, 128)
+        lat = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            scorer.score_pairs(*pairs)
+            lat.append((time.perf_counter() - t) * 1e3)
+        p50 = statistics.median(lat[1:])
+        emit_profile("rerank", 128, lambda: scorer.score_pairs(*pairs), p50,
+                     calls=5)
+
+        # bf16 against f32 at 12 layers, on the same pairs
+        read = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            model.compute_dtype = dtype
+            read[dtype] = scorer.score_pairs(*pairs)
+        s16, s32 = read[torch.bfloat16], read[torch.float32]
+        spread = float(s32.max() - s32.min())
+        c16, c32 = s16 - s16.mean(), s32 - s32.mean()
+        cos = float(c16 @ c32 / (np.linalg.norm(c16) * np.linalg.norm(c32)))
+        held, same = _held_selection(s16, s32, 10,
+                                     RERANK_RANK_RTOL * spread)
+        with _coarse(model, PRE_CONTROL_MANTISSA_BITS):
+            ctrl = scorer.score_pairs(*pairs)
+        cc = ctrl - ctrl.mean()
+        ctrl_cos = float(cc @ c32 / (np.linalg.norm(cc)
+                                     * np.linalg.norm(c32)))
+        ctrl_held, _ = _held_selection(ctrl, s32, 10,
+                                       RERANK_RANK_RTOL * spread)
+        row = dict(phase="rerank_bf16_vs_f32", pairs=128, layers=12,
+                   score_spread_f32=spread,
+                   max_abs_diff=float(np.abs(s16 - s32).max()),
+                   centered_cosine=cos, cosine_min=RERANK_BF16_COSINE_MIN,
+                   top10_held=held, top10_equal=same,
+                   swap_tol=RERANK_RANK_RTOL * spread,
+                   control=f"float32 with weights and layer outputs "
+                           f"rounded to {PRE_CONTROL_MANTISSA_BITS} "
+                           f"mantissa bits",
+                   control_max_abs_diff=float(np.abs(ctrl - s32).max()),
+                   control_centered_cosine=ctrl_cos,
+                   control_top10_held=ctrl_held)
+        emit(**row)
+        check(cos >= RERANK_BF16_COSINE_MIN and held,
+              f"rerank bf16 vs f32: {row}")
+        check(ctrl_cos < RERANK_BF16_COSINE_MIN or not ctrl_held,
+              f"rerank bf16 vs f32: the bounds pass their control: {row}")
+        del model, scorer, teacher
+
+        # float32 card vs CPU at 2 layers, TF32 as the control
+        two = make_teacher(replace(cfg, num_hidden_layers=2), args.seed + 14)
+        state = two.state_dict()
+        read = {}
+        for dev, tf32 in ((DEVICE, False), ("cpu", False), (DEVICE, True)):
+            m = make_teacher(replace(cfg, num_hidden_layers=2), 0)
+            m.load_state_dict(state)
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                read[dev, tf32] = cross_scorer.CrossScorer(
+                    m, device=dev).score_pairs(*pairs)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        want = read["cpu", False]
+        peak = float(np.abs(want).max())
+        err = float(np.abs(read[DEVICE, False] - want).max()) / peak
+        ctrl = float(np.abs(read[DEVICE, True] - want).max()) / peak
+        row = dict(phase="rerank_f32_card_vs_cpu", pairs=128, layers=2,
+                   score_spread=float(want.max() - want.min()),
+                   max_rel_diff=err, max_rel_diff_max=RERANK_F32_RTOL,
+                   control="float32 card with TF32 products",
+                   control_max_rel_diff=ctrl)
+        emit(**row)
+        check(err <= RERANK_F32_RTOL, f"rerank f32 card vs cpu: {row}")
+        check(ctrl > RERANK_F32_RTOL,
+              f"rerank f32 card vs cpu: the bound passes its control: {row}")
+        del two, m
+
+        # inf_itm's results.bin through --score_file, against the
+        # on-the-fly stage 2, both float32 on the card (small split)
+        f32 = ["--compute_dtype", "f32", "--device", DEVICE]
+        t = time.perf_counter()
+        log, results_bin = inf_itm.main([
+            "--txt_db", small[0], "--img_db", small[1], "--checkpoint",
+            tdir, "--model_config", TEACHER_CONFIG, "--output_dir",
+            str(Path(tmp) / "inf")] + f32)
+        inf_s = time.perf_counter() - t
+        split = base + ["--test_txt_db", small[0], "--test_img_db",
+                        small[1]] + f32
+        from_file = rerank.main(split + ["--score_file", results_bin])
+        on_the_fly = rerank.main(split + ["--teacher_checkpoint", tdir])
+        row = dict(phase="rerank_score_file", images=RERANK_F32_IMAGES,
+                   inf_itm=log, inf_itm_seconds=inf_s,
+                   pairs_per_s=RERANK_F32_IMAGES ** 2 * 5 / inf_s,
+                   equal=from_file == on_the_fly, score_file=from_file,
+                   on_the_fly=on_the_fly)
+        emit(**row)
+        check(from_file == on_the_fly,
+              f"rerank: --score_file recall differs from on the fly: {row}")
+    rows, _ = hold_recorded("rerank", recorder.seen, device_name)
+    return dict(counts=counts, rows=rows)
+
+
+def _teacher_loss_and_grad(model, batch, sample_size):
+    model.zero_grad()
+    loss = model.apply(batch, sample_size=sample_size).mean()
+    loss.backward()
+    return loss.item(), {n: (p.grad.detach().float().cpu()
+                             if p.grad is not None else torch.zeros(p.shape))
+                         for n, p in model.named_parameters()}
+
+
+def train_teacher_phase(args, device_name):
+    """The port's ``cli/train_teacher.main`` on the card at UNITER-base
+    (configs/img_base.json, bf16, dropout 0.1) over the re-ranking DBs:
+    ``TEACHER_STEPS`` steps each of the joint variant (``TEACHER_GROUPS``
+    groups of 1 + 2 pairs), self-mining (one group of 32 candidates, the
+    7 hardest trained) and ``fast`` (the two-stream teacher), each writing
+    a teacher directory. Held: finite losses, the directory, the path's
+    launches and a kernel row at every bf16 shape recorded; the loss falls
+    on a fixed batch; one training step's loss and gradient in float32 on
+    the card against the CPU at 2 layers (TF32 the control) and in bf16
+    against f32 at 12 layers (``TEACHER_BF16_BOUNDS``, whose control,
+    float32 at 3 mantissa bits, each bound must refuse). Printed: ms/step
+    p50, pairs/s, a profile row per variant."""
+    from dataclasses import replace
+
+    from lightningdot_tpu_torch.cli import train_teacher
+    from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
+    from lightningdot_tpu_torch.data.itm_rank import (ItmRankDataset,
+                                                      itm_rank_collate)
+    from lightningdot_tpu_torch.data.loader import PinnedStager, await_staged
+    from lightningdot_tpu_torch.data.txt_db import TxtTokDb
+    from lightningdot_tpu_torch.models.factory import resolve_encoder_config
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training.optim import make_optimizer
+
+    recorder = ShapeRecorder()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        txt_dir, img_dir = write_eval_dbs(Path(tmp) / "db", RERANK_IMAGES, 5,
+                                          args.seed + 15)
+        emit(phase="setup_train_teacher", images=RERANK_IMAGES,
+             reduced=[f"{TEACHER_STEPS} steps a variant (the reference "
+                      f"trains 5,000+)", f"{RERANK_IMAGES} x 5 synthetic "
+                      f"pairs", "random weights (no uniter-base.pt)",
+                      "the float32 card-vs-CPU check at 2 layers"])
+        base = ["--model_config", TEACHER_CONFIG, "--train_txt_db", txt_dir,
+                "--train_img_db", img_dir, "--num_train_steps",
+                str(TEACHER_STEPS), "--warmup_steps", "1", "--valid_steps",
+                str(TEACHER_STEPS), "--seed", str(args.seed), "--device",
+                DEVICE]
+        variants = {
+            "joint": ["--neg_sample_size", "1", "--train_batch_size",
+                      str(TEACHER_GROUPS)],
+            "self_mining": ["--self_mining", "--neg_sample_size", "31",
+                            "--self_mining_hard_size", "7"],
+            "fast": ["--model_variant", "fast", "--neg_sample_size", "1",
+                     "--train_batch_size", str(TEACHER_GROUPS)]}
+        pairs_per_step = {"joint": 3 * TEACHER_GROUPS, "self_mining": 8,
+                          "fast": 3 * TEACHER_GROUPS}
+        for name, extra in variants.items():
+            probe = StepProbe(profile_at=2, profile_calls=3, skip=2)
+
+            def make_step(real, probe=probe):
+                def build(*a, **k):
+                    return probe.wrap(real(*a, **k))
+                return build
+
+            out = Path(tmp) / name
+            reset_launch_counts()
+            with recorder, _patched(train_teacher, "make_teacher_step",
+                                    make_step):
+                results, model = train_teacher.main(base + extra + [
+                    "--output_dir", str(out)])
+            got = launch_counts()
+            counts = {k: counts.get(k, 0) + v for k, v in got.items()}
+            p50 = statistics.median(probe.lat)
+            losses = results["losses"]
+            emit(phase="train_teacher", variant=name, steps=len(losses),
+                 ms_per_step_p50=p50,
+                 pairs_per_s=pairs_per_step[name] * 1e3 / p50,
+                 loss_first=losses[0], loss_last=losses[-1],
+                 launches=got, device=device_name)
+            check(len(losses) == TEACHER_STEPS
+                  and all(np.isfinite(losses)), f"teacher {name}: {losses}")
+            check((out / "config.json").exists()
+                  and (out / "model.pt").exists(),
+                  f"teacher {name}: no teacher directory")
+            emit_profile_stats("train_teacher", pairs_per_step[name],
+                               probe.stats, p50, variant=name)
+            del model
+        hold_path("train_teacher", counts)
+
+        # a fixed batch of 8 groups
+        cfg = replace(resolve_encoder_config(TEACHER_CONFIG),
+                      hidden_dropout_prob=0.0,
+                      attention_probs_dropout_prob=0.0)
+        ds = ItmRankDataset(TxtTokDb(txt_dir, 60),
+                            DetectFeatDb(img_dir, 0.2, 100, 10), 1,
+                            seed=args.seed)
+        host = itm_rank_collate([ds[i] for i in range(TEACHER_GROUPS)])
+        host = {k: v for k, v in host.items()
+                if k not in ("n_groups", "sample_size", "attn_masks_text",
+                             "attn_masks_img")}
+        batch = await_staged(PinnedStager(torch.device(DEVICE))(host))
+
+        # learning on the fixed batch, from init-scale weights: with the
+        # noise, the first updates saturate the sigmoid scores and the
+        # hinge stalls at the margin
+        model = make_teacher(cfg, args.seed + 16, noise=0.0).to(DEVICE)
+        model.compute_dtype = torch.bfloat16
+        model.train()
+        opt = make_optimizer(model, LEARN_LR, betas=(0.9, 0.98),
+                             adam_eps=1e-6, weight_decay=0.01,
+                             max_grad_norm=2.0)
+        learn = []
+        for _ in range(LEARN_STEPS):
+            opt.zero_grad()
+            loss = model.apply(batch, sample_size=3).mean()
+            loss.backward()
+            opt.step()
+            learn.append(loss.detach())
+        learn = [float(x) for x in learn]
+        row = dict(phase="train_teacher_learn", steps=LEARN_STEPS,
+                   lr=LEARN_LR, loss_first=learn[0],
+                   loss_last5=float(np.mean(learn[-5:])),
+                   frac_max=TEACHER_LEARN_FRAC)
+        emit(**row)
+        check(row["loss_last5"] < TEACHER_LEARN_FRAC * learn[0],
+              f"teacher: no learning on a fixed batch: {row}")
+
+        # bf16 against f32 at 12 layers, with the coarse control
+        model = make_teacher(cfg, args.seed + 17).to(DEVICE)
+        read = {}
+        for who, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            model.compute_dtype = dtype
+            read[who] = _teacher_loss_and_grad(model, batch, 3)
+        model.compute_dtype = torch.float32
+        with _coarse(model, PRE_CONTROL_MANTISSA_BITS):
+            read["control"] = _teacher_loss_and_grad(model, batch, 3)
+        l32, g32 = read["f32"]
+        loss_max, cos_min = TEACHER_BF16_BOUNDS
+
+        def held(who):
+            loss, grad = read[who]
+            return abs(loss - l32) / abs(l32), _cosine(grad, g32)
+
+        rel, cos = held("bf16")
+        ctrl_rel, ctrl_cos = held("control")
+        row = dict(phase="train_teacher_bf16_vs_f32", layers=12,
+                   loss_bf16=read["bf16"][0], loss_f32=l32, loss_rel=rel,
+                   loss_rel_max=loss_max, grad_cosine=cos,
+                   grad_cosine_min=cos_min,
+                   control=f"float32 with weights and layer outputs "
+                           f"rounded to {PRE_CONTROL_MANTISSA_BITS} "
+                           f"mantissa bits",
+                   control_loss_rel=ctrl_rel, control_grad_cosine=ctrl_cos)
+        emit(**row)
+        check(rel <= loss_max and cos >= cos_min,
+              f"teacher bf16 vs f32: {row}")
+        check(ctrl_rel > loss_max or ctrl_cos < cos_min,
+              f"teacher bf16 vs f32: the bounds pass their control: {row}")
+        del model, read
+
+        # float32 card vs CPU at 2 layers
+        two = make_teacher(replace(cfg, num_hidden_layers=2), args.seed + 18)
+        state = two.state_dict()
+        cpu_batch = {k: v.cpu() if isinstance(v, torch.Tensor) else v
+                     for k, v in batch.items()}
+        read = {}
+        for dev, tf32 in ((DEVICE, False), ("cpu", False), (DEVICE, True)):
+            m = make_teacher(replace(cfg, num_hidden_layers=2), 0)
+            m.load_state_dict(state)
+            m.to(dev)
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                read[dev, tf32] = _teacher_loss_and_grad(
+                    m, batch if dev == DEVICE else cpu_batch, 3)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+        (lc, gc_), (lp, gp), (lt, gt) = (read[DEVICE, False],
+                                         read["cpu", False],
+                                         read[DEVICE, True])
+        row = dict(phase="train_teacher_f32_card_vs_cpu", layers=2,
+                   loss_card=lc, loss_cpu=lp,
+                   loss_rel=abs(lc - lp) / abs(lp),
+                   loss_rel_max=TRAIN_F32_LOSS_RTOL,
+                   grad_leaf_rel_l2=_leaf_rel_l2(gc_, gp),
+                   grad_rel_l2_max=TRAIN_F32_GRAD_RTOL,
+                   control="float32 card with TF32 products",
+                   control_loss_rel=abs(lt - lp) / abs(lp),
+                   control_grad_leaf_rel_l2=_leaf_rel_l2(gt, gp))
+        emit(**row)
+        check(row["loss_rel"] <= TRAIN_F32_LOSS_RTOL
+              and row["grad_leaf_rel_l2"] <= TRAIN_F32_GRAD_RTOL,
+              f"teacher f32 card vs cpu: {row}")
+        check(row["control_loss_rel"] > TRAIN_F32_LOSS_RTOL
+              or row["control_grad_leaf_rel_l2"] > TRAIN_F32_GRAD_RTOL,
+              f"teacher f32 card vs cpu: the bounds pass their control: "
+              f"{row}")
+    rows, _ = hold_recorded("train_teacher", recorder.seen, device_name)
+    return dict(counts=counts, rows=rows)
+
+
+def kd_phase(args, device_name):
+    """``cli/train_itm.main --teacher_checkpoint`` at configs/coco_ft.json
+    (batch 64, bf16) with a UNITER-base teacher directory, one epoch over
+    ``KD_IMAGES`` x 5 pairs, beside the same driver without KD: ms/step
+    p50 and the device busy of each, the KD term finite, the path's
+    launches and a kernel row at every bf16 shape recorded (the teacher's
+    640-pair grid: ~107k FFN rows); and the teacher's forward alone on one
+    step's grid: its time and device busy."""
+    from lightningdot_tpu_torch.cli import train_itm
+    from lightningdot_tpu_torch.data.itm import (CollateConfig,
+                                                 itm_fast_collate,
+                                                 make_teacher_batch)
+    from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
+    from lightningdot_tpu_torch.data.loader import PinnedStager, await_staged
+    from lightningdot_tpu_torch.data.txt_db import TxtTokDb
+    from lightningdot_tpu_torch.models.factory import (load_cross_encoder,
+                                                       resolve_encoder_config)
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    recorder = ShapeRecorder()
+    with tempfile.TemporaryDirectory() as tmp:
+        txt_dir, img_dir = write_eval_dbs(Path(tmp) / "db", KD_IMAGES, 5,
+                                          args.seed + 19)
+        tdir = save_teacher_dir(make_teacher(
+            resolve_encoder_config(TEACHER_CONFIG), args.seed + 20),
+            str(Path(tmp) / "teacher"))
+        emit(phase="setup_kd", images=KD_IMAGES, n_teacher=10,
+             reduced=[f"1 epoch over {KD_IMAGES} x 5 synthetic pairs",
+                      "random weights (no uniter-base.pt or teacher)"])
+        base = ["--config", FT_CONFIG, "--itm_global_file", "",
+                "--img_checkpoint", "none", "--seed", str(args.seed),
+                "--train_txt_dbs", txt_dir, "--train_img_dbs", img_dir,
+                "--val_txt_db", txt_dir, "--val_img_db", img_dir,
+                "--test_txt_db", "", "--num_train_epochs", "1",
+                "--device", DEVICE]
+        read = {}
+        for run, extra in (("plain", []), ("kd", [
+                "--teacher_checkpoint", tdir, "--T", "2.0",
+                "--kd_loss_weight", "0.5"])):
+            probe = StepProbe(profile_at=2, profile_calls=2, skip=2)
+            kd_losses = []
+
+            def make_step(real, probe=probe, kd_losses=kd_losses):
+                def build(*a, **k):
+                    step = probe.wrap(real(*a, **k))
+
+                    def run_step(batch, generator=None):
+                        m = step(batch, generator)
+                        if "kd_loss" in m:
+                            kd_losses.append(m["kd_loss"])
+                        return m
+                    return run_step
+                return build
+
+            reset_launch_counts()
+            with (recorder if run == "kd" else contextlib.nullcontext()), \
+                    _patched(train_itm, "make_itm_train_step", make_step):
+                results, model = train_itm.main(base + extra + [
+                    "--output_dir", str(Path(tmp) / run)])
+            got = launch_counts()
+            p50 = statistics.median(probe.lat)
+            read[run] = dict(p50=p50, busy=probe.stats["busy_ms"])
+            emit(phase="kd", run=run, steps=probe.calls, ms_per_step_p50=p50,
+                 pairs_per_s=64 * 1e3 / p50,
+                 kd_loss=[float(x) for x in kd_losses],
+                 best_val_recall_mean=results["best_val_recall_mean"],
+                 device=device_name)
+            emit_profile_stats("kd", 64, probe.stats, p50, run=run)
+            check(all(np.isfinite(float(x)) for x in probe.losses),
+                  f"kd {run}: non-finite loss")
+            check(run == "plain" or (kd_losses and all(
+                np.isfinite(float(x)) for x in kd_losses)),
+                f"kd: no finite KD term: {kd_losses}")
+            if run == "kd":
+                counts = got
+            del model
+        emit(phase="kd_cost", step_ms_plain=read["plain"]["p50"],
+             step_ms_kd=read["kd"]["p50"],
+             busy_ms_plain=read["plain"]["busy"],
+             busy_ms_kd=read["kd"]["busy"],
+             step_ms_ratio=read["kd"]["p50"] / read["plain"]["p50"])
+        hold_path("kd", counts)
+
+        # the teacher's forward alone on one step's grid
+        teacher = load_cross_encoder(tdir, compute_dtype=torch.bfloat16,
+                                     device=DEVICE)
+        tdb, idb = TxtTokDb(txt_dir, 60), DetectFeatDb(img_dir, 0.2, 100, 10)
+        from lightningdot_tpu_torch.data.itm import ItmFastDataset
+        ds = ItmFastDataset(tdb, idb)
+        host = itm_fast_collate([ds[i] for i in range(64)], CollateConfig())
+        grid = make_teacher_batch(host, 10)
+        staged = await_staged(PinnedStager(torch.device(DEVICE))(grid))
+
+        def forward():
+            with torch.no_grad():
+                return teacher.rank_scores(staged)
+
+        with recorder:
+            forward()
+        lat = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t) * 1e3)
+        p50 = statistics.median(lat)
+        rows_ = int(np.asarray(grid["attn_masks"]).shape[1]) * 640
+        emit(phase="kd_teacher_forward", pairs=640,
+             joint_len=int(np.asarray(grid["attn_masks"]).shape[1]),
+             rows=rows_, ms_p50=p50,
+             grid_bytes=int(np.asarray(grid["img_feat"]).nbytes),
+             device=device_name)
+        emit_profile("kd_teacher", 640, forward, p50, calls=3)
+    rows, _ = hold_recorded("kd", recorder.seen, device_name)
+    return dict(counts=counts, rows=rows)
+
+
+def pretrain_kd_phase(args, device_name):
+    """Pre-training with the one-tower teacher: ``cli/pretrain.main`` with
+    a ``teacher_checkpoint`` (``UniterForPretraining`` at full width and
+    ``PRE_KD_LAYERS`` layers, as the student's towers) for one update of
+    each non-itm task of coco_cap (mlm, mrfr, mrckl at mix 1:1:1, the
+    config's 10,240-token batches without accumulation), then one update
+    per task through ``make_pretrain_step`` with the teacher: finite
+    losses and KD terms, ms per update, the path's launches and a kernel
+    row at every bf16 shape recorded."""
+    from dataclasses import replace
+
+    from lightningdot_tpu_torch.cli import pretrain as cli
+    from lightningdot_tpu_torch.config import parse_with_config
+    from lightningdot_tpu_torch.data.feat_db import ImageDbGroup
+    from lightningdot_tpu_torch.data.pretrain import PretrainCollateConfig
+    from lightningdot_tpu_torch.models.cross_encoder import (
+        init_cross_encoder_)
+    from lightningdot_tpu_torch.models.uniter_pretrain import (
+        UniterForPretraining)
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training.checkpoints import save_checkpoint
+    from lightningdot_tpu_torch.training.pretrain_step import (
+        make_pretrain_step)
+    from lightningdot_tpu_torch.utils.runtime import step_generator
+
+    recorder = ShapeRecorder()
+    tasks = ("mlm", "mrfr", "mrckl")
+    with tempfile.TemporaryDirectory() as tmp:
+        train = write_eval_dbs(Path(tmp) / "train", PRE_VAL_IMAGES * 2, 5,
+                               args.seed + 21, soft_labels=True)
+        cut = str(Path(tmp) / "model.json")
+        cfg_t = replace(cli.resolve_encoder_config(TEACHER_CONFIG),
+                        num_hidden_layers=PRE_KD_LAYERS)
+        with open(cut, "w") as f:
+            json.dump(cfg_t.to_dict(), f)
+        teacher = UniterForPretraining(cfg_t)
+        init_cross_encoder_(teacher, torch.Generator().manual_seed(
+            args.seed + 22))
+        tdir = Path(tmp) / "teacher"
+        os.makedirs(tdir)
+        with open(tdir / "config.json", "w") as f:
+            json.dump(cfg_t.to_dict(), f)
+        save_checkpoint(str(tdir / "model"), model=teacher)
+        with open(PRE_CONFIG) as f:
+            cfg = json.load(f)
+        spec = dict(name="coco_cap", db=[train[0]], img=[train[1]],
+                    tasks=list(tasks), mix_ratio=[1, 1, 1])
+        cfg.update(output_dir=str(Path(tmp) / "out"), img_checkpoint="none",
+                   seed=args.seed, num_train_steps=3, valid_steps=3,
+                   gradient_accumulation_steps=1, txt_model_config=cut,
+                   img_model_config=cut, model_config=cut,
+                   teacher_checkpoint=str(tdir), T=2.0, kd_loss_weight=0.5,
+                   train_datasets=[spec],
+                   val_datasets=[dict(spec, tasks=["mlm"], mix_ratio=[1])])
+        cfg_path = str(Path(tmp) / "pretrain_kd.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        emit(phase="setup_pretrain_kd", layers=PRE_KD_LAYERS, tasks=tasks,
+             reduced=[f"{PRE_KD_LAYERS} layers a tower and in the teacher "
+                      f"(12)", "accumulation 1 (6)", "3 updates",
+                      "random weights"])
+        kept = []
+
+        def make_step(real):
+            def build(*a, **k):
+                for_task = real(*a, **k)
+
+                def wrapped(task):
+                    step = for_task(task)
+
+                    def run(batch, generator=None):
+                        m = step(batch, generator)
+                        kept.append((task, m))
+                        return m
+                    return run
+                return wrapped
+            return build
+
+        reset_launch_counts()
+        t = time.perf_counter()
+        with recorder, _patched(cli, "make_pretrain_step", make_step):
+            results, model = cli.main(["--config", cfg_path, "--device",
+                                       DEVICE])
+        cli_s = time.perf_counter() - t
+        counts = launch_counts()
+        emit(phase="pretrain_kd", cli_seconds=cli_s,
+             updates=[(task, float(m["loss"]), float(m.get("kd_loss",
+                                                            float("nan"))))
+                      for task, m in kept], validation=results,
+             device=device_name)
+        check(kept and all("kd_loss" in m and np.isfinite(float(m["kd_loss"]))
+                           for _, m in kept),
+              f"pretrain_kd: a driver update without a finite KD term")
+
+        # one update per non-itm task through the step, with the teacher
+        opts = parse_with_config(cli.build_parser(), ["--config", cfg_path])
+        loaders = cli.create_dataloaders(
+            opts.train_datasets, True, opts,
+            ImageDbGroup(opts.conf_th, opts.max_bb, opts.min_bb,
+                         opts.num_bb), PretrainCollateConfig(
+                with_teacher=True))
+        tmodel = cli.load_teacher(opts, torch.bfloat16, torch.device(DEVICE))
+        opt, _ = cli.build_optimizer(model, opts)
+        model.train()
+        reset_launch_counts()   # the driver's launches are in counts
+        with recorder:
+            for task in tasks:
+                batch = next(iter(loaders[f"{task}_coco_cap"][0]))
+                step = make_pretrain_step(model, opt, teacher=tmodel,
+                                          kd_loss_weight=0.5, kd_T=2.0,
+                                          device=DEVICE)(task)
+                m = step(batch, step_generator(args.seed, 0))
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                m = step(batch, step_generator(args.seed, 1))
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t) * 1e3
+                emit(phase="pretrain_kd_task", task=task, ms_per_update=ms,
+                     loss=float(m["loss"]), kd_loss=float(m["kd_loss"]),
+                     rows=int(batch["sample_size"]), device=device_name)
+                check(np.isfinite(float(m["kd_loss"])),
+                      f"pretrain_kd {task}: {m}")
+        counts = {k: counts.get(k, 0) + v for k, v in launch_counts().items()}
+        hold_path("pretrain_kd", counts)
+    rows, _ = hold_recorded("pretrain_kd", recorder.seen, device_name)
     return dict(counts=counts, rows=rows)
 
 
@@ -3066,6 +3827,10 @@ def main() -> int:
     paths["itm_train_f32"] = train["counts_f32"]
     paths["train_itm_cli"] = train_itm_cli_phase(args, device_name)["counts"]
     paths["pretrain"] = pretrain_phase(args, device_name)["counts"]
+    paths["rerank"] = rerank_phase(args, device_name)["counts"]
+    paths["train_teacher"] = train_teacher_phase(args, device_name)["counts"]
+    paths["kd"] = kd_phase(args, device_name)["counts"]
+    paths["pretrain_kd"] = pretrain_kd_phase(args, device_name)["counts"]
     check(all(any(c[name] > 0 for c in paths.values()) for name in REPLACES),
           f"a kernel was launched on no path: {paths}")
 

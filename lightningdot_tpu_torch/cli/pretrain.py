@@ -10,10 +10,14 @@ It runs on the card by default, or on the CPU with ``--device cpu``. Each
 task's batches come from a ``TokenBucketSampler`` loader; batches are
 staged one ahead through pinned buffers on a side stream, and a spent
 batch returns to the buffer pool once an event recorded after its step has
-passed. The one-tower KD teacher (``teacher_checkpoint``) comes with the
-cross-encoder (ROADMAP A9); several processes (the JAX driver's fixed-rows
-multi-host branch and its host-agreed resume) with multi-GPU training
-(A11).
+passed. A ``teacher_checkpoint`` directory (``config.json`` + the
+one-tower ``UniterForPretraining``'s ``model.pt``, or the JAX package's
+``model.npz``) adds the distillation term to every non-itm task
+(``kd_loss``, ``T``, ``kd_loss_weight``); its joint sub-batches
+(``_teacher_fields``) ride in the training batches, and it computes in
+the student's dtype (JAX's in float32). Several processes (the JAX
+driver's fixed-rows multi-host branch and its host-agreed resume) come
+with multi-GPU training (A11).
 
 Usage:
   python -m lightningdot_tpu_torch.cli.pretrain \\
@@ -50,9 +54,12 @@ from lightningdot_tpu_torch.models.bi_encoder import (BiEncoder,
 from lightningdot_tpu_torch.models.encoder import init_tower_
 from lightningdot_tpu_torch.models.factory import (_overlay,
                                                    resolve_encoder_config)
-from lightningdot_tpu_torch.models.weights import load_torch_state_dict
+from lightningdot_tpu_torch.models.uniter_pretrain import UniterForPretraining
+from lightningdot_tpu_torch.models.weights import (load_torch_state_dict,
+                                                   pretrain_keys)
 from lightningdot_tpu_torch.training.checkpoints import (
-    ModelSaver, latest_step_checkpoint, load_checkpoint, save_training_meta)
+    ModelSaver, latest_step_checkpoint, load_checkpoint,
+    load_state_dict_strict, read_checkpoint, save_training_meta)
 from lightningdot_tpu_torch.training.optim import get_lr_sched, make_optimizer
 from lightningdot_tpu_torch.training.pretrain_step import (make_pretrain_step,
                                                            make_validate_fn)
@@ -216,6 +223,30 @@ def build_model(args, dtype: torch.dtype) -> BiEncoderForPretraining:
     return model
 
 
+def load_teacher(args, dtype: torch.dtype,
+                 device: torch.device) -> UniterForPretraining:
+    """The one-tower KD teacher (cli/pretrain.py:286-312): its
+    ``config.json`` (else ``model_config``, else ``img_model_config``), and ``model.pt`` under the
+    reference's names or the JAX package's ``model.npz``; strict. Returned
+    on ``device`` in eval mode."""
+    t_dir = args.teacher_checkpoint
+    cfg_path = os.path.join(t_dir, "config.json")
+    cfg = resolve_encoder_config(
+        cfg_path if os.path.exists(cfg_path)
+        else getattr(args, "model_config", args.img_model_config))
+    teacher = UniterForPretraining(
+        cfg, img_label_dim=getattr(args, "img_label_dim", IMG_LABEL_DIM),
+        compute_dtype=dtype)
+    pt = os.path.join(t_dir, "model.pt")
+    if os.path.exists(pt):
+        sd = pretrain_keys(load_torch_state_dict(pt))
+    else:
+        sd, _, _ = read_checkpoint(os.path.join(t_dir, "model"))
+    load_state_dict_strict(teacher, sd)
+    LOGGER.info("pretrain KD enabled (teacher %s)", t_dir)
+    return teacher.to(device).eval()
+
+
 def build_optimizer(model, args):
     """(optimizer, schedule) of cli/pretrain.py:314-324:
     ``get_lr_sched``, betas (0.9, 0.98), eps 1e-6 (the vendored AdamW's
@@ -256,18 +287,17 @@ def _main(args, guard):
     device = resolve_device(getattr(args, "device", None))
     TB_LOGGER.create(os.path.join(args.output_dir, "metrics.jsonl"))
     save_training_meta(args.output_dir, args)
-    if getattr(args, "teacher_checkpoint", None):
-        raise NotImplementedError(
-            "teacher_checkpoint: pre-training knowledge distillation needs "
-            "the one-tower teacher, which comes with the cross-encoder "
-            "(ROADMAP A9)")
     dtype = torch.bfloat16 if args.compute_dtype == "bf16" else torch.float32
     model = build_model(args, dtype).to(device)
+    teacher = (load_teacher(args, dtype, device)
+               if getattr(args, "teacher_checkpoint", None) else None)
 
     optimizer, lr_fn = build_optimizer(model, args)
     accum = args.gradient_accumulation_steps
-    step_for_task = make_pretrain_step(model, optimizer, accum_steps=accum,
-                                       device=device)
+    step_for_task = make_pretrain_step(
+        model, optimizer, accum_steps=accum, teacher=teacher,
+        kd_loss_weight=getattr(args, "kd_loss_weight", 1.0),
+        kd_T=getattr(args, "T", 1.0), device=device)
 
     # auto-resume (pretrain.py:320-328,906-917)
     global_step = 0
@@ -281,8 +311,10 @@ def _main(args, guard):
     stager = PinnedStager(device)
     all_img_dbs = ImageDbGroup(args.conf_th, args.max_bb, args.min_bb,
                                args.num_bb)
-    train_loaders = create_dataloaders(args.train_datasets, True, args,
-                                       all_img_dbs, PretrainCollateConfig())
+    train_loaders = create_dataloaders(
+        args.train_datasets, True, args, all_img_dbs,
+        PretrainCollateConfig(with_teacher=teacher is not None))
+    # validation never runs the teacher: no teacher sub-batches
     val_loaders = create_dataloaders(args.val_datasets, False, args,
                                      all_img_dbs, PretrainCollateConfig())
     meta_loader = MetaLoader(train_loaders, accum_steps=accum,

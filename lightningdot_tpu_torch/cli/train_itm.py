@@ -14,8 +14,13 @@ passed. The dropout masks of step N come from a generator derived from
 ``fold_in(rng, global_step)``. Evaluation and hard-negative mining put the
 model in eval mode; the driver turns training mode back on after each.
 Caption blending (``--itm_global_file``) needs ``--vocab_file``, as the
-port's ``eval_itm`` does; knowledge distillation (``--teacher_checkpoint``)
-comes with the cross-encoder (ROADMAP A9).
+port's ``eval_itm`` does. ``--teacher_checkpoint`` (a cross-encoder
+teacher directory) adds the distillation term (``--T``,
+``--kd_loss_weight``): each batch carries the teacher's pair grid of its
+texts against its first ``min(10, batch)`` images (``make_teacher_batch``,
+tiled into the page-locked pool and staged with the batch); the teacher
+computes in the student's dtype (JAX's in float32) and stays in eval
+mode.
 
 Usage (reference-compatible config JSONs):
   python -m lightningdot_tpu_torch.cli.train_itm \\
@@ -38,15 +43,18 @@ from lightningdot_tpu_torch.config import (add_itm_params, add_kd_params,
                                            add_logging_params, default_params,
                                            parse_with_config, print_args)
 from lightningdot_tpu_torch.data.feat_db import ImageDbGroup
-from lightningdot_tpu_torch.data.itm import CollateConfig, itm_fast_collate
+from lightningdot_tpu_torch.data.itm import (CollateConfig, itm_fast_collate,
+                                            make_teacher_batch)
 from lightningdot_tpu_torch.data.loader import DevicePrefetcher, PinnedStager
 from lightningdot_tpu_torch.data.padding import Recycler
 from lightningdot_tpu_torch.device import resolve_device
-from lightningdot_tpu_torch.models.factory import build_biencoder
+from lightningdot_tpu_torch.models.factory import (build_biencoder,
+                                                   load_cross_encoder)
 from lightningdot_tpu_torch.training import hn as hn_mod
 from lightningdot_tpu_torch.training.checkpoints import save_checkpoint
 from lightningdot_tpu_torch.training.evaluator import eval_model_on_dataloader
-from lightningdot_tpu_torch.training.itm_step import make_itm_train_step
+from lightningdot_tpu_torch.training.itm_step import (make_itm_train_step,
+                                                      make_kd_fn)
 from lightningdot_tpu_torch.training.optim import (make_fused_adamw,
                                                    make_optimizer,
                                                    schedule_linear)
@@ -104,13 +112,19 @@ def _main(args, guard):
     if args.retrieval_mode != "both":
         # the reference raises for txt_only/img_only too (train_itm.py:212-219)
         raise ValueError("not supported anymore")
-    if args.teacher_checkpoint:
-        raise NotImplementedError(
-            "--teacher_checkpoint: knowledge distillation needs the "
-            "cross-encoder teacher (ROADMAP A9)")
 
     model = build_biencoder(args, seed=args.seed).to(device)
     args.vector_size = model.txt_cfg.out_size
+    kd_fn = None
+    n_teacher = min(10, args.train_batch_size)  # N_EXAMPLES_TEACHER clamp
+    if args.teacher_checkpoint:
+        LOGGER.info("teacher checkpoint provided, using KD framework")
+        teacher = load_cross_encoder(args.teacher_checkpoint,
+                                     model_config=args.img_model_config,
+                                     compute_dtype=model.compute_dtype,
+                                     device=device)
+        kd_fn = make_kd_fn(teacher, T=args.T, n_teacher=n_teacher,
+                           caption_score_weight=args.caption_score_weight)
 
     all_img_dbs = ImageDbGroup(args.conf_th, args.max_bb, args.min_bb,
                                args.num_bb)
@@ -123,6 +137,12 @@ def _main(args, guard):
         items, CollateConfig(fixed_batch=args.valid_batch_size))
     # page-locks the buffer pool on the card before any loader starts
     stager = PinnedStager(device)
+    if kd_fn is not None:
+        # the teacher grid is built one batch ahead of the step, with the
+        # batch's staging (cli/train_itm.py:229-233)
+        plain_stager = stager
+        stager = lambda b: plain_stager(  # noqa: E731
+            dict(b, teacher=make_teacher_batch(b, n_teacher)))
     train_dataset = load_dataset(all_img_dbs, args.train_txt_dbs,
                                  args.train_img_dbs, args, True)
 
@@ -178,7 +198,8 @@ def _main(args, guard):
                                    max_grad_norm=args.max_grad_norm)
     train_step = make_itm_train_step(
         model, optimizer, caption_score_weight=args.caption_score_weight,
-        num_hard_negatives=args.num_hard_negatives, accum_steps=accum,
+        num_hard_negatives=args.num_hard_negatives, kd_fn=kd_fn,
+        kd_loss_weight=args.kd_loss_weight, accum_steps=accum,
         device=device)
     model.train()
 

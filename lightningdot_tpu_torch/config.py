@@ -163,10 +163,11 @@ def add_logging_params(parser: argparse.ArgumentParser) -> None:
 
 
 def add_kd_params(parser: argparse.ArgumentParser) -> None:
-    """Knowledge-distillation flags (dvl/options.py:90-93). The teacher
-    comes with the cross-encoder (ROADMAP A9): the drivers raise on
-    ``--teacher_checkpoint``."""
+    """Knowledge-distillation flags (dvl/options.py:90-93): the
+    cross-encoder teacher, the temperature and the KD loss weight."""
     parser.add_argument("--teacher_checkpoint", default=None, type=str)
+    parser.add_argument("--T", default=1.0, type=float)
+    parser.add_argument("--kd_loss_weight", default=1.0, type=float)
 
 
 def parse_with_config(parser: argparse.ArgumentParser,

@@ -1,6 +1,8 @@
-"""The ITM dataset and collate (the port's copies of ``ItmFastDataset``,
+"""The ITM datasets and collate (the port's copies of ``ItmFastDataset``,
 ``CollateConfig`` and ``itm_fast_collate``,
-lightningdot_tpu/data/itm.py:27-192; reference dvl/data/itm.py:30-288).
+lightningdot_tpu/data/itm.py:27-192; reference dvl/data/itm.py:30-288; and
+of the cross-encoder's ``ItmValDataset``, ``ItmHardNegDataset`` and
+``make_teacher_batch``, :194-362).
 
 Items are the dicts of :class:`ItmFastDataset`:
 ``input_ids``, ``img`` (``fname``, ``img_feat`` [R, 2048], ``img_pos_feat``
@@ -18,8 +20,8 @@ import numpy as np
 
 from lightningdot_tpu_torch import const
 from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
-from lightningdot_tpu_torch.data.padding import (bucket_len, pad_feats,
-                                                 pad_ids, pad_mask,
+from lightningdot_tpu_torch.data.padding import (_pool_get, bucket_len,
+                                                 pad_feats, pad_ids, pad_mask,
                                                  position_ids)
 from lightningdot_tpu_torch.data.txt_db import TxtTokDb, get_ids_and_lens
 
@@ -191,4 +193,151 @@ def itm_fast_collate(items: List[Dict[str, Any]],
         "neg_ctx_indices": np.arange(bs, n_img, dtype=np.int32),
         "txt_index": [it["txt_id"] for it in items],
         "img_fname": [im["fname"] for im in all_imgs[:bs]],
+    }
+
+
+class ItmValDataset:
+    """Per-text candidate groups for the cross-encoder (the port's copy of
+    ``ItmValDataset``, lightningdot_tpu/data/itm.py:194-275; reference
+    dvl/data/itm.py:291-363): item i pairs text i with its image and the
+    ``mini_batch_size - 1`` images after it in corpus order (wrapped), as
+    one joint batch."""
+
+    def __init__(self, txt_db: TxtTokDb, img_db: DetectFeatDb,
+                 mini_batch_size: int = 400):
+        self.txt_db = txt_db
+        self.img_db = img_db
+        _, self.ids = get_ids_and_lens(txt_db)
+        self.txt2img = txt_db.txt2img
+        self.img2txts = txt_db.img2txts
+        self.all_img_ids = list(self.img2txts.keys())
+        self._img_pos = {im: j for j, im in enumerate(self.all_img_ids)}
+        assert len(self.img2txts) >= mini_batch_size > 0
+        self.bs = mini_batch_size
+
+    def __len__(self):
+        return len(self.ids)
+
+    def _get_batch_ids(self, i: int):
+        """itm.py:303-322."""
+        gt_txt_id = self.ids[i]
+        gt_img_id = self.txt2img[gt_txt_id]
+        j = self._img_pos[gt_img_id]
+        neg_st = j + 1
+        neg_end = neg_st + self.bs - 1
+        if neg_end > len(self.all_img_ids):
+            neg_end -= len(self.all_img_ids)
+            neg_img_ids = (self.all_img_ids[neg_st:]
+                           + self.all_img_ids[:neg_end])
+        else:
+            neg_img_ids = self.all_img_ids[neg_st:neg_end]
+        assert len(neg_img_ids) == self.bs - 1
+        return gt_img_id, neg_img_ids
+
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        gt_img_id, neg_img_ids = self._get_batch_ids(i)
+        return self.get_batch(i, [gt_img_id] + neg_img_ids, bucket=True)
+
+    def get_batch(self, i: int, img_ids: List[str],
+                  bucket: bool = False) -> Dict[str, Any]:
+        """Text i paired with each of ``img_ids`` (itm.py:343-380);
+        ``bucket`` pads up the ladders."""
+        ex = self.txt_db[self.ids[i]]
+        input_ids = self.txt_db.combine_inputs(ex["input_ids"])
+        feats, poss, nbbs = [], [], []
+        for im in img_ids:
+            f, p, n = self.img_db.get_img_feat(im)
+            feats.append(f)
+            poss.append(p)
+            nbbs.append(n)
+        n = len(img_ids)
+        if bucket:
+            L = bucket_len(len(input_ids), const.TXT_LEN_BUCKETS)
+            R = bucket_len(max(nbbs), const.IMG_LEN_BUCKETS)
+        else:
+            L = len(input_ids)
+            R = max(nbbs)
+        return {
+            "input_ids": pad_ids([input_ids] * n, L),
+            "position_ids": position_ids(n, L),
+            "img_feat": pad_feats(feats, R),
+            "img_pos_feat": pad_feats(poss, R),
+            "attn_masks_text": pad_mask([len(input_ids)] * n, L),
+            "attn_masks_img": pad_mask(nbbs, R),
+            "gather_index": None,
+            "img_ids": img_ids,
+            "txt_id": self.ids[i],
+        }
+
+
+class ItmHardNegDataset(ItmValDataset):
+    """Random candidate pools for the teacher's hard-negative mining (the
+    port's copy of ``ItmHardNegDataset``, lightningdot_tpu/data/itm.py:
+    278-313; reference uniter_model/data/itm.py:529-549): item i pairs
+    text i with ``mini_batch_size`` images drawn from the corpus without
+    its own, and carries ``gt_txt_id`` / ``neg_img_ids``."""
+
+    def __init__(self, txt_db: TxtTokDb, img_db: DetectFeatDb,
+                 mini_batch_size: int = 400, seed: int = 0):
+        super().__init__(txt_db, img_db, mini_batch_size)
+        import random as _random
+
+        self.rng = _random.Random(seed)
+
+    def _get_batch_ids(self, i: int):
+        gt_txt_id = self.ids[i]
+        gt_img_id = self.txt2img[gt_txt_id]
+        if len(self.all_img_ids) > self.bs:
+            cand = self.rng.sample(self.all_img_ids, self.bs + 1)
+            neg_img_ids = [im for im in cand if im != gt_img_id][:self.bs]
+        else:
+            neg_img_ids = [im for im in self.all_img_ids if im != gt_img_id]
+        assert len(neg_img_ids) == self.bs, "not enough neg samples"
+        return gt_img_id, neg_img_ids
+
+    def __getitem__(self, i: int) -> Dict[str, Any]:
+        _, neg_img_ids = self._get_batch_ids(i)
+        batch = self.get_batch(i, neg_img_ids, bucket=True)
+        batch["gt_txt_id"] = self.ids[i]
+        batch["neg_img_ids"] = neg_img_ids
+        return batch
+
+
+def make_teacher_batch(batch: Dict[str, Any], n_teacher: int
+                       ) -> Dict[str, np.ndarray]:
+    """The cross-encoder's KD sub-batch (the port's copy of
+    ``make_teacher_batch``, lightningdot_tpu/data/itm.py:316-362; reference
+    itm_fast_collate_kd, dvl/data/itm.py:165-173): the first ``n_teacher``
+    images paired with every positive text, pair order text i *
+    n_teacher + image j, the image side's [CLS] mask column dropped. The
+    tiled feature grids are pooled arrays (page-locked once a card stages
+    batches), so a ``PinnedStager`` copies them to the card without a
+    pageable bounce. ``bs < n_teacher`` raises."""
+    bs = int(batch["sample_size"])
+    if bs < n_teacher:
+        raise ValueError(
+            f"KD needs batch size >= n_teacher ({bs} < {n_teacher}); "
+            f"lower n_teacher or raise train_batch_size")
+    txt_ids = np.asarray(batch["txts"]["input_ids"][:bs])
+    txt_mask = np.asarray(batch["txts"]["attention_mask"][:bs])
+    img_feat = np.asarray(batch["imgs"]["img_feat"][:n_teacher])
+    img_pos = np.asarray(batch["imgs"]["img_pos_feat"][:n_teacher])
+    img_mask = np.asarray(batch["imgs"]["attention_mask"][:n_teacher, 1:])
+
+    def tile_pooled(src, reps):
+        out = _pool_get((src.shape[0] * reps,) + src.shape[1:], src.dtype)
+        out.reshape((reps,) + src.shape)[...] = src[None]
+        return out
+
+    input_ids = np.repeat(txt_ids, n_teacher, axis=0)
+    txt_mask_r = np.repeat(txt_mask, n_teacher, axis=0)
+    L = input_ids.shape[1]
+    return {
+        "input_ids": input_ids,
+        "position_ids": position_ids(input_ids.shape[0], L),
+        "img_feat": tile_pooled(img_feat, bs),
+        "img_pos_feat": tile_pooled(img_pos, bs),
+        "attn_masks": np.concatenate([txt_mask_r, np.tile(img_mask, (bs, 1))],
+                                     axis=1),
+        "gather_index": None,
     }

@@ -250,6 +250,15 @@ def _tensors(x):
         yield x
 
 
+def host_tensor(a: np.ndarray) -> torch.Tensor:
+    """The tensor through which a copy to the card reads ``a``: the
+    page-locked tensor that a pooled array views (so that torch's pinned
+    allocator tracks an asynchronous copy and keeps the block until it is
+    done, even if the array is freed first), else the array itself."""
+    t = pinned_tensor(a)
+    return t if t is not None else torch.from_numpy(np.ascontiguousarray(a))
+
+
 class PinnedStager:
     """``put`` for :class:`DevicePrefetcher`: every numpy array of a batch
     (nested dicts included; lists and scalars pass through) becomes a

@@ -18,9 +18,8 @@ Static shapes, as in the JAX package (PARITY.md, "Known deviations"):
   * sequence lengths go up bucket ladders; batch sizes are padded to a
     multiple of ``batch_pad`` with zero-weighted dummy rows.
 
-``_teacher_fields`` (the joint-input sub-batch of the one-tower KD
-teacher) is copied with the collates; only the teacher (ROADMAP A9) reads
-it.
+``_teacher_fields`` builds the joint-input sub-batch of the one-tower KD
+teacher (``models/uniter_pretrain.py``) when ``with_teacher`` is set.
 """
 from __future__ import annotations
 

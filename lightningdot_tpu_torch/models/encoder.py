@@ -37,6 +37,7 @@ from lightningdot_tpu_torch.ops import (attention_nodrop, ffn_gelu,
                                         fused_attention_train, gelu,
                                         layer_norm, mm_f32,
                                         multi_head_attention)
+from lightningdot_tpu_torch.ops.attention import MAX_SEQ
 from lightningdot_tpu_torch.ops.attention_fused import site_seeds
 from lightningdot_tpu_torch.ops.fused import (apply_keep, dropout_add_ln,
                                               keep_mask)
@@ -295,22 +296,32 @@ class BertEncoderStack(nn.Module):
         self.layer = nn.ModuleList(BertLayer(cfg)
                                    for _ in range(cfg.num_hidden_layers))
 
-    def forward(self, hidden, mask_bias, dtype, generator=None):
-        seeds = _attention_seeds(self, self.attn_dropout, len(self.layer),
+    def forward(self, hidden, mask_bias, dtype, generator=None,
+                n_layers: Optional[int] = None):
+        """``n_layers`` runs only the first layers (``encode_image_only``'s
+        truncation, encoder.py:536-538)."""
+        layers = self.layer[:n_layers] if n_layers is not None else self.layer
+        seeds = _attention_seeds(self, self.attn_dropout, len(layers),
                                  generator, hidden.device)
-        for i, layer in enumerate(self.layer):
+        for i, layer in enumerate(layers):
             hidden = layer(hidden, mask_bias, dtype, generator,
                            None if seeds is None else seeds[i:i + 1])
         return hidden
 
 
 class _Pooler(nn.Module):
-    """The tanh pooler's weights (reference layer.py:173-185). The text
-    tower does not use it; it is kept so that checkpoints round-trip."""
+    """The tanh pooler (``pooler``, encoder.py:442; reference
+    layer.py:173-185). The retrieval towers keep it only so that
+    checkpoints round-trip; the cross-encoder scores through it."""
 
     def __init__(self, h: int):
         super().__init__()
         self.dense = Dense(h, h)
+
+    def forward(self, hidden: torch.Tensor, dtype: torch.dtype
+                ) -> torch.Tensor:
+        """tanh(dense(row 0)) in the compute dtype."""
+        return torch.tanh(self.dense(hidden[:, 0], dtype))
 
 
 class BertModel(nn.Module):
@@ -325,6 +336,70 @@ def attention_bias(attention_mask: torch.Tensor) -> torch.Tensor:
     """[B, S] {0,1} mask -> additive float32 [B, 1, 1, S] bias
     (encoder.py:429-432; reference model.py:362-365)."""
     return ((1.0 - attention_mask.float()) * MASK_BIAS)[:, None, None, :]
+
+
+def check_joint_length(s: int, device: torch.device, what: str) -> None:
+    """The card's attention kernels take at most ``ops.attention.MAX_SEQ``
+    keys (ROADMAP §C); a joint sequence above that raises here, with its
+    parts, where JAX would fall back to XLA."""
+    if device.type == "cuda" and s > MAX_SEQ:
+        raise ValueError(f"{what}: joint sequence of {s} rows exceeds the "
+                         f"card attention kernels' {MAX_SEQ} keys")
+
+
+def encode_joint(bert: "BertModel", input_ids, position_ids, img_feat,
+                 img_pos_feat, attention_mask, *, gather_index=None,
+                 img_masks=None, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """Joint text + image forward -> [B, S, H] (``encode_joint``,
+    encoder.py:541-572; reference UniterModel.forward, model.py:356-387):
+    the text embeddings (type 0) then the region embeddings (type 1)
+    concatenated, optionally compacted by ``gather_index`` [B, S_out]
+    (model.py:347-354), through the stack. ``bert`` holds
+    ``img_embeddings``."""
+    txt = bert.embeddings(input_ids, position_ids, dtype, generator)
+    img_type = bert.embeddings.token_type_embeddings.weight[1]
+    img = bert.img_embeddings(img_feat, img_pos_feat, img_type, img_masks,
+                              dtype, generator)
+    emb = torch.cat([txt, img], dim=1)
+    if gather_index is not None:
+        idx = torch.as_tensor(gather_index, device=emb.device).long()
+        emb = torch.gather(emb, 1, idx[:, :, None].expand(-1, -1,
+                                                          emb.shape[-1]))
+    check_joint_length(emb.shape[1], emb.device,
+                       f"encode_joint ({input_ids.shape[1]} text + "
+                       f"{img_feat.shape[1]} regions)")
+    return bert.encoder(emb, attention_bias(attention_mask), dtype,
+                        generator)
+
+
+def encode_image_only(bert: "BertModel", attention_mask, img_feat,
+                      img_pos_feat, *, img_masks=None,
+                      dtype: torch.dtype = torch.float32,
+                      generator: Optional[torch.Generator] = None,
+                      n_layers: Optional[int] = None) -> torch.Tensor:
+    """Regions only, no [CLS] token -> [B, R, H] (``encode_image_only``,
+    encoder.py:513-538; reference UniterModel.forward with
+    ``input_ids=None``, the Fast teacher's image stream). ``n_layers``
+    truncates the stack."""
+    img_type = bert.embeddings.token_type_embeddings.weight[1]
+    emb = bert.img_embeddings(img_feat, img_pos_feat, img_type, img_masks,
+                              dtype, generator)
+    check_joint_length(emb.shape[1], emb.device, "encode_image_only")
+    return bert.encoder(emb, attention_bias(attention_mask), dtype,
+                        generator, n_layers=n_layers)
+
+
+def encode_text_seq(bert: "BertModel", input_ids, attention_mask,
+                    position_ids, *, dtype: torch.dtype = torch.float32,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+    """Text only -> [B, L, H] (``encode_text(project=False)``'s sequence,
+    encoder.py:451-470), on any ``BertModel``."""
+    emb = bert.embeddings(input_ids, position_ids, dtype, generator)
+    return bert.encoder(emb, attention_bias(attention_mask), dtype,
+                        generator)
 
 
 class TextEncoder(nn.Module):
@@ -357,9 +432,8 @@ class TextEncoder(nn.Module):
         encoder.py:451). ``generator`` draws the dropout masks in training
         mode. ``head=False`` skips the projection head (pooled is then the
         CLS row), for callers that read only the sequence."""
-        emb = self.bert.embeddings(input_ids, position_ids, dtype, generator)
-        seq = self.bert.encoder(emb, attention_bias(attention_mask), dtype,
-                                generator)
+        seq = encode_text_seq(self.bert, input_ids, attention_mask,
+                              position_ids, dtype=dtype, generator=generator)
         pooled = seq[:, 0, :]
         if head and self.encode_proj is not None:
             pooled = self.projection_head(pooled, dtype)

@@ -7,8 +7,8 @@ anything else is a config JSON path (``configs/img_base.json``). Weights are
 random from a seed, then overlaid with the reference's torch state dicts
 (``.pt``) through :func:`~lightningdot_tpu_torch.models.weights.
 load_tower_`, or loaded from a training driver's checkpoint, the port's
-or the JAX package's (``training/checkpoints.py``). The cross-encoder comes
-with A9.
+or the JAX package's (``training/checkpoints.py``).
+:func:`load_cross_encoder` reads a cross-encoder teacher (factory.py:41-87).
 """
 from __future__ import annotations
 
@@ -19,9 +19,13 @@ import torch
 
 from lightningdot_tpu_torch.config import (BERT_BASE_CASED, BERT_BASE_UNCASED,
                                            EncoderConfig)
+from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
+from lightningdot_tpu_torch.models.cross_encoder import (CrossEncoder,
+                                                         init_cross_encoder_)
 from lightningdot_tpu_torch.models.encoder import init_tower_
-from lightningdot_tpu_torch.models.weights import (load_torch_state_dict,
+from lightningdot_tpu_torch.models.weights import (cross_encoder_keys,
+                                                   load_torch_state_dict,
                                                    load_tower_, normalize_keys,
                                                    tower_keys)
 from lightningdot_tpu_torch.utils.logging import LOGGER
@@ -129,3 +133,63 @@ def build_biencoder(args, *, seed: int = 0) -> BiEncoder:
         LOGGER.info("loaded %s (step %s)", bi_ckpt, meta.get("step"))
     return model.eval()
 
+
+
+def load_cross_encoder_weights_(model: torch.nn.Module,
+                                sd: Mapping[str, Any]) -> None:
+    """Load a teacher or UNITER state dict into a cross-encoder through
+    :func:`~lightningdot_tpu_torch.models.weights.cross_encoder_keys`:
+    every tower parameter must be there and no unknown key may be; heads
+    the file lacks keep the model's own (``init.update(params)``,
+    factory.py:75-77)."""
+    from lightningdot_tpu_torch.training.checkpoints import (
+        load_state_dict_strict)
+
+    loaded = cross_encoder_keys(sd)
+    own = model.state_dict()
+    heads = ("itm_output.", "rank_output.")
+    missing = sorted(k for k in own if k not in loaded
+                     and not k.startswith(heads))
+    if missing:
+        raise KeyError(f"cross-encoder checkpoint lacks {len(missing)} "
+                       f"parameters: {missing[:5]}")
+    load_state_dict_strict(model, {k: loaded.get(k, v)
+                                   for k, v in own.items()} | {
+        k: v for k, v in loaded.items() if k not in own})
+
+
+def load_cross_encoder(checkpoint: str, *, model_config: Optional[str] = None,
+                       margin: float = 0.2,
+                       compute_dtype: torch.dtype = torch.float32,
+                       device=None) -> CrossEncoder:
+    """A :class:`CrossEncoder` from a teacher directory (``config.json`` +
+    ``model.pt``, or the JAX package's ``model.npz`` + ``model.json``) or a
+    bare ``.pt`` with ``model_config`` (``load_cross_encoder``,
+    factory.py:41-87). ``rank_output`` is seeded from the itm head only
+    where the file has none. The model is returned on ``device`` (None:
+    the card, raising where there is none) in eval mode."""
+    device = resolve_device(device)
+    if os.path.isdir(checkpoint):
+        cfg_path = os.path.join(checkpoint, "config.json")
+        if not os.path.exists(cfg_path):
+            cfg_path = model_config
+        pt = os.path.join(checkpoint, "model.pt")
+        ckpt_path = pt if os.path.exists(pt) else os.path.join(checkpoint,
+                                                               "model")
+    else:
+        cfg_path, ckpt_path = model_config, checkpoint
+    if cfg_path is None:
+        raise ValueError("cross-encoder config not found; pass model_config")
+    model = CrossEncoder(resolve_encoder_config(cfg_path), margin=margin,
+                         compute_dtype=compute_dtype)
+    init_cross_encoder_(model, torch.Generator().manual_seed(0))
+    if ckpt_path.endswith(".pt"):
+        load_cross_encoder_weights_(model, load_torch_state_dict(ckpt_path))
+    else:
+        from lightningdot_tpu_torch.training.checkpoints import (
+            load_state_dict_strict, read_checkpoint)
+
+        sd, _, _ = read_checkpoint(ckpt_path)
+        load_state_dict_strict(model, sd)
+    LOGGER.info("loaded cross-encoder %s", checkpoint)
+    return model.to(device).eval()

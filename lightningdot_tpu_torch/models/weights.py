@@ -12,6 +12,15 @@ package's ``.npz`` checkpoints (``training/checkpoints.py::flatten_tree``).
 :func:`load_torch_state_dict` and :func:`normalize_keys` read the
 reference's released ``.pt`` files; :func:`pretrain_keys` puts a
 reference pre-training state dict under the port's names.
+
+The cross-encoders: :func:`cross_encoder_state_dict_from_jax`,
+:func:`cross_encoder_fast_state_dict_from_jax` and
+:func:`uniter_pretrain_state_dict_from_jax` are the inverses of
+``map_cross_encoder``, ``map_cross_encoder_fast`` and the one-tower
+teacher's load (checkpoint_torch.py:318-362, cli/pretrain.py:298-305);
+:func:`cross_encoder_keys` filters a teacher or ``uniter-base.pt`` state
+dict to the joint model's names and seeds ``rank_output`` from the itm
+head where the file has none (``_rank_head``).
 """
 from __future__ import annotations
 
@@ -171,7 +180,14 @@ def pretrain_state_dict_from_jax(tree: Mapping[str, Any]
     the towers' own and appear once."""
     sd = {f"bert.{k}": v
           for k, v in biencoder_state_dict_from_jax(tree["bert"]).items()}
-    heads = tree["heads"]
+    sd.update(_pretrain_heads_from_jax(tree["heads"]))
+    return sd
+
+
+def _pretrain_heads_from_jax(heads: Mapping[str, Any]
+                             ) -> Dict[str, np.ndarray]:
+    """The pre-training heads of a JAX tree under the reference's names."""
+    sd: Dict[str, np.ndarray] = {}
     if "mlm" in heads:
         mlm = heads["mlm"]
         _lin(sd, "cls.predictions.transform.dense", mlm["transform"]["dense"])
@@ -212,3 +228,70 @@ def pretrain_keys(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
             if k not in _PRETRAIN_SKIP_EXACT
             and not k.startswith(_PRETRAIN_SKIP_PREFIXES)
             and not k.endswith((".position_ids", ".token_type_ids"))}
+
+
+def _heads(sd: Dict[str, np.ndarray], tree: Mapping[str, Any]) -> None:
+    for head in ("itm_output", "rank_output"):
+        if head in tree:
+            _lin(sd, head, tree[head])
+
+
+def cross_encoder_state_dict_from_jax(tree: Mapping[str, Any]
+                                      ) -> Dict[str, np.ndarray]:
+    """JAX ``CrossEncoder`` params {uniter, itm_output, rank_output} -> the
+    port's state dict (``bert.*``, ``itm_output.*``, ``rank_output.*``),
+    as ``checkpoint_torch.export_cross_encoder`` writes it."""
+    sd = tower_state_dict_from_jax(tree["uniter"])
+    _heads(sd, tree)
+    return sd
+
+
+def cross_encoder_fast_state_dict_from_jax(tree: Mapping[str, Any]
+                                           ) -> Dict[str, np.ndarray]:
+    """JAX ``CrossEncoderFast`` params {bert, img_bert, itm_output,
+    rank_output} -> ``bert.*``, ``img_bert.*`` and the heads (the inverse
+    of ``map_cross_encoder_fast``)."""
+    sd = tower_state_dict_from_jax(tree["bert"])
+    for k, v in tower_state_dict_from_jax(tree["img_bert"]).items():
+        sd["img_bert." + k[len("bert."):]] = v
+    _heads(sd, tree)
+    return sd
+
+
+def uniter_pretrain_state_dict_from_jax(tree: Mapping[str, Any]
+                                        ) -> Dict[str, np.ndarray]:
+    """JAX ``UniterForPretraining`` params {uniter, heads} -> ``bert.*``
+    and the pre-training heads under the reference's names."""
+    sd = tower_state_dict_from_jax(tree["uniter"])
+    sd.update(_pretrain_heads_from_jax(tree["heads"]))
+    return sd
+
+
+# the pre-training heads and the tied duplicates that ride along in a
+# ``uniter-base.pt`` warm start and that the cross-encoder does not hold
+# (checkpoint_torch.py:41-59, the skip lists of map_tower)
+_UNITER_HEAD_PREFIXES = ("cls.", "feat_regress.", "region_classifier.",
+                         "nce_output.", "nce_norm.")
+
+
+def cross_encoder_keys(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """A teacher or UNITER state dict under the joint cross-encoder's names
+    (``map_cross_encoder``, checkpoint_torch.py:336-345): normalized, the
+    serialized index buffers and the pre-training heads dropped, ``bert.``
+    put in front of a bare UniterModel's keys, and ``rank_output`` seeded
+    from ``itm_output``'s row 1 only where the file has no rank head
+    (``_rank_head``, :318-329). The Fast teacher's ``img_bert.*`` pass
+    through."""
+    sd = {k: v for k, v in normalize_keys(sd).items()
+          if not k.endswith((".position_ids", ".token_type_ids"))
+          and not k.startswith(_UNITER_HEAD_PREFIXES)
+          and not k.startswith(tuple("bert." + p
+                                     for p in _UNITER_HEAD_PREFIXES))}
+    own = ("bert.", "img_bert.", "itm_output.", "rank_output.")
+    if not any(k.startswith("bert.") for k in sd):
+        sd = {(k if k.startswith(own) else f"bert.{k}"): v
+              for k, v in sd.items()}
+    if "rank_output.weight" not in sd and "itm_output.weight" in sd:
+        sd["rank_output.weight"] = np.array(sd["itm_output.weight"][1:2])
+        sd["rank_output.bias"] = np.array(sd["itm_output.bias"][1:2])
+    return sd

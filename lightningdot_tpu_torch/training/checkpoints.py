@@ -37,8 +37,9 @@ import torch
 from torch import nn
 
 from lightningdot_tpu_torch.models.weights import (
-    biencoder_state_dict_from_jax, pretrain_state_dict_from_jax,
-    unflatten_jax)
+    biencoder_state_dict_from_jax, cross_encoder_fast_state_dict_from_jax,
+    cross_encoder_state_dict_from_jax, pretrain_state_dict_from_jax,
+    uniter_pretrain_state_dict_from_jax, unflatten_jax)
 
 SEP = "/"
 
@@ -86,12 +87,21 @@ def save_checkpoint(path: str, *, model, optimizer=None, step: int = 0,
 def _jax_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """The model leaves of a JAX ``.npz`` as a state dict under the port's
     names: a bi-encoder ({txt_model, img_model}), a pre-training model
-    ({bert, heads}), or any other tree leaf by leaf ('/' -> '.')."""
+    ({bert, heads}), a cross-encoder ({uniter, itm_output, rank_output}),
+    the Fast cross-encoder ({bert, img_bert, ...}), the one-tower
+    pre-training teacher ({uniter, heads}), or any other tree leaf by leaf
+    ('/' -> '.')."""
     tree = unflatten_jax(flat)
     if set(tree) == {"txt_model", "img_model"}:
         return biencoder_state_dict_from_jax(tree)
     if set(tree) == {"bert", "heads"}:
         return pretrain_state_dict_from_jax(tree)
+    if set(tree) == {"uniter", "heads"}:
+        return uniter_pretrain_state_dict_from_jax(tree)
+    if "uniter" in tree:
+        return cross_encoder_state_dict_from_jax(tree)
+    if {"bert", "img_bert"} <= set(tree):
+        return cross_encoder_fast_state_dict_from_jax(tree)
     return {k.replace(SEP, "."): np.asarray(v) for k, v in flat.items()}
 
 

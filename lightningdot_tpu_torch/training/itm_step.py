@@ -6,8 +6,8 @@ bidirectional in-batch NCE loss (txt->img and img->txt averaged,
 train_itm.py:197-222) with the fixed-batch padding rules, the hard-negative
 layout and optional caption-score blending; then global-norm clipping,
 AdamW and the schedule (:class:`~lightningdot_tpu_torch.training.optim.
-FusedAdamW`). Knowledge distillation against a cross-encoder teacher
-(train_itm.py:224-239) comes with the cross-encoder (ROADMAP A9).
+FusedAdamW`), and optionally knowledge distillation against a
+cross-encoder teacher (``make_kd_fn``, train_itm.py:224-239).
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from lightningdot_tpu_torch.data.loader import host_tensor
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
 from lightningdot_tpu_torch.ops.matmul import mm_f32
@@ -33,14 +34,15 @@ def _scores(q: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
 def itm_loss_fn(model: BiEncoder, batch: Dict[str, Any], generators=None, *,
                 caption_score_weight: float = 0.0,
                 num_hard_negatives: int = 0
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Tuple]:
     """Bidirectional NCE (``itm_loss_fn``, itm_step.py:51-121) on a batch of
     device tensors -> (loss, metrics). With hard negatives, txts and imgs
     carry bs positives followed by bs * num_hard_negatives negatives, item
     by item (``itm_fast_collate``); queries are the positives, contexts are
     all rows. ``valid_mask`` [bs] marks real items: a padded row is no
     query, and a padded column (with its negatives) is no context except at
-    its own diagonal."""
+    its own diagonal. The third value is the (txt, img, cap) vectors, the
+    KD term's input (JAX's aux)."""
     txt, img, cap = model.apply(batch, generators)
     bs = txt.shape[0] // (1 + num_hard_negatives)
     dev = txt.device
@@ -77,14 +79,58 @@ def itm_loss_fn(model: BiEncoder, batch: Dict[str, Any], generators=None, *,
     metrics = {"loss": loss.detach(), "loss_img2txt": loss1.detach(),
                "loss_txt2img": loss2.detach(),
                "acc": ((correct1 + correct2) / (2.0 * n_valid)).detach()}
-    return loss, metrics
+    return loss, metrics, (txt, img, cap)
+
+
+def make_kd_fn(teacher, *, T: float = 1.0, n_teacher: int = 10,
+               caption_score_weight: float = 0.0) -> Callable:
+    """The distillation term ``kd_fn(batch, (txt, img, cap)) -> loss``
+    (``make_kd_fn``, itm_step.py:124-166; train_itm.py:224-239).
+
+    Student: the symmetrized blend of the two directions' in-batch score
+    matrices over the positives (each with the caption term where
+    ``caption_score_weight`` > 0), its first ``n_teacher`` rows. Teacher:
+    the cross-encoder's rank logits on the ``batch['teacher']`` pair grid
+    (``make_teacher_batch``: text i x image j), run in eval mode without a
+    gradient, as [n_teacher, bs]. Returns KL(softmax(teacher / T) ||
+    log_softmax(student / T)) x T², the elementwise mean (``nn.KLDivLoss``);
+    entries where the teacher's probability is 0 count as 0."""
+
+    def kd_fn(batch: Dict[str, Any], embs) -> torch.Tensor:
+        txt, img, cap = embs
+        bs = batch["teacher"]["input_ids"].shape[0] // n_teacher
+
+        def blended(q, ctx):
+            s = _scores(q, ctx)
+            if cap is not None and caption_score_weight != 0:
+                s = ((1 - caption_score_weight) * s
+                     + caption_score_weight * _scores(q, cap[:bs]))
+            return s
+
+        student = (0.5 * blended(img[:bs], txt[:bs])
+                   + 0.5 * blended(txt[:bs], img[:bs]))[:n_teacher]
+        teacher.eval()      # the students' train() never reaches it
+        with torch.no_grad():
+            t_scores = teacher.rank_scores(batch["teacher"])
+        t_scores = t_scores.reshape(bs, n_teacher).t().float()
+        logp = torch.log_softmax(student / T, dim=1)
+        q = torch.softmax(t_scores / T, dim=1)
+        pos = q > 0
+        zero = torch.zeros((), dtype=q.dtype, device=q.device)
+        safe_logq = torch.where(pos, torch.log(torch.clamp(q, min=1e-30)),
+                                zero)
+        kl = torch.where(pos, q * (safe_logq - logp), zero)
+        return kl.mean() * T * T
+
+    return kd_fn
 
 
 def batch_to_device(batch: Dict[str, Any], device: torch.device
                     ) -> Dict[str, Any]:
     """The model inputs of a collated batch (``txts``, ``imgs``, ``caps``,
-    ``valid_mask``) as tensors on ``device``; host-only fields are dropped
-    (``jit_train_step``'s ``model_batch``, itm_step.py:230-244)."""
+    ``valid_mask`` and the KD ``teacher`` grid) as tensors on ``device``;
+    host-only fields are dropped (``jit_train_step``'s ``model_batch``,
+    itm_step.py:230-244)."""
 
     def put(x):
         if x is None:
@@ -92,11 +138,14 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device
         if isinstance(x, dict):
             return {k: put(v) for k, v in x.items() if v is not None}
         if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
+            # a pooled array goes through its page-locked tensor: a
+            # copy from a bare view of it would be untracked, and the
+            # block could be handed out again while the copy still reads
+            x = host_tensor(x)
         return x.to(device, non_blocking=True)
 
     return {k: put(batch.get(k)) for k in ("txts", "imgs", "caps",
-                                           "valid_mask")}
+                                           "valid_mask", "teacher")}
 
 
 def pass_generators(generator: Optional[torch.Generator],
@@ -160,6 +209,7 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
                         caption_score_weight: float = 0.0,
                         num_hard_negatives: int = 0,
                         kd_fn: Optional[Callable] = None,
+                        kd_loss_weight: float = 1.0,
                         accum_steps: int = 1,
                         device: Optional[torch.device] = None) -> Callable:
     """Build ``step(batch, generator=None) -> metrics``
@@ -172,16 +222,14 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
     in whatever mode it is in: ``model.train()`` turns dropout on, and
     ``generator`` (a CPU ``torch.Generator``) then seeds the three passes'
     generators, as JAX splits one key three ways. ``batch`` is a collated
-    batch (numpy or tensors). The metrics (loss, acc, grad_norm of the last
-    update, both directions' losses) stay on the device.
+    batch (numpy or tensors). ``kd_fn(batch, embeddings)`` (``make_kd_fn``)
+    adds ``kd_loss_weight`` x its distillation term; the batch then
+    carries ``teacher``. The metrics (loss, acc, grad_norm of the last
+    update, both directions' losses, kd_loss) stay on the device.
 
     float32 compute on the card needs ``torch.backends.cuda.matmul.
     allow_tf32`` off: the JAX package's float32 products are true float32.
     """
-    if kd_fn is not None:
-        raise NotImplementedError(
-            "knowledge distillation needs the cross-encoder teacher, which "
-            "the port does not have yet (ROADMAP A9)")
     device = resolve_device(device)
     model.to(device)
     accumulator = GradAccumulator(optimizer.params, accum_steps)
@@ -196,11 +244,16 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
                                "torch.backends.cuda.matmul.allow_tf32 = "
                                "False")
         optimizer.zero_grad()
-        loss, metrics = itm_loss_fn(
-            model, batch_to_device(batch, device),
-            pass_generators(generator, device),
+        dev_batch = batch_to_device(batch, device)
+        loss, metrics, embs = itm_loss_fn(
+            model, dev_batch, pass_generators(generator, device),
             caption_score_weight=caption_score_weight,
             num_hard_negatives=num_hard_negatives)
+        if kd_fn is not None:
+            kd = kd_fn(dev_batch, embs)
+            loss = loss + kd_loss_weight * kd
+            metrics["kd_loss"] = kd.detach()
+            metrics["loss"] = loss.detach()
         loss.backward()
         if accumulator.add():
             last_norm[0] = optimizer.step()

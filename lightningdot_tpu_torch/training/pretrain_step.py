@@ -5,8 +5,8 @@ Parity: the pretrain.py hot loop (pretrain.py:388-536): per-task losses
 reduced as the mean over loss units (pretrain.py:399-406), gradient
 accumulation over a window of micro-batches of one task (the mean of their
 gradients, ``optax.MultiSteps``), then clip + AdamW with the schedule read
-once per update. The teacher's distillation (pretrain.py:409-428) comes
-with the cross-encoder (ROADMAP A9).
+once per update; optionally the one-tower teacher's distillation on the
+non-itm tasks (``kd_loss``, pretrain.py:409-428).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from lightningdot_tpu_torch.data.loader import host_tensor
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoderForPretraining
 from lightningdot_tpu_torch.training.itm_step import (GradAccumulator,
@@ -22,7 +23,7 @@ from lightningdot_tpu_torch.training.itm_step import (GradAccumulator,
 from lightningdot_tpu_torch.training.optim import FusedAdamW
 
 # host-only fields of a collated pre-training batch
-_HOST_KEYS = ("n_valid", "sample_size", "teacher")
+_HOST_KEYS = ("n_valid", "sample_size")
 
 
 def weighted_mean(loss: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
@@ -38,38 +39,70 @@ def weighted_mean(loss: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
 
 def task_loss(model: BiEncoderForPretraining, batch: Dict[str, Any],
               task: str, generators=None
-              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The weighted scalar loss of one task, and its metrics (``task_loss``,
-    pretrain_step.py:33-66)."""
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Any]:
+    """The weighted scalar loss of one task, its metrics (``task_loss``,
+    pretrain_step.py:33-66), and the head's output with the loss weights
+    (JAX's ``_logits`` / ``_weights``), the KD term's input; None for
+    itm."""
+    out = None
     if task == "mlm":
-        nll, logits, w = model.forward_mlm(batch, generators)
+        nll, lg, w = model.forward_mlm(batch, generators)
         loss = weighted_mean(nll, w)
         labels = torch.as_tensor(batch["masked_labels"],
-                                 device=logits.device).reshape(-1)
-        correct = ((logits.argmax(-1).reshape(-1) == labels).float()
-                   * w).sum()
-        return loss, {"loss": loss,
-                      "acc": correct / torch.clamp(w.sum(), min=1)}
-    if task == "mrfr":
-        mse, _, w = model.forward_mrfr(batch, generators)
+                                 device=lg.device).reshape(-1)
+        correct = ((lg.argmax(-1).reshape(-1) == labels).float() * w).sum()
+        metrics = {"loss": loss, "acc": correct / torch.clamp(w.sum(), min=1)}
+        out = (lg, w)
+    elif task == "mrfr":
+        mse, pred, w = model.forward_mrfr(batch, generators)
         loss = weighted_mean(mse, w)
-        return loss, {"loss": loss}
-    if task.startswith("mrc"):
-        kl, logits, w = model.forward_mrc(batch, task, generators)
+        metrics = {"loss": loss}
+        out = (pred, w)
+    elif task.startswith("mrc"):
+        kl, lg, w = model.forward_mrc(batch, task, generators)
         loss = weighted_mean(kl, w)
-        pred = logits[:, :, 1:].argmax(-1) + 1
+        pred = lg[:, :, 1:].argmax(-1) + 1
         tgt = torch.as_tensor(batch["label_targets"],
-                              device=logits.device)[:, :, 1:].argmax(-1) + 1
+                              device=lg.device)[:, :, 1:].argmax(-1) + 1
         acc = ((pred == tgt).float() * w).sum() / torch.clamp(w.sum(), min=1)
-        return loss, {"loss": loss, "acc": acc}
-    if task == "itm":
+        metrics = {"loss": loss, "acc": acc}
+        out = (lg, w)
+    elif task == "itm":
         nll, _, correct = model.forward_itm(batch, generators,
                                             compute_loss=False)
         w = torch.as_tensor(batch["weights"], device=nll.device).float()
         loss = weighted_mean(nll, w)
-        return loss, {"loss": loss,
-                      "acc": correct / torch.clamp(w.sum(), min=1)}
-    raise ValueError(f"invalid task {task}")
+        metrics = {"loss": loss,
+                   "acc": correct / torch.clamp(w.sum(), min=1)}
+    else:
+        raise ValueError(f"invalid task {task}")
+    return loss, metrics, out
+
+
+def kd_loss(teacher, batch: Dict[str, Any], task: str,
+            student_logits: torch.Tensor, weights: torch.Tensor, *,
+            T: float, kd_loss_weight: float) -> torch.Tensor:
+    """Pre-training distillation (``kd_loss``, pretrain_step.py:69-87;
+    pretrain.py:409-428): the teacher (``UniterForPretraining``) runs on
+    the joint sub-batch ``batch['teacher']`` in eval mode without a
+    gradient; squared error for mrfr's feature regression, KL x T²
+    otherwise, each as the weighted mean over the loss units."""
+    teacher.eval()
+    with torch.no_grad():
+        t_logits = teacher.task_logits(batch["teacher"], task)
+    if task == "mrfr":
+        sq = torch.square(t_logits / T - student_logits / T)
+        return kd_loss_weight * weighted_mean(sq, weights)
+    logp = torch.log_softmax(student_logits / T, dim=-1)
+    q = torch.softmax(t_logits.float() / T, dim=-1)
+    pos = q > 0
+    zero = torch.zeros((), dtype=q.dtype, device=q.device)
+    safe_logq = torch.where(pos, torch.log(torch.clamp(q, min=1e-30)), zero)
+    kl = torch.where(pos, q * (safe_logq - logp), zero)
+    if task == "mlm":
+        # [B, M, V] against the flat [B * M] weights
+        kl = kl.reshape(weights.shape[0], -1)
+    return kd_loss_weight * T * T * weighted_mean(kl, weights)
 
 
 def pretrain_batch_to_device(batch: Dict[str, Any], device: torch.device
@@ -81,7 +114,10 @@ def pretrain_batch_to_device(batch: Dict[str, Any], device: torch.device
         if isinstance(x, dict):
             return {k: put(v) for k, v in x.items()}
         if isinstance(x, np.ndarray):
-            x = torch.from_numpy(np.ascontiguousarray(x))
+            # a pooled array goes through its page-locked tensor: a
+            # copy from a bare view of it would be untracked, and the
+            # block could be handed out again while the copy still reads
+            x = host_tensor(x)
         if isinstance(x, torch.Tensor):
             return x.to(device, non_blocking=True)
         return x
@@ -91,7 +127,9 @@ def pretrain_batch_to_device(batch: Dict[str, Any], device: torch.device
 
 def make_pretrain_step(model: BiEncoderForPretraining,
                        optimizer: FusedAdamW, accum_steps: int = 1, *,
-                       teacher=None, device: Optional[torch.device] = None
+                       teacher=None, kd_loss_weight: float = 1.0,
+                       kd_T: float = 1.0,
+                       device: Optional[torch.device] = None
                        ) -> Callable[[str], Callable]:
     """``step_for_task(task) -> step(batch, generator=None) -> metrics``
     (``make_pretrain_step``, pretrain_step.py:90-136).
@@ -100,13 +138,10 @@ def make_pretrain_step(model: BiEncoderForPretraining,
     is none). A step is one micro-batch: its gradients join the running
     mean, and every ``accum_steps``-th step updates the weights. The model
     runs in whatever mode it is in (``train()`` for dropout, seeded from
-    ``generator``, a CPU ``torch.Generator``). The metrics stay on the
-    device."""
-    if teacher is not None:
-        raise NotImplementedError(
-            "pre-training knowledge distillation needs the one-tower "
-            "teacher (models/uniter_pretrain.py), which comes with the "
-            "cross-encoder (ROADMAP A9)")
+    ``generator``, a CPU ``torch.Generator``). With a ``teacher``
+    (``UniterForPretraining`` on ``device``), every non-itm task whose
+    batch carries ``teacher`` adds :func:`kd_loss` (pretrain_step.py:
+    109-121). The metrics stay on the device."""
     device = resolve_device(device)
     model.to(device)
     accumulator = GradAccumulator(optimizer.params, accum_steps)
@@ -122,9 +157,16 @@ def make_pretrain_step(model: BiEncoderForPretraining,
                                    "set torch.backends.cuda.matmul."
                                    "allow_tf32 = False")
             optimizer.zero_grad()
-            loss, metrics = task_loss(
-                model, pretrain_batch_to_device(batch, device), task,
-                pass_generators(generator, device))
+            dev_batch = pretrain_batch_to_device(batch, device)
+            loss, metrics, out = task_loss(
+                model, dev_batch, task, pass_generators(generator, device))
+            if teacher is not None and task != "itm" \
+                    and "teacher" in dev_batch:
+                kd = kd_loss(teacher, dev_batch, task, *out, T=kd_T,
+                             kd_loss_weight=kd_loss_weight)
+                loss = loss + kd
+                metrics["kd_loss"] = kd
+                metrics["loss"] = loss
             loss.backward()
             if accumulator.add():
                 optimizer.step()
@@ -148,7 +190,7 @@ def make_validate_fn(model: BiEncoderForPretraining,
         was_training = model.training
         model.eval()
         try:
-            _, metrics = task_loss(
+            _, metrics, _ = task_loss(
                 model, pretrain_batch_to_device(batch, device), task)
         finally:
             model.train(was_training)

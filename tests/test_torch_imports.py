@@ -177,6 +177,51 @@ def test_itm_collate_copy_matches_jax(num_bb, negs, captions, fixed):
                                                       else 104)
 
 
+@pytest.mark.parametrize("bs,n_teacher,num_bb", [(4, 2, 36), (6, 6, 100),
+                                                 (5, 10, 36)])
+def test_teacher_batch_copy_matches_jax(bs, n_teacher, num_bb):
+    """``make_teacher_batch`` (the KD pair grid) against its original on
+    one collated batch: every array equal, the feature grids pooled
+    arrays (whole, so the pool and the stager take them), and a batch
+    smaller than ``n_teacher`` refused by both."""
+    rng = np.random.default_rng(bs)
+    batch = itm.itm_fast_collate([_item(rng, i, num_bb) for i in range(bs)])
+    if bs < n_teacher:
+        for mod in (itm, jitm):
+            with pytest.raises(ValueError, match="n_teacher"):
+                mod.make_teacher_batch(batch, n_teacher)
+        return
+    got = itm.make_teacher_batch(batch, n_teacher)
+    _assert_same(got, jitm.make_teacher_batch(batch, n_teacher))
+    assert got["img_feat"].base is None and got["img_pos_feat"].base is None
+    assert got["input_ids"].shape[0] == bs * n_teacher
+
+
+def test_device_copies_read_pooled_arrays_through_their_pinned_tensor(
+        monkeypatch):
+    """The step helpers copy a pooled array through the page-locked tensor
+    it views (``loader.host_tensor``), which torch's pinned allocator
+    tracks, never through a bare ``from_numpy`` view of the same memory:
+    an asynchronous copy from such a view is untracked, and the block
+    could be handed out again while the copy still reads it (the
+    validation batches of pre-training and the steps' own copies)."""
+    from lightningdot_tpu_torch.data import loader
+    from lightningdot_tpu_torch.training import itm_step, pretrain_step
+
+    feat = np.zeros((2, 3), np.float32)
+    through = torch.full((2, 3), 7.0)
+    monkeypatch.setattr(loader, "pinned_tensor",
+                        lambda a: through if a is feat else None)
+    cpu = torch.device("cpu")
+    got = pretrain_step.pretrain_batch_to_device(
+        {"imgs": {"img_feat": feat}, "n_valid": 2}, cpu)
+    assert torch.equal(got["imgs"]["img_feat"], through)
+    got = itm_step.batch_to_device({"imgs": {"img_feat": feat}}, cpu)
+    assert torch.equal(got["imgs"]["img_feat"], through)
+    other = np.ones((2, 3), np.float32)
+    assert torch.equal(loader.host_tensor(other), torch.ones(2, 3))
+
+
 # ---------------------------------------------------------------------------
 # Entry points: the card by default, the CPU when asked
 # ---------------------------------------------------------------------------
@@ -333,12 +378,45 @@ def test_training_config_groups_match_jax():
     assert vars(got) == {k: v for k, v in vars(want).items()
                          if k in vars(got)}
     # the port registers only the flags it reads: the TPU knob, the
-    # multi-host ones (A11), the KD ones (A9), and flags no driver reads
-    unread = {"kernel_backend", "dp_size", "preempt_check_steps", "T",
-              "kd_loss_weight", "steps_per_hard_neg", "seperate_caption_encoder",
+    # multi-host ones (A11), and flags no driver reads
+    unread = {"kernel_backend", "dp_size", "preempt_check_steps",
+              "steps_per_hard_neg", "seperate_caption_encoder",
               "n_workers", "img_meta", "fp16", "negative_size",
               "compressed_db", "project_name", "expr_name_prefix"}
     assert vars(want).keys() - vars(got).keys() == unread
+
+
+# the JAX CLIs' flags that the port's do not register: the option
+# groups' unread flags (above) and, in rerank, the logging and KD groups,
+# which it never reads; train_teacher's validation DBs, which neither
+# package reads
+_GROUPS_UNREAD = {"kernel_backend", "dp_size", "preempt_check_steps",
+                  "steps_per_hard_neg", "seperate_caption_encoder",
+                  "n_workers", "img_meta", "fp16", "negative_size",
+                  "compressed_db", "project_name", "expr_name_prefix"}
+
+
+@pytest.mark.parametrize("name,unread", [
+    ("rerank", _GROUPS_UNREAD | {"log_result_step", "save_all_epochs",
+                                 "sim_preempt_step", "T",
+                                 "kd_loss_weight"}),
+    ("inf_itm", set()),
+    ("train_teacher", {"val_txt_db", "val_img_db"})])
+def test_cross_encoder_cli_flags_match_jax(name, unread):
+    """Each A9 CLI registers the JAX CLI's flags with their defaults, less
+    the flags nothing reads, plus ``--device``."""
+    import importlib
+
+    def flags(mod):
+        parser = importlib.import_module(f"{mod}.cli.{name}").build_parser()
+        return {a.dest: a.default for a in parser._actions
+                if a.dest != "help"}
+
+    got, want = flags("lightningdot_tpu_torch"), flags("lightningdot_tpu")
+    assert got.keys() - want.keys() == {"device"}
+    assert want.keys() - got.keys() == unread
+    assert {k: got[k] for k in want.keys() & got.keys()} == \
+        {k: want[k] for k in want.keys() & got.keys()}
 
 
 def test_pretraining_constants_match_jax():

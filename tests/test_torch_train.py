@@ -494,7 +494,7 @@ def test_itm_step_matches_jax(negs, padded):
     (loss_j, (metrics_j, _)), grads_j = jax.value_and_grad(
         jloss, has_aux=True)(params)
     model.train()
-    loss, metrics = itm_step.itm_loss_fn(
+    loss, metrics, _ = itm_step.itm_loss_fn(
         model, itm_step.batch_to_device(batch, torch.device("cpu")),
         num_hard_negatives=negs)
     loss.backward()
@@ -548,7 +548,7 @@ def test_attention_dropout_model_matches_the_composition(monkeypatch):
         _, _, model = _pair(seed=5, dropout=dropout)
         model.train()
         gens = [torch.Generator().manual_seed(seed + i) for i in range(3)]
-        loss, _ = itm_step.itm_loss_fn(model, batch, gens)
+        loss = itm_step.itm_loss_fn(model, batch, gens)[0]
         loss.backward()
         return loss.item(), {n: _np(p.grad) for n, p in
                              model.named_parameters() if p.grad is not None}
@@ -580,7 +580,8 @@ def test_attention_dropout_model_matches_the_composition(monkeypatch):
 
 def test_train_step_seeds_and_kd():
     """With dropout on, one generator seed gives one step and another seed
-    another; a teacher raises (ROADMAP A9)."""
+    another; a KD term (``kd_fn``) is called on the device batch and the
+    embeddings, and joins the loss times ``kd_loss_weight``."""
     dropout = dict(hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1)
 
     def run(seed):
@@ -595,10 +596,25 @@ def test_train_step_seeds_and_kd():
     (l0, p0), (l0b, p0b), (l1, p1) = run(0), run(0), run(1)
     assert l0 == l0b and np.array_equal(p0, p0b)
     assert l0 != l1 and not np.array_equal(p0, p1)
-    _, _, model = _pair(seed=3)
-    with pytest.raises(NotImplementedError, match="A9"):
-        itm_step.make_itm_train_step(model, optim.make_fused_adamw(model, 1.0),
-                                     kd_fn=lambda *a: 0.0, device="cpu")
+    seen = []
+
+    def kd_fn(batch, embs):
+        seen.append((sorted(batch), [e is None for e in embs]))
+        return embs[0].float().pow(2).mean()
+
+    losses = []
+    for kd, weight in ((None, 1.0), (kd_fn, 0.5)):
+        _, _, model = _pair(seed=3)
+        step = itm_step.make_itm_train_step(
+            model, optim.make_fused_adamw(model, 1.0), kd_fn=kd,
+            kd_loss_weight=weight, device="cpu")
+        losses.append(step(_itm_batch(4, 0, seed=41)))
+    base, with_kd = losses
+    assert seen == [(["caps", "imgs", "teacher", "txts", "valid_mask"],
+                     [False, False, True])]
+    assert "kd_loss" in with_kd and "kd_loss" not in base
+    assert with_kd["loss"].item() == pytest.approx(
+        base["loss"].item() + 0.5 * with_kd["kd_loss"].item(), rel=1e-6)
     _, _, model = _pair(seed=3, dropout=dropout)
     model.train()
     with pytest.raises(ValueError, match="Generator"):

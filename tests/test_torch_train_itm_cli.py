@@ -304,9 +304,12 @@ def test_train_itm_runs_on_the_card_by_default(synth, tmp_path,
     with pytest.raises(RuntimeError, match="device='cpu'"):
         train_itm.main(_cli(cfg, synth, str(tmp_path / "out"),
                             "--num_train_epochs", "1"))
-    with pytest.raises(NotImplementedError, match="A9"):
+    # the teacher loads before any data: a missing one fails at once
+    # (tests/test_torch_kd.py trains with a real one)
+    with pytest.raises(FileNotFoundError, match="no_teacher_here"):
         train_itm.main(_cli(cfg, synth, str(tmp_path / "out"), "--device",
-                            "cpu", "--teacher_checkpoint", "t"))
+                            "cpu", "--teacher_checkpoint",
+                            str(tmp_path / "no_teacher_here")))
 
 
 # ---------------------------------------------------------------------------
@@ -612,7 +615,7 @@ def test_fixed_tower_gets_no_gradient():
     _, _, model = _pair(seed=8)
     model.fix_txt_encoder = True
     model.train()
-    loss, _ = itm_step.itm_loss_fn(
+    loss, _, _ = itm_step.itm_loss_fn(
         model, itm_step.batch_to_device(_itm_batch(4, 0, seed=70),
                                         torch.device("cpu")))
     loss.backward()
