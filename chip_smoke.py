@@ -11,7 +11,8 @@ Phases, each of which exits non-zero on failure (no result is printed):
    CUDA kernels built from ``lightningdot_tpu_torch/csrc`` (build time);
 2. kernels: each hand-written kernel against its plain PyTorch twin on the
    card, at the shapes of the paths below (the encode and training batches
-   included: the LayerNorm forward at 32-16,384 rows, with its
+   included: the LayerNorm forward at 32-16,384 rows and at the VQA head's
+   widths, 3,072 and 6,144, forward and backward, with its
    mask-and-add prologue at 32-4,096 rows bit-equal to the kernel on the
    twin's u, its backward at 130-4,096 rows;
    attention at [128, 32|64|104], the bf16 FFN at 16-13,312 rows; the
@@ -88,7 +89,16 @@ Phases, each of which exits non-zero on failure (no result is printed):
    grid) and ``pretrain_kd`` (``cli/pretrain.main`` with a one-tower
    teacher at ``PRE_KD_LAYERS`` layers, then one update per non-itm task).
    The driver phases hold a kernel row at every bf16 shape they recorded
-   that no earlier path held.
+   that no earlier path held;
+11. ``vqa`` (ROADMAP A10): ``cli/train_vqa.main`` at configs/coco_ft.json's
+   model with 3,129 answers and ``--vqa_lr_mul`` 10 over synthetic DBs of
+   the port's ``synth.py``, one epoch with the plain head (its LayerNorm
+   3,072 wide) and one with ``--vqa_intersection`` (6,144): ms/step,
+   questions/s, a profile; f32 card vs CPU at 2 layers, bf16 vs f32 at 12,
+   learning on a fixed batch, ``evaluate_vqa`` card vs CPU;
+12. ``prepro`` (A12): ``cli/prepro.py``'s ``img`` and ``txt`` tasks over 500
+   region files and 2,500 COCO-style captions (images/s, captions/s, every
+   record read back), then ``cli/eval_itm`` on the card over the result.
 
 The kernel rows also hold the training kernels at the step's shapes: the
 FFN forward writing h1 and gelu(h1) and dh1 at 2,048 and 4,096 rows (in
@@ -216,6 +226,10 @@ PATH_KERNELS["rerank"] = ("layernorm", "attention", "ffn_mma")
 PATH_KERNELS.update({
     path: PATH_KERNELS["itm_train"] + ("attention",)
     for path in ("train_teacher", "kd", "pretrain_kd")})
+# VQA fine-tuning (ROADMAP A10): every bf16 training kernel (the head's
+# LayerNorm at 3,072 and 6,144 through B1's forward and backward), and the
+# attention forward of its validation
+PATH_KERNELS["vqa"] = PATH_KERNELS["itm_train"] + ("attention",)
 # the FMA forms that a bf16 path must not launch
 FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
 
@@ -332,6 +346,12 @@ PRE_UPDATES = 2
 PRE_BF16_BOUNDS = {"itm": (6e-2, 0.98), "mlm": (5e-5, 0.999),
                    "mrfr": (2e-5, 0.9997), "mrckl": (1e-3, 0.9997)}
 PRE_CONTROL_MANTISSA_BITS = 3
+# the VQA head's LayerNorm rows (batch, width): 4 x 768 = 3,072 wide, 8 x
+# 768 = 6,144 with --vqa_intersection; the training batch (64), the
+# validation batch (coco_ft.json's valid_batch_size, 256) and a ragged 37
+VQA_LN_ROWS = ((64, 3072), (64, 6144), (256, 3072), (256, 6144), (37, 6144))
+# the answer vocabulary (VQA v2; the JAX driver's --num_answers default)
+VQA_ANSWERS = 3129
 # (groups, calls per group) of the kernel rows held at the shapes the
 # drivers' phases recorded: fewer than the other rows' (7, 10), for the
 # number of shapes
@@ -774,7 +794,10 @@ def layernorm_rows(dtype, device_name, randn):
     (the plain LayerNorm sites), with res (rate 0) and with res and a
     rate-0.1 mask (the training sites); both at the training step's
     projection head too (64 rows of 1,536, a row over two warps), without
-    res."""
+    res. Then the VQA head's widths (``VQA_LN_ROWS``: 3,072, and 6,144
+    with ``--vqa_intersection``, at the training batch of 64, the
+    validation batch of 256 and a ragged 37), forward and backward,
+    without res, and once each with the mask-and-add prologue."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     rows = []
     for n, h in ([(n, 768) for n in (32, 2048, 4096, 8192, 13312, 16384)
@@ -788,6 +811,13 @@ def layernorm_rows(dtype, device_name, randn):
         for variant in ("ln", "res", "res_keep")[:1 if h > 768 else 3]:
             rows.append(ln_bwd_row(n, h, variant, dtype, device_name, randn,
                                    gen))
+    for n, h in VQA_LN_ROWS:
+        rows.append(ln_fwd_row(n, h, dtype, device_name, randn, gen))
+        rows.append(ln_bwd_row(n, h, "ln", dtype, device_name, randn, gen))
+    rows.append(ln_fwd_row(64, 6144, dtype, device_name, randn, gen,
+                           "res_keep"))
+    rows.append(ln_bwd_row(64, 6144, "res_keep", dtype, device_name, randn,
+                           gen))
     return rows
 
 
@@ -930,21 +960,21 @@ def mask_rows(device_name):
 def adamw_rows(device_name):
     """The AdamW kernel over every parameter of the two fine-tuning towers
     (the ``itm_train`` model's shapes; clip active, weight decay under the
-    decay mask), with a float32 and a bfloat16 first moment, against its
+    decay mask), with a float32 and a bfloat16 first moment, and over the
+    VQA model (the towers, the intersection head and 3,129 answers) with
+    the head's learning-rate factor 10 (``variant`` lr_mul), against its
     twin tensor by tensor: bit for bit. Timed eagerly (``time_eager_ms``):
     the wrapper uploads its pointer table on every call."""
     from lightningdot_tpu_torch.models import BiEncoder
+    from lightningdot_tpu_torch.models.vqa import BiEncoderForVQA
     from lightningdot_tpu_torch.ops import adamw
     from lightningdot_tpu_torch.training.optim import decay_mask
 
     txt_cfg, img_cfg = train_configs(0.1)
     with torch.device("meta"):
-        meta = BiEncoder(txt_cfg, img_cfg)
-    mask = decay_mask(meta)
-    names = [n for n, _ in meta.named_parameters()]
-    shapes = [tuple(p.shape) for _, p in meta.named_parameters()]
-    wds = [0.01 if mask[n] else 0.0 for n in names]
-    n_params = sum(int(np.prod(s)) for s in shapes)
+        towers = BiEncoder(txt_cfg, img_cfg)
+        vqa = BiEncoderForVQA(BiEncoder(txt_cfg, img_cfg), 768,
+                              VQA_ANSWERS, intersection=True)
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(5)
 
@@ -954,15 +984,24 @@ def adamw_rows(device_name):
     kw = dict(step_size=2e-5, lr=2e-5, b1=0.9, b2=0.999, eps=1e-8)
     scale = torch.tensor(0.5, device=dev)
     rows = []
-    for m_dtype in (torch.float32, torch.bfloat16):
+    for meta, m_dtype, variant in ((towers, torch.float32, None),
+                                   (towers, torch.bfloat16, None),
+                                   (vqa, torch.float32, "lr_mul")):
+        mask = decay_mask(meta)
+        names = [n for n, _ in meta.named_parameters()]
+        shapes = [tuple(p.shape) for _, p in meta.named_parameters()]
+        wds = [0.01 if mask[n] else 0.0 for n in names]
+        muls = [10.0 if variant and n.startswith("vqa_output.") else 1.0
+                for n in names]
+        n_params = sum(int(np.prod(s)) for s in shapes)
         p = [randn(s, 0.02) for s in shapes]
         grads = [randn(s, 1e-3) for s in shapes]
         m = [randn(s, 1e-4, m_dtype) for s in shapes]
         v = [randn(s, 1e-4).square() for s in shapes]
         p2, m2, v2 = ([t.clone() for t in ts] for ts in (p, m, v))
-        adamw.adamw_cuda(p, grads, m, v, wds, scale, **kw)
-        want = [adamw._adamw_math(*a, scale, wd=wd, **kw)
-                for *a, wd in zip(p2, grads, m2, v2, wds)]
+        adamw.adamw_cuda(p, grads, m, v, wds, scale, lr_muls=muls, **kw)
+        want = [adamw._adamw_math(*a, scale, wd=wd, lr_mul=mul, **kw)
+                for *a, wd, mul in zip(p2, grads, m2, v2, wds, muls)]
         torch.cuda.synchronize()
         got_all = torch.cat([t.float().reshape(-1) for trio in zip(p, m, v)
                              for t in trio])
@@ -973,8 +1012,8 @@ def adamw_rows(device_name):
         del got_all, want_all, want
 
         def twin():
-            for a in zip(p2, grads, m2, v2, wds):
-                adamw._adamw_math(*a[:4], scale, wd=a[4], **kw)
+            for a in zip(p2, grads, m2, v2, wds, muls):
+                adamw._adamw_math(*a[:4], scale, wd=a[4], lr_mul=a[5], **kw)
 
         per_param = 28 if m_dtype == torch.float32 else 24
         bound_ms, bound_by = bound(per_param * n_params, 16 * n_params,
@@ -984,13 +1023,16 @@ def adamw_rows(device_name):
                    tensors=len(shapes), max_abs_err=err, tol=0.0,
                    differ_frac=differ,
                    ms=time_eager_ms(lambda: adamw.adamw_cuda(
-                       p, grads, m, v, wds, scale, **kw)),
+                       p, grads, m, v, wds, scale, lr_muls=muls, **kw)),
                    plain_ms=time_eager_ms(twin, calls=3, groups=3),
                    bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                    device=device_name)
+        if variant:
+            row.update(variant=variant, model="vqa", lr_mul_tensors=sum(
+                mul != 1.0 for mul in muls))
         emit(**row)
-        check(differ == 0.0, f"adamw ({m_dtype}): {differ:.3%} of elements "
-              f"differ from the twin (max {err})")
+        check(differ == 0.0, f"adamw ({m_dtype}, {variant}): {differ:.3%} "
+              f"of elements differ from the twin (max {err})")
         rows.append(row)
         del p, grads, m, v, p2, m2, v2
     return rows
@@ -3688,6 +3730,422 @@ def pretrain_kd_phase(args, device_name):
     return dict(counts=counts, rows=rows)
 
 
+# VQA fine-tuning (ROADMAP A10): synthetic questions written by the port's
+# synth.py (VQA v2 train has 443,757 questions; cut for the run's time,
+# widths not cut), questions of up to 20 tokens, 10-100 regions an image
+VQA_TRAIN_IMAGES = 400
+VQA_VAL_IMAGES = 100
+VQA_QUESTIONS = 5
+# bf16 vs f32 at 12 layers: the loss (instance BCE summed over the 3,129
+# answers) and the cosines of the whole gradient and of the towers' part;
+# the control, float32 at PRE_CONTROL_MANTISSA_BITS, must fail one of them.
+# An H100 run read 6.1e-5 and 0.99990 (towers 0.99990); the control 5.3e-4
+# and 0.98839 (towers 0.98839): the cosine bound sits ~10x from each in
+# 1 - cosine, the loss bound 16x above the reading
+VQA_BF16_BOUNDS = (1e-3, 0.999)
+# data preparation: region files and COCO-style captions per image
+PREPRO_IMAGES = 500
+PREPRO_CAPTIONS = 5
+
+
+def vqa_model(layers, dtype, dropout, seed, intersection):
+    """``BiEncoderForVQA`` over coco_ft.json's towers (``train_configs``)
+    at ``layers`` a tower, 3,129 answers, random weights from ``seed``
+    (``init_tower_``, ``init_vqa_head_``), on the CPU."""
+    from dataclasses import replace
+
+    from lightningdot_tpu_torch.models import BiEncoder
+    from lightningdot_tpu_torch.models.encoder import init_tower_
+    from lightningdot_tpu_torch.models.vqa import (BiEncoderForVQA,
+                                                   init_vqa_head_)
+
+    txt_cfg, img_cfg = (replace(c, num_hidden_layers=layers)
+                        for c in train_configs(dropout))
+    bi = BiEncoder(txt_cfg, img_cfg, compute_dtype=dtype)
+    gen = torch.Generator().manual_seed(seed)
+    init_tower_(bi.txt_model, gen)
+    init_tower_(bi.img_model, gen)
+    model = BiEncoderForVQA(bi, txt_cfg.out_size, VQA_ANSWERS,
+                            intersection=intersection)
+    return init_vqa_head_(model, gen)
+
+
+def _vqa_loss_and_grad(model, batch):
+    from lightningdot_tpu_torch.training.vqa_step import vqa_loss_fn
+
+    model.zero_grad()
+    loss = vqa_loss_fn(model, batch)[0]
+    loss.backward()
+    return loss.item(), _grads(model)
+
+
+def vqa_phase(args, device_name):
+    """The port's ``cli/train_vqa.main`` on the card at configs/coco_ft.json's
+    model (BERT-base cased + UNITER-base, ``project_dim`` 768, bf16 over
+    float32 masters, dropout 0.1, batch 64, ``valid_batch_size`` 256),
+    ``--num_answers`` 3,129 and ``--vqa_lr_mul`` 10, over synthetic DBs
+    from the port's ``synth.py`` (``VQA_TRAIN_IMAGES`` x 5 questions to
+    train, ``VQA_VAL_IMAGES`` x 5 to validate): one epoch with validation
+    with the plain head (LayerNorm 3,072 wide) and one with
+    ``--vqa_intersection`` (6,144). Printed: ms/step p50 (the first 2 steps
+    left out), questions/s, a profile row (device busy and idle, launches
+    per step), the kernel launches per step. Held: finite losses,
+    ``vqa.best/last`` written, the path's launches and a kernel row at
+    every bf16 shape recorded; float32 on the card against the CPU at 2
+    layers a tower, both head forms (the loss before and after 2 steps and
+    every gradient leaf at the ITM step's bounds; the control, TF32
+    products, must fail them); bf16 against f32 at 12 layers
+    (``VQA_BF16_BOUNDS``; the control float32 at 3 mantissa bits); the
+    loss falling on a fixed batch; ``evaluate_vqa`` in float32 on the card
+    and on the CPU: the same answers and accuracy."""
+    from lightningdot_tpu_torch.cli import train_vqa
+    from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
+    from lightningdot_tpu_torch.data.loader import DataLoader
+    from lightningdot_tpu_torch.data.synth import make_synth_dataset
+    from lightningdot_tpu_torch.data.txt_db import TxtTokDb
+    from lightningdot_tpu_torch.data.vqa import (VqaCollateConfig,
+                                                 VqaDataset, VqaEvalDataset,
+                                                 vqa_collate)
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training.optim import make_optimizer
+    from lightningdot_tpu_torch.training.vqa_step import (
+        evaluate_vqa, make_vqa_train_step, vqa_batch_to_device, vqa_loss_fn)
+
+    recorder = ShapeRecorder()
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        synth = dict(txts_per_img=VQA_QUESTIONS, img_dim=IMG_DIM, min_bb=10,
+                     max_bb=100, max_txt_len=23, vqa_answers=VQA_ANSWERS)
+        train = make_synth_dataset(str(Path(tmp) / "train"),
+                                   n_imgs=VQA_TRAIN_IMAGES,
+                                   seed=args.seed + 20, **synth)
+        val = make_synth_dataset(str(Path(tmp) / "val"),
+                                 n_imgs=VQA_VAL_IMAGES,
+                                 seed=args.seed + 21, **synth)
+        emit(phase="setup_vqa", seconds=time.perf_counter() - t0,
+             train_questions=VQA_TRAIN_IMAGES * VQA_QUESTIONS,
+             val_questions=VQA_VAL_IMAGES * VQA_QUESTIONS,
+             answers=VQA_ANSWERS,
+             reduced=[f"train split {VQA_TRAIN_IMAGES} images x "
+                      f"{VQA_QUESTIONS} synthetic questions (VQA v2 train: "
+                      f"443,757 questions)",
+                      f"validation {VQA_VAL_IMAGES} x {VQA_QUESTIONS} (VQA "
+                      f"v2 val: 214,354)", "1 epoch a head form",
+                      "random weights (no uniter-base.pt)",
+                      "2 layers a tower in the float32 card-vs-CPU checks"])
+        base = ["--config", FT_CONFIG, "--img_checkpoint", "none",
+                "--seed", str(args.seed), "--train_txt_dbs", train[0],
+                "--train_img_dbs", train[1], "--val_txt_db", val[0],
+                "--val_img_db", val[1], "--num_answers", str(VQA_ANSWERS),
+                "--vqa_lr_mul", "10", "--num_train_epochs", "1",
+                "--device", DEVICE]
+        reset_launch_counts()
+        for head, extra in (("plain", []),
+                            ("intersection", ["--vqa_intersection"])):
+            probe = StepProbe(profile_at=4, profile_calls=3, skip=2)
+
+            def make_step(real, probe=probe):
+                def build(*a, **k):
+                    return probe.wrap(real(*a, **k))
+                return build
+
+            out = Path(tmp) / head
+            before = launch_counts()
+            t = time.perf_counter()
+            with recorder, _patched(train_vqa, "make_vqa_train_step",
+                                    make_step):
+                results, model = train_vqa.main(base + extra + [
+                    "--output_dir", str(out)])
+            cli_s = time.perf_counter() - t
+            got = launch_counts()
+            losses = [float(x) for x in probe.losses]
+            p50 = statistics.median(probe.lat)
+            epoch = results["epochs"][0]
+            steps = probe.calls
+            emit(phase="vqa", head=head,
+                 layernorm_width=model.vqa_output["2"].weight.shape[0],
+                 steps=steps, timed_steps=len(probe.lat),
+                 ms_per_step_p50=p50, questions_per_s=64 * 1e3 / p50,
+                 loss_first=losses[0], loss_last=losses[-1],
+                 val_acc=epoch["val_acc"], val_loss=epoch["val_loss"],
+                 train_s=epoch["train_s"], eval_s=epoch["eval_s"],
+                 cli_seconds=cli_s,
+                 kernel_launches_per_step={
+                     k: (got[k] - before.get(k, 0)) / steps
+                     for k in PATH_KERNELS["vqa"]},
+                 device=device_name)
+            check(len(probe.lat) >= 10 and all(np.isfinite(losses)),
+                  f"vqa {head}: {len(probe.lat)} timed steps, losses "
+                  f"{losses}")
+            check(all((out / f"vqa.{n}.pt").exists()
+                      for n in ("best", "last")),
+                  f"vqa {head}: vqa.best/last not written")
+            emit_profile_stats("vqa", 64, probe.stats, p50, head=head)
+            del model
+        counts = launch_counts()
+        hold_path("vqa", counts)
+
+        ds = VqaDataset(VQA_ANSWERS, TxtTokDb(train[0], 60),
+                        DetectFeatDb(train[1], 0.2, 100, 10, 36))
+        small = vqa_collate([ds[i] for i in range(8)])
+        fixed = vqa_collate([ds[i] for i in range(8, 8 + 64)])
+
+        # float32, dropout 0, 2 layers a tower: the card against the plain
+        # path on the CPU, the loss before and after two steps (the head
+        # at 10x the learning rate) and every gradient leaf; the control is
+        # the card with TF32 products. The two steps take the loss from
+        # ~2,900 to ~440 (the head learns the answers' prior; Adam moves
+        # every head weight by ~lr a step whatever its gradient's size), so
+        # the delta after them is read against the loss they started from:
+        # against the loss after them it read 3.2e-5 (intersection head,
+        # an H100 run), float32 noise amplified by that fall
+        for intersection in (False, True):
+            read = {}
+            for dev in (DEVICE, "cpu"):
+                m = vqa_model(2, torch.float32, 0.0, args.seed + 22,
+                              intersection)
+                opt = make_optimizer(m, 2e-5, betas=(0.9, 0.98),
+                                     adam_eps=1e-6, weight_decay=0.01,
+                                     max_grad_norm=2.0, first_lr_step=1,
+                                     lr_mul={"vqa_output.": 10.0})
+                st = make_vqa_train_step(m, opt, device=dev)
+                loss = float(st(small)["loss"])
+                grads = _grads(m)
+                st(small)
+                with torch.no_grad():
+                    after = vqa_loss_fn(m, vqa_batch_to_device(
+                        small, torch.device(dev)))[0].item()
+                read[dev] = (loss, grads, after)
+                del m, st, opt
+            m = vqa_model(2, torch.float32, 0.0, args.seed + 22,
+                          intersection).to(DEVICE)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                lt, gt = _vqa_loss_and_grad(
+                    m, vqa_batch_to_device(small, torch.device(DEVICE)))
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            del m
+            (lc, gc_, ac), (lp, gp, ap) = read[DEVICE], read["cpu"]
+            row = dict(phase="vqa_f32_card_vs_cpu", layers=2, batch=8,
+                       head="intersection" if intersection else "plain",
+                       loss_card=lc, loss_cpu=lp,
+                       loss_rel=abs(lc - lp) / abs(lp),
+                       loss_rel_max=TRAIN_F32_LOSS_RTOL,
+                       grad_leaf_rel_l2=_leaf_rel_l2(gc_, gp),
+                       grad_rel_l2_max=TRAIN_F32_GRAD_RTOL,
+                       loss_after_2_steps_card=ac,
+                       loss_after_2_steps_cpu=ap,
+                       loss_after_2_steps_rel=abs(ac - ap) / abs(lp),
+                       loss_after_2_steps_rel_to_itself=abs(ac - ap)
+                       / abs(ap),
+                       control="float32 card with TF32 products",
+                       control_loss_rel=abs(lt - lp) / abs(lp),
+                       control_grad_leaf_rel_l2=_leaf_rel_l2(gt, gp))
+            emit(**row)
+            check(row["loss_rel"] <= TRAIN_F32_LOSS_RTOL
+                  and row["grad_leaf_rel_l2"] <= TRAIN_F32_GRAD_RTOL
+                  and row["loss_after_2_steps_rel"] <= TRAIN_F32_LOSS_RTOL,
+                  f"vqa f32 card vs cpu: {row}")
+            check(row["control_loss_rel"] > TRAIN_F32_LOSS_RTOL
+                  or row["control_grad_leaf_rel_l2"] > TRAIN_F32_GRAD_RTOL,
+                  f"vqa f32 card vs cpu: the bounds pass their control: "
+                  f"{row}")
+
+        # bf16 against f32 at 12 layers (the intersection head, LayerNorm
+        # 6,144), with the coarse control
+        model = vqa_model(12, torch.float32, 0.0, args.seed + 23,
+                          True).to(DEVICE)
+        sub = vqa_batch_to_device(small, torch.device(DEVICE))
+        read = {}
+        for who, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+            model.biencoder.compute_dtype = dtype
+            read[who] = _vqa_loss_and_grad(model, sub)
+        model.biencoder.compute_dtype = torch.float32
+        with _coarse(model, PRE_CONTROL_MANTISSA_BITS):
+            read["control"] = _vqa_loss_and_grad(model, sub)
+        l32, g32 = read["f32"]
+        loss_max, cos_min = VQA_BF16_BOUNDS
+
+        def towers(grad):
+            return {n: g for n, g in grad.items()
+                    if n.startswith("biencoder.")}
+
+        def held(who):
+            """|loss delta| / loss, the cosine of the whole gradient and
+            that of the towers' part (the head's fc2 gradient, large and
+            formed after the towers, would dominate the whole)."""
+            loss, grad = read[who]
+            return (abs(loss - l32) / abs(l32), _cosine(grad, g32),
+                    _cosine(towers(grad), towers(g32)))
+
+        def passes(rel, cos, cos_towers):
+            return rel <= loss_max and min(cos, cos_towers) >= cos_min
+
+        got, ctrl = held("bf16"), held("control")
+        row = dict(phase="vqa_bf16_vs_f32", layers=12, batch=8,
+                   head="intersection", loss_bf16=read["bf16"][0],
+                   loss_f32=l32, loss_rel=got[0], loss_rel_max=loss_max,
+                   grad_cosine=got[1], towers_grad_cosine=got[2],
+                   grad_cosine_min=cos_min,
+                   control=f"float32 with weights and layer outputs "
+                           f"rounded to {PRE_CONTROL_MANTISSA_BITS} "
+                           f"mantissa bits",
+                   control_loss_rel=ctrl[0], control_grad_cosine=ctrl[1],
+                   control_towers_grad_cosine=ctrl[2])
+        emit(**row)
+        check(passes(*got), f"vqa bf16 vs f32: {row}")
+        check(not passes(*ctrl),
+              f"vqa bf16 vs f32: the bounds pass their control: {row}")
+        del model, read, sub
+
+        # learning: one fixed batch of 64, constant lr, the head at 10x
+        model = vqa_model(12, torch.bfloat16, 0.1, args.seed + 24, False)
+        step = make_vqa_train_step(model, make_optimizer(
+            model, LEARN_LR, betas=(0.9, 0.98), adam_eps=1e-6,
+            weight_decay=0.01, max_grad_norm=2.0,
+            lr_mul={"vqa_output.": 10.0}), device=DEVICE)
+        model.train()
+        gen = torch.Generator().manual_seed(args.seed + 25)
+        curve = [float(step(fixed, gen)["loss"]) for _ in range(LEARN_STEPS)]
+        tail = statistics.mean(curve[-5:])
+        emit(phase="vqa_learns", lr=LEARN_LR, lr_mul=10, steps=LEARN_STEPS,
+             loss_first=curve[0], loss_last5_mean=tail,
+             bound=LEARN_LOSS_FRAC * curve[0], curve=curve[::5])
+        check(tail < LEARN_LOSS_FRAC * curve[0],
+              f"vqa: loss on a fixed batch fell only from {curve[0]} to "
+              f"{tail}")
+        del model, step
+
+        # evaluate_vqa in float32 (2 layers, weights with noise 0.2 so
+        # that the answers vary between questions: at their init scale the
+        # towers give nearly one vector for every input): card against CPU
+        model = perturb_(vqa_model(2, torch.float32, 0.0, args.seed + 26,
+                                   False), 0.2, args.seed + 27)
+        vds = VqaEvalDataset(VQA_ANSWERS, TxtTokDb(val[0], -1),
+                             DetectFeatDb(val[1], 0.2, 100, 10, 36))
+        cfg = VqaCollateConfig(fixed_batch=256)
+        loader = DataLoader(vds, batch_size=256,
+                            collate_fn=lambda items: vqa_collate(items, cfg))
+        card = evaluate_vqa(model.to(DEVICE), loader, device=DEVICE)
+        cpu = evaluate_vqa(model.to("cpu"), loader, device="cpu")
+        same = sum(card["results"][q] == a for q, a in cpu["results"].items())
+        row = dict(phase="vqa_eval_f32_card_vs_cpu", layers=2,
+                   questions=cpu["n_ex"], acc_card=card["acc"],
+                   acc_cpu=cpu["acc"], loss_card=card["loss"],
+                   loss_cpu=cpu["loss"], answers_equal=same,
+                   distinct_answers=len(set(cpu["results"].values())))
+        emit(**row)
+        check(card["results"] == cpu["results"]
+              and card["acc"] == cpu["acc"],
+              f"vqa evaluate_vqa, card vs cpu: {row}")
+        del model
+    rows, _ = hold_recorded("vqa", recorder.seen, device_name)
+    return dict(counts=counts, rows=rows)
+
+
+def prepro_phase(args, device_name):
+    """The port's ``cli/prepro.py`` (host work) on ``PREPRO_IMAGES`` region
+    files (10-100 regions of 2,048 float16 features, ``.npz`` as the
+    reference's extractor writes them) and a COCO-style caption annotation
+    JSON of ``PREPRO_CAPTIONS`` captions an image over a full-size
+    synthetic WordPiece vocab (``synth_wordpiece_vocab``): the ``img`` and
+    ``txt`` tasks, images/s and captions/s. Held: the port's readers give
+    back every record (features, boxes at float16, the tokenized captions);
+    then ``cli/eval_itm`` runs on the card over the prepared DBs for one
+    pass (recall finite), to show that prepro's output feeds the card."""
+    import json as _json
+
+    from lightningdot_tpu_torch.cli import eval_itm, prepro
+    from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
+    from lightningdot_tpu_torch.data.synth import synth_wordpiece_vocab
+    from lightningdot_tpu_torch.data.txt_db import TxtTokDb
+
+    rng = np.random.default_rng(args.seed + 30)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "npz" / "coco_val2014"
+        src.mkdir(parents=True)
+        t0 = time.perf_counter()
+        truth = {}
+        for i in range(PREPRO_IMAGES):
+            nbb = int(rng.integers(10, 101))
+            xy = rng.random((nbb, 2), dtype=np.float32) * 0.5
+            wh = rng.random((nbb, 2), dtype=np.float32) * 0.5
+            name = f"coco_val2014_{i:012d}.npz"
+            arrays = dict(
+                features=rng.standard_normal((nbb, IMG_DIM),
+                                             dtype=np.float32).astype(
+                                                 np.float16),
+                norm_bb=np.concatenate([xy, xy + wh, wh], axis=1),
+                conf=np.full((nbb,), 0.7, np.float32))
+            np.savez(src / name, **arrays)
+            truth[name] = arrays
+        vocab = Path(tmp) / "vocab.txt"
+        roots, conts = synth_wordpiece_vocab(str(vocab), seed=args.seed)
+        captions = []
+        for i in range(PREPRO_IMAGES):
+            for c in range(PREPRO_CAPTIONS):
+                words = [roots[j] + (conts[k] if k % 3 == 0 else "")
+                         for j, k in zip(
+                             rng.integers(0, len(roots), 12),
+                             rng.integers(0, len(conts), 12))]
+                captions.append({"id": i * PREPRO_CAPTIONS + c,
+                                 "image_id": i, "caption": " ".join(
+                                     words[:int(rng.integers(5, 13))])})
+        ann = Path(tmp) / "captions_val2014.json"
+        ann.write_text(_json.dumps({"annotations": captions}))
+        write_s = time.perf_counter() - t0
+
+        out_img = Path(tmp) / "img"
+        t = time.perf_counter()
+        prepro.main(["img", "--img_dir", str(src), "--output", str(out_img)])
+        img_s = time.perf_counter() - t
+        txt_db = Path(tmp) / "txt_db"
+        t = time.perf_counter()
+        prepro.main(["txt", "--annotation", str(ann), "--output",
+                     str(txt_db), "--format", "caption", "--split",
+                     "val2014", "--vocab", str(vocab)])
+        txt_s = time.perf_counter() - t
+
+        img_dir = out_img / "coco_val2014"
+        db = DetectFeatDb(str(img_dir), 0.2, 100, 10)
+        img_ok = all(
+            np.array_equal(db[name][0], arr["features"])
+            and np.array_equal(db[name][1], arr["norm_bb"].astype(
+                np.float16)) for name, arr in truth.items())
+        tok = prepro.get_tokenizer("bert-base-cased", str(vocab))
+        txt = TxtTokDb(str(txt_db), -1)
+        txt_ok = sorted(txt.ids, key=int) == [str(c["id"])
+                                              for c in captions] and all(
+            txt[str(c["id"])]["input_ids"]
+            == prepro.bert_tokenize(tok, c["caption"])[0]
+            and txt[str(c["id"])]["img_fname"]
+            == f"coco_val2014_{c['image_id']:012d}.npz" for c in captions)
+        row = dict(phase="prepro", images=PREPRO_IMAGES,
+                   captions=len(captions), write_inputs_s=write_s,
+                   img_s=img_s, images_per_s=PREPRO_IMAGES / img_s,
+                   txt_s=txt_s, captions_per_s=len(captions) / txt_s,
+                   native_tokenizer=tok.native, img_records_equal=img_ok,
+                   txt_records_equal=txt_ok, device=device_name,
+                   note="host work: the card is not used")
+        emit(**row)
+        check(img_ok and txt_ok, f"prepro: a record did not come back: "
+                                 f"{row}")
+        t = time.perf_counter()
+        got = eval_itm.main([
+            "--config", EVAL_CONFIG, "--itm_global_file", "",
+            "--test_txt_db", str(txt_db), "--test_img_db", str(img_dir),
+            "--valid_batch_size", "256", "--device", DEVICE])["test"]
+        recalls = list(got["recall_txt"].values()) + list(
+            got["recall_img"].values())
+        emit(phase="prepro_eval_itm", seconds=time.perf_counter() - t,
+             recall_txt=got["recall_txt"], recall_img=got["recall_img"],
+             loss=got["loss"])
+        check(all(np.isfinite(recalls)) and np.isfinite(got["loss"]),
+              f"prepro: eval_itm over the prepared DBs: {got}")
+
+
 REPLACES = {
     "layernorm": ("lightningdot_tpu_torch/csrc/layernorm.cu",
                   "lightningdot_tpu/ops/layernorm.py:30"),
@@ -3831,6 +4289,8 @@ def main() -> int:
     paths["train_teacher"] = train_teacher_phase(args, device_name)["counts"]
     paths["kd"] = kd_phase(args, device_name)["counts"]
     paths["pretrain_kd"] = pretrain_kd_phase(args, device_name)["counts"]
+    paths["vqa"] = vqa_phase(args, device_name)["counts"]
+    prepro_phase(args, device_name)
     check(all(any(c[name] > 0 for c in paths.values()) for name in REPLACES),
           f"a kernel was launched on no path: {paths}")
 

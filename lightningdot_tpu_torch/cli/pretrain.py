@@ -4,7 +4,8 @@ lists with ``mix_ratio`` (the config/pretrain-alldata-base.json schema),
 ``MetaLoader`` task sampling per accumulation window, per-task losses (MLM,
 MRFR, MRC-kl, ITM), AdamW under ``get_lr_sched``, validation and a
 step-numbered checkpoint every ``valid_steps``, auto-resume from the newest
-checkpoint, and a preemption checkpoint (pretrain.py:246-536,906-917).
+checkpoint (the port's, or the JAX driver's ``.npz`` with its optax state),
+and a preemption checkpoint (pretrain.py:246-536,906-917).
 
 It runs on the card by default, or on the CPU with ``--device cpu``. Each
 task's batches come from a ``TokenBucketSampler`` loader; batches are
@@ -305,7 +306,9 @@ def _main(args, guard):
     if resume is not None:
         path, global_step = resume
         LOGGER.info("auto-resume from %s (step %d)", path, global_step)
-        load_checkpoint(path, model=model, optimizer=optimizer)
+        # the port's checkpoints and the JAX driver's (its optax state)
+        load_checkpoint(path, model=model, optimizer=optimizer,
+                        accumulator=step_for_task.accumulator)
 
     # page-locks the buffer pool on the card before any loader starts
     stager = PinnedStager(device)

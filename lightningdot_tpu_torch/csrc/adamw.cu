@@ -10,6 +10,10 @@
 //   p' = p - step_size * m' / (sqrt(v') + eps)    eps on the UNCORRECTED v
 //   p' = p' - (lr wd) p'                           decay on the post-step p
 // with step_size = lr sqrt(1 - b2^t) / (1 - b1^t) computed on the host.
+// Each tensor carries a learning-rate factor f beside its decay wd (the
+// VQA head's --vqa_lr_mul, JAX's optax.multi_transform over {body, head}):
+// its step size is step_size * f and its decay (lr * f) * wd. At f = 1
+// both products are exact, so the update is the one without a factor.
 // Every operation is __fmul_rn/__fadd_rn/__fdiv_rn/__fsqrt_rn in the order
 // of the plain version (ops/adamw.py::_adamw_math), so that the compiler
 // contracts nothing into an FMA and the two agree bit for bit.
@@ -40,7 +44,7 @@ constexpr long long kChunk = 1 << 15;
 struct Entry {
   long long p, g, m, v, numel;
   float wd;
-  int pad;
+  float lr_mul;
 };
 
 template <bool kMBf16>
@@ -58,7 +62,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long begin = static_cast<long long>(c.y) * kChunk;
   const long long end = min(begin + kChunk, e.numel);
   const float scale = *clip_scale;
-  const float lr_wd = __fmul_rn(lr, e.wd);
+  const float step = __fmul_rn(step_size, e.lr_mul);
+  const float lr_wd = __fmul_rn(__fmul_rn(lr, e.lr_mul), e.wd);
   for (long long i = begin + threadIdx.x; i < end; i += kThreads) {
     const float gi = g != nullptr ? __fmul_rn(g[i], scale) : 0.f;
     float mi;
@@ -70,7 +75,7 @@ __global__ void __launch_bounds__(kThreads)
     const float v2 =
         __fadd_rn(__fmul_rn(b2, v[i]), __fmul_rn(omb2, __fmul_rn(gi, gi)));
     const float denom = __fadd_rn(__fsqrt_rn(v2), eps);
-    float p2 = __fsub_rn(p[i], __fdiv_rn(__fmul_rn(step_size, m2), denom));
+    float p2 = __fsub_rn(p[i], __fdiv_rn(__fmul_rn(step, m2), denom));
     if (e.wd != 0.f) p2 = __fsub_rn(p2, __fmul_rn(lr_wd, p2));
     p[i] = p2;
     v[i] = v2;
@@ -83,7 +88,8 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// table: device array of Entry (int64 [n_tensors, 6]); chunks: device int32
+// table: device array of Entry (int64 [n_tensors, 6]: pointers, numel, then
+// wd and lr_mul as two float32 in the last int64); chunks: device int32
 // [n_chunks, 2] of (tensor index, chunk index); clip_scale: one device
 // float32. p, g, v float32; m float32 or, with m_bf16, bfloat16; each
 // tensor contiguous. Chunks hold 32,768 elements.

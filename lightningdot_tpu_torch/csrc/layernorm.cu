@@ -34,6 +34,12 @@
 //   sum g per thread over the rows of its block; each block writes its
 //   partial sums to a float32 workspace and a second launch sums them in a
 //   fixed order, with no atomics, so a launch repeats its bits.
+// - rows wider than 1,536 (the VQA head's 3,072 and 6,144): the many-rows
+//   instantiations unchanged, one row a block of up to 256 threads (24
+//   elements a thread: 3 bf16 or 6 float32 vectors), at any row count; the
+//   backward's threads a row are rounded up to a power of 2 (128 or 256),
+//   so that its row groups (2 or 1 a block) still add in a fixed tree. The
+//   plans up to 1,536 are the ones above, launch for launch.
 #include <cstdint>
 
 #include "common.cuh"
@@ -44,6 +50,10 @@ constexpr int kMaxHidden = 1536;
 constexpr int kMaxThreads = kMaxHidden / 4;   // a float4 per thread
 constexpr int kMaxWarps = kMaxThreads / 32;
 constexpr int kPerThread = 24;       // elements a thread holds (many rows)
+// the widest row: 256 threads of kPerThread elements, a row per block
+constexpr int kWideThreads = 256;
+constexpr int kWideMaxHidden = kWideThreads * kPerThread;
+static_assert(kWideThreads <= kMaxThreads, "a wide row's warps fit slots");
 // at most this many rows: one row per block. On an H100 the spread layout
 // was the faster up to 1,024 rows of 768 and the slower from 2,048
 // (scripts/perf_torch_layernorm.py)
@@ -474,7 +484,7 @@ cudaError_t forward(const void* x, const void* res, const void* keep,
   const T* rt = static_cast<const T*>(res);
   const uint8_t* kt = static_cast<const uint8_t*>(keep);
   T* ot = static_cast<T*>(out);
-  if (rows <= kFewRows) {
+  if (rows <= kFewRows && hidden <= kMaxHidden) {
     layernorm_fwd_kernel<T, 1, kRes, kKeep>
         <<<rows, dim3(round_up32(nvec), 1), 0, stream>>>(
             xt, rt, kt, scale, bias, ot, rows, hidden, eps, keep_scale);
@@ -499,8 +509,11 @@ cudaError_t backward(const void* x, const void* res, const void* keep,
   constexpr int E = Vec<T>::kElems;
   constexpr int kVecs = kPerThread / E;
   // 32 or 64 threads a row up to H 1,536: 8 or 4 row groups, a power of 2
-  // for the tree that adds their sums
-  const int per_row = round_up32((hidden / E + kVecs - 1) / kVecs);
+  // for the tree that adds their sums; wider rows take a power of 2 of
+  // threads, up to 256 (1 row group)
+  int per_row = round_up32((hidden / E + kVecs - 1) / kVecs);
+  if (hidden > kMaxHidden)
+    while (per_row & (per_row - 1)) per_row += per_row & -per_row;
   const int groups = kBwdThreads / per_row;
   if (kBwdThreads % per_row || (groups & (groups - 1)))
     return cudaErrorInvalidValue;
@@ -519,7 +532,8 @@ cudaError_t backward(const void* x, const void* res, const void* keep,
 }
 
 bool shape_ok(int rows, int hidden, const void* res, const void* keep) {
-  return rows > 0 && hidden > 0 && hidden <= kMaxHidden && hidden % 8 == 0 &&
+  return rows > 0 && hidden > 0 && hidden <= kWideMaxHidden &&
+         hidden % 8 == 0 &&
          (keep == nullptr || res != nullptr);
 }
 
@@ -528,7 +542,7 @@ bool shape_ok(int rows, int hidden, const void* res, const void* keep) {
 // x, res, out: [rows, hidden] contiguous, float32 or bfloat16 (dtype code);
 // keep: bool [rows, hidden] or null (then keep_scale is unused), only with
 // res; res may be null; scale, bias: [hidden] float32. hidden a multiple of
-// 8 up to 1,536; every pointer 16-byte aligned.
+// 8 up to 6,144; every pointer 16-byte aligned.
 extern "C" int ldot_layernorm(const void* x, const void* res,
                               const void* keep, const float* scale,
                               const float* bias, void* out, int rows,

@@ -21,6 +21,10 @@ teacher's load (checkpoint_torch.py:318-362, cli/pretrain.py:298-305);
 :func:`cross_encoder_keys` filters a teacher or ``uniter-base.pt`` state
 dict to the joint model's names and seeds ``rank_output`` from the itm
 head where the file has none (``_rank_head``).
+
+VQA: :func:`vqa_state_dict_from_jax` turns the JAX ``BiEncoderForVQA``
+tree ({biencoder, vqa_output/{fc1, ln, fc2}}) into the port's names
+(``biencoder.*`` and the reference's ``vqa_output.{0,2,3}``).
 """
 from __future__ import annotations
 
@@ -295,3 +299,19 @@ def cross_encoder_keys(sd: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         sd["rank_output.weight"] = np.array(sd["itm_output.weight"][1:2])
         sd["rank_output.bias"] = np.array(sd["itm_output.bias"][1:2])
     return sd
+
+
+def vqa_state_dict_from_jax(tree: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """JAX ``BiEncoderForVQA`` params {biencoder, vqa_output} -> the port's
+    ``BiEncoderForVQA`` state dict: ``biencoder.txt_model.*``,
+    ``biencoder.img_model.*``, and the head under the reference's
+    ``nn.Sequential`` indices (fc1 ``vqa_output.0``, the LayerNorm
+    ``vqa_output.2``, fc2 ``vqa_output.3``; bi_encoder.py:683-734)."""
+    sd = {f"biencoder.{k}": v for k, v in
+          biencoder_state_dict_from_jax(tree["biencoder"]).items()}
+    head = tree["vqa_output"]
+    _lin(sd, "vqa_output.0", head["fc1"])
+    _ln(sd, "vqa_output.2", head["ln"])
+    _lin(sd, "vqa_output.3", head["fc2"])
+    return sd
+

@@ -25,7 +25,11 @@ import torch
 from lightningdot_tpu_torch.ops import _build
 
 DEFAULT_EPS = 1e-12
-MAX_HIDDEN = 1536
+# the kernels' widest row: the towers' rows are 768-1,536 wide, the VQA
+# head's 3,072 (6,144 with its intersection input)
+MAX_HIDDEN = 6144
+# rows above this width take one row a block (csrc/layernorm.cu)
+WIDE_HIDDEN = 1536
 # the kernels move 16-byte vectors: every tensor starts on a 16-byte
 # boundary and a row holds a multiple of 8 elements
 ALIGN = 16
@@ -179,7 +183,10 @@ def layer_norm_bwd_cuda(x2d: torch.Tensor, scale: torch.Tensor,
     rows, hidden = x2d.shape
     du = torch.empty_like(x2d)
     dx = du if keep is None else torch.empty_like(x2d)
-    blocks = min(-(-rows // 4),
+    # a wide row is a block's work alone: one block per row, up to the
+    # same cap (the head's 64-256 rows would otherwise sit on 16-64 SMs)
+    per_block = 1 if hidden > WIDE_HIDDEN else 4
+    blocks = min(-(-rows // per_block),
                  BWD_BLOCKS_PER_SM * _build.num_sms(x2d.device))
     partial = torch.empty(blocks, 2 * hidden, dtype=torch.float32,
                           device=x2d.device)

@@ -20,8 +20,15 @@ last: the data file is renamed into place first, so a save that is cut
 off never truncates a good checkpoint, and discovery keys off the
 manifest. :func:`load_checkpoint` also reads the JAX package's checkpoints
 (``<path>.npz`` of ``model/...`` flattened leaves beside the same
-``.json``). Every load is strict: a missing or extra parameter, or another
-shape, raises (the JAX package's ``unflatten_like``, :38-80).
+``.json``), their optax state (``opt/...``) included: the update count and
+both moments of the chains the JAX drivers write (``make_optimizer``'s
+clip + ``scale_by_ref_adamw``, under ``optax.MultiSteps`` or the VQA
+driver's ``multi_transform``, and ``make_fused_adamw``'s state,
+lightningdot_tpu/training/optim.py:147-303), each moment by the port's
+parameter name through the map the weights take; a ``MultiSteps`` window
+left mid-way carries into the step's ``GradAccumulator``. Every load is
+strict: a missing or extra parameter, or another shape, raises (the JAX
+package's ``unflatten_like``, :38-80).
 """
 from __future__ import annotations
 
@@ -39,7 +46,8 @@ from torch import nn
 from lightningdot_tpu_torch.models.weights import (
     biencoder_state_dict_from_jax, cross_encoder_fast_state_dict_from_jax,
     cross_encoder_state_dict_from_jax, pretrain_state_dict_from_jax,
-    uniter_pretrain_state_dict_from_jax, unflatten_jax)
+    uniter_pretrain_state_dict_from_jax, unflatten_jax,
+    vqa_state_dict_from_jax)
 
 SEP = "/"
 
@@ -86,7 +94,8 @@ def save_checkpoint(path: str, *, model, optimizer=None, step: int = 0,
 
 def _jax_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     """The model leaves of a JAX ``.npz`` as a state dict under the port's
-    names: a bi-encoder ({txt_model, img_model}), a pre-training model
+    names: a bi-encoder ({txt_model, img_model}), the VQA model
+    ({biencoder, vqa_output}), a pre-training model
     ({bert, heads}), a cross-encoder ({uniter, itm_output, rank_output}),
     the Fast cross-encoder ({bert, img_bert, ...}), the one-tower
     pre-training teacher ({uniter, heads}), or any other tree leaf by leaf
@@ -94,6 +103,8 @@ def _jax_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     tree = unflatten_jax(flat)
     if set(tree) == {"txt_model", "img_model"}:
         return biencoder_state_dict_from_jax(tree)
+    if set(tree) == {"biencoder", "vqa_output"}:
+        return vqa_state_dict_from_jax(tree)
     if set(tree) == {"bert", "heads"}:
         return pretrain_state_dict_from_jax(tree)
     if set(tree) == {"uniter", "heads"}:
@@ -105,11 +116,66 @@ def _jax_state_dict(flat: Mapping[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return {k.replace(SEP, "."): np.asarray(v) for k, v in flat.items()}
 
 
+def _as_float(a: np.ndarray) -> np.ndarray:
+    """An ``.npz`` leaf as a numeric array: JAX's bfloat16 leaves come
+    back as 2-byte void values, read here as bfloat16 widened to
+    float32."""
+    a = np.asarray(a)
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        return (a.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+    return a
+
+
+_OPT_LEAF = re.compile(r"(?:^|/)\.(mu|nu|acc_grads)/(.+)$")
+
+
+def _jax_optimizer_state(flat: Mapping[str, np.ndarray]) -> Optional[dict]:
+    """The optax state of a JAX ``.npz`` (its ``opt/`` leaves, flattened by
+    ``flatten_tree``) as :meth:`FusedAdamW.state_dict`'s {"count", "m",
+    "v"} under the port's names, or None where it holds no moments. The
+    moments sit under ``.mu/<param path>`` and ``.nu/<param path>`` at any
+    depth of the chain (``0/.grad_norm`` then ``1/.count``, ``1/.mu/...``
+    for the clip chain; ``.inner_opt_state/...`` under ``MultiSteps``;
+    ``.inner_states/<group>/.inner_state/...`` under ``multi_transform``,
+    each group holding its own parameters); every ``.count`` must agree.
+    Under ``MultiSteps`` the state also gets "accum": {"mini_step", "acc"},
+    the running mean of the window begun (``.mini_step``,
+    ``.acc_grads/<param path>``)."""
+    parts: Dict[str, Dict[str, np.ndarray]] = {"mu": {}, "nu": {},
+                                               "acc_grads": {}}
+    counts = set()
+    mini_step = None
+    for key, value in flat.items():
+        m = _OPT_LEAF.search(key)
+        if m:
+            parts[m.group(1)][m.group(2)] = _as_float(value)
+        elif key.rsplit("/", 1)[-1] == ".count":
+            counts.add(int(np.asarray(value)))
+        elif key == ".mini_step":
+            mini_step = int(np.asarray(value))
+    if not parts["mu"] or not parts["nu"]:
+        return None
+    if len(counts) != 1:
+        raise ValueError(f"optax state with update counts {sorted(counts)}: "
+                         f"one count expected")
+
+    def named(leaves):
+        return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                for k, v in _jax_state_dict(leaves).items()}
+
+    state: Dict[str, Any] = {"count": counts.pop(), "m": named(parts["mu"]),
+                             "v": named(parts["nu"])}
+    if mini_step is not None:
+        state["accum"] = {"mini_step": mini_step,
+                          "acc": named(parts["acc_grads"])}
+    return state
+
+
 def read_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[dict], dict]:
     """(model state dict, optimizer state or None, manifest) of the port's
     ``<path>.pt`` or, where there is none, the JAX package's
-    ``<path>.npz`` (whose optimizer state, an optax tree, is not read:
-    the optimizer state returned is None)."""
+    ``<path>.npz`` (its optax state read by
+    :func:`_jax_optimizer_state`)."""
     with open(path + ".json") as f:
         meta = json.load(f)
     if os.path.exists(path + ".pt"):
@@ -119,9 +185,10 @@ def read_checkpoint(path: str) -> Tuple[Dict[str, Any], Optional[dict], dict]:
     if not os.path.exists(path + ".npz"):
         raise FileNotFoundError(f"{path}: neither {path}.pt nor {path}.npz")
     with np.load(path + ".npz") as data:
-        mp = f"model{SEP}"
+        mp, op = f"model{SEP}", f"opt{SEP}"
         flat = {k[len(mp):]: data[k] for k in data.files if k.startswith(mp)}
-    return _jax_state_dict(flat), None, meta
+        opt = {k[len(op):]: data[k] for k in data.files if k.startswith(op)}
+    return _jax_state_dict(flat), _jax_optimizer_state(opt), meta
 
 
 def load_state_dict_strict(model: nn.Module, sd: Mapping[str, Any]) -> None:
@@ -150,20 +217,38 @@ def load_state_dict_strict(model: nn.Module, sd: Mapping[str, Any]) -> None:
     model.load_state_dict(cast)
 
 
-def load_checkpoint(path: str, *, model: nn.Module, optimizer=None) -> dict:
+def load_checkpoint(path: str, *, model: nn.Module, optimizer=None,
+                    accumulator=None) -> dict:
     """Load ``<path>`` into ``model`` (strictly) and, where given, into
     ``optimizer``; returns the manifest. Resuming an optimizer from a
-    checkpoint that holds no state the port reads (the JAX package's
-    ``.npz``, or a save without an optimizer) raises: a fresh update count
-    would restart the learning-rate schedule and the bias correction."""
+    checkpoint that holds no optimizer state (a save without one, or a JAX
+    ``.npz`` without moments) raises: a fresh update count would restart
+    the learning-rate schedule and the bias correction. A JAX
+    ``optax.MultiSteps`` window left mid-way goes into ``accumulator`` (the
+    step's :class:`~lightningdot_tpu_torch.training.itm_step.
+    GradAccumulator`), and raises where none is given or it takes fewer
+    micro-batches."""
     sd, opt, meta = read_checkpoint(path)
     if optimizer is not None and opt is None:
         raise ValueError(
-            f"{path}: no optimizer state the port reads (a JAX .npz's optax "
-            "state is not read); cannot resume the optimizer from it")
+            f"{path}: no optimizer state in the checkpoint (saved without "
+            "one); cannot resume the optimizer from it")
+    accum = (opt or {}).get("accum") if optimizer is not None else None
+    if accum and accum["mini_step"]:
+        k = accum["mini_step"]
+        if accumulator is None or accumulator.accum_steps <= k:
+            raise ValueError(
+                f"{path}: the JAX optax.MultiSteps window stands at "
+                f"micro-batch {k}; resuming it needs the step's gradient "
+                f"accumulator with more than {k} micro-batches per update")
     load_state_dict_strict(model, sd)
     if optimizer is not None:
         optimizer.load_state_dict(opt)
+        if accum and accum["mini_step"]:
+            accumulator.load_window(
+                accum["mini_step"], [accum["acc"][n].to(p.device)
+                                     for n, p in zip(optimizer.names,
+                                                     optimizer.params)])
     return meta
 
 

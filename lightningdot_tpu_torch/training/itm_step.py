@@ -125,12 +125,15 @@ def make_kd_fn(teacher, *, T: float = 1.0, n_teacher: int = 10,
     return kd_fn
 
 
-def batch_to_device(batch: Dict[str, Any], device: torch.device
-                    ) -> Dict[str, Any]:
-    """The model inputs of a collated batch (``txts``, ``imgs``, ``caps``,
-    ``valid_mask`` and the KD ``teacher`` grid) as tensors on ``device``;
-    host-only fields are dropped (``jit_train_step``'s ``model_batch``,
-    itm_step.py:230-244)."""
+MODEL_KEYS = ("txts", "imgs", "caps", "valid_mask", "teacher")
+
+
+def batch_to_device(batch: Dict[str, Any], device: torch.device,
+                    keys=MODEL_KEYS) -> Dict[str, Any]:
+    """The model inputs of a collated batch (``keys``: by default ``txts``,
+    ``imgs``, ``caps``, ``valid_mask`` and the KD ``teacher`` grid) as
+    tensors on ``device``; host-only fields are dropped
+    (``jit_train_step``'s ``model_batch``, itm_step.py:230-244)."""
 
     def put(x):
         if x is None:
@@ -144,8 +147,7 @@ def batch_to_device(batch: Dict[str, Any], device: torch.device
             x = host_tensor(x)
         return x.to(device, non_blocking=True)
 
-    return {k: put(batch.get(k)) for k in ("txts", "imgs", "caps",
-                                           "valid_mask", "teacher")}
+    return {k: put(batch.get(k)) for k in keys}
 
 
 def pass_generators(generator: Optional[torch.Generator],
@@ -177,6 +179,21 @@ class GradAccumulator:
         self.accum_steps = accum_steps
         self.mini_step = 0
         self.acc: Optional[list] = None
+
+    def load_window(self, mini_step: int, acc: List[torch.Tensor]) -> None:
+        """Resume a window: ``mini_step`` micro-batches folded into the
+        running mean ``acc`` (one tensor per parameter, in order), as a JAX
+        ``MultiSteps`` state holds them."""
+        if not 0 <= mini_step < self.accum_steps:
+            raise ValueError(f"mini_step {mini_step} outside a window of "
+                             f"{self.accum_steps}")
+        if len(acc) != len(self.params) or any(
+                a.shape != p.shape for a, p in zip(acc, self.params)):
+            raise ValueError("the running mean does not match the "
+                             "parameters")
+        self.mini_step = mini_step
+        self.acc = [a.to(p.device, torch.float32).clone()
+                    for a, p in zip(acc, self.params)] if mini_step else None
 
     @torch.no_grad()
     def add(self) -> bool:

@@ -15,8 +15,13 @@ bfloat16 first moment, and ``first_lr_step``. :func:`make_optimizer`
 (:147-176) returns the same object with float32 state: its math is the
 same (tests/test_loss.py::test_fused_adamw_matches_optax).
 
-Schedules (``schedule_linear``, and pre-training's ``get_lr_sched`` over
-``warmup_linear`` and ``noam_schedule``, optim.py:322-370) are evaluated on
+``lr_mul`` gives the parameters under a name prefix a learning-rate
+factor, in the step size and in the decay: the port's form of the VQA
+driver's ``optax.multi_transform`` over {body, head} under one clip
+(cli/train_vqa.py:131-149), still one AdamW launch a step.
+
+Schedules (``schedule_linear``, and ``get_lr_sched`` over ``warmup_linear``,
+``noam_schedule`` and ``vqa_schedule``, optim.py:322-370) are evaluated on
 the host in float32 at the 0-based update index (torch LambdaLR
 convention); ``first_lr_step=1`` shifts them for the UNITER post-increment
 convention. :meth:`FusedAdamW.state_dict` gives the update count and both
@@ -74,16 +79,34 @@ def warmup_linear(step: int, warmup_step: int, tot_step: int) -> float:
                      / f32(max(1, tot_step - warmup_step))))
 
 
-def get_lr_sched(decay: str, learning_rate: float, warmup_steps: int,
-                 num_train_steps: int) -> Callable[[int], float]:
-    """sched.py:35-52 (``get_lr_sched``, optim.py:350) with the <= 0 ->
-    1e-8 guard: ``linear``, ``invsqrt`` or ``constant``. The VQA schedule
-    comes with VQA (ROADMAP A10)."""
+def vqa_schedule(step: int, warmup_interval: int, decay_interval: int,
+                 decay_start: int, decay_rate: float) -> float:
+    """sched.py:19-31 (``vqa_schedule``, optim.py:337-347), float32: a
+    stepped warm-up (0.25, 0.5, 0.75 over three intervals), then 1, then
+    ``decay_rate`` to the number of decay intervals begun since
+    ``decay_start``."""
     f32 = np.float32
-    if decay not in ("linear", "invsqrt", "constant"):
-        if decay == "vqa":
-            raise NotImplementedError("the VQA schedule comes with VQA "
-                                      "(ROADMAP A10)")
+    step = f32(step)
+    if step < warmup_interval:
+        return 0.25
+    if step < 2 * warmup_interval:
+        return 0.5
+    if step < 3 * warmup_interval:
+        return 0.75
+    if step >= decay_start:
+        num_decay = np.ceil((step - f32(decay_start)) / f32(decay_interval))
+        return float(f32(decay_rate) ** f32(num_decay))
+    return 1.0
+
+
+def get_lr_sched(decay: str, learning_rate: float, warmup_steps: int,
+                 num_train_steps: int, **vqa_kwargs) -> Callable[[int],
+                                                                 float]:
+    """sched.py:35-52 (``get_lr_sched``, optim.py:350-370) with the <= 0
+    -> 1e-8 guard: ``linear``, ``invsqrt``, ``constant`` or ``vqa`` (with
+    ``warm_int``, ``decay_int``, ``decay_st`` and ``decay_rate``)."""
+    f32 = np.float32
+    if decay not in ("linear", "invsqrt", "constant", "vqa"):
         raise ValueError(f"unknown decay {decay}")
 
     def lr(step: int) -> float:
@@ -92,6 +115,10 @@ def get_lr_sched(decay: str, learning_rate: float, warmup_steps: int,
                                                        num_train_steps))
         elif decay == "invsqrt":
             v = f32(learning_rate) * f32(noam_schedule(step, warmup_steps))
+        elif decay == "vqa":
+            v = f32(learning_rate) * f32(vqa_schedule(
+                step, vqa_kwargs["warm_int"], vqa_kwargs["decay_int"],
+                vqa_kwargs["decay_st"], vqa_kwargs["decay_rate"]))
         else:
             v = f32(learning_rate)
         return float(max(v, f32(1e-8)))
@@ -124,7 +151,9 @@ class FusedAdamW:
     tensor. The moments are made at the first step, on the parameters'
     device. Afterwards every parameter's version counter is moved, so that
     cached casts (``Dense.kernel``) see the new weights: the kernel writes
-    through raw pointers, which the counter does not see.
+    through raw pointers, which the counter does not see. ``lr_mul``
+    ({name prefix: factor}) multiplies the learning rate of the parameters
+    under a prefix, in their step size and in their decay.
     """
 
     def __init__(self, model: nn.Module, learning_rate: LearningRate, *,
@@ -132,7 +161,8 @@ class FusedAdamW:
                  eps: float = 1e-8, weight_decay: float = 0.0,
                  max_grad_norm: float = 0.0,
                  state_dtype: torch.dtype = torch.float32,
-                 first_lr_step: int = 0):
+                 first_lr_step: int = 0,
+                 lr_mul: Optional[Dict[str, float]] = None):
         if state_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"state_dtype {state_dtype}: float32 or "
                              f"bfloat16 (the first moment only; the second "
@@ -143,6 +173,9 @@ class FusedAdamW:
         mask = decay_mask(model) if weight_decay else {}
         self.wds = [float(weight_decay) if mask.get(n) else 0.0
                     for n in self.names]
+        self.lr_muls = [next((float(f) for prefix, f in (lr_mul or {}).items()
+                              if n.startswith(prefix)), 1.0)
+                        for n in self.names]
         self.learning_rate = learning_rate
         self.b1, self.b2 = betas
         self.eps = eps
@@ -203,7 +236,7 @@ class FusedAdamW:
         step_size = float(lr * np.sqrt(c2) / c1)
         adamw_(params, grads, self.m, self.v, self.wds, scale,
                step_size=step_size, lr=float(lr), b1=self.b1, b2=self.b2,
-               eps=self.eps)
+               eps=self.eps, lr_muls=self.lr_muls)
         torch.autograd.graph.increment_version(params)
         return norm
 
@@ -245,22 +278,26 @@ def make_fused_adamw(model: nn.Module, learning_rate: LearningRate, *,
                      betas: Tuple[float, float] = (0.9, 0.999),
                      max_grad_norm: float = 0.0,
                      state_dtype: torch.dtype = torch.float32,
-                     first_lr_step: int = 0) -> FusedAdamW:
+                     first_lr_step: int = 0,
+                     lr_mul: Optional[Dict[str, float]] = None
+                     ) -> FusedAdamW:
     """``make_fused_adamw`` (optim.py:284-303): ``first_lr_step`` 0 is the
     DPR/LambdaLR convention, 1 the UNITER post-increment one."""
     return FusedAdamW(model, learning_rate, betas=betas, eps=adam_eps,
                       weight_decay=weight_decay, max_grad_norm=max_grad_norm,
-                      state_dtype=state_dtype, first_lr_step=first_lr_step)
+                      state_dtype=state_dtype, first_lr_step=first_lr_step,
+                      lr_mul=lr_mul)
 
 
 def make_optimizer(model: nn.Module, learning_rate: LearningRate, *,
                    adam_eps: float = 1e-8, weight_decay: float = 0.0,
                    betas: Tuple[float, float] = (0.9, 0.999),
                    max_grad_norm: float = 0.0,
-                   first_lr_step: int = 0) -> FusedAdamW:
+                   first_lr_step: int = 0,
+                   lr_mul: Optional[Dict[str, float]] = None) -> FusedAdamW:
     """``make_optimizer`` (optim.py:147-176): clip + the reference AdamW
     with float32 state, the same math as :func:`make_fused_adamw`."""
     return make_fused_adamw(model, learning_rate, adam_eps=adam_eps,
                             weight_decay=weight_decay, betas=betas,
                             max_grad_norm=max_grad_norm,
-                            first_lr_step=first_lr_step)
+                            first_lr_step=first_lr_step, lr_mul=lr_mul)

@@ -141,7 +141,8 @@ def make_pretrain_step(model: BiEncoderForPretraining,
     ``generator``, a CPU ``torch.Generator``). With a ``teacher``
     (``UniterForPretraining`` on ``device``), every non-itm task whose
     batch carries ``teacher`` adds :func:`kd_loss` (pretrain_step.py:
-    109-121). The metrics stay on the device."""
+    109-121). The metrics stay on the device. ``step_for_task.accumulator``
+    is the gradient accumulator that the steps share."""
     device = resolve_device(device)
     model.to(device)
     accumulator = GradAccumulator(optimizer.params, accum_steps)
@@ -174,6 +175,7 @@ def make_pretrain_step(model: BiEncoderForPretraining,
 
         return step
 
+    step_for_task.accumulator = accumulator   # a resumed window goes here
     return step_for_task
 
 

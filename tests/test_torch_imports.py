@@ -422,3 +422,164 @@ def test_cross_encoder_cli_flags_match_jax(name, unread):
 def test_pretraining_constants_match_jax():
     for name in ("IMG_LABEL_DIM", "BUCKET_SIZE"):
         assert getattr(const, name) == getattr(jconst, name), name
+
+
+# ---------------------------------------------------------------------------
+# data preparation (ROADMAP A12) and the VQA driver (A10)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", [dict(vqa_answers=9), dict(
+    with_soft_labels=True, n_labels=11)], ids=["vqa", "soft_labels"])
+def test_synth_copy_matches_jax(tmp_path, kw):
+    """``make_synth_dataset`` writes the JAX function's records, read back
+    through each package's readers; ``synth_wordpiece_vocab`` the same
+    vocab."""
+    from lightningdot_tpu.data import synth as jsynth
+    from lightningdot_tpu.data.feat_db import DetectFeatDb as JFeatDb
+    from lightningdot_tpu.data.txt_db import TxtTokDb as JTxtDb
+    from lightningdot_tpu_torch.data import synth
+    from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
+    from lightningdot_tpu_torch.data.txt_db import TxtTokDb
+
+    args = dict(n_imgs=5, txts_per_img=3, img_dim=8, min_bb=3, max_bb=7,
+                max_txt_len=12, seed=4, **kw)
+    got = synth.make_synth_dataset(str(tmp_path / "p"), **args)
+    want = jsynth.make_synth_dataset(str(tmp_path / "j"), **args)
+    for cls in (TxtTokDb, JTxtDb):
+        a, b = cls(got[0], -1), cls(want[0], -1)
+        assert a.ids == b.ids and all(a[i] == b[i] for i in b.ids)
+    for cls in (DetectFeatDb, JFeatDb):
+        a = cls(got[1], conf_th=0.2, max_bb=7, min_bb=3)
+        b = cls(want[1], conf_th=0.2, max_bb=7, min_bb=3)
+        assert a.name2nbb == b.name2nbb
+        for name in b.name2nbb:
+            got_arrays, want_arrays = a.get_dump(name), b.get_dump(name)
+            assert got_arrays.keys() == want_arrays.keys()
+            assert ("soft_labels" in want_arrays) == bool(
+                kw.get("with_soft_labels"))
+            for key, arr in want_arrays.items():
+                np.testing.assert_array_equal(got_arrays[key], arr)
+    pv = synth.synth_wordpiece_vocab(str(tmp_path / "pv.txt"), n_roots=50,
+                                     n_conts=40, total=90, seed=2)
+    jv = jsynth.synth_wordpiece_vocab(str(tmp_path / "jv.txt"), n_roots=50,
+                                      n_conts=40, total=90, seed=2)
+    assert pv == jv
+    assert (tmp_path / "pv.txt").read_text() == \
+        (tmp_path / "jv.txt").read_text()
+
+
+def test_lz4_and_lmdb_copies_match_jax(tmp_path):
+    from lightningdot_tpu.data import lz4frame as jlzf
+    from lightningdot_tpu.data.lmdb_reader import open_lmdb as jopen
+    from lightningdot_tpu_torch.data import lz4frame as lzf
+    from lightningdot_tpu_torch.data.lmdb_reader import open_lmdb
+    from tests.lmdb_fixture import write_lmdb
+    from tests.test_lmdb_ingest import _stored_frame
+
+    rng = np.random.default_rng(0)
+    blob = rng.bytes(5000)
+    frame = _stored_frame(blob)
+    assert lzf.decompress(frame) == jlzf.decompress(frame) == blob
+    assert lzf._py_decompress(frame) == blob
+    assert lzf.content_size(frame) == jlzf.content_size(frame) == 5000
+    assert lzf.xxh32(blob, 7) == jlzf.xxh32(blob, 7)
+    items = {f"k{i:04d}".encode(): rng.bytes(int(rng.integers(1, 3000)))
+             for i in range(300)}
+    write_lmdb(str(tmp_path / "db"), items)
+    with open_lmdb(str(tmp_path / "db"), backend="pure") as a, \
+            jopen(str(tmp_path / "db"), backend="pure") as b:
+        assert list(a.items()) == list(b.items())
+        assert len(a) == len(b) == 300
+
+
+def test_prepro_helper_copies_match_jax(tmp_path):
+    """The tokenization of records, the meta, each annotation format's
+    records, the generated-caption log parser and the msgpack_numpy
+    decoder give the JAX CLI's outputs."""
+    import json
+
+    from lightningdot_tpu.cli import prepro as jprepro
+    from lightningdot_tpu.data.synth import synth_wordpiece_vocab
+    from lightningdot_tpu_torch.cli import prepro
+
+    vocab = str(tmp_path / "vocab.txt")
+    roots, conts = synth_wordpiece_vocab(vocab, n_roots=300, n_conts=200,
+                                         total=600, seed=1)
+    tok = prepro.get_tokenizer("bert-base-cased", vocab)
+    jtok = jprepro.get_tokenizer("bert-base-cased", vocab)
+    rng = np.random.default_rng(3)
+    texts = [" ".join(roots[i] + (conts[j] if k else "")
+                      for i, j, k in rng.integers(0, 200, (6, 3)))
+             + " ." for _ in range(20)]
+    for t in texts:
+        assert prepro.bert_tokenize(tok, t) == jprepro.bert_tokenize(jtok, t)
+    assert prepro.meta_for(tok) == jprepro.meta_for(jtok)
+    images = [{"filename": f"COCO_val2014_{i:012d}.jpg", "sentences": [
+        {"sentid": 10 * i + j, "raw": texts[(i + j) % 20]}
+        for j in range(3)]} for i in range(4)]
+    assert prepro.process_image_text_retrieval(
+        images, tok, "coco", "val2014") == \
+        jprepro.process_image_text_retrieval(images, jtok, "coco", "val2014")
+    caps = {"annotations": [{"id": i, "image_id": 7 + i % 2,
+                             "caption": texts[i]} for i in range(6)]}
+    assert prepro.process_caption(caps, tok, "train2014") == \
+        jprepro.process_caption(caps, jtok, "train2014")
+    log = tmp_path / "rt.log"
+    log.write_text("\n".join(texts[:5] + ["", "image 42.jpg:"]
+                             + texts[5:10] + ["", "image 7.jpg:"]))
+    assert prepro.parse_rt_log(str(log)) == jprepro.parse_rt_log(str(log))
+    arr = np.arange(6, dtype=np.float16).reshape(2, 3)
+    rec = {b"features": {b"nd": True, b"type": b"<f2", b"kind": b"",
+                         b"shape": [2, 3], b"data": arr.tobytes()},
+           b"name": [b"x", {b"nested": 1}]}
+    got = prepro._decode_msgpack_numpy(rec)
+    want = jprepro._decode_msgpack_numpy(rec)
+    np.testing.assert_array_equal(got["features"], want["features"])
+    assert json.dumps(got["name"], default=str) == \
+        json.dumps(want["name"], default=str)
+
+
+def _prepro_flags(main):
+    """{task: {flag: default}} of a prepro CLI's parser, read by stopping
+    ``main`` at its parse."""
+    import argparse
+
+    class Got(Exception):
+        pass
+
+    def grab(self, *a, **k):
+        raise Got(self)
+
+    real = argparse.ArgumentParser.parse_args
+    argparse.ArgumentParser.parse_args = grab
+    try:
+        main(["img"])
+    except Got as e:
+        parser = e.args[0]
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    sub = next(a for a in parser._actions
+               if isinstance(a, argparse._SubParsersAction))
+    return {task: {a.dest: (a.default, tuple(a.choices or ()))
+                   for a in p._actions if a.dest != "help"}
+            for task, p in sub.choices.items()}
+
+
+def test_vqa_and_prepro_cli_flags_match_jax():
+    """``train_vqa`` registers the JAX CLI's flags with their defaults,
+    less the option groups' flags that nothing reads, plus ``--device``;
+    ``prepro`` has the JAX CLI's tasks, flags, defaults and choices."""
+    from lightningdot_tpu.cli import prepro as jprepro
+    from lightningdot_tpu.cli import train_vqa as jtrain_vqa
+    from lightningdot_tpu_torch.cli import prepro, train_vqa
+
+    def flags(parser):
+        return {a.dest: a.default for a in parser._actions
+                if a.dest != "help"}
+
+    got, want = (flags(m.build_parser()) for m in (train_vqa, jtrain_vqa))
+    assert got.keys() - want.keys() == {"device"}
+    assert want.keys() - got.keys() == _GROUPS_UNREAD & want.keys()
+    assert {k: got[k] for k in want.keys() & got.keys()} == \
+        {k: want[k] for k in want.keys() & got.keys()}
+    assert _prepro_flags(prepro.main) == _prepro_flags(jprepro.main)

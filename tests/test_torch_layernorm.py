@@ -188,9 +188,10 @@ def test_twins_equal_the_autograd_compositions(hidden, dtype, rate):
 
 @pytest.mark.parametrize("wrapper", ["forward", "backward"])
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(wrapper):
-    """CPU tensors, a width that is not a multiple of 8 or above 1,536, a
+    """CPU tensors, a width that is not a multiple of 8 or above 6,144, a
     tensor off a 16-byte boundary, a mask that is not bool: each raises
-    before any launch."""
+    before any launch. The VQA head's widths, 3,072 and 6,144, pass the
+    shape check and reach the device check."""
     def call(x, res=None, keep=None):
         h = x.shape[-1]
         scale = torch.ones(h)
@@ -206,8 +207,11 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(wrapper):
         for args in ((x,), (x, x), (x, x, keep)):
             with pytest.raises(ValueError, match="CUDA tensors only"):
                 call(*args)
-        for h in (36, 1544):
+        for h in (36, 6152):
             with pytest.raises(ValueError, match="multiple of 8"):
+                call(torch.zeros(4, h, dtype=dt))
+        for h in (1544, 3072, 6144):
+            with pytest.raises(ValueError, match="CUDA tensors only"):
                 call(torch.zeros(4, h, dtype=dt))
         shifted = torch.zeros(4 * 32 + 2, dtype=dt)[2:].view(4, 32)
         with pytest.raises(ValueError, match="16-byte aligned"):

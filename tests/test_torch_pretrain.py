@@ -299,8 +299,13 @@ def test_lr_schedules_match_jax():
         assert optim.noam_schedule(s) == float(joptim.noam_schedule(s))
         assert optim.warmup_linear(s, 4000, 10 ** 5) == float(
             joptim.warmup_linear(s, 4000, 10 ** 5))
-    with pytest.raises(NotImplementedError, match="A10"):
-        optim.get_lr_sched("vqa", 1e-4, 1, 2)
+    vqa = dict(warm_int=3, decay_int=7, decay_st=20, decay_rate=0.2)
+    got = optim.get_lr_sched("vqa", 1e-4, 1, 2, **vqa)
+    want = joptim.get_lr_sched("vqa", 1e-4, 1, 2, **vqa)
+    for s in (0, 2, 3, 5, 6, 8, 9, 19, 20, 21, 27, 28, 40, 130):
+        assert got(s) == float(want(s)), ("vqa", s)
+        assert optim.vqa_schedule(s, 3, 7, 20, 0.2) == float(
+            joptim.vqa_schedule(s, 3, 7, 20, 0.2)), s
 
 
 def test_pretrain_weights_carry_both_ways(tmp_path):
@@ -435,6 +440,59 @@ def test_pretrain_driver_and_resume(synth, tmp_path, monkeypatch):
     assert _count(os.path.join(out, "ckpt", "model_step_10")) == 10
     assert checkpoints.latest_step_checkpoint(
         os.path.join(out, "ckpt"))[1] == 10
+
+
+def test_pretrain_driver_resumes_a_jax_run(synth, tmp_path, monkeypatch):
+    """The port's auto-resume carries on a run the JAX driver started: the
+    JAX ``cli/pretrain.py`` writes ``ckpt/model_step_6.npz`` (weights and
+    optax state), and the port's driver on the same output directory
+    resumes from it (its weights, update count and both moments) and
+    writes model_step_8."""
+    from lightningdot_tpu.cli import pretrain as jcli
+    from lightningdot_tpu.training import checkpoints as jckpt
+
+    out = str(tmp_path / "out")
+    cfg = _write_config(str(tmp_path), synth, out)
+    cmds = ["--config", cfg, "--compute_dtype", "f32"]
+    _, jstate = jcli.main(cmds)
+    path = os.path.join(out, "ckpt", "model_step_6")
+    assert os.path.exists(path + ".npz") and not os.path.exists(path + ".pt")
+    kept = {}
+    real_build, real_load = cli.build_optimizer, cli.load_checkpoint
+
+    def build_optimizer(model, args):
+        kept["opt"], lr_fn = real_build(model, args)
+        return kept["opt"], lr_fn
+
+    def load_checkpoint(p, **kw):
+        meta = real_load(p, **kw)
+        state = kw["optimizer"].state_dict()
+        kept["resumed"] = (p, {k: ({n: t.clone() for n, t in v.items()}
+                                   if isinstance(v, dict) else v)
+                               for k, v in state.items()},
+                           {n: t.detach().clone() for n, t in
+                            kw["model"].state_dict().items()})
+        return meta
+
+    monkeypatch.setattr(cli, "build_optimizer", build_optimizer)
+    monkeypatch.setattr(cli, "load_checkpoint", load_checkpoint)
+    cli.main(cmds + ["--num_train_steps", "8", "--device", "cpu"])
+    resumed_from, opt_state, weights = kept["resumed"]
+    assert resumed_from == path and opt_state["count"] == 6
+    jparams, jopt, _ = jckpt.load_checkpoint(
+        path, model_template=jstate.params,
+        optimizer_template=jstate.opt_state)
+    want = pretrain_state_dict_from_jax(jax.tree.map(np.asarray, jparams))
+    for n, w in want.items():
+        np.testing.assert_array_equal(weights[n].numpy(), w, err_msg=n)
+    # optax.MultiSteps over (clip, the reference AdamW)
+    inner = jopt.inner_opt_state[1]
+    mu = pretrain_state_dict_from_jax(jax.tree.map(np.asarray, inner.mu))
+    for n, w in mu.items():
+        np.testing.assert_array_equal(opt_state["m"][n].numpy(), w,
+                                      err_msg=n)
+    assert kept["opt"].count == 8
+    assert _count(os.path.join(out, "ckpt", "model_step_8")) == 8
 
 
 def test_pretrain_preemption_checkpoint_and_resume(synth, tmp_path):

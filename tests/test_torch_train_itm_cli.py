@@ -434,22 +434,114 @@ def test_strict_load_rejects_shape_and_extra_keys(tmp_path):
 
 
 def test_optimizer_resume_needs_the_ports_optimizer_state(tmp_path):
-    """A JAX .npz (its optax state is not read) or a save without an
-    optimizer cannot resume one: the load raises, and a model-only load of
-    the same files still works."""
+    """A save without an optimizer cannot resume one: the load raises, and
+    a model-only load of the same file still works. A JAX .npz with its
+    optax state resumes: the update count and both moments come back under
+    the port's names (the cases of :func:`test_jax_optimizer_state_resumes`
+    hold the next update)."""
     model = _Tiny()
     opt = optim.FusedAdamW(model, 1e-3)
-    jpath = str(tmp_path / "j")
-    jckpt.save_checkpoint(jpath, model={"w": np.zeros(8, np.float32),
-                                        "b": np.ones(4, np.float32)},
-                          optimizer={"count": np.int32(5)})
     path = str(tmp_path / "m")
     checkpoints.save_checkpoint(path, model=_Tiny())
-    for p in (jpath, path):
-        with pytest.raises(ValueError, match="no optimizer state"):
-            checkpoints.load_checkpoint(p, model=model, optimizer=opt)
-        checkpoints.load_checkpoint(p, model=model)
+    with pytest.raises(ValueError, match="no optimizer state"):
+        checkpoints.load_checkpoint(path, model=model, optimizer=opt)
+    checkpoints.load_checkpoint(path, model=model)
     assert opt.count == 0
+    params = {"w": jnp.arange(8, dtype=jnp.float32), "b": jnp.ones(4)}
+    tx = joptim.make_optimizer(1e-3, max_grad_norm=1.0)
+    state = tx.init(params)
+    grads = {"w": jnp.full(8, 0.5), "b": jnp.full(4, -0.25)}
+    for _ in range(5):
+        updates, state = tx.update(grads, state, params)
+        params = optax.apply_updates(params, updates)
+    jpath = str(tmp_path / "j")
+    jckpt.save_checkpoint(jpath, model=params, optimizer=state)
+    checkpoints.load_checkpoint(jpath, model=model, optimizer=opt)
+    assert opt.count == 5
+    got = opt.state_dict()
+    for key, tree in (("m", state[1].mu), ("v", state[1].nu)):
+        for name in ("w", "b"):
+            np.testing.assert_array_equal(got[key][name].numpy(),
+                                          np.asarray(tree[name]))
+
+
+def _resume_case(chain, lr_fn, params):
+    """(tx, apply): a JAX optimizer the drivers build, and one update or
+    micro-step ``apply(grads, state, params) -> (params, state)``."""
+    kw = dict(adam_eps=1e-6, weight_decay=0.01, betas=(0.9, 0.98),
+              max_grad_norm=1.0, first_lr_step=1)
+    if chain.startswith("fused"):
+        tx = joptim.make_fused_adamw(
+            lr_fn, state_dtype=jnp.bfloat16 if chain == "fused_bf16" else None,
+            **kw)
+        return tx, lambda g, s, p: tx.apply(g, s, p)
+    tx = joptim.make_optimizer(lr_fn, **kw)
+    if chain.startswith("multisteps"):
+        tx = optax.MultiSteps(tx, every_k_schedule=2)
+
+    def apply(g, s, p):
+        updates, s = tx.update(g, s, p)
+        return optax.apply_updates(p, updates), s
+
+    return tx, apply
+
+
+@pytest.mark.parametrize("chain,micro_steps", [
+    ("clip_chain", 3), ("fused", 3), ("fused_bf16", 3),
+    ("multisteps_boundary", 4), ("multisteps_mid_window", 5)])
+def test_jax_optimizer_state_resumes(tmp_path, chain, micro_steps):
+    """A JAX .npz written by ``make_optimizer`` (clip + the reference
+    AdamW; under ``optax.MultiSteps`` at an update boundary and mid-way
+    through a window) or by ``make_fused_adamw`` (a float32 or a bfloat16
+    first moment, the latter stored as 2-byte leaves) resumes in the port:
+    the next update equals JAX's within 1e-5, and the count and the
+    schedule carry (UNITER's first_lr_step 1, decay, clip). A window left
+    mid-way goes into the step's accumulator; without one the load
+    raises."""
+    rng = np.random.default_rng(3)
+    params = {"w": jnp.asarray(rng.standard_normal(8), jnp.float32),
+              "b": jnp.asarray(rng.standard_normal(4), jnp.float32)}
+    j_lr = joptim.schedule_linear(1e-2, 2, 10)
+    tx, apply = _resume_case(chain, j_lr, params)
+    state = tx.init(params)
+    grads = [{k: jnp.asarray(rng.standard_normal(v.shape), jnp.float32)
+              for k, v in params.items()} for _ in range(micro_steps + 1)]
+    for g in grads[:-1]:
+        params, state = apply(g, state, params)
+    path = str(tmp_path / "model_step_2")
+    jckpt.save_checkpoint(path, model=params, optimizer=state, step=2)
+
+    model = _Tiny()
+    accum = 2 if chain.startswith("multisteps") else 1
+    opt = optim.make_fused_adamw(
+        model, optim.schedule_linear(1e-2, 2, 10), adam_eps=1e-6,
+        weight_decay=0.01, betas=(0.9, 0.98), max_grad_norm=1.0,
+        first_lr_step=1, state_dtype=(torch.bfloat16 if chain == "fused_bf16"
+                                      else torch.float32))
+    acc = itm_step.GradAccumulator(opt.params, accum)
+    if chain == "multisteps_mid_window":
+        with pytest.raises(ValueError, match="micro-batch 1"):
+            checkpoints.load_checkpoint(path, model=_Tiny(),
+                                        optimizer=optim.make_optimizer(
+                                            _Tiny(), 1e-2))
+    assert checkpoints.load_checkpoint(path, model=model, optimizer=opt,
+                                       accumulator=acc)["step"] == 2
+    assert opt.count == micro_steps // accum
+    assert acc.mini_step == micro_steps % accum
+    for n, p in model.named_parameters():
+        np.testing.assert_array_equal(p.detach().numpy(),
+                                      np.asarray(params[n]))
+    params, state = apply(grads[-1], state, params)
+    for n, p in model.named_parameters():
+        p.grad = torch.from_numpy(np.array(grads[-1][n]))
+    if acc.add():
+        opt.step()
+    assert opt.count == (micro_steps + 1) // accum
+    for n, p in model.named_parameters():
+        want = np.asarray(params[n])
+        np.testing.assert_allclose(p.detach().numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=n)
 
 
 def test_optimizer_state_round_trips(tmp_path):
