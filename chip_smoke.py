@@ -77,7 +77,8 @@ Phases, each of which exits non-zero on failure (no result is printed):
 10. the cross-encoder (ROADMAP A9), each at UNITER-base width
    (configs/img_base.json) with random weights from ``--seed`` plus
    ``TEACHER_NOISE``: ``rerank`` (``cli/rerank.main`` over synthetic DBs
-   with a teacher directory the port saved, stage 2 on the fly in bf16;
+   with a teacher directory the port saved, stage 2 on the fly in float32
+   as JAX's teacher scores;
    pairs/s; a profile of one 128-pair ``CrossScorer`` block; f32 card vs
    CPU scores at 2 layers beside TF32; bf16 vs f32 at 12 layers;
    ``cli/inf_itm``'s results.bin through ``--score_file`` equal to the
@@ -86,7 +87,8 @@ Phases, each of which exits non-zero on failure (no result is printed):
    f32 card vs CPU at 2 layers and bf16 vs f32 at 12, each beside a
    control), ``kd`` (``cli/train_itm.main --teacher_checkpoint`` beside the
    same driver without KD; the teacher's forward over a step's 640-pair
-   grid) and ``pretrain_kd`` (``cli/pretrain.main`` with a one-tower
+   grid, and B3's float32 form at its rows against the twin's cuBLAS
+   float32 GEMMs) and ``pretrain_kd`` (``cli/pretrain.main`` with a one-tower
    teacher at ``PRE_KD_LAYERS`` layers, then one update per non-itm task).
    The driver phases hold a kernel row at every bf16 shape they recorded
    that no earlier path held;
@@ -98,7 +100,21 @@ Phases, each of which exits non-zero on failure (no result is printed):
    learning on a fixed batch, ``evaluate_vqa`` card vs CPU;
 12. ``prepro`` (A12): ``cli/prepro.py``'s ``img`` and ``txt`` tasks over 500
    region files and 2,500 COCO-style captions (images/s, captions/s, every
-   record read back), then ``cli/eval_itm`` on the card over the result.
+   record read back), then ``cli/eval_itm`` on the card over the result;
+13. ``dist`` (A11): two ranks on the one card over gloo (processes of this
+   script, ``--dist_worker``) at coco_ft.json's width, 32 rows each of a
+   global batch of 64, 3 ITM steps in float32 (TF32 off), float32 with a
+   hard negative and bf16, held against one process on the global batch
+   (float32 also against one process's update, where a planted fault must
+   fail), the ranks' weights bit-equal, bf16 at every step within the
+   bf16-vs-f32 bound beside a control that must fail, a kernel row at
+   every bf16 shape the ranks ran; the step time of two ranks against one
+   process and the collectives' times;
+   ``cli/train_itm`` under ``torch.distributed.run`` (one writer, one
+   result); NCCL at world 1 bit-equal to no group (two NCCL ranks where
+   there are two cards); the bf16 and int8 Retriever and
+   ``DenseShardedIndex`` over ``DeviceMesh([cuda:0, cuda:0])`` against
+   the unsharded ones (``dist_phase``).
 
 The kernel rows also hold the training kernels at the step's shapes: the
 FFN forward writing h1 and gelu(h1) and dh1 at 2,048 and 4,096 rows (in
@@ -230,18 +246,36 @@ PATH_KERNELS.update({
 # LayerNorm at 3,072 and 6,144 through B1's forward and backward), and the
 # attention forward of its validation
 PATH_KERNELS["vqa"] = PATH_KERNELS["itm_train"] + ("attention",)
-# the FMA forms that a bf16 path must not launch
+# the dist phase (ROADMAP A11): every rank's bf16 steps (coco_ft.json's
+# dropout 0.1) every bf16 training kernel; its float32 steps (dropout 0)
+# the FMA forms and the attention forward; the sharded Retriever the
+# query paths' kernels (bf16; the int8 tower's B4)
+PATH_KERNELS["dist"] = PATH_KERNELS["itm_train"]
+PATH_KERNELS["dist_f32"] = ("layernorm", "layernorm_bwd", "attention",
+                            "ffn", "ffn_dh1", "adamw")
+PATH_KERNELS["dist_sharded_bf16"] = PATH_KERNELS["text_bf16"]
+PATH_KERNELS["dist_sharded_int8"] = PATH_KERNELS["int8_serving"]
+# re-ranking and KD: the cross-encoder teacher scores in float32, as
+# JAX's does, through the float32 FFN (an FMA form), beside the bf16
+# bi-encoder's kernels
+PATH_KERNELS["rerank"] = ("layernorm", "attention", "ffn_mma", "ffn")
+PATH_KERNELS["kd"] = PATH_KERNELS["kd"] + ("ffn",)
+# the FMA forms that a bf16 path must not launch, and those that a path's
+# float32 part (the teachers) does launch
 FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
+FMA_ALLOWED = {"rerank": ("ffn",), "kd": ("ffn",)}
 
 
 def hold_path(path, counts):
     """Emit a path's launch counts; fail if a kernel it must launch did not
-    run, or (bf16 paths) an FMA form did."""
+    run, or (bf16 paths) an FMA form did, other than its float32 part's."""
     emit(phase="main_path_launches", path=path, **counts)
     check(all(counts[k] > 0 for k in PATH_KERNELS[path]),
           f"{path}: a kernel of the path was not launched: {counts}")
-    check(path.endswith("f32") or all(counts[k] == 0 for k in FMA_KERNELS),
-          f"{path}: the bf16 path went through an FMA kernel: {counts}")
+    check(path.endswith("f32") or all(
+        counts[k] == 0 for k in FMA_KERNELS
+        if k not in FMA_ALLOWED.get(path, ())),
+        f"{path}: the bf16 path went through an FMA kernel: {counts}")
 # the Philox keep masks: at rate 0.1 the kept fraction of the >= 1e6 draws
 # read from the kernels must be 0.9 within this
 KEEP_FRACTION_TOL = 0.005
@@ -2076,7 +2110,7 @@ def train_phase(args, device_name):
     # speed, at the fine-tuning configuration
     model = build(torch.bfloat16, 0.1)
     step = make_itm_train_step(model, make_optimizer(
-        model, schedule_linear(2e-5, 100, 1000), max_grad_norm=2.0),
+        model, schedule_linear(DIST_LR, 0, 1000), max_grad_norm=2.0),
         device=DEVICE)
     dropout_gen = torch.Generator().manual_seed(args.seed)
     for i in range(3):
@@ -3018,9 +3052,13 @@ TEACHER_CONFIG = "configs/img_base.json"
 # then score apart and rankings mean something
 TEACHER_NOISE = 0.05
 # the re-ranking split: images x captions (COCO's test split is 5,000 x 5)
-# and the small split of the float32 checks
-RERANK_IMAGES = 100
+# and the small split of the float32 checks. The teacher scores in float32
+# (as JAX's): 30 images keep stage 2 at 7,500 pairs (150 text queries x 30
+# images + 30 image queries x 100 texts)
+RERANK_IMAGES = 30
 RERANK_F32_IMAGES = 20
+# teacher training's split (self-mining draws 31 negatives a group)
+TEACHER_IMAGES = 100
 # teacher training: steps per variant, groups per batch, and the
 # fixed-batch learning check (LEARN_STEPS steps at LEARN_LR; the mean of
 # the last five losses under TEACHER_LEARN_FRAC of the first)
@@ -3108,9 +3146,11 @@ def rerank_phase(args, device_name):
     """Two-stage retrieval at full width: the port's ``cli/rerank.main`` on
     the card over synthetic DBs of ``RERANK_IMAGES`` x 5 captions (stage 1
     the coco_eval.json bi-encoder, stage 2 a UNITER-base teacher directory
-    that the port saved, scored on the fly in bf16): recall dicts, stage-2
-    pairs/s, the path's launches and a kernel row at every bf16 shape it
-    recorded; a profile of one ``CrossScorer`` block of 128 pairs; float32
+    that the port saved, scored on the fly in float32, as JAX's teacher
+    scores): recall dicts, stage-2 pairs/s, the path's launches and a
+    kernel row at every bf16 shape it recorded; a profile of one
+    ``CrossScorer`` block of 128 pairs in bf16, and the block's time in
+    float32; float32
     rank scores on the card against the CPU at 2 layers, beside TF32 as
     the control; bf16 against f32 at 12 layers (score cosine, top-10
     selections), beside float32 at 3 mantissa bits as the control;
@@ -3171,7 +3211,8 @@ def rerank_phase(args, device_name):
              stage2_pairs=timed["pairs"], stage2_seconds=timed["seconds"],
              stage2_pairs_per_s=timed["pairs"] / timed["seconds"],
              cli_seconds=cli_s, recall=out, device=device_name)
-        check(timed["pairs"] == 100 * RERANK_IMAGES * 6,
+        n = RERANK_IMAGES
+        check(timed["pairs"] == 5 * n * min(100, n) + n * min(100, 5 * n),
               f"rerank: stage 2 scored {timed['pairs']} pairs")
         check(all(np.isfinite(v) for r in out.values() for v in r.values()),
               f"rerank: {out}")
@@ -3192,11 +3233,19 @@ def rerank_phase(args, device_name):
         emit_profile("rerank", 128, lambda: scorer.score_pairs(*pairs), p50,
                      calls=5)
 
-        # bf16 against f32 at 12 layers, on the same pairs
-        read = {}
+        # bf16 against f32 at 12 layers, on the same pairs; the f32 block's
+        # time (the CLI's teacher) beside the bf16 one
+        read, block_ms = {}, {}
         for dtype in (torch.bfloat16, torch.float32):
             model.compute_dtype = dtype
             read[dtype] = scorer.score_pairs(*pairs)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            scorer.score_pairs(*pairs)
+            block_ms[str(dtype)[6:]] = (time.perf_counter() - t) * 1e3
+        emit(phase="rerank_block", pairs=128, ms=block_ms,
+             f32_over_bf16=block_ms["float32"] / block_ms["bfloat16"],
+             device=device_name)
         s16, s32 = read[torch.bfloat16], read[torch.float32]
         spread = float(s32.max() - s32.min())
         c16, c32 = s16 - s16.mean(), s32 - s32.mean()
@@ -3319,11 +3368,11 @@ def train_teacher_phase(args, device_name):
     recorder = ShapeRecorder()
     counts = {}
     with tempfile.TemporaryDirectory() as tmp:
-        txt_dir, img_dir = write_eval_dbs(Path(tmp) / "db", RERANK_IMAGES, 5,
+        txt_dir, img_dir = write_eval_dbs(Path(tmp) / "db", TEACHER_IMAGES, 5,
                                           args.seed + 15)
-        emit(phase="setup_train_teacher", images=RERANK_IMAGES,
+        emit(phase="setup_train_teacher", images=TEACHER_IMAGES,
              reduced=[f"{TEACHER_STEPS} steps a variant (the reference "
-                      f"trains 5,000+)", f"{RERANK_IMAGES} x 5 synthetic "
+                      f"trains 5,000+)", f"{TEACHER_IMAGES} x 5 synthetic "
                       f"pairs", "random weights (no uniter-base.pt)",
                       "the float32 card-vs-CPU check at 2 layers"])
         base = ["--model_config", TEACHER_CONFIG, "--train_txt_db", txt_dir,
@@ -3567,8 +3616,9 @@ def kd_phase(args, device_name):
              step_ms_ratio=read["kd"]["p50"] / read["plain"]["p50"])
         hold_path("kd", counts)
 
-        # the teacher's forward alone on one step's grid
-        teacher = load_cross_encoder(tdir, compute_dtype=torch.bfloat16,
+        # the teacher's forward alone on one step's grid, in float32 as the
+        # driver loads it
+        teacher = load_cross_encoder(tdir, compute_dtype=torch.float32,
                                      device=DEVICE)
         tdb, idb = TxtTokDb(txt_dir, 60), DetectFeatDb(img_dir, 0.2, 100, 10)
         from lightningdot_tpu_torch.data.itm import ItmFastDataset
@@ -3592,14 +3642,22 @@ def kd_phase(args, device_name):
             lat.append((time.perf_counter() - t) * 1e3)
         p50 = statistics.median(lat)
         rows_ = int(np.asarray(grid["attn_masks"]).shape[1]) * 640
-        emit(phase="kd_teacher_forward", pairs=640,
+        emit(phase="kd_teacher_forward", pairs=640, dtype="float32",
              joint_len=int(np.asarray(grid["attn_masks"]).shape[1]),
              rows=rows_, ms_p50=p50,
              grid_bytes=int(np.asarray(grid["img_feat"]).nbytes),
              device=device_name)
         emit_profile("kd_teacher", 640, forward, p50, calls=3)
+        del teacher, staged
+        # B3's float32 FMA form at the teacher's rows against its twin,
+        # whose two products are cuBLAS float32 GEMMs with TF32 off
+        check(not torch.backends.cuda.matmul.allow_tf32, "kd: TF32 is on")
+        f32_rows = ffn_rows(rows_, torch.float32, device_name,
+                            make_randn(12)[0], False, timing=(2, 2),
+                            path="kd_teacher_f32",
+                            plain="cuBLAS float32 GEMM pair, TF32 off")
     rows, _ = hold_recorded("kd", recorder.seen, device_name)
-    return dict(counts=counts, rows=rows)
+    return dict(counts=counts, rows=rows + f32_rows)
 
 
 def pretrain_kd_phase(args, device_name):
@@ -4146,6 +4204,666 @@ def prepro_phase(args, device_name):
               f"prepro: eval_itm over the prepared DBs: {got}")
 
 
+# ---------------------------------------------------------------------------
+# dist (ROADMAP A11): two ranks on the one card over gloo, the driver under
+# torch.distributed.run, NCCL at world 1, the corpus over a DeviceMesh
+# ---------------------------------------------------------------------------
+
+# rows per rank (the global batch is 64, coco_ft.json's), the held steps,
+# and more bf16 steps for timing only
+DIST_LOCAL_BATCH = 32
+DIST_STEPS = 3
+DIST_TIMED_STEPS = 5
+# float32 with TF32 off, two ranks against one process on the global
+# batch: each step's loss, and the final weights (relative L2 per leaf,
+# against the leaf's own norm): the bounds of the driver's parity with
+# the JAX driver (tests/test_torch_train_itm_cli.py)
+DIST_LOSS_RTOL = 1e-5
+DIST_LEAF_RTOL = 1e-4
+# the held steps run at coco_ft.json's peak learning rate without warmup,
+# so that an AdamW step moves every element that has a gradient by ~lr
+# (2e-5; ~1e-3 of a leaf's norm a step). Beside the bounds above, the
+# whole model's difference from one process over the update one process
+# made (||W_ranks - W_one|| / ||W_one - W_0||, every leaf in one norm):
+# a no-op or a wrong update reads ~1 there
+DIST_LR = 2e-5
+DIST_UPDATE_RTOL = 1e-3
+# (name, dtype, hard negatives per item)
+DIST_VARIANTS = (("f32", "float32", 0), ("f32_hn", "float32", 1),
+                 ("bf16", "bfloat16", 0))
+# a planted fault that the float32 bounds must refuse, run by the same
+# ranks: the row gather's backward without its all-reduce (each rank
+# keeps only its own queries' gradient of its rows; the parameter
+# gradients are still summed, so the ranks stay bit-equal)
+DIST_FAULT = ("f32_fault", "float32", 0)
+# the driver under torch.distributed.run: train and val split images (x 5
+# captions), one epoch
+DIST_DRIVER_IMAGES = (64, 16)
+# the sharded corpus: two shards on the one card; the index check's corpus
+# and k (k wider than a shard of 256 rows)
+DIST_INDEX_ROWS = 500
+DIST_INDEX_K = 300
+DIST_WORKER_TIMEOUT = 600
+# the keys of the driver's results JSON that hold seconds: they differ
+# from rank to rank; every other key must agree
+DIST_TIMING_KEYS = ("init_mine_s", "train_s", "eval_s", "mine_s")
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _dist_master(seed):
+    """coco_ft.json's towers at full width (dropout 0), random weights from
+    ``seed`` with noise of 0.02 on every leaf, so that no leaf starts at
+    zero: an Adam step on a leaf whose exact gradient is 0 (the attention
+    key biases) is rounding noise, and a zero leaf would be all noise."""
+    from lightningdot_tpu_torch.models import BiEncoder, init_tower_
+
+    master = BiEncoder(*train_configs(0.0))
+    gen = torch.Generator().manual_seed(seed)
+    init_tower_(master.txt_model, gen)
+    init_tower_(master.img_model, gen)
+    return perturb_(master, 0.02, seed + 1).state_dict()
+
+
+def _dist_batches(seed, negs):
+    """DIST_STEPS global batches of 2 x DIST_LOCAL_BATCH items (the batch
+    one process's collate makes: all positives, then all negatives), and
+    each rank's part of each."""
+    from lightningdot_tpu_torch.data.itm import (CollateConfig,
+                                                 itm_fast_collate)
+
+    n = 2 * DIST_LOCAL_BATCH
+    data = SynthImages(DIST_STEPS * n * (1 + negs), NUM_BB, seed, "dist")
+    glob, local = [], [[], []]
+    for s in range(DIST_STEPS):
+        rows = n * (1 + negs)
+        b = itm_fast_collate([data[i] for i in range(s * rows,
+                                                     (s + 1) * rows)],
+                             CollateConfig(fixed_batch=rows))
+
+        def take(idx):
+            return {"txts": {k: v[idx] for k, v in b["txts"].items()},
+                    "imgs": {k: v[idx] for k, v in b["imgs"].items()},
+                    "caps": None,
+                    "valid_mask": np.ones((len(idx) // (1 + negs),),
+                                          np.float32)}
+
+        glob.append(take(np.arange(rows)))
+        for r in range(2):
+            pos = np.arange(r * DIST_LOCAL_BATCH, (r + 1) * DIST_LOCAL_BATCH)
+            local[r].append(take(np.concatenate(
+                [pos] + [n + pos] * negs)))
+    return glob, local
+
+
+def _dist_step(state, dtype, negs, device, dropout=0.0):
+    """coco_ft.json's step (clip 2.0, AdamW, the linear schedule from lr
+    DIST_LR without warmup) on a model holding ``state``."""
+    from lightningdot_tpu_torch.models import BiEncoder
+    from lightningdot_tpu_torch.training.itm_step import make_itm_train_step
+    from lightningdot_tpu_torch.training.optim import (make_optimizer,
+                                                       schedule_linear)
+
+    model = BiEncoder(*train_configs(dropout),
+                      compute_dtype=getattr(torch, dtype))
+    model.load_state_dict(state)
+    model.train()
+    step = make_itm_train_step(model, make_optimizer(
+        model, schedule_linear(DIST_LR, 0, 1000), max_grad_norm=2.0),
+        num_hard_negatives=negs, device=device)
+    return model, step
+
+
+def _timed_steps(step, batches, gen_of):
+    losses, lat = [], []
+    for i, b in enumerate(batches):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = step(b, gen_of(i))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(m["loss"]))
+    return losses, lat
+
+
+class _CollectiveClock:
+    """Host-clock time of each collective (the card synchronized before
+    and after), by kind: the gradient all-reduce (the flat buffers), the
+    row gathers' all-reduce in the backward, and the all-gathers (rows,
+    valid masks, metrics)."""
+
+    def __init__(self, grad_numel):
+        self.grad_numel = grad_numel
+        self.ms = {}
+        self._real = {}
+
+    def _wrap(self, name, fn):
+        def timed(tensor_or_list, *a, **k):
+            t = tensor_or_list if name == "all_reduce" else a[0]
+            kind = name
+            if name == "all_reduce":
+                kind = ("grad_all_reduce" if t.numel() >= self.grad_numel
+                        else "gather_backward_all_reduce")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tensor_or_list, *a, **k)
+            torch.cuda.synchronize()
+            ms, n = self.ms.get(kind, (0.0, 0))
+            self.ms[kind] = (ms + (time.perf_counter() - t0) * 1e3, n + 1)
+            return out
+        return timed
+
+    def __enter__(self):
+        dist = torch.distributed
+        for name in ("all_reduce", "all_gather"):
+            self._real[name] = getattr(dist, name)
+            setattr(dist, name, self._wrap(name, self._real[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._real.items():
+            setattr(torch.distributed, name, fn)
+
+
+def dist_worker(cfg):
+    """One rank of the ``steps`` scenario (``dist_phase``): every variant's
+    DIST_STEPS steps on this rank's part of the global batches, the
+    launch counts, losses, step times and a weight digest (the DIST_FAULT
+    variant with the gather's backward broken); rank 0 saves the float32
+    variants' weights; then DIST_TIMED_STEPS more bf16 steps and one more
+    step under the profiler and the collective clock, at coco_ft.json's
+    dropout 0.1 (each rank's masks keyed on its rank). Rank 0 records the
+    bf16 shapes at which its steps call the kernels (``ShapeRecorder``).
+    The ``nccl1`` scenario: the bf16 steps without a group, again without
+    one (the control), and in an NCCL group of one, bit for bit."""
+    from lightningdot_tpu_torch.ops import _build, launch_counts, \
+        reset_launch_counts
+    from lightningdot_tpu_torch.parallel import mesh
+    from lightningdot_tpu_torch.parallel.mesh import initialize_distributed
+    from lightningdot_tpu_torch.utils.misc import state_digest
+    from lightningdot_tpu_torch.utils.runtime import step_generator
+
+    rank, world = cfg["rank"], cfg["world"]
+    device = torch.device(DEVICE, cfg["device_index"])
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.lib()
+    state = torch.load(cfg["master"])
+    out = {}
+    if cfg["scenario"] == "nccl1":
+        glob, _ = _dist_batches(cfg["seed"], 0)
+        runs = {}
+        for run in ("no_group", "no_group_again", "nccl_world_1"):
+            if run == "nccl_world_1":
+                initialize_distributed(
+                    "nccl", init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                    world_size=1, rank=0)
+            model, step = _dist_step(state, "bfloat16", 0, device)
+            losses, _ = _timed_steps(step, glob, lambda i: None)
+            runs[run] = (losses, {k: v.detach().cpu() for k, v in
+                                  model.state_dict().items()})
+            del model, step
+        base_l, base_w = runs["no_group"]
+        for run in ("no_group_again", "nccl_world_1"):
+            losses, w = runs[run]
+            out[run] = dict(losses=losses, losses_equal=losses == base_l,
+                            weights_equal=all(torch.equal(w[k], v)
+                                              for k, v in base_w.items()))
+        out["backend"] = torch.distributed.get_backend()
+        torch.distributed.destroy_process_group()
+        print("DIST " + json.dumps(out), flush=True)
+        return 0
+
+    initialize_distributed(cfg["backend"],
+                           init_method=f"tcp://127.0.0.1:{cfg['port']}",
+                           world_size=world, rank=rank)
+    recorder = ShapeRecorder()
+
+    def broken_backward(real):
+        return staticmethod(
+            lambda ctx, g: g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows])
+
+    for name, dtype, negs in cfg["variants"]:
+        _, local = _dist_batches(cfg["seed"], negs)
+        model, step = _dist_step(state, dtype, negs, device)
+        reset_launch_counts()
+        with (_patched(mesh._GatherRows, "backward", broken_backward)
+              if name == DIST_FAULT[0] else contextlib.nullcontext()), \
+                (recorder if rank == 0 and dtype == "bfloat16"
+                 else contextlib.nullcontext()):
+            losses, lat = _timed_steps(step, local[rank], lambda i: None)
+        counts = launch_counts()
+        row = dict(losses=losses, ms=lat, counts=counts,
+                   digest=state_digest(model), device=str(device),
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        if rank == 0 and dtype == "float32":
+            torch.save({k: v.detach().cpu() for k, v in
+                        model.state_dict().items()},
+                       os.path.join(cfg["workdir"], f"{name}.pt"))
+        if dtype == "bfloat16":
+            del model, step
+            model, step = _dist_step(state, dtype, negs, device, 0.1)
+
+            def gen(i):
+                return step_generator(cfg["seed"], i, rank)
+
+            reset_launch_counts()
+            with recorder if rank == 0 else contextlib.nullcontext():
+                _, row["timed_ms"] = _timed_steps(
+                    step, (local[rank] * 2)[:DIST_TIMED_STEPS], gen)
+            row["timed_counts"] = launch_counts()
+            # the gradient buffers are the only collectives this large
+            clock = _CollectiveClock(
+                sum(p.numel() for p in model.parameters()) // 4)
+            with clock:
+                step(local[rank][0], gen(DIST_TIMED_STEPS))
+            row["collective_ms"] = clock.ms
+            from torch.profiler import profile
+            with profile(activities=_profile_activities()) as prof:
+                step(local[rank][0], gen(DIST_TIMED_STEPS + 1))
+                torch.cuda.synchronize()
+            row["profile_collectives"] = sorted(
+                ([e.key, e.cpu_time_total / 1e3, e.count]
+                 for e in prof.key_averages()
+                 if any(w in e.key.lower() for w in (
+                     "all_reduce", "allreduce", "all_gather", "allgather",
+                     "gloo", "nccl"))),
+                key=lambda r: -r[1])[:8]
+            row["profile"] = _device_stats(prof, 1)
+        out[name] = row
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["shapes"] = sorted(recorder.seen, key=str)
+    torch.distributed.destroy_process_group()
+    print("DIST " + json.dumps(out), flush=True)
+    return 0
+
+
+def _start_dist(cfgs):
+    """One ``chip_smoke.py --dist_worker`` process per config, all started
+    together."""
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist_worker",
+         json.dumps(c)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for c in cfgs]
+
+
+def _collect_dist(procs, timeout=DIST_WORKER_TIMEOUT):
+    """Wait for every worker of ``_start_dist``; each one's DIST result."""
+    outs = [""] * len(procs)
+    try:
+        for i, p in enumerate(procs):
+            outs[i] = p.communicate(timeout=timeout)[0]
+    finally:
+        for i, p in enumerate(procs):
+            if p.poll() is None:
+                p.kill()
+                outs[i] += p.communicate()[0]
+    results = []
+    for p, o in zip(procs, outs):
+        check(p.returncode == 0, f"dist worker failed (rc {p.returncode}):"
+              f"\n{o[-4000:]}")
+        lines = [ln for ln in o.splitlines() if ln.startswith("DIST ")]
+        check(len(lines) == 1, f"dist worker printed no result:\n{o[-4000:]}")
+        results.append(json.loads(lines[0][len("DIST "):]))
+    return results
+
+
+def _dist_leaf_rel_l2(got, want):
+    """Worst relative L2 over the leaves, each against its own norm (the
+    driver parity test's measure)."""
+    return max(float((got[k].double() - w.double()).norm())
+               / max(float(w.double().norm()), 1e-12)
+               for k, w in want.items())
+
+
+def _dist_driver(args, workdir, device_name):
+    """``python -m torch.distributed.run --nproc_per_node 2 -m
+    lightningdot_tpu_torch.cli.train_itm ... --device cuda:0
+    --dist_backend gloo`` over synthetic DBs, one epoch: exactly one set of
+    ``biencoder.*`` files (rank 0's), and the same results JSON on both
+    ranks, seconds aside."""
+    n_train, n_val = DIST_DRIVER_IMAGES
+    train = write_eval_dbs(workdir / "train", n_train, 5, args.seed + 31)
+    val = write_eval_dbs(workdir / "val", n_val, 5, args.seed + 32)
+    out = workdir / "out"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
+           "2", "--master_port", str(_free_port()), "-m",
+           "lightningdot_tpu_torch.cli.train_itm", "--config", FT_CONFIG,
+           "--itm_global_file", "", "--img_checkpoint", "none", "--seed",
+           str(args.seed), "--train_txt_dbs", train[0], "--train_img_dbs",
+           train[1], "--val_txt_db", val[0], "--val_img_db", val[1],
+           "--test_txt_db", "", "--num_train_epochs", "1",
+           "--output_dir", str(out), "--device", DEVICE + ":0",
+           "--dist_backend", "gloo"]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=DIST_WORKER_TIMEOUT)
+    seconds = time.perf_counter() - t
+    check(proc.returncode == 0, f"torch.distributed.run train_itm failed "
+          f"(rc {proc.returncode}):\n{proc.stdout[-2000:]}\n"
+          f"{proc.stderr[-4000:]}")
+    # each rank prints its results JSON last, into one pipe: two lines may
+    # run together, so each object is decoded where it starts
+    decoder = json.JSONDecoder()
+    results = [decoder.raw_decode(proc.stdout, m.start())[0] for m in
+               re.finditer(r'\{"best_val_recall_mean"', proc.stdout)]
+
+    def strip(r):
+        return {k: ([strip(e) for e in v] if k == "epochs" else v)
+                for k, v in r.items() if k not in DIST_TIMING_KEYS}
+
+    files = sorted(os.listdir(out))
+    written = sorted(f for f in files if f.startswith("biencoder."))
+    row = dict(phase="dist_driver", ranks=2, backend="gloo",
+               device=DEVICE + ":0", cli_seconds=seconds,
+               results=len(results),
+               same_results=len(results) == 2
+               and strip(results[0]) == strip(results[1]),
+               written=written, temporaries=[f for f in files
+                                             if f.endswith(".tmp")],
+               steps_per_rank=[e["steps"] for e in results[0]["epochs"]]
+               if results else None,
+               train_images=n_train, val_images=n_val, nvidia_smi=smi_line(),
+               card=device_name)
+    emit(**row)
+    check(row["same_results"], f"dist driver: the ranks' results differ or "
+          f"are missing: {results}\n{proc.stdout[-3000:]}\n"
+          f"{proc.stderr[-3000:]}")
+    check(written == ["biencoder.best.json", "biencoder.best.pt",
+                      "biencoder.last.json", "biencoder.last.pt"]
+          and not row["temporaries"], f"dist driver: not one writer: {row}")
+
+
+def _dist_corpus(args, tok, device_name):
+    """The corpus over ``DeviceMesh([cuda:0, cuda:0])``: the bf16 and the
+    int8 Retriever (int8 tower and corpus) rank the queries as the
+    unsharded ones do, and ``DenseShardedIndex`` as ``DenseFlatIndex``
+    with k wider than a shard; ties within EVAL_TIE_RTOL of the peak
+    score may swap."""
+    from lightningdot_tpu_torch.index import DenseFlatIndex, DenseShardedIndex
+    from lightningdot_tpu_torch.models import BiEncoder, init_tower_
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.parallel.mesh import DeviceMesh
+    from lightningdot_tpu_torch.serving import Retriever
+
+    mesh = DeviceMesh([DEVICE + ":0", DEVICE + ":0"])
+    cfg = train_configs(0.0)[0]
+    model = BiEncoder(cfg, compute_dtype=torch.bfloat16)
+    init_tower_(model.txt_model, torch.Generator().manual_seed(args.seed + 33))
+    rng = np.random.default_rng(args.seed + 33)
+    corpus = rng.standard_normal((CORPUS_SIZE, cfg.out_size),
+                                 dtype=np.float32)
+    ids = [f"coco_{i:06d}" for i in range(CORPUS_SIZE)]
+    counts = {}
+    for quant, wq in ((None, None), ("int8", "int8")):
+        kw = dict(quantization=quant, weight_quantization=wq)
+        plain = Retriever(model, tok, device=DEVICE, **kw)
+        plain.set_corpus(ids, corpus)
+        want = rankings(plain, CAPTIONS)
+        del plain
+        sharded = Retriever(model, tok, device=DEVICE, mesh=mesh, **kw)
+        sharded.set_corpus(ids, corpus)
+        reset_launch_counts()
+        got = rankings(sharded, CAPTIONS)
+        counts[quant or "bf16"] = launch_counts()
+        atol = hold_rankings(got, want, EVAL_TIE_RTOL,
+                             f"dist sharded Retriever {quant or 'bf16'}")
+        emit(phase="dist_sharded_retriever", corpus=quant or "bf16",
+             tower=wq or "bf16", shards=[str(d) for d in mesh],
+             shard_rows=[int(c.shape[0]) for c in sharded._corpus],
+             queries=len(CAPTIONS), top=TOP, tie_atol=atol,
+             ids_equal=[[i for i, _ in g] == [i for i, _ in w]
+                        for g, w in zip(got, want)], device=device_name)
+        del sharded
+    hold_path("dist_sharded_bf16", counts["bf16"])
+    hold_path("dist_sharded_int8", counts["int8"])
+    vecs = rng.standard_normal((DIST_INDEX_ROWS, cfg.out_size),
+                               dtype=np.float32)
+    data = [(f"v{i}", v) for i, v in enumerate(vecs)]
+    q = rng.standard_normal((16, cfg.out_size), dtype=np.float32)
+    flat = DenseFlatIndex(cfg.out_size, device=DEVICE)
+    flat.index_data(data)
+    shard = DenseShardedIndex(cfg.out_size, mesh)
+    shard.index_data(data)
+    got = [list(zip(i, map(float, s))) for i, s in
+           shard.search_knn(q, DIST_INDEX_K)]
+    want = [list(zip(i, map(float, s))) for i, s in
+            flat.search_knn(q, DIST_INDEX_K)]
+    atol = hold_rankings(got, want, EVAL_TIE_RTOL, "dist DenseShardedIndex")
+    emit(phase="dist_sharded_index", rows=DIST_INDEX_ROWS, k=DIST_INDEX_K,
+         shard_rows=[int(c.shape[0]) for c, _ in shard._corpus],
+         tie_atol=atol, ids_equal=[[i for i, _ in g] == [i for i, _ in w]
+                                   for g, w in zip(got, want)].count(True),
+         queries=len(q))
+    return counts
+
+
+def _dist_one_process(state, seed):
+    """One process on each variant's global batches: the losses, the
+    float32 variants' final weights, and the bf16 step's time at dropout
+    0.1 (DIST_TIMED_STEPS steps); for the plain float32 variant also the
+    control of the bf16 bounds, the same steps of the float32 model with
+    its weights and layer outputs rounded to PRE_CONTROL_MANTISSA_BITS
+    mantissa bits (``_coarse``)."""
+    from lightningdot_tpu_torch.utils.runtime import step_generator
+
+    one = {}
+    for name, dtype, negs in DIST_VARIANTS:
+        glob, _ = _dist_batches(seed, negs)
+        model, step = _dist_step(state, dtype, negs, DEVICE)
+        row = dict(losses=_timed_steps(step, glob, lambda i: None)[0])
+        if dtype == "bfloat16":
+            del model, step
+            model, step = _dist_step(state, dtype, negs, DEVICE, 0.1)
+            row["timed_ms"] = _timed_steps(
+                step, (glob * 2)[:DIST_TIMED_STEPS],
+                lambda i: step_generator(seed, i))[1]
+        else:
+            row["weights"] = {k: v.detach().cpu() for k, v in
+                              model.state_dict().items()}
+        if name == "f32":
+            del model, step
+            model, step = _dist_step(state, dtype, negs, DEVICE)
+            with _coarse(model, PRE_CONTROL_MANTISSA_BITS):
+                row["coarse_losses"] = _timed_steps(step, glob,
+                                                    lambda i: None)[0]
+        one[name] = row
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    return one
+
+
+def _update_rel(got, want, master):
+    """||got - want|| / ||want - master|| over every leaf in one norm, and
+    the update's own size ||want - master|| / ||master||."""
+    diff = upd = base = 0.0
+    for k, w in want.items():
+        w, m = w.double(), master[k].double()
+        diff += float((got[k].double() - w).norm()) ** 2
+        upd += float((w - m).norm()) ** 2
+        base += float(m.norm()) ** 2
+    return math.sqrt(diff / upd), math.sqrt(upd / base)
+
+
+def _rel_per_step(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _hold_dist_ranks(ranks, one, master, workdir, backend, what, smi,
+                     device_name):
+    """Two ranks' variants against one process (``_dist_one_process``):
+    the ranks' losses and weights equal to each other; float32 within
+    DIST_LOSS_RTOL per step, DIST_LEAF_RTOL per leaf and DIST_UPDATE_RTOL
+    of the update from ``master``, where the DIST_FAULT variant must fail;
+    bf16 at every step within TRAIN_BF16_LOSS_RTOL of one process's bf16
+    and float32, where the control (float32 at PRE_CONTROL_MANTISSA_BITS
+    bits) must fail; each path's launches; then the bf16 step's time
+    against one process's, the collectives' times and a profile row.
+    Returns rank 0's bf16 row."""
+    for name, dtype, negs in DIST_VARIANTS + (DIST_FAULT,):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        fault = name == DIST_FAULT[0]
+        o = one["f32" if fault else name]
+        row = dict(phase="dist_ranks_vs_one_process", backend=backend,
+                   devices=[r0["device"], r1["device"]], variant=name,
+                   dtype=dtype, hard_negatives=negs, lr=DIST_LR,
+                   losses_ranks=[r0["losses"], r1["losses"]],
+                   losses_one_process=o["losses"],
+                   losses_equal_across_ranks=r0["losses"] == r1["losses"],
+                   weights_bit_equal_across_ranks=r0["digest"]
+                   == r1["digest"], loss_rel=_rel_per_step(r0["losses"],
+                                                           o["losses"]),
+                   peak_mem_gb=[r0["peak_mem_gb"], r1["peak_mem_gb"]])
+        check(row["losses_equal_across_ranks"]
+              and row["weights_bit_equal_across_ranks"],
+              f"dist {backend} {name}: the ranks disagree: {row}")
+        if dtype == "float32":
+            got = torch.load(os.path.join(workdir, f"{name}.pt"))
+            upd_rel, upd_size = _update_rel(got, o["weights"], master)
+            row.update(loss_rel_max=DIST_LOSS_RTOL,
+                       leaf_rel_l2=_dist_leaf_rel_l2(got, o["weights"]),
+                       leaf_rel_l2_max=DIST_LEAF_RTOL,
+                       update_rel_l2=upd_rel,
+                       update_rel_l2_max=DIST_UPDATE_RTOL,
+                       update_size_rel_l2=upd_size,
+                       update_size_worst_leaf=_dist_leaf_rel_l2(
+                           master, o["weights"]))
+            held = (row["loss_rel"] <= DIST_LOSS_RTOL
+                    and row["leaf_rel_l2"] <= DIST_LEAF_RTOL
+                    and upd_rel <= DIST_UPDATE_RTOL)
+            if fault:
+                row["control"] = ("planted fault: the gather's backward "
+                                  "without its all-reduce; must fail")
+            emit(**row)
+            if fault:
+                check(not held, f"dist {backend}: the planted fault passed "
+                      f"the float32 bounds, which cannot see it: {row}")
+                continue
+            check(held, f"dist {backend} {name}: two ranks vs one process: "
+                  f"{row}")
+            hold_path("dist_f32", r0["counts"])
+            continue
+        # bf16 at every step against one process's bf16 and float32 (the
+        # same weights and batches), beside the control
+        f32_one = one["f32"]["losses"]
+        row.update(
+            bf16_vs_one_process_bf16_rel=row.pop("loss_rel"),
+            bf16_vs_f32_rel=_rel_per_step(r0["losses"], f32_one),
+            bf16_vs_f32_rel_max=TRAIN_BF16_LOSS_RTOL,
+            one_process_bf16_vs_f32_rel=_rel_per_step(o["losses"], f32_one),
+            control=f"one process, float32 rounded to "
+                    f"{PRE_CONTROL_MANTISSA_BITS} mantissa bits; must fail",
+            control_vs_f32_rel=_rel_per_step(one["f32"]["coarse_losses"],
+                                             f32_one))
+        emit(**row)
+        check(row["bf16_vs_one_process_bf16_rel"] <= TRAIN_BF16_LOSS_RTOL
+              and row["bf16_vs_f32_rel"] <= TRAIN_BF16_LOSS_RTOL,
+              f"dist {backend} bf16: {row}")
+        check(row["control_vs_f32_rel"] > TRAIN_BF16_LOSS_RTOL,
+              f"dist {backend} bf16: the control passed the bound, which "
+              f"cannot tell bf16 from it: {row}")
+        hold_path("dist", r0["timed_counts"])
+        bf16 = r0
+    ms2 = statistics.median(bf16["timed_ms"])
+    ms1 = statistics.median(one["bf16"]["timed_ms"])
+    emit(phase="dist_step_time", backend=backend, dtype="bfloat16",
+         global_batch=2 * DIST_LOCAL_BATCH, what=what,
+         ms_per_step_two_ranks_p50=ms2, ms_per_step_one_process_p50=ms1,
+         ratio=ms2 / ms1, timed_steps=DIST_TIMED_STEPS,
+         collective_ms_one_step=bf16["collective_ms"],
+         profile_collectives=bf16["profile_collectives"],
+         nvidia_smi=smi, card=device_name)
+    emit_profile_stats("dist", 2 * DIST_LOCAL_BATCH, bf16["profile"], ms2,
+                       rank=0, backend=backend)
+    return bf16
+
+
+def dist_phase(args, device_name):
+    """ROADMAP A11 on the card. Two ranks on the one card over gloo
+    (processes of this script), each with DIST_LOCAL_BATCH rows of a
+    global batch of 64, DIST_STEPS ITM steps at coco_ft.json's full width
+    through the kernels, in float32 (TF32 off), float32 with one hard
+    negative per item, and bf16, held against one process on the global
+    batch (``_hold_dist_ranks``); then the driver under
+    torch.distributed.run (one writer, one result); NCCL at world 1
+    bit-equal to no group; where there are two cards, two NCCL ranks a
+    card each held as the gloo ranks are; the sharded corpus."""
+    smi = smi_line()
+    gc.collect()
+    torch.cuda.empty_cache()   # what earlier phases cached, for the ranks
+    cards = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        master = work / "master.pt"
+        state = _dist_master(args.seed + 30)
+        torch.save(state, master)
+        base = dict(master=str(master), workdir=tmp, seed=args.seed + 30,
+                    variants=DIST_VARIANTS + (DIST_FAULT,))
+        port = _free_port()
+        t0 = time.perf_counter()
+        ranks = _collect_dist(_start_dist([
+            dict(base, scenario="steps", rank=r, world=2, backend="gloo",
+                 port=port, device_index=0) for r in range(2)]))
+        emit(phase="dist_setup", backend="gloo", world=2,
+             devices=[r[DIST_VARIANTS[0][0]]["device"] for r in ranks],
+             local_batch=DIST_LOCAL_BATCH, global_batch=2 * DIST_LOCAL_BATCH,
+             steps=DIST_STEPS, workers_seconds=time.perf_counter() - t0,
+             nvidia_smi=smi, card=device_name)
+        one = _dist_one_process(state, args.seed + 30)
+        gloo = _hold_dist_ranks(
+            ranks, one, state, tmp, "gloo", "two processes sharing one H100 over "
+            "gloo's host copies against one process: not a scaling number",
+            smi, device_name)
+
+        # NCCL at world 1 runs beside the driver: neither is timed
+        t0 = time.perf_counter()
+        nccl1 = _start_dist([dict(base, scenario="nccl1", rank=0, world=1,
+                                  port=_free_port(), device_index=0)])
+        _dist_driver(args, work, device_name)
+        driver_s = time.perf_counter() - t0
+        (n1,) = _collect_dist(nccl1)
+        emit(phase="dist_nccl_world_1", backend=n1["backend"],
+             no_group_again=n1["no_group_again"],
+             nccl_world_1=n1["nccl_world_1"],
+             seconds=time.perf_counter() - t0,
+             two_nccl_ranks="ran" if cards >= 2 else
+             f"not run: {cards} card")
+        check(n1["no_group_again"]["losses_equal"]
+              and n1["no_group_again"]["weights_equal"],
+              f"dist: the step is not repeatable without a group: {n1}")
+        check(n1["nccl_world_1"]["losses_equal"]
+              and n1["nccl_world_1"]["weights_equal"],
+              f"dist: NCCL at world 1 differs from no group: {n1}")
+        if cards >= 2:
+            port = _free_port()
+            _hold_dist_ranks(_collect_dist(_start_dist([
+                dict(base, scenario="steps", rank=r, world=2, backend="nccl",
+                     port=port, device_index=r) for r in range(2)])),
+                one, state, tmp, "nccl", "two processes, a card each, over NCCL, "
+                "against one process", smi, device_name)
+        del one, state
+
+        t0 = time.perf_counter()
+        counts = _dist_corpus(args, make_tokenizer(work, [
+            w for c in CAPTIONS for w in c.split()]), device_name)
+        emit(phase="dist_done", driver_seconds=driver_s,
+             corpus_seconds=time.perf_counter() - t0)
+    rows, _ = hold_recorded("dist", [tuple(k) for k in ranks[0]["shapes"]],
+                            device_name)
+    return dict(counts=gloo["timed_counts"], sharded=counts, rows=rows)
+
+
 REPLACES = {
     "layernorm": ("lightningdot_tpu_torch/csrc/layernorm.cu",
                   "lightningdot_tpu/ops/layernorm.py:30"),
@@ -4211,10 +4929,14 @@ REPORT_PATH = {"layernorm": "text_bf16", "layernorm_bwd": "itm_train",
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist_worker", default=None,
+                    help=argparse.SUPPRESS)   # one rank of dist_phase
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if args.dist_worker is not None:
+        return dist_worker(json.loads(args.dist_worker))
     from lightningdot_tpu_torch.ops import _build
 
     device_name = torch.cuda.get_device_name(0)
@@ -4291,6 +5013,9 @@ def main() -> int:
     paths["pretrain_kd"] = pretrain_kd_phase(args, device_name)["counts"]
     paths["vqa"] = vqa_phase(args, device_name)["counts"]
     prepro_phase(args, device_name)
+    dist = dist_phase(args, device_name)
+    paths["dist"] = dist["counts"]
+    paths["dist_sharded_int8"] = dist["sharded"]["int8"]
     check(all(any(c[name] > 0 for c in paths.values()) for name in REPLACES),
           f"a kernel was launched on no path: {paths}")
 

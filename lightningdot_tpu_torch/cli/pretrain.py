@@ -16,17 +16,29 @@ one-tower ``UniterForPretraining``'s ``model.pt``, or the JAX package's
 ``model.npz``) adds the distillation term to every non-itm task
 (``kd_loss``, ``T``, ``kd_loss_weight``); its joint sub-batches
 (``_teacher_fields``) ride in the training batches, and it computes in
-the student's dtype (JAX's in float32). Several processes (the JAX
-driver's fixed-rows multi-host branch and its host-agreed resume) come
-with multi-GPU training (A11).
+the student's dtype (JAX's in float32).
+
+Under ``torchrun`` each process trains on its card (``cuda:LOCAL_RANK``
+unless ``--device`` names one; ``--dist_backend gloo`` for ranks that
+share a card) over its rank-strided shard of the training DBs, in batches
+of a host-agreed static shape: one top bucket per axis and a fixed row
+count from the token budget (the JAX driver's cli/pretrain.py:145-180),
+so that every rank steps on the same task at the same shape. Rank 0's
+resume step is every rank's (broadcast, then each waits for its files),
+the task of every accumulation window is checked equal across ranks,
+rank 0 alone writes checkpoints and metrics, and every rank validates on
+the whole validation set.
 
 Usage:
   python -m lightningdot_tpu_torch.cli.pretrain \\
       --config configs/pretrain_alldata_base.json
+  python -m torch.distributed.run --nproc_per_node 2 \\
+      -m lightningdot_tpu_torch.cli.pretrain --config ...
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from collections import defaultdict
@@ -34,13 +46,15 @@ from typing import Any, Dict
 
 import torch
 
-from lightningdot_tpu_torch.config import parse_with_config, print_args
+from lightningdot_tpu_torch.config import (add_dist_params, parse_with_config,
+                                           print_args)
 from lightningdot_tpu_torch.const import BUCKET_SIZE, IMG_LABEL_DIM
 from lightningdot_tpu_torch.data.feat_db import ImageDbGroup
 from lightningdot_tpu_torch.data.loader import (DataLoader, DevicePrefetcher,
+                                                DistributedSampler,
                                                 MetaLoader, PinnedStager,
                                                 TokenBucketSampler)
-from lightningdot_tpu_torch.data.padding import Recycler
+from lightningdot_tpu_torch.data.padding import Recycler, bucket_len
 from lightningdot_tpu_torch.data.pretrain import (ItmPreDataset, MlmDataset,
                                                   MrcDataset, MrfrDataset,
                                                   PretrainCollateConfig,
@@ -48,7 +62,6 @@ from lightningdot_tpu_torch.data.pretrain import (ItmPreDataset, MlmDataset,
                                                   mlm_collate, mrc_collate,
                                                   mrfr_collate)
 from lightningdot_tpu_torch.data.txt_db import TxtTokDb
-from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import (BiEncoder,
                                                       BiEncoderForPretraining,
                                                       init_pretrain_heads_)
@@ -58,9 +71,15 @@ from lightningdot_tpu_torch.models.factory import (_overlay,
 from lightningdot_tpu_torch.models.uniter_pretrain import UniterForPretraining
 from lightningdot_tpu_torch.models.weights import (load_torch_state_dict,
                                                    pretrain_keys)
+from lightningdot_tpu_torch.parallel.mesh import (assert_same_across_hosts,
+                                                  barrier,
+                                                  broadcast_one_to_all,
+                                                  is_main_process,
+                                                  process_count,
+                                                  process_index, setup_process)
 from lightningdot_tpu_torch.training.checkpoints import (
-    ModelSaver, latest_step_checkpoint, load_checkpoint,
-    load_state_dict_strict, read_checkpoint, save_training_meta)
+    latest_step_checkpoint, load_checkpoint, load_state_dict_strict,
+    rank_saver, read_checkpoint, save_training_meta)
 from lightningdot_tpu_torch.training.optim import get_lr_sched, make_optimizer
 from lightningdot_tpu_torch.training.pretrain_step import (make_pretrain_step,
                                                            make_validate_fn)
@@ -84,24 +103,22 @@ def build_parser():
     p.add_argument("--sim_preempt_step", type=int, default=None,
                    help="fault injection: act as if SIGTERM arrived at "
                         "this global step")
+    p.add_argument("--preempt_check_steps", type=int, default=25,
+                   help="cadence of the preemption OR-reduce across "
+                        "processes, in optimizer updates")
     p.add_argument("--compute_dtype", default="bf16",
                    choices=["bf16", "f32"])
-    p.add_argument("--device", default=None, type=str,
-                   help="default: the CUDA card (raises without one); "
-                        "'cpu' runs the plain PyTorch path")
+    add_dist_params(p, dp_size=False)
     return p
 
 
-def _world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
-
-
-def _build_task(task: str, txt_dbs, img_dbs, args, collate_cfg, is_train):
+def _build_task(task: str, txt_dbs, img_dbs, args, collate_cfg, is_train,
+                fixed_rows: int = 0):
     """pretrain.py:79-221's build_*_dataset (cli/pretrain.py:73-144): one
-    task's loader over a token-budget sampler."""
+    task's loader over a token-budget sampler, or, with ``fixed_rows`` > 0
+    (training across processes), over batches of that many examples: the
+    ranks must step on the same shapes, which token-budget batches would
+    not give."""
     datasets = []
     for txt_db, img_db in zip(txt_dbs, img_dbs):
         if task.startswith("mlm"):
@@ -132,13 +149,27 @@ def _build_task(task: str, txt_dbs, img_dbs, args, collate_cfg, is_train):
                 d.new_epoch()
             if hasattr(d, "advance_epoch"):
                 d.advance_epoch()
-        sampler._lens = [l for d in datasets for l in d.lens]
+        if isinstance(sampler, DistributedSampler):
+            sampler.set_epoch(sampler.epoch + 1)
+        else:
+            sampler._lens = [l for d in datasets for l in d.lens]
 
-    sampler = TokenBucketSampler(
-        [l for d in datasets for l in d.lens], bucket_size=BUCKET_SIZE,
-        batch_size=(args.train_batch_size if is_train
-                    else args.val_batch_size),
-        droplast=is_train, seed=args.seed)
+    if fixed_rows and is_train:
+        if len(dataset) < fixed_rows:
+            raise ValueError(
+                f"task {task}: {len(dataset)} examples on this rank < the "
+                f"fixed batch of {fixed_rows} rows: lower train_batch_size "
+                f"or use fewer processes")
+        # the DBs are rank-sharded already: the sampler fixes the rows
+        sampler = DistributedSampler(len(dataset), num_replicas=1, rank=0,
+                                     batch_size=fixed_rows, shuffle=True,
+                                     drop_last=True, seed=args.seed or 0)
+    else:
+        sampler = TokenBucketSampler(
+            [l for d in datasets for l in d.lens], bucket_size=BUCKET_SIZE,
+            batch_size=(args.train_batch_size if is_train
+                        else args.val_batch_size),
+            droplast=is_train, seed=args.seed)
     return DataLoader(dataset, sampler=sampler, collate_fn=collate,
                       on_epoch=on_epoch,
                       num_workers=(getattr(args, "loader_workers", 1)
@@ -147,27 +178,64 @@ def _build_task(task: str, txt_dbs, img_dbs, args, collate_cfg, is_train):
 
 def create_dataloaders(dataset_specs, is_train, args, all_img_dbs,
                        collate_cfg):
-    """pretrain.py:165-221 (cli/pretrain.py:147-188)."""
-    if is_train and _world_size() > 1:
-        raise NotImplementedError(
-            "pre-training in several processes (fixed-rows batches, "
-            "rank-sharded DBs) comes with multi-GPU training (ROADMAP A11)")
+    """pretrain.py:165-221 (cli/pretrain.py:147-188). Across processes
+    the training DBs shard rank-strided and the batches take a
+    host-agreed static shape: one top bucket per axis, and a fixed row
+    count from the token budget at the longest sequences; validation stays
+    whole on every rank."""
     loaders = {}
+    rank, world = (process_index(), process_count()) if is_train else (0, 1)
+    fixed_rows = 0
+    if world > 1:
+        txt_top = bucket_len(args.max_txt_len + 2, collate_cfg.txt_buckets)
+        img_top = bucket_len(args.max_bb + 1, collate_cfg.img_buckets)
+        fixed_rows = max(8, args.train_batch_size // (txt_top + img_top)
+                         // 8 * 8)
+        # a batch_pad of 8 divides fixed_rows: full batches stay unpadded
+        collate_cfg = dataclasses.replace(
+            collate_cfg, txt_buckets=(txt_top,), img_buckets=(img_top,),
+            batch_pad=8)
+        LOGGER.info("static shapes across processes: txt=%d img=%d "
+                    "rows=%d/rank", txt_top, img_top, fixed_rows)
     for dset in dataset_specs:
         img_dbs = [all_img_dbs[p] for p in dset["img"]]
         for i, t in enumerate(dset["tasks"]):
             task = f"{t}_{dset['name']}"
             max_len = args.max_txt_len if is_train else -1
-            txt_dbs = [TxtTokDb(p, max_len) for p in dset["db"]]
+            txt_dbs = [TxtTokDb(p, max_len, rank=rank, world_size=world)
+                       for p in dset["db"]]
             LOGGER.info("Loading %s %s dataset %s", task,
                         "train" if is_train else "val", dset["db"])
             loader = _build_task(t, txt_dbs, img_dbs, args, collate_cfg,
-                                 is_train)
+                                 is_train, fixed_rows=fixed_rows)
             if is_train:
                 loaders[task] = (loader, dset["mix_ratio"][i])
             else:
                 loaders[task] = loader
     return loaders
+
+
+def _agreed_resume(output_dir: str):
+    """The newest step checkpoint that rank 0 finds, on every rank: each
+    other rank waits up to two minutes for its files on the shared
+    ``output_dir`` (cli/pretrain.py:336-370)."""
+    resume = latest_step_checkpoint(os.path.join(output_dir, "ckpt"))
+    if process_count() == 1:
+        return resume
+    step = broadcast_one_to_all(resume[1] if resume else -1)
+    if step < 0:
+        return None
+    path = os.path.join(output_dir, "ckpt", f"model_step_{step}")
+    deadline = time.time() + 120
+    while not (os.path.exists(path + ".json")
+               and (os.path.exists(path + ".pt")
+                    or os.path.exists(path + ".npz"))):
+        if time.time() > deadline:
+            raise RuntimeError(f"rank 0 resumes from {path}, which this "
+                               f"rank cannot see (a shared output_dir is "
+                               f"required)")
+        time.sleep(0.2)
+    return path, step
 
 
 def validate(val_loaders, validate_fn, global_step):
@@ -276,7 +344,8 @@ def main(cmds=None):
     # the latch installs before set-up: a signal during data or model
     # construction is held until the loop's first update boundary
     guard = PreemptionGuard(
-        sim_after_step=getattr(args, "sim_preempt_step", None))
+        sim_after_step=getattr(args, "sim_preempt_step", None),
+        check_every=max(args.preempt_check_steps, 1))
     with guard:
         return _main(args, guard)
 
@@ -284,10 +353,11 @@ def main(cmds=None):
 def _main(args, guard):
     print_args(args, LOGGER.info)
     os.makedirs(args.output_dir, exist_ok=True)
+    device = setup_process(args.device, args.dist_backend)
     setup_runtime(args)
-    device = resolve_device(getattr(args, "device", None))
-    TB_LOGGER.create(os.path.join(args.output_dir, "metrics.jsonl"))
-    save_training_meta(args.output_dir, args)
+    if is_main_process():
+        TB_LOGGER.create(os.path.join(args.output_dir, "metrics.jsonl"))
+        save_training_meta(args.output_dir, args)
     dtype = torch.bfloat16 if args.compute_dtype == "bf16" else torch.float32
     model = build_model(args, dtype).to(device)
     teacher = (load_teacher(args, dtype, device)
@@ -300,9 +370,10 @@ def _main(args, guard):
         kd_loss_weight=getattr(args, "kd_loss_weight", 1.0),
         kd_T=getattr(args, "T", 1.0), device=device)
 
-    # auto-resume (pretrain.py:320-328,906-917)
+    # auto-resume (pretrain.py:320-328,906-917); across processes rank 0's
+    # discovery is every rank's (its files are the only ones written)
     global_step = 0
-    resume = latest_step_checkpoint(os.path.join(args.output_dir, "ckpt"))
+    resume = _agreed_resume(args.output_dir)
     if resume is not None:
         path, global_step = resume
         LOGGER.info("auto-resume from %s (step %d)", path, global_step)
@@ -326,7 +397,7 @@ def _main(args, guard):
         # continue the task stream where the interrupted run stopped
         meta_loader.fast_forward(global_step * accum)
     validate_fn = make_validate_fn(model, device=device)
-    saver = ModelSaver(os.path.join(args.output_dir, "ckpt"),
+    saver = rank_saver(os.path.join(args.output_dir, "ckpt"),
                        async_save=bool(getattr(args, "async_checkpoint", 0)))
 
     LOGGER.info("start pre-training: %d steps, tasks=%s",
@@ -341,6 +412,7 @@ def _main(args, guard):
         saver.save(model, global_step, optimizer=optimizer)
         results = validate(val_loaders, validate_fn, global_step)
     saver.wait()  # drain the background writer before returning
+    barrier()     # rank 0's files are written before any rank reads them
     if preempted:
         LOGGER.warning("exiting after preemption checkpoint at step %d "
                        "(resume by re-running the same command)",
@@ -365,6 +437,8 @@ def _train_loop(args, meta_loader, stager, step_for_task, guard, lr_fn,
     preempted = False
     recycler = Recycler(enabled=device.type == "cuda")
 
+    rank = process_index()
+
     def put(item):
         name, batch = item
         staged = stager(batch)
@@ -374,9 +448,12 @@ def _train_loop(args, meta_loader, stager, step_for_task, guard, lr_fn,
     try:
         for batch in DevicePrefetcher(meta_loader, put=put):
             name = batch.task
+            if micro_step % accum == 0:
+                # every rank steps on the same task (pretrain.py:392)
+                assert_same_across_hosts((name, micro_step), "pretrain task")
             n_examples[name] += batch["n_valid"]
             metrics = step_for_task(name.split("_")[0])(
-                batch, step_generator(args.seed, micro_step))
+                batch, step_generator(args.seed, micro_step, rank))
             done = None
             if device.type == "cuda":
                 done = torch.cuda.Event()

@@ -10,7 +10,8 @@ txt_ids, img_ids) of either package's ``inf_itm``, rerank.py:227-233) or
 from ``--teacher_checkpoint``, a cross-encoder that scores the retrieved
 candidates on the fly: the max-threshold candidates of every query, once
 per direction, through one :class:`CrossScorer` pass. The teacher
-computes in ``--compute_dtype`` (JAX's in float32).
+computes in float32 whatever ``--compute_dtype`` (the bi-encoder's) is,
+as JAX's.
 
 It runs on the card by default, or on the CPU with ``--device cpu``.
 
@@ -195,11 +196,10 @@ def _load_pair_scorer(args, dataset, txt_ids):
         return score_txt_queries, score_img_queries
 
     if args.teacher_checkpoint:
-        dtype = (torch.bfloat16 if args.compute_dtype == "bf16"
-                 else torch.float32)
         teacher = load_cross_encoder(args.teacher_checkpoint,
                                      model_config=args.img_model_config,
-                                     compute_dtype=dtype, device=args.device)
+                                     compute_dtype=torch.float32,
+                                     device=args.device)
         scorer = CrossScorer(teacher, device=args.device)
         txt_db = dataset.txt_db
         img_db = dataset.img_db

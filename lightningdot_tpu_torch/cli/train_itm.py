@@ -19,13 +19,26 @@ teacher directory) adds the distillation term (``--T``,
 ``--kd_loss_weight``): each batch carries the teacher's pair grid of its
 texts against its first ``min(10, batch)`` images (``make_teacher_batch``,
 tiled into the page-locked pool and staged with the batch); the teacher
-computes in the student's dtype (JAX's in float32) and stays in eval
-mode.
+computes in float32 whatever ``--compute_dtype`` is, as JAX's
+(cli/train_itm.py:54-59), and stays in eval mode.
+
+Under ``torchrun`` each process trains on its card (``cuda:LOCAL_RANK``
+unless ``--device`` names one; ``--dist_backend gloo`` lets two ranks
+share one card) over its rank-strided shard of the training DBs, with
+global in-batch negatives and summed gradients (``make_itm_train_step``).
+The weights are checked equal across ranks at the start, every rank runs
+the same number of steps per epoch (the fewest any rank's shard gives),
+the preemption flag is OR-reduced every ``--preempt_check_steps``, rank 0
+alone logs metrics and writes checkpoints, and every rank evaluates on the
+whole validation set, as the JAX driver does. KD across ranks raises
+(ROADMAP §C).
 
 Usage (reference-compatible config JSONs):
   python -m lightningdot_tpu_torch.cli.train_itm \\
       --config configs/coco_ft.json --itm_global_file "" \\
       --img_checkpoint /path/uniter-base.pt --output_dir out/coco-ft
+  python -m torch.distributed.run --nproc_per_node 2 \\
+      -m lightningdot_tpu_torch.cli.train_itm ...   # a card per rank, NCCL
 """
 from __future__ import annotations
 
@@ -39,17 +52,21 @@ import numpy as np
 import torch
 
 from lightningdot_tpu_torch.cli.eval_itm import _load_caption_meta
-from lightningdot_tpu_torch.config import (add_itm_params, add_kd_params,
-                                           add_logging_params, default_params,
-                                           parse_with_config, print_args)
+from lightningdot_tpu_torch.config import (add_dist_params, add_itm_params,
+                                           add_kd_params, add_logging_params,
+                                           default_params, parse_with_config,
+                                           print_args)
 from lightningdot_tpu_torch.data.feat_db import ImageDbGroup
 from lightningdot_tpu_torch.data.itm import (CollateConfig, itm_fast_collate,
                                             make_teacher_batch)
 from lightningdot_tpu_torch.data.loader import DevicePrefetcher, PinnedStager
 from lightningdot_tpu_torch.data.padding import Recycler
-from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.factory import (build_biencoder,
                                                    load_cross_encoder)
+from lightningdot_tpu_torch.parallel.mesh import (assert_same_across_hosts,
+                                                  is_main_process,
+                                                  process_count,
+                                                  process_index, setup_process)
 from lightningdot_tpu_torch.training import hn as hn_mod
 from lightningdot_tpu_torch.training.checkpoints import save_checkpoint
 from lightningdot_tpu_torch.training.evaluator import eval_model_on_dataloader
@@ -62,6 +79,7 @@ from lightningdot_tpu_torch.training.trainer_utils import (build_dataloader,
                                                            load_dataset)
 from lightningdot_tpu_torch.utils.logging import (LOGGER, TB_LOGGER,
                                                   RunningMeter)
+from lightningdot_tpu_torch.utils.misc import host_all_gather, state_digest
 from lightningdot_tpu_torch.utils.preemption import PreemptionGuard
 from lightningdot_tpu_torch.utils.runtime import setup_runtime, step_generator
 
@@ -75,9 +93,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--vocab_file", default=None, type=str,
                         help="WordPiece vocab.txt for caption blending "
                              "(--itm_global_file)")
-    parser.add_argument("--device", default=None, type=str,
-                        help="default: the CUDA card (raises without "
-                             "one); 'cpu' runs the plain PyTorch path")
+    add_dist_params(parser)
     return parser
 
 
@@ -99,9 +115,11 @@ def main(cmds=None):
 
 def _main(args, guard):
     print_args(args, LOGGER.info)
-    TB_LOGGER.create(os.path.join(args.output_dir, "metrics.jsonl"))
+    device = setup_process(args.device, args.dist_backend, args.dp_size)
+    rank = process_index()
+    if is_main_process():
+        TB_LOGGER.create(os.path.join(args.output_dir, "metrics.jsonl"))
     setup_runtime(args)
-    device = resolve_device(args.device)
     rng_py = random.Random(args.seed)
 
     if isinstance(args.train_txt_dbs, str):
@@ -114,6 +132,8 @@ def _main(args, guard):
         raise ValueError("not supported anymore")
 
     model = build_biencoder(args, seed=args.seed).to(device)
+    if process_count() > 1:
+        assert_same_across_hosts(state_digest(model), "initial weights")
     args.vector_size = model.txt_cfg.out_size
     kd_fn = None
     n_teacher = min(10, args.train_batch_size)  # N_EXAMPLES_TEACHER clamp
@@ -121,7 +141,7 @@ def _main(args, guard):
         LOGGER.info("teacher checkpoint provided, using KD framework")
         teacher = load_cross_encoder(args.teacher_checkpoint,
                                      model_config=args.img_model_config,
-                                     compute_dtype=model.compute_dtype,
+                                     compute_dtype=torch.float32,
                                      device=device)
         kd_fn = make_kd_fn(teacher, T=args.T, n_teacher=n_teacher,
                            caption_score_weight=args.caption_score_weight)
@@ -207,6 +227,10 @@ def _main(args, guard):
     loss_meter = RunningMeter("loss")
     global_step = 0
     epochs = []
+    # the OR-reduce cadence across processes: a multiple of the
+    # accumulation window, so that every rank leaves on an update boundary
+    check_every = max(args.preempt_check_steps, accum)
+    guard.check_every = check_every + (-check_every) % accum
     guard.__enter__()   # re-enter main()'s guard around the hot loop
     try:
         for epoch in range(args.num_train_epochs):
@@ -217,6 +241,9 @@ def _main(args, guard):
             train_dataloader = build_dataloader(
                 train_dataset, collate, True, args,
                 seed=(args.seed or 0) + epoch)
+            # the ranks' shards may differ by an item: every rank takes
+            # the steps that the smallest shard gives
+            n_steps = min(host_all_gather(len(train_dataloader)))
             n_ex = 0
             # log the PREVIOUS interval's metrics, already computed, so the
             # loop never waits on the step just launched
@@ -225,8 +252,10 @@ def _main(args, guard):
             steps = 0
             for step, batch in enumerate(DevicePrefetcher(train_dataloader,
                                                           put=stager)):
-                metrics = train_step(batch, step_generator(args.seed,
-                                                           global_step))
+                if step == n_steps:
+                    break
+                metrics = train_step(batch, step_generator(
+                    args.seed, global_step, rank))
                 global_step += 1
                 steps += 1
                 n_ex += batch["n_valid"]
@@ -263,9 +292,10 @@ def _main(args, guard):
                 LOGGER.warning("preempted at step %d (epoch %d): saving "
                                "biencoder.preempt and exiting", global_step,
                                epoch)
-                save_checkpoint(
-                    os.path.join(args.output_dir, "biencoder.preempt"),
-                    model=model, step=global_step, epoch=epoch)
+                if is_main_process():
+                    save_checkpoint(
+                        os.path.join(args.output_dir, "biencoder.preempt"),
+                        model=model, step=global_step, epoch=epoch)
                 break
 
             # eval and save (train_itm.py:313-349)
@@ -287,9 +317,12 @@ def _main(args, guard):
                 {f"R@{k}": v for k, v in recall_val.items()}, prefix="val")
 
             def ckpt(name):
-                save_checkpoint(
-                    os.path.join(args.output_dir, f"biencoder.{name}"),
-                    model=model, step=global_step, epoch=epoch)
+                # rank 0 alone writes (train_itm.py:343-349): the ranks
+                # hold the same weights
+                if is_main_process():
+                    save_checkpoint(
+                        os.path.join(args.output_dir, f"biencoder.{name}"),
+                        model=model, step=global_step, epoch=epoch)
 
             if current > best_eval_metric:
                 best_eval_metric = current

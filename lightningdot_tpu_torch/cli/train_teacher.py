@@ -21,8 +21,15 @@ step stages its batch through pinned buffers on a side stream and updates
 through ``FusedAdamW`` (UNITER's betas (0.9, 0.98), eps 1e-6, weight decay
 0.01, the post-increment schedule read). The dropout masks of step N come
 from ``step_generator(seed, N)``. A preemption signal (or
-``--sim_preempt_step``) ends the loop and the directory is saved. One
-process only.
+``--sim_preempt_step``) ends the loop and the directory is saved.
+
+Under ``torchrun`` each process trains on its card (``--dist_backend gloo``
+for ranks that share one) over its rank-strided shard of the texts (the
+JAX driver's cli/train_teacher.py:158-165), mines that shard, and the
+gradients are averaged over the ranks before the clip, so that every rank
+takes the global batch's update; rank 0 alone writes the teacher
+directory. (The JAX driver trains its replicas without exchanging
+gradients and writes from every host: ROADMAP §C.)
 
 Usage:
   python -m lightningdot_tpu_torch.cli.train_teacher \\
@@ -39,7 +46,8 @@ import time
 import numpy as np
 import torch
 
-from lightningdot_tpu_torch.config import parse_with_config, print_args
+from lightningdot_tpu_torch.config import (add_dist_params, parse_with_config,
+                                           print_args)
 from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
 from lightningdot_tpu_torch.data.itm_rank import (
     ItmRankDataset, ItmRankDatasetHardNeg, ItmRankDatasetHardNegFromImage,
@@ -48,7 +56,6 @@ from lightningdot_tpu_torch.data.loader import (DataLoader, PinnedStager,
                                                 await_staged)
 from lightningdot_tpu_torch.data.padding import Recycler
 from lightningdot_tpu_torch.data.txt_db import TxtTokDb
-from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.cross_encoder import (CrossEncoder,
                                                          CrossEncoderFast,
                                                          CrossEncoderHardNeg,
@@ -57,9 +64,13 @@ from lightningdot_tpu_torch.models.factory import (load_cross_encoder,
                                                    resolve_encoder_config)
 from lightningdot_tpu_torch.models.weights import (cross_encoder_keys,
                                                    load_torch_state_dict)
+from lightningdot_tpu_torch.parallel.mesh import (all_reduce_grads_, barrier,
+                                                  global_sums,
+                                                  is_main_process,
+                                                  process_count,
+                                                  process_index, setup_process)
 from lightningdot_tpu_torch.training.checkpoints import save_checkpoint
-from lightningdot_tpu_torch.training.hn_teacher import (_world_size,
-                                                        compute_hard_neg,
+from lightningdot_tpu_torch.training.hn_teacher import (compute_hard_neg,
                                                         make_fast_score_fn,
                                                         make_joint_score_fn)
 from lightningdot_tpu_torch.training.itm_step import pass_generators
@@ -113,9 +124,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", default=42, type=int)
     p.add_argument("--compute_dtype", default="bf16",
                    choices=["bf16", "f32"])
-    p.add_argument("--device", default=None, type=str,
-                   help="default: the CUDA card (raises without one); "
-                        "'cpu' runs the plain PyTorch path")
+    add_dist_params(p, dp_size=False)
     return p
 
 
@@ -124,7 +133,9 @@ def main(cmds=None):
     {"final_loss", "steps"} last."""
     args = parse_with_config(build_parser(), cmds)
     # installed before set-up: a signal during construction latches
-    guard = PreemptionGuard(sim_after_step=args.sim_preempt_step)
+    guard = PreemptionGuard(
+        sim_after_step=args.sim_preempt_step,
+        check_every=getattr(args, "preempt_check_steps", 25))
     with guard:
         return _main(args, guard)
 
@@ -188,12 +199,14 @@ def make_teacher_step(model, optimizer, device):
                                "torch.backends.cuda.matmul.allow_tf32 = "
                                "False")
         optimizer.zero_grad()
+        # across processes: the mean over the ranks' equal-shaped batches
         loss = model.apply(batch, compute_loss=True,
                            generator=pass_generators(generator, device)[0],
-                           **kw).mean()
+                           **kw).mean() / process_count()
         loss.backward()
+        all_reduce_grads_(optimizer.params)
         optimizer.step()
-        return {"loss": loss.detach()}
+        return global_sums({"loss": loss})
 
     return step
 
@@ -207,11 +220,8 @@ def _main(args, guard):
     print_args(args, LOGGER.info)
     os.makedirs(args.output_dir, exist_ok=True)
     setup_runtime(args)
-    device = resolve_device(args.device)
-    if _world_size() > 1:
-        raise NotImplementedError(
-            "teacher training in several processes comes with multi-GPU "
-            "training (ROADMAP A11)")
+    device = setup_process(args.device, args.dist_backend)
+    rank = process_index()
     cfg = resolve_encoder_config(args.model_config)
     dtype = torch.bfloat16 if args.compute_dtype == "bf16" else torch.float32
     if args.self_mining:
@@ -221,7 +231,8 @@ def _main(args, guard):
             "self-mining needs a candidate pool larger than hard_size")
     model = build_model(args, cfg, dtype).to(device)
 
-    txt_db = TxtTokDb(args.train_txt_db, args.max_txt_len)
+    txt_db = TxtTokDb(args.train_txt_db, args.max_txt_len, rank=rank,
+                      world_size=process_count())
     img_db = DetectFeatDb(args.train_img_db, args.conf_th, args.max_bb,
                           args.min_bb, args.num_bb)
     lr = schedule_linear(args.learning_rate, args.warmup_steps,
@@ -270,7 +281,7 @@ def _main(args, guard):
                 compute_hard_neg(score_fn, (hn_dataset[i]
                                             for i in range(len(hn_dataset))),
                                  dataset, args.hard_neg_pool_size,
-                                 hard_neg_dir)
+                                 hard_neg_dir, rank=rank)
         else:
             dataset = ItmRankDataset(txt_db, img_db, args.neg_sample_size,
                                      seed=args.seed)
@@ -304,7 +315,7 @@ def _main(args, guard):
                 host, kw = next_batch(global_step)
                 staged = await_staged(stager(host))
                 losses.append(train_step(
-                    staged, step_generator(args.seed, global_step),
+                    staged, step_generator(args.seed, global_step, rank),
                     **kw)["loss"])
                 done = None
                 if device.type == "cuda":
@@ -331,11 +342,13 @@ def _main(args, guard):
             recycler.flush()
 
     # the teacher directory, read by load_cross_encoder of either package
-    with open(os.path.join(args.output_dir, "config.json"), "w") as f:
-        json.dump(cfg.to_dict(), f)
-    save_checkpoint(os.path.join(args.output_dir, "model"), model=model,
-                    step=global_step)
-    LOGGER.info("teacher saved to %s", args.output_dir)
+    if is_main_process():
+        with open(os.path.join(args.output_dir, "config.json"), "w") as f:
+            json.dump(cfg.to_dict(), f)
+        save_checkpoint(os.path.join(args.output_dir, "model"), model=model,
+                        step=global_step)
+        LOGGER.info("teacher saved to %s", args.output_dir)
+    barrier()
     per_step = [float(v) for v in torch.stack(losses).cpu()] if losses \
         else []
     final_loss = float(np.mean(per_step[-20:])) if per_step else float("nan")

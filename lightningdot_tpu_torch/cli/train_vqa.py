@@ -48,6 +48,7 @@ from lightningdot_tpu_torch.data.txt_db import TxtTokDb
 from lightningdot_tpu_torch.data.vqa import (VqaCollateConfig, VqaDataset,
                                              VqaEvalDataset, vqa_collate)
 from lightningdot_tpu_torch.device import resolve_device
+from lightningdot_tpu_torch.parallel.mesh import launch_world_size
 from lightningdot_tpu_torch.models.factory import build_biencoder
 from lightningdot_tpu_torch.models.vqa import BiEncoderForVQA, init_vqa_head_
 from lightningdot_tpu_torch.training.checkpoints import save_checkpoint
@@ -99,7 +100,8 @@ def main(cmds=None):
     args = parse_with_config(build_parser(), cmds)
     # installed before set-up: a signal during model or data construction
     # latches, and the loop checkpoints at its first boundary and exits
-    guard = PreemptionGuard(sim_after_step=args.sim_preempt_step)
+    guard = PreemptionGuard(sim_after_step=args.sim_preempt_step,
+                            check_every=args.preempt_check_steps)
     with guard:
         return _main(args, guard)
 
@@ -109,6 +111,12 @@ def _main(args, guard):
     print_args(args, LOGGER.info)
     TB_LOGGER.create(os.path.join(args.output_dir, "metrics.jsonl"))
     setup_runtime(args)
+    if launch_world_size() > 1:
+        # JAX's driver shards the DBs by rank but steps without a mesh, so
+        # its replicas never exchange gradients (cli/train_vqa.py:95-99,155)
+        raise NotImplementedError(
+            "VQA across ranks is not ported: see ROADMAP §C, \"VQA across "
+            "ranks\"")
     device = resolve_device(args.device)
     np.random.seed(args.seed)
 
@@ -120,7 +128,6 @@ def _main(args, guard):
     model = build_model(args).to(device)
     all_img_dbs = ImageDbGroup(args.conf_th, args.max_bb, args.min_bb,
                                args.num_bb)
-    # one process until multi-GPU (ROADMAP A11): rank 0 of 1
     train_sets = [VqaDataset(args.num_answers,
                              TxtTokDb(t, args.max_txt_len),
                              all_img_dbs[im])

@@ -83,10 +83,11 @@ BERT_BASE_CASED = EncoderConfig(vocab_size=28996)
 
 def default_params(parser: argparse.ArgumentParser) -> None:
     """Core flags shared by the drivers (dvl/options.py:15-47), with the
-    JAX package's defaults. Its TPU knobs (``--kernel_backend``) and the
-    mesh size (``--dp_size``, multi-GPU: ROADMAP A11) are not registered;
-    a config JSON that holds them loads all the same, since
-    :func:`parse_with_config` sets every key it holds."""
+    JAX package's defaults. Its TPU knob (``--kernel_backend``) is not
+    registered, and the mesh size (``--dp_size``) only by the drivers that
+    train across processes (:func:`add_dist_params`); a config JSON that
+    holds them loads all the same, since :func:`parse_with_config` sets
+    every key it holds."""
     parser.add_argument("--txt_model_type", default="bert-base", type=str)
     parser.add_argument("--txt_model_config", default="bert-base-cased", type=str)
     parser.add_argument("--txt_checkpoint", default=None, type=str)
@@ -120,6 +121,28 @@ def default_params(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--hnsw_index", action="store_true")
     parser.add_argument("--compute_dtype", default="bf16",
                         choices=["bf16", "f32"])
+
+
+def add_dist_params(parser: argparse.ArgumentParser,
+                    dp_size: bool = True) -> None:
+    """The flags of a driver that trains across processes under
+    ``torchrun``: the device (default: the card of ``LOCAL_RANK``), the
+    backend of the process group (default: NCCL on a card, gloo on the
+    CPU; gloo lets two ranks share one card) and, with ``dp_size``, the
+    JAX package's mesh size (config.py:136-137): the number of processes,
+    0 = the launcher's."""
+    parser.add_argument("--device", default=None, type=str,
+                        help="default: the CUDA card (of LOCAL_RANK under "
+                             "torchrun; raises without one); 'cpu' runs "
+                             "the plain PyTorch path")
+    parser.add_argument("--dist_backend", default=None,
+                        choices=["nccl", "gloo"],
+                        help="process group backend under torchrun "
+                             "(default nccl on cuda, gloo on cpu)")
+    if dp_size:
+        parser.add_argument("--dp_size", default=0, type=int,
+                            help="data-parallel processes (torchrun "
+                                 "--nproc_per_node); 0 = the launcher's")
 
 
 def add_itm_params(parser: argparse.ArgumentParser) -> None:
@@ -160,6 +183,11 @@ def add_logging_params(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--sim_preempt_step", type=int, default=None,
                         help="fault injection: act as if SIGTERM arrived "
                              "at this global step (preemption-path tests)")
+    parser.add_argument("--preempt_check_steps", type=int, default=25,
+                        help="cadence of the preemption OR-reduce across "
+                             "processes (rounded up to a multiple of the "
+                             "accumulation window); one process never "
+                             "pays a collective")
 
 
 def add_kd_params(parser: argparse.ArgumentParser) -> None:

@@ -16,8 +16,9 @@ uniter_model/data/loader.py):
 
   * :class:`MetaLoader`: pre-training's multi-task sampling
     (loader.py:293-348).
-
-The ``DistributedSampler`` comes with multi-GPU (ROADMAP A11).
+  * :class:`DistributedSampler`: an epoch-seeded shuffle partitioned over
+    ranks (loader.py:68-120); pre-training's fixed-row batches across
+    processes use it.
 """
 from __future__ import annotations
 
@@ -75,6 +76,51 @@ class TokenBucketSampler:
                 batches.append(batch_indices)
         self._rng.shuffle(batches)
         return iter(batches)
+
+
+class DistributedSampler:
+    """Epoch-seeded per-rank batch sampler (the port's copy of
+    lightningdot_tpu/data/loader.py:68-120; uniter sampler.py:59-116): the
+    whole index list is shuffled with ``seed + epoch`` before the rank
+    partition, so examples move between ranks every epoch, and wrap-around
+    padding repeats indices until every rank has ``num_samples``. Call
+    ``set_epoch`` each epoch, or every epoch replays one permutation."""
+
+    def __init__(self, dataset_len: int, num_replicas: int, rank: int,
+                 batch_size: int = 1, shuffle: bool = True,
+                 drop_last: bool = False, seed: int = 0):
+        self.dataset_len = dataset_len
+        self.num_replicas = num_replicas
+        self.rank = rank
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.epoch = 0
+        self.num_samples = -(-dataset_len // num_replicas)
+        self.total_size = self.num_samples * num_replicas
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = epoch
+
+    def __len__(self):
+        if self.drop_last:
+            return self.num_samples // self.batch_size
+        return -(-self.num_samples // self.batch_size)
+
+    def __iter__(self):
+        indices = list(range(self.dataset_len))
+        if self.shuffle:
+            random.Random(self.seed + self.epoch).shuffle(indices)
+        while len(indices) < self.total_size:
+            indices += indices[:self.total_size - len(indices)]
+        indices = indices[self.rank:self.total_size:self.num_replicas]
+        assert len(indices) == self.num_samples
+        for i in range(0, len(indices), self.batch_size):
+            chunk = indices[i:i + self.batch_size]
+            if self.drop_last and len(chunk) < self.batch_size:
+                return
+            yield chunk
 
 
 

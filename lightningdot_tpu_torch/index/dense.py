@@ -11,11 +11,15 @@ top-k merge (dense.py:44-75), so the full matrix is never allocated. The
 scoring is a plain product and top-k: the JAX package computes it outside
 any Pallas kernel too.
 
+:class:`DenseShardedIndex` shards the corpus over a
+:class:`~lightningdot_tpu_torch.parallel.mesh.DeviceMesh` (dense.py:
+213-300): each shard scores its rows on its device and keeps its top k,
+and the candidates are gathered to the first device for the global top k.
+
 Serialization keeps the reference's two-file layout
 (faiss_indexers.py:35-57): ``<file>.index.npy`` (the float32 vectors) and
 ``<file>.index_meta.dpr`` (the pickled index -> db-id list), so either
-package reads the other's files. The multi-device ``DenseShardedIndex``
-comes with multi-GPU (ROADMAP A11).
+package reads the other's files.
 """
 from __future__ import annotations
 
@@ -74,6 +78,15 @@ def _topk_scores_chunked(queries: torch.Tensor, corpus: torch.Tensor,
     return best_s, best_i
 
 
+def merge_shard_topk(parts, k: int, device: torch.device):
+    """The top k over every shard's candidates, on ``device``: ``parts``
+    holds each shard's (scores [Q, k_i], global ids [Q, k_i])."""
+    scores = torch.cat([s.to(device) for s, _ in parts], dim=1)
+    ids = torch.cat([i.to(device) for _, i in parts], dim=1)
+    best, sel = torch.topk(scores, k, dim=1)
+    return best, torch.gather(ids, 1, sel)
+
+
 class DenseFlatIndex:
     """Exact inner-product index on one device.
 
@@ -96,6 +109,7 @@ class DenseFlatIndex:
         self._corpus: Optional[torch.Tensor] = None   # built lazily
         self._pad_bias: Optional[torch.Tensor] = None
         self._n_real = 0
+        self._n_pad = 0
 
     # -- building ------------------------------------------------------------
     def index_data(self, data: Sequence[Tuple[Any, np.ndarray]]) -> None:
@@ -117,27 +131,31 @@ class DenseFlatIndex:
     def ntotal(self) -> int:
         return len(self.index_id_to_db_id)
 
-    def _build(self) -> torch.Tensor:
+    def _padded_matrix(self, multiple: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The vectors padded with zero rows to a multiple of ``multiple``,
+        and the [N_pad] score bias (-1e30 on the padding rows)."""
+        if not self._chunks:
+            raise ValueError("index is empty")
+        mat = np.concatenate(self._chunks, axis=0)
+        self._chunks = [mat]
+        self._n_real = mat.shape[0]
+        self._n_pad = _round_up(self._n_real, multiple)
+        padded = np.zeros((self._n_pad, self.vector_sz), np.float32)
+        padded[:self._n_real] = mat
+        bias = np.zeros((self._n_pad,), np.float32)
+        bias[self._n_real:] = NEG_INF
+        return padded, bias
+
+    def _build(self) -> None:
         if self._corpus is None:
-            if not self._chunks:
-                raise ValueError("index is empty")
-            mat = np.concatenate(self._chunks, axis=0)
-            self._chunks = [mat]
-            self._n_real = mat.shape[0]
+            n = sum(c.shape[0] for c in self._chunks)
             # align to the streaming chunk whenever an 8192-query block
             # over this corpus would pass SCORE_BUDGET, so the chunked
             # top-k applies when it is needed (dense.py:132-148)
-            multiple = (self.CORPUS_CHUNK
-                        if self._n_real * 8192 > self.SCORE_BUDGET else 128)
-            n_pad = _round_up(self._n_real, multiple)
-            corpus = torch.zeros((n_pad, self.vector_sz), dtype=torch.float32,
-                                 device=self.device)
-            corpus[:self._n_real] = torch.from_numpy(mat).to(self.device)
-            bias = torch.zeros((n_pad,), dtype=torch.float32,
-                               device=self.device)
-            bias[self._n_real:] = NEG_INF
-            self._corpus, self._pad_bias = corpus, bias
-        return self._corpus
+            mat, bias = self._padded_matrix(
+                self.CORPUS_CHUNK if n * 8192 > self.SCORE_BUDGET else 128)
+            self._corpus = torch.from_numpy(mat).to(self.device)
+            self._pad_bias = torch.from_numpy(bias).to(self.device)
 
     # -- searching -----------------------------------------------------------
     def _search_block(self, qb: torch.Tensor, k: int):
@@ -158,7 +176,7 @@ class DenseFlatIndex:
         q = np.asarray(query_vectors, np.float32)
         if q.ndim == 1:
             q = q[None]
-        n = int(self._corpus.shape[0])
+        n = self._n_pad
         if k > self.CORPUS_CHUNK or n % self.CORPUS_CHUNK != 0:
             # the chunked top-k cannot apply: keep the transient [Q, N]
             # score matrix under SCORE_BUDGET by shrinking the query block
@@ -196,3 +214,51 @@ class DenseFlatIndex:
 
 # Alias matching the reference class name (drop-in for imports).
 DenseFlatIndexer = DenseFlatIndex
+
+
+class DenseShardedIndex(DenseFlatIndex):
+    """The corpus sharded over a :class:`~lightningdot_tpu_torch.parallel.
+    mesh.DeviceMesh` (``DenseShardedIndex``, dense.py:213-300): shard i,
+    rows [i x N_pad / n, (i + 1) x N_pad / n), lives on the mesh's i-th
+    device; a query block is scored on every shard, each keeps its top
+    min(k, shard rows) (streaming above ``SCORE_BUDGET``, as the flat
+    index), its ids offset by the shard's first row, and the candidates
+    are gathered to the first device for the global top k."""
+
+    def __init__(self, vector_sz: int, mesh, buffer_size: int = 50000):
+        super().__init__(vector_sz, buffer_size, device=mesh.devices[0])
+        self.mesh = mesh
+
+    def _build(self) -> None:
+        if self._corpus is None:
+            n = sum(c.shape[0] for c in self._chunks)
+            n_dev = self.mesh.size
+            # the flat index's alignment rule, per shard
+            multiple = (self.CORPUS_CHUNK
+                        if n * 8192 > self.SCORE_BUDGET * n_dev
+                        else 128) * n_dev
+            mat, bias = self._padded_matrix(multiple)
+            per = self._n_pad // n_dev
+            self._corpus = [
+                (torch.from_numpy(mat[i * per:(i + 1) * per]).to(dev),
+                 torch.from_numpy(bias[i * per:(i + 1) * per]).to(dev))
+                for i, dev in enumerate(self.mesh)]
+
+    def _search_block(self, qb: torch.Tensor, k: int):
+        parts = []
+        for i, (shard, bias) in enumerate(self._corpus):
+            rows = shard.shape[0]
+            # a shard can be narrower than k (mining asks for pools up to
+            # 1000 on thin shards): the shards' candidates together still
+            # hold the global top k (dense.py:251-258)
+            k_local = min(k, rows)
+            q = qb.to(shard.device, non_blocking=True)
+            if (q.shape[0] * rows > self.SCORE_BUDGET
+                    and rows % self.CORPUS_CHUNK == 0
+                    and k_local <= self.CORPUS_CHUNK):
+                s, idx = _topk_scores_chunked(q, shard, bias, k_local,
+                                              self.CORPUS_CHUNK)
+            else:
+                s, idx = _topk_scores(q, shard, bias, k_local)
+            parts.append((s, idx + i * rows))
+        return merge_shard_topk(parts, k, self.device)

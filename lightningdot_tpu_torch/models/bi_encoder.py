@@ -20,6 +20,8 @@ from lightningdot_tpu_torch.config import EncoderConfig
 from lightningdot_tpu_torch.models.encoder import (Dense, ImageEncoder,
                                                    LayerNorm, TextEncoder)
 from lightningdot_tpu_torch.ops import gelu, mm_f32
+from lightningdot_tpu_torch.parallel.mesh import (gather_batch_rows,
+                                                  gather_rows, process_index)
 
 
 def dot_product_scores(q_vectors: torch.Tensor,
@@ -374,18 +376,27 @@ class BiEncoderForPretraining(nn.Module):
 
     def forward_itm(self, batch, generators=None, compute_loss=True):
         """Bidirectional in-batch contrastive ITM (bi_encoder.py:401-422).
-        The positives are the diagonal of this batch's score matrix
+        The positives are the diagonal of the batch's score matrix
         (``arange``, not the collate's ``pos_ctx_indices``), and the
         padded duplicates are masked as context columns through the
-        batch's ``weights``."""
-        txt, img, cap = self.bert.apply(batch, generators)
-        pos_idx = torch.arange(txt.shape[0], device=txt.device)
+        batch's ``weights``. In a process group the contexts are the
+        global batch's rows and the positives their global indices (rank x
+        n + arange; the collate's local ``pos_ctx_indices`` would point
+        rank 1's rows at rank 0's images): each rank returns its own rows'
+        losses against every rank's contexts (bi_encoder.py:394-420)."""
+        txt, img, _ = self.bert.apply(batch, generators)
+        n = txt.shape[0]
+        txt_all, img_all = gather_batch_rows((txt, img), n)
         col_valid = batch.get("weights")
+        if col_valid is not None:
+            col_valid = gather_rows(torch.as_tensor(
+                col_valid, device=txt.device).float())
+        pos_idx = process_index() * n + torch.arange(n, device=txt.device)
         loss1, correct1, _ = BiEncoderNllLoss.calc(
-            txt, img, cap, pos_idx, None, 0.0, reduction="none",
+            txt, img_all, None, pos_idx, None, 0.0, reduction="none",
             col_valid=col_valid)
         loss2, correct2, _ = BiEncoderNllLoss.calc(
-            img, txt, cap, pos_idx, None, 0.0, reduction="none",
+            img, txt_all, None, pos_idx, None, 0.0, reduction="none",
             col_valid=col_valid)
         loss = loss1 * 0.5 + loss2 * 0.5
         if compute_loss:

@@ -10,7 +10,9 @@ serve_retriever` puts the native C++ HTTP server in front of it.
 The tower runs in bfloat16 (or float32), or on int8 weights
 (``weight_quantization="int8"``); the corpus is bfloat16 or per-vector int8
 (``quantization="int8"``); top-k is exact or approximate (``topk="approx"``,
-:func:`approx_topk`).
+:func:`approx_topk`). With a ``mesh`` (a ``DeviceMesh``) the corpus is
+sharded over its devices, one row block each, and each shard's top k is
+merged into the global top k on the tower's device.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import torch
 
 from lightningdot_tpu_torch.data.padding import bucket_len
 from lightningdot_tpu_torch.device import resolve_device
+from lightningdot_tpu_torch.index.dense import merge_shard_topk
 from lightningdot_tpu_torch.models.bi_encoder import (BiEncoder,
                                                       dot_product_scores)
 from lightningdot_tpu_torch.models.quantized import QuantizedTextEncoder
@@ -82,12 +85,13 @@ class Retriever:
     """Serve text->image retrieval against a pre-encoded corpus.
 
     ``model`` holds the weights; the Retriever moves it to ``device``
-    (``None``: the card, raising where there is none; ``"cpu"`` runs the
-    plain PyTorch path) and runs it in its ``compute_dtype``.
+    (``None``: the card, raising where there is none, or the first device
+    of ``mesh``; ``"cpu"`` runs the plain PyTorch path) and runs it in its
+    ``compute_dtype``.
     """
 
     def __init__(self, model: BiEncoder, tokenizer, *,
-                 device: Optional[torch.device] = None,
+                 device: Optional[torch.device] = None, mesh=None,
                  query_buckets: Sequence[int] = QUERY_LEN_BUCKETS,
                  quantization: Optional[str] = None,
                  weight_quantization: Optional[str] = None,
@@ -100,7 +104,10 @@ class Retriever:
         QuantizedTextEncoder`; the float tower then stays where it is);
         ``topk="approx"`` takes :func:`approx_topk`,
         its bins sized so that recall is at least ``topk_recall``
-        (lightningdot_tpu/serving.py:145-159)."""
+        (lightningdot_tpu/serving.py:145-159). ``mesh`` shards the corpus
+        over a ``DeviceMesh``: rows aligned to 128 x its size, shard i on
+        its i-th device, each shard's exact or approximate top k merged
+        exactly (serving.py:147,172,188,213-226)."""
         if quantization not in (None, "int8"):
             raise ValueError(f"unknown quantization {quantization!r}")
         if weight_quantization not in (None, "int8"):
@@ -108,7 +115,10 @@ class Retriever:
                 f"unknown weight_quantization {weight_quantization!r}")
         if topk not in ("exact", "approx"):
             raise ValueError(f"unknown topk {topk!r}")
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(
+            device if device is not None or mesh is None
+            else mesh.devices[0])
         # the int8 tower is quantized from the float tower where that lies
         # and alone goes to the device
         self._qtower = (QuantizedTextEncoder(model.txt_model).to(self.device)
@@ -122,7 +132,8 @@ class Retriever:
         self.weight_quantization = weight_quantization
         self.topk = topk
         self.topk_recall = topk_recall
-        # [N_pad, D] bfloat16, or int8 with float32 [N_pad] scales
+        # [N_pad, D] bfloat16, or int8 with float32 [N_pad] scales; with a
+        # mesh, a list of each shard's on its device
         self._corpus: Optional[torch.Tensor] = None
         self._scales: Optional[torch.Tensor] = None
         self._bias: Optional[torch.Tensor] = None     # [N_pad] float32
@@ -152,25 +163,53 @@ class Retriever:
 
     def _place(self, mat: np.ndarray, bias: np.ndarray,
                scales: Optional[np.ndarray]) -> None:
-        # a float corpus rounds to bfloat16 on the device: one upload of
-        # float32, no float32 copy kept
-        corpus = torch.from_numpy(mat).to(self.device)
-        self._corpus = (corpus if corpus.dtype == torch.int8
-                        else corpus.to(torch.bfloat16))
-        self._bias = torch.from_numpy(bias).to(self.device)
-        self._scales = (torch.from_numpy(scales).to(self.device)
-                        if scales is not None else None)
+        def put(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        def put_corpus(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+            # a float corpus rounds to bfloat16 on the device: one upload
+            # of float32, no float32 copy kept
+            t = put(a, dev)
+            return t if t.dtype == torch.int8 else t.to(torch.bfloat16)
+
+        if self.mesh is None:
+            self._corpus = put_corpus(mat, self.device)
+            self._bias = put(bias, self.device)
+            self._scales = (put(scales, self.device) if scales is not None
+                            else None)
+            return
+        n_dev = self.mesh.size
+        n_pad = -(-mat.shape[0] // (128 * n_dev)) * 128 * n_dev
+        extra = n_pad - mat.shape[0]
+        if extra:   # a corpus saved unsharded: pad it to the mesh
+            mat = np.concatenate([mat, np.zeros((extra, mat.shape[1]),
+                                                mat.dtype)])
+            bias = np.concatenate([bias, np.full(extra, -1e30, np.float32)])
+            if scales is not None:
+                scales = np.concatenate([scales, np.full(extra, 1e-12,
+                                                         np.float32)])
+        per = n_pad // n_dev
+        rows = [slice(i * per, (i + 1) * per) for i in range(n_dev)]
+        self._corpus = [put_corpus(mat[r], d) for r, d in zip(rows,
+                                                              self.mesh)]
+        self._bias = [put(bias[r], d) for r, d in zip(rows, self.mesh)]
+        self._scales = (None if scales is None else
+                        [put(scales[r], d) for r, d in zip(rows, self.mesh)])
 
     def save_corpus(self, path: str) -> None:
         """``path.corpus.npz`` (vecs as float32 or int8, bias, and the int8
         scales) + ``path.ids.pkl``: the JAX package's format, so either
         package loads the other's."""
-        vecs = self._corpus.cpu()
+        def host(x):   # a shard list is concatenated in shard order
+            return (torch.cat([t.cpu() for t in x]) if isinstance(x, list)
+                    else x.cpu())
+
+        vecs = host(self._corpus)
         arrays = {"vecs": (vecs if vecs.dtype == torch.int8
                            else vecs.float()).numpy(),
-                  "bias": self._bias.cpu().numpy()}
+                  "bias": host(self._bias).numpy()}
         if self._scales is not None:
-            arrays["scales"] = self._scales.cpu().numpy()
+            arrays["scales"] = host(self._scales).numpy()
         np.savez(path + ".corpus.npz", **arrays)
         with open(path + ".ids.pkl", "wb") as f:
             pickle.dump((self._ids, self.quantization), f)
@@ -259,24 +298,40 @@ class Retriever:
         ids, mask = self._token_batch(queries)
         return self._encode(ids, mask)[:len(queries)].float().cpu().numpy()
 
-    @torch.inference_mode()
-    def _search(self, vec: torch.Tensor, k: int):
-        if self._scales is not None:
+    def _shard_topk(self, vec: torch.Tensor, corpus: torch.Tensor,
+                    bias: torch.Tensor, scales: Optional[torch.Tensor],
+                    k: int):
+        if scales is not None:
             # symmetric per-query int8, int32 scores rescaled in float32
             # (serving.py:303-313)
             q_scale = torch.clamp(vec.abs().amax(dim=-1, keepdim=True),
                                   min=1e-12).float() * INV_127
             q = torch.round(vec.float() / q_scale).clamp(-127, 127).to(
                 torch.int8)
-            scores = (mm_int8(q, self._corpus.t()).float() * q_scale
-                      * self._scales)
+            scores = mm_int8(q, corpus.t()).float() * q_scale * scales
         else:
-            scores = dot_product_scores(vec.to(self._corpus.dtype),
-                                        self._corpus)
-        biased = scores + self._bias
+            scores = dot_product_scores(vec.to(corpus.dtype), corpus)
+        biased = scores + bias
         if self.topk == "approx":
             return approx_topk(biased, k, self.topk_recall)
         return torch.topk(biased, k, dim=1)
+
+    @torch.inference_mode()
+    def _search(self, vec: torch.Tensor, k: int):
+        if self.mesh is None:
+            return self._shard_topk(vec, self._corpus, self._bias,
+                                    self._scales, k)
+        # every shard's top min(k, rows), ids offset by the shard's first
+        # row, merged exactly on the tower's device
+        parts = []
+        scales = self._scales or [None] * len(self._corpus)
+        for i, (corpus, bias, sc) in enumerate(zip(self._corpus, self._bias,
+                                                   scales)):
+            rows = corpus.shape[0]
+            s, idx = self._shard_topk(vec.to(corpus.device), corpus, bias,
+                                      sc, min(k, rows))
+            parts.append((s, idx + i * rows))
+        return merge_shard_topk(parts, k, self.device)
 
     def warmup(self, tops: Sequence[int] = (100,),
                batches: Sequence[int] = (1,)) -> None:

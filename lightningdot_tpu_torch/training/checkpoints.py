@@ -48,6 +48,7 @@ from lightningdot_tpu_torch.models.weights import (
     cross_encoder_state_dict_from_jax, pretrain_state_dict_from_jax,
     uniter_pretrain_state_dict_from_jax, unflatten_jax,
     vqa_state_dict_from_jax)
+from lightningdot_tpu_torch.parallel.mesh import is_main_process
 
 SEP = "/"
 
@@ -328,6 +329,16 @@ class NoOpSaver:
 
     def wait(self) -> None:
         pass
+
+
+def rank_saver(output_dir: str, **kwargs):
+    """A :class:`ModelSaver` on rank 0 and a :class:`NoOpSaver` on the
+    other ranks (cli/pretrain.py:403-409): one writer per checkpoint. Call
+    :func:`~lightningdot_tpu_torch.parallel.mesh.barrier` after its
+    ``wait()`` before any rank reads what it wrote."""
+    if is_main_process():
+        return ModelSaver(output_dir, **kwargs)
+    return NoOpSaver()
 
 
 def latest_step_checkpoint(output_dir: str, prefix: str = "model_step"

@@ -26,7 +26,7 @@ from lightningdot_tpu_torch.data.loader import (DevicePrefetcher,
                                                 await_staged)
 from lightningdot_tpu_torch.data.padding import Recycler
 from lightningdot_tpu_torch.device import resolve_device
-from lightningdot_tpu_torch.index import DenseFlatIndex
+from lightningdot_tpu_torch.index import DenseFlatIndex, DenseShardedIndex
 from lightningdot_tpu_torch.models.bi_encoder import (BiEncoder,
                                                       BiEncoderNllLoss)
 from lightningdot_tpu_torch.utils import metrics as M
@@ -95,15 +95,18 @@ class EvalResult:
     embeddings: Dict[str, Dict[str, np.ndarray]]
 
 
-def build_index(vector_size: int, *, hnsw: bool = False,
+def build_index(vector_size: int, *, mesh=None, hnsw: bool = False,
                 device: Optional[Union[str, torch.device]] = None):
     """Index factory (evaluator.py:84-92; trainer.py:97-100,122-127: the
-    ``--hnsw_index`` switch): the native HNSW on the host, or the exact
-    flat index on ``device``."""
+    ``--hnsw_index`` switch): the native HNSW on the host, the exact index
+    sharded over ``mesh`` (a ``DeviceMesh``), or the exact flat index on
+    ``device``."""
     if hnsw:
         from lightningdot_tpu_torch.index.hnsw import DenseHNSWFlatIndexer
 
         return DenseHNSWFlatIndexer(vector_size)
+    if mesh is not None:
+        return DenseShardedIndex(vector_size, mesh)
     return DenseFlatIndex(vector_size, device=device)
 
 
@@ -129,13 +132,13 @@ def eval_model_on_dataloader(model: BiEncoder, dataloader, *,
                              num_tops: int = 100, no_eval: bool = False,
                              vector_size: int = 768,
                              caption_score_weight: float = 0.0,
-                             hnsw: bool = False,
+                             mesh=None, hnsw: bool = False,
                              device: Optional[torch.device] = None
                              ) -> EvalResult:
     """trainer.py:113-190 semantics (evaluator.py:95-176). The model's
     weights are its own (the JAX function takes them as ``params``); it
     runs on ``device`` (:class:`BatchEncoder`), where the flat indexes live
-    too."""
+    too; with a ``mesh`` the indexes shard over its devices."""
     if not no_eval and img2txt is None:
         raise ValueError("img2txt is required unless no_eval=True (the "
                          "img->txt recall needs the ground-truth mapping)")
@@ -178,9 +181,11 @@ def eval_model_on_dataloader(model: BiEncoder, dataloader, *,
     txt_embedding = {i: v for i, v in zip(txt_ids, txt_np)}
     img_embedding = {f: v for f, v in zip(img_fnames, img_np)}
 
-    indexer_img = build_index(vector_size, hnsw=hnsw, device=encoder.device)
+    indexer_img = build_index(vector_size, mesh=mesh, hnsw=hnsw,
+                              device=encoder.device)
     indexer_img.index_data(list(img_embedding.items()))
-    indexer_txt = build_index(vector_size, hnsw=hnsw, device=encoder.device)
+    indexer_txt = build_index(vector_size, mesh=mesh, hnsw=hnsw,
+                              device=encoder.device)
     indexer_txt.index_data(list(txt_embedding.items()))
 
     avg_loss = total_loss / max(batches, 1)
@@ -213,10 +218,10 @@ def eval_model_on_dataloader(model: BiEncoder, dataloader, *,
 
 
 def get_indexer(model: BiEncoder, dataloader, *, vector_size: int = 768,
-                img_retrieval: bool = True, hnsw: bool = False,
+                img_retrieval: bool = True, mesh=None, hnsw: bool = False,
                 device: Optional[torch.device] = None):
     """trainer.py:93-110 (evaluator.py:179-196): encode one side and build
-    its index."""
+    its index (sharded over ``mesh`` where one is given)."""
     encoder = BatchEncoder(model, device=device)
     embedding = {}
     for batch, txt, img, _ in encoded_batches(encoder, dataloader):
@@ -228,6 +233,7 @@ def get_indexer(model: BiEncoder, dataloader, *, vector_size: int = 768,
             vecs = txt[:n_valid].cpu().numpy()
             keys = batch["txt_index"][:n_valid]
         embedding.update({k: v for k, v in zip(keys, vecs)})
-    index = build_index(vector_size, hnsw=hnsw, device=encoder.device)
+    index = build_index(vector_size, mesh=mesh, hnsw=hnsw,
+                        device=encoder.device)
     index.index_data(list(embedding.items()))
     return index

@@ -11,8 +11,8 @@ written as JSON and reloaded into ``ItmRankDatasetHardNeg``.
 The score functions stage each pool through pinned buffers
 (``PinnedStager``) and return the scores on the device; ``get_hard_negs``
 keeps ``pipeline_depth`` pools in flight before it pulls the oldest.
-One process: the sharded merge of ``img2hardtxts`` comes with multi-GPU
-training (ROADMAP A11).
+Across processes each rank mines its rank-strided shard of texts, and the
+image -> texts map merges every rank's texts (``compute_hard_neg``).
 """
 from __future__ import annotations
 
@@ -27,14 +27,9 @@ import torch
 
 from lightningdot_tpu_torch.data.loader import PinnedStager, await_staged
 from lightningdot_tpu_torch.device import resolve_device
+from lightningdot_tpu_torch.parallel.mesh import barrier, is_main_process
 from lightningdot_tpu_torch.utils.logging import LOGGER
-
-
-def _world_size() -> int:
-    dist = torch.distributed
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+from lightningdot_tpu_torch.utils.misc import host_all_gather
 
 
 def _scoring(model, device, keys, fn) -> Callable:
@@ -143,19 +138,25 @@ def compute_hard_neg(score_fn: Callable, loader, datasets,
                      rank: int = 0) -> None:
     """Mine, write the JSON maps, and reload them into the training
     dataset(s) (train_itm.py:50-65; ``compute_hard_neg``,
-    hn_teacher.py:137-171). One process only."""
-    if _world_size() > 1:
-        raise NotImplementedError(
-            "teacher mining in several processes (the merged "
-            "img2hardtxts) comes with multi-GPU training (ROADMAP A11)")
+    hn_teacher.py:137-171). Across processes each rank writes its own
+    text -> images map (it trains on its own text shard), the image ->
+    texts map gathers every rank's texts and rank 0 alone writes it, and
+    no rank reloads before the files are written (a barrier)."""
     txt2hardimgs, img2hardtxts = get_hard_negs(score_fn, loader,
                                                hard_negative_num)
+    merged: dict = {}
+    for part in host_all_gather(img2hardtxts):
+        for img, txts in part.items():
+            merged.setdefault(img, []).extend(txts)
     os.makedirs(hard_neg_dir, exist_ok=True)
     with open(os.path.join(hard_neg_dir,
                            f"txt2hardimgs_rank{rank}.json"), "w") as f:
         json.dump(txt2hardimgs, f)
-    with open(os.path.join(hard_neg_dir, "img2hardtxts.json"), "w") as f:
-        json.dump(img2hardtxts, f)
+    if is_main_process():
+        with open(os.path.join(hard_neg_dir, "img2hardtxts.json"),
+                  "w") as f:
+            json.dump(merged, f)
+    barrier()
     if not isinstance(datasets, (list, tuple)):
         datasets = [datasets]
     for dset in datasets:

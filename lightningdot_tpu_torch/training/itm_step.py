@@ -20,6 +20,11 @@ from lightningdot_tpu_torch.data.loader import host_tensor
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
 from lightningdot_tpu_torch.ops.matmul import mm_f32
+from lightningdot_tpu_torch.parallel.mesh import (all_reduce_grads_,
+                                                  gather_batch_rows,
+                                                  gather_rows, global_sums,
+                                                  process_count,
+                                                  process_index)
 from lightningdot_tpu_torch.training.optim import FusedAdamW
 
 NEG_INF = -1e30
@@ -42,43 +47,56 @@ def itm_loss_fn(model: BiEncoder, batch: Dict[str, Any], generators=None, *,
     all rows. ``valid_mask`` [bs] marks real items: a padded row is no
     query, and a padded column (with its negatives) is no context except at
     its own diagonal. The third value is the (txt, img, cap) vectors, the
-    KD term's input (JAX's aux)."""
+    KD term's input (JAX's aux).
+
+    In a process group (``parallel.mesh``) the contexts are the GLOBAL
+    batch, laid out as one process's collate would lay it out
+    (:func:`~lightningdot_tpu_torch.parallel.mesh.gather_batch_rows`), and
+    the positives are global row indices (rank x bs + arange): each rank
+    scores its own queries against every rank's contexts over the global
+    valid count, so the ranks' losses sum to the one-process loss of the
+    global batch and their gradients (summed, ``all_reduce_grads_``) to
+    its gradient. The metrics are the global values, the same bits on
+    every rank."""
     txt, img, cap = model.apply(batch, generators)
     bs = txt.shape[0] // (1 + num_hard_negatives)
     dev = txt.device
-    pos_idx = torch.arange(bs, device=dev)
     valid = batch.get("valid_mask")
     valid = (torch.ones(bs, device=dev) if valid is None
              else valid.to(device=dev, dtype=torch.float32))
+    txt_all, img_all, cap_all = gather_batch_rows((txt, img, cap), bs)
+    valid_all = gather_rows(valid)
+    n_pos = valid_all.shape[0]
+    pos_idx = process_index() * bs + torch.arange(bs, device=dev)
+    n_valid = torch.clamp(valid_all.sum(), min=1.0)
 
-    def masked_calc(q, ctx, cap_ctx, n_pos_ctx):
+    def masked_calc(q, ctx, cap_ctx):
         scores = _scores(q, ctx)
         if cap_ctx is not None and caption_score_weight != 0:
             scores = ((1 - caption_score_weight) * scores
                       + caption_score_weight * _scores(q, cap_ctx))
         n_ctx = ctx.shape[0]
         ctx_valid = torch.ones(n_ctx, device=dev)
-        ctx_valid[:n_pos_ctx] = valid
-        k = (n_ctx - n_pos_ctx) // n_pos_ctx
+        ctx_valid[:n_pos] = valid_all
+        k = (n_ctx - n_pos) // n_pos
         if k > 0:
-            neg_valid = valid.repeat_interleave(k)
-            ctx_valid[n_pos_ctx:n_pos_ctx + neg_valid.shape[0]] = neg_valid
+            neg_valid = valid_all.repeat_interleave(k)
+            ctx_valid[n_pos:n_pos + neg_valid.shape[0]] = neg_valid
         col_mask = (1.0 - ctx_valid)[None, :] * NEG_INF
         diag = torch.nn.functional.one_hot(pos_idx, n_ctx).float()
         scores = scores + col_mask * (1.0 - diag)
         logp = torch.log_softmax(scores, dim=1)
         nll = -logp.gather(1, pos_idx[:, None])[:, 0]
-        loss = (nll * valid).sum() / torch.clamp(valid.sum(), min=1.0)
+        loss = (nll * valid).sum() / n_valid
         correct = ((logp.argmax(dim=1) == pos_idx).float() * valid).sum()
         return loss, correct
 
-    loss1, correct1 = masked_calc(img[:bs], txt, cap, bs)   # img -> txt
-    loss2, correct2 = masked_calc(txt[:bs], img, cap, bs)   # txt -> img
+    loss1, correct1 = masked_calc(img[:bs], txt_all, cap_all)   # img -> txt
+    loss2, correct2 = masked_calc(txt[:bs], img_all, cap_all)   # txt -> img
     loss = 0.5 * loss1 + 0.5 * loss2
-    n_valid = torch.clamp(valid.sum(), min=1.0)
-    metrics = {"loss": loss.detach(), "loss_img2txt": loss1.detach(),
-               "loss_txt2img": loss2.detach(),
-               "acc": ((correct1 + correct2) / (2.0 * n_valid)).detach()}
+    metrics = global_sums({"loss": loss, "loss_img2txt": loss1,
+                           "loss_txt2img": loss2,
+                           "acc": (correct1 + correct2) / (2.0 * n_valid)})
     return loss, metrics, (txt, img, cap)
 
 
@@ -244,9 +262,20 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
     carries ``teacher``. The metrics (loss, acc, grad_norm of the last
     update, both directions' losses, kd_loss) stay on the device.
 
+    In a process group every rank calls the step with its own batch: the
+    loss takes the global in-batch negatives (:func:`itm_loss_fn`), and the
+    gradients are summed over the ranks once per update, after the
+    accumulation and before the clip, so that the clip reads the global
+    batch's norm and every rank takes the same update. KD raises there
+    (ROADMAP §C, "KD across ranks").
+
     float32 compute on the card needs ``torch.backends.cuda.matmul.
     allow_tf32`` off: the JAX package's float32 products are true float32.
     """
+    if kd_fn is not None and process_count() > 1:
+        raise NotImplementedError(
+            "KD across ranks: the teacher grid of the global batch is not "
+            "laid out yet (ROADMAP §C, \"KD across ranks\")")
     device = resolve_device(device)
     model.to(device)
     accumulator = GradAccumulator(optimizer.params, accum_steps)
@@ -273,6 +302,7 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
             metrics["loss"] = loss.detach()
         loss.backward()
         if accumulator.add():
+            all_reduce_grads_(optimizer.params)
             last_norm[0] = optimizer.step()
         metrics["grad_norm"] = last_norm[0]
         return metrics

@@ -18,6 +18,9 @@ import torch
 from lightningdot_tpu_torch.data.loader import host_tensor
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoderForPretraining
+from lightningdot_tpu_torch.parallel.mesh import (all_reduce_grads_,
+                                                  global_count, global_sums,
+                                                  local_scope)
 from lightningdot_tpu_torch.training.itm_step import (GradAccumulator,
                                                       pass_generators)
 from lightningdot_tpu_torch.training.optim import FusedAdamW
@@ -29,12 +32,19 @@ _HOST_KEYS = ("n_valid", "sample_size")
 def weighted_mean(loss: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
     """Mean over the valid loss units (``weighted_mean``,
     pretrain_step.py:24-30: ``loss.mean()`` on the reference's
-    dynamic-shape tensors, pretrain.py:399-406)."""
+    dynamic-shape tensors, pretrain.py:399-406). In a process group the
+    count is the global batch's, so that the ranks' values sum to the mean
+    over the global batch (the JAX step sees the global batch)."""
     while weights.dim() < loss.dim():
         weights = weights[..., None]
-    denom = torch.clamp(weights.sum() * (loss.numel() / weights.numel()),
-                        min=1.0)
+    denom = torch.clamp(global_count(
+        weights.sum() * (loss.numel() / weights.numel())), min=1.0)
     return (loss * weights).sum() / denom
+
+
+def _global_ratio(count: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``count`` over the weights' sum of the global batch."""
+    return count / torch.clamp(global_count(weights.sum()), min=1)
 
 
 def task_loss(model: BiEncoderForPretraining, batch: Dict[str, Any],
@@ -51,7 +61,7 @@ def task_loss(model: BiEncoderForPretraining, batch: Dict[str, Any],
         labels = torch.as_tensor(batch["masked_labels"],
                                  device=lg.device).reshape(-1)
         correct = ((lg.argmax(-1).reshape(-1) == labels).float() * w).sum()
-        metrics = {"loss": loss, "acc": correct / torch.clamp(w.sum(), min=1)}
+        metrics = {"loss": loss, "acc": _global_ratio(correct, w)}
         out = (lg, w)
     elif task == "mrfr":
         mse, pred, w = model.forward_mrfr(batch, generators)
@@ -64,7 +74,7 @@ def task_loss(model: BiEncoderForPretraining, batch: Dict[str, Any],
         pred = lg[:, :, 1:].argmax(-1) + 1
         tgt = torch.as_tensor(batch["label_targets"],
                               device=lg.device)[:, :, 1:].argmax(-1) + 1
-        acc = ((pred == tgt).float() * w).sum() / torch.clamp(w.sum(), min=1)
+        acc = _global_ratio(((pred == tgt).float() * w).sum(), w)
         metrics = {"loss": loss, "acc": acc}
         out = (lg, w)
     elif task == "itm":
@@ -72,8 +82,7 @@ def task_loss(model: BiEncoderForPretraining, batch: Dict[str, Any],
                                             compute_loss=False)
         w = torch.as_tensor(batch["weights"], device=nll.device).float()
         loss = weighted_mean(nll, w)
-        metrics = {"loss": loss,
-                   "acc": correct / torch.clamp(w.sum(), min=1)}
+        metrics = {"loss": loss, "acc": _global_ratio(correct, w)}
     else:
         raise ValueError(f"invalid task {task}")
     return loss, metrics, out
@@ -142,7 +151,14 @@ def make_pretrain_step(model: BiEncoderForPretraining,
     (``UniterForPretraining`` on ``device``), every non-itm task whose
     batch carries ``teacher`` adds :func:`kd_loss` (pretrain_step.py:
     109-121). The metrics stay on the device. ``step_for_task.accumulator``
-    is the gradient accumulator that the steps share."""
+    is the gradient accumulator that the steps share.
+
+    In a process group every rank steps on its own batch of the same task
+    and shape: each task's loss is divided by the global batch's count,
+    the itm task scores against the global batch (``forward_itm``), the
+    gradients are summed over the ranks once per update before the clip,
+    and the metrics are the global values (pretrain_step.py:140-170 under
+    the JAX mesh)."""
     device = resolve_device(device)
     model.to(device)
     accumulator = GradAccumulator(optimizer.params, accum_steps)
@@ -170,8 +186,9 @@ def make_pretrain_step(model: BiEncoderForPretraining,
                 metrics["loss"] = loss
             loss.backward()
             if accumulator.add():
+                all_reduce_grads_(optimizer.params)
                 optimizer.step()
-            return {k: v.detach() for k, v in metrics.items()}
+            return global_sums(metrics)
 
         return step
 
@@ -184,7 +201,9 @@ def make_validate_fn(model: BiEncoderForPretraining,
     """``validate_batch(batch, task) -> metrics``: the per-task forward
     without dropout or gradient (``make_validate_fn``,
     pretrain_step.py:139-170). The model runs in eval mode and goes back to
-    the mode it was in."""
+    the mode it was in. In a process group every rank validates alone on
+    the whole batch (JAX replicates it), so the metrics agree across
+    ranks."""
     device = resolve_device(device)
 
     @torch.no_grad()
@@ -192,8 +211,9 @@ def make_validate_fn(model: BiEncoderForPretraining,
         was_training = model.training
         model.eval()
         try:
-            _, metrics, _ = task_loss(
-                model, pretrain_batch_to_device(batch, device), task)
+            with local_scope():   # the whole validation set on every rank
+                _, metrics, _ = task_loss(
+                    model, pretrain_batch_to_device(batch, device), task)
         finally:
             model.train(was_training)
         return metrics

@@ -10,6 +10,7 @@ from lightningdot_tpu_torch.data.feat_db import ImageDbGroup
 from lightningdot_tpu_torch.data.itm import ItmFastDataset
 from lightningdot_tpu_torch.data.loader import DataLoader
 from lightningdot_tpu_torch.data.txt_db import TxtTokDb
+from lightningdot_tpu_torch.parallel.mesh import process_count, process_index
 
 
 class ConcatDataset:
@@ -58,11 +59,14 @@ def build_dataloader(dataset, collate_fn, is_train: bool, opts,
 def load_dataset(all_img_dbs: ImageDbGroup,
                  txt_dbs: Union[str, List[str]],
                  img_dbs: Union[str, List[str]], args, is_train: bool, *,
-                 rank: int = 0, world_size: int = 1):
-    """trainer.py:193-209. The port runs one process until multi-GPU
-    (ROADMAP A11): ``rank`` and ``world_size`` are passed, where the JAX
-    version asks its mesh (trainer_utils.py:65-76)."""
+                 rank: Optional[int] = None,
+                 world_size: Optional[int] = None):
+    """trainer.py:193-209. The training DBs shard rank-strided over the
+    processes of the group (trainer_utils.py:65-76); ``rank`` and
+    ``world_size`` override the group's."""
     if is_train:
+        rank = process_index() if rank is None else rank
+        world_size = process_count() if world_size is None else world_size
         datasets = []
         for txt_path, img_path in zip(txt_dbs, img_dbs):
             img_db = all_img_dbs[img_path]

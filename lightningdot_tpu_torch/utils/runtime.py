@@ -34,10 +34,16 @@ def setup_runtime(args=None) -> None:
         torch.backends.cudnn.allow_tf32 = False
 
 
-def step_generator(seed: int, global_step: int) -> torch.Generator:
+def step_generator(seed: int, global_step: int,
+                   rank: int = 0) -> torch.Generator:
     """The CPU generator that seeds the dropout masks of one training step:
-    a function of (seed, global_step) only."""
-    state = np.random.SeedSequence([int(seed) & 0xFFFFFFFF,
-                                    int(global_step)]).generate_state(2)
+    a function of (seed, global_step) only, and of ``rank`` across
+    processes, so that every rank draws its own masks (the attention's
+    Philox masks, keyed on the generator's seed, included); rank 0 draws
+    what one process draws."""
+    entropy = [int(seed) & 0xFFFFFFFF, int(global_step)]
+    if rank:
+        entropy.append(int(rank))
+    state = np.random.SeedSequence(entropy).generate_state(2)
     return torch.Generator().manual_seed(
         int(state[0]) << 31 | int(state[1]) >> 1)

@@ -3,7 +3,7 @@
 cases of tests/test_serving_frontend.py and tests/test_serving_http.py,
 over the port's Retriever on the CPU. The JAX file's
 ``test_frontend_over_sharded_retriever`` needs the sharded corpus, which
-comes with multi-GPU (ROADMAP A11)."""
+is held in tests/test_torch_sharded.py."""
 import json
 import threading
 import urllib.error

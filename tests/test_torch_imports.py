@@ -353,6 +353,39 @@ def test_preemption_copy_matches_jax():
     assert got.sync() == want.sync()
 
 
+def test_misc_copies_match_jax():
+    """utils/misc.py: the parameter count and the model comparison of the
+    JAX package's (test_serving.py:100), on the same weights, and
+    ``host_all_gather`` of one process."""
+    import jax
+
+    from lightningdot_tpu.models.bi_encoder import BiEncoder as JBiEncoder
+    from lightningdot_tpu.utils import misc as jmisc
+    from lightningdot_tpu_torch.models import (BiEncoder, load_tower_,
+                                               tower_state_dict_from_jax)
+    from lightningdot_tpu_torch.utils import misc
+
+    jparams = JBiEncoder(JEncoderConfig(**SMALL), JEncoderConfig(
+        **SMALL, img_dim=16)).init(jax.random.PRNGKey(0))
+    model = BiEncoder(EncoderConfig(**SMALL))
+    load_tower_(model.txt_model, tower_state_dict_from_jax(
+        jax.tree.map(np.asarray, jparams["txt_model"])))
+    assert misc.num_of_parameters(model) == jmisc.num_of_parameters(
+        jparams["txt_model"])
+    sd = model.state_dict()
+    other = {k: v.clone() for k, v in sd.items()}
+    assert misc.compare_models(sd, other, verbose=False) == 0
+    other["txt_model.bert.pooler.dense.bias"] += 1.0
+    assert misc.compare_models(sd, other, verbose=False) == 1
+    assert misc.host_all_gather({"a": 1}) == jmisc.host_all_gather(
+        {"a": 1}) == [{"a": 1}]
+    twin = BiEncoder(EncoderConfig(**SMALL))
+    twin.load_state_dict(sd)
+    assert misc.state_digest(twin) == misc.state_digest(model)
+    twin.load_state_dict(other)
+    assert misc.state_digest(twin) != misc.state_digest(model)
+
+
 def test_training_config_groups_match_jax():
     """All four option groups, as the training drivers register them:
     every port flag is a JAX flag with its default, and a reference
@@ -377,9 +410,10 @@ def test_training_config_groups_match_jax():
     assert vars(got).keys() <= vars(want).keys()
     assert vars(got) == {k: v for k, v in vars(want).items()
                          if k in vars(got)}
-    # the port registers only the flags it reads: the TPU knob, the
-    # multi-host ones (A11), and flags no driver reads
-    unread = {"kernel_backend", "dp_size", "preempt_check_steps",
+    # the port registers only the flags it reads: not the TPU knob, nor
+    # flags no driver reads; the mesh size comes with the drivers that
+    # train across processes (add_dist_params)
+    unread = {"kernel_backend", "dp_size",
               "steps_per_hard_neg", "seperate_caption_encoder",
               "n_workers", "img_meta", "fp16", "negative_size",
               "compressed_db", "project_name", "expr_name_prefix"}
@@ -390,7 +424,7 @@ def test_training_config_groups_match_jax():
 # groups' unread flags (above) and, in rerank, the logging and KD groups,
 # which it never reads; train_teacher's validation DBs, which neither
 # package reads
-_GROUPS_UNREAD = {"kernel_backend", "dp_size", "preempt_check_steps",
+_GROUPS_UNREAD = {"kernel_backend", "dp_size",
                   "steps_per_hard_neg", "seperate_caption_encoder",
                   "n_workers", "img_meta", "fp16", "negative_size",
                   "compressed_db", "project_name", "expr_name_prefix"}
@@ -398,13 +432,14 @@ _GROUPS_UNREAD = {"kernel_backend", "dp_size", "preempt_check_steps",
 
 @pytest.mark.parametrize("name,unread", [
     ("rerank", _GROUPS_UNREAD | {"log_result_step", "save_all_epochs",
-                                 "sim_preempt_step", "T",
-                                 "kd_loss_weight"}),
+                                 "sim_preempt_step", "preempt_check_steps",
+                                 "T", "kd_loss_weight"}),
     ("inf_itm", set()),
     ("train_teacher", {"val_txt_db", "val_img_db"})])
 def test_cross_encoder_cli_flags_match_jax(name, unread):
     """Each A9 CLI registers the JAX CLI's flags with their defaults, less
-    the flags nothing reads, plus ``--device``."""
+    the flags nothing reads, plus ``--device`` (and, in train_teacher,
+    which trains across processes, ``--dist_backend``)."""
     import importlib
 
     def flags(mod):
@@ -413,7 +448,32 @@ def test_cross_encoder_cli_flags_match_jax(name, unread):
                 if a.dest != "help"}
 
     got, want = flags("lightningdot_tpu_torch"), flags("lightningdot_tpu")
-    assert got.keys() - want.keys() == {"device"}
+    port_only = {"device"} | ({"dist_backend"} if name == "train_teacher"
+                              else set())
+    assert got.keys() - want.keys() == port_only
+    assert want.keys() - got.keys() == unread
+    assert {k: got[k] for k in want.keys() & got.keys()} == \
+        {k: want[k] for k in want.keys() & got.keys()}
+
+
+@pytest.mark.parametrize("name,unread", [
+    ("train_itm", _GROUPS_UNREAD - {"dp_size"}),
+    ("pretrain", {"kernel_backend"})])
+def test_training_cli_flags_match_jax(name, unread):
+    """The drivers that train across processes register the JAX CLI's
+    flags with their defaults (``--dp_size`` and ``--preempt_check_steps``
+    among them), less the flags nothing reads, plus ``--device`` and
+    ``--dist_backend`` (and train_itm's ``--vocab_file``)."""
+    import importlib
+
+    def flags(mod):
+        parser = importlib.import_module(f"{mod}.cli.{name}").build_parser()
+        return {a.dest: a.default for a in parser._actions
+                if a.dest != "help"}
+
+    got, want = flags("lightningdot_tpu_torch"), flags("lightningdot_tpu")
+    assert got.keys() - want.keys() == {"device", "dist_backend"} | (
+        {"vocab_file"} if name == "train_itm" else set())
     assert want.keys() - got.keys() == unread
     assert {k: got[k] for k in want.keys() & got.keys()} == \
         {k: want[k] for k in want.keys() & got.keys()}

@@ -214,3 +214,53 @@ def test_rerank_entry_points_run_on_the_card_by_default(world, tmp_path,
                      world["txt"], "--test_img_db", world["img"],
                      "--max_bb", "10", "--min_bb", "5",
                      "--teacher_checkpoint", _teacher_dir(world)])
+
+
+class _Captured(Exception):
+    pass
+
+
+@pytest.mark.parametrize("cli", ["rerank", "train_itm"])
+def test_teacher_computes_in_float32_as_jax(world, monkeypatch, tmp_path,
+                                            cli):
+    """The cross-encoder teacher of ``cli/rerank.py`` and
+    ``cli/train_itm.py --teacher_checkpoint`` computes in float32 whatever
+    ``--compute_dtype`` is, as JAX's does (cli/train_itm.py:54-59,
+    cli/rerank.py), and scores as JAX's teacher: under ``--compute_dtype
+    bf16`` the loaded teacher is float32 and its scores are the JAX
+    float32 teacher's within 1e-5."""
+    from lightningdot_tpu_torch.cli import train_itm
+
+    mod = rerank if cli == "rerank" else train_itm
+    got = []
+    real = mod.load_cross_encoder
+
+    def capture(*a, **k):
+        got.append(real(*a, **k))
+        if cli == "train_itm":
+            raise _Captured
+        return got[-1]
+
+    monkeypatch.setattr(mod, "load_cross_encoder", capture)
+    teacher = _teacher_dir(world)
+    if cli == "rerank":
+        _rerank(rerank, world, "--teacher_checkpoint", teacher,
+                "--compute_dtype", "bf16")
+    else:
+        with pytest.raises(_Captured):
+            train_itm.main([
+                "--txt_model_config", world["cfg"], "--img_model_config",
+                world["cfg"], "--itm_global_file", "", "--img_checkpoint",
+                "none", "--train_txt_dbs", world["txt"], "--train_img_dbs",
+                world["img"], "--val_txt_db", world["txt"], "--val_img_db",
+                world["img"], "--teacher_checkpoint", teacher,
+                "--compute_dtype", "bf16", "--output_dir", str(tmp_path),
+                "--device", "cpu"])
+    (model,) = got
+    assert model.compute_dtype == torch.float32
+    toks, feats, poss = _pairs(world, 8)
+    want = JScorer(world["jce"], world["ce_params"], pair_block=8
+                   ).score_pairs(toks, feats, poss)
+    np.testing.assert_allclose(
+        CrossScorer(model, pair_block=8, device="cpu").score_pairs(
+            toks, feats, poss), want, atol=ATOL)

@@ -679,16 +679,21 @@ def test_reentrant_enter_exit_preserves_outer_handler():
 
 
 def test_guard_refuses_several_processes(monkeypatch):
-    """The multi-host OR-reduce comes with A11: with more than one process
-    the guard raises instead of acting for one host."""
+    """With more than one process the guard does not act for one host
+    alone: off the ``check_every`` boundaries a local latch waits, and at
+    a boundary (and at ``sync``) the flag is OR-reduced over the
+    processes, a peer's latch included (test_preemption.py:23,46)."""
     dist = torch.distributed
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-    guard = PreemptionGuard()
-    for call in (lambda: guard.check(1), guard.sync):
-        with pytest.raises(NotImplementedError, match="A11"):
-            call()
-    assert preemption.PreemptionGuard is PreemptionGuard
+    calls = []
+    monkeypatch.setattr(preemption, "host_all_gather",
+                        lambda flag: calls.append(flag) or [flag, True])
+    guard = PreemptionGuard(check_every=4)
+    assert [guard.check(s) for s in (1, 2, 3)] == [False] * 3
+    assert calls == []
+    assert guard.check(4) and calls == [False]
+    assert PreemptionGuard().sync() and len(calls) == 2
 
 
 def test_step_generator_is_a_function_of_seed_and_step():
