@@ -87,11 +87,13 @@ Phases, each of which exits non-zero on failure (no result is printed):
    f32 card vs CPU at 2 layers and bf16 vs f32 at 12, each beside a
    control), ``kd`` (``cli/train_itm.main --teacher_checkpoint`` beside the
    same driver without KD; the teacher's forward over a step's 640-pair
-   grid, and B3's float32 form at its rows against the twin's cuBLAS
-   float32 GEMMs) and ``pretrain_kd`` (``cli/pretrain.main`` with a one-tower
+   grid) and ``pretrain_kd`` (``cli/pretrain.main`` with a one-tower
    teacher at ``PRE_KD_LAYERS`` layers, then one update per non-itm task).
    The driver phases hold a kernel row at every bf16 shape they recorded
-   that no earlier path held;
+   that no earlier path held, and the float32 teachers' attention (B2) and
+   FFN (B3) at every float32 shape, the FFN against the twin's cuBLAS
+   float32 pair; at the KD teacher's largest shapes each must be no slower
+   than its yardstick (the cuBLAS pair, SDPA in float32);
 11. ``vqa`` (ROADMAP A10): ``cli/train_vqa.main`` at configs/coco_ft.json's
    model with 3,129 answers and ``--vqa_lr_mul`` 10 over synthetic DBs of
    the port's ``synth.py``, one epoch with the plain head (its LayerNorm
@@ -376,10 +378,16 @@ PRE_UPDATES = 2
 # control, which every bound must refuse, is the float32 reference with its
 # weights and layer outputs rounded to PRE_CONTROL_MANTISSA_BITS mantissa
 # bits (bf16 keeps 7); it read 0.25 / 0.738, 1.5e-4 / 0.9925, 1.5e-3 /
-# 0.9928 and 4.4e-3 / 0.9928
+# 0.9928 and 4.4e-3 / 0.9928. mlm's loss has no reading at the control: on
+# an H100 the same control read 1.5e-4 and, once the float32 FFN summed in
+# another order (the same function within 1e-5), 8.2e-7, under bf16's own
+# reading, while its cosine read 0.9926 both times. Rounding to nearest
+# leaves a random-init mlm loss almost where it was, so mlm is held to its
+# control by its cosine alone (PRE_CONTROL_COSINE_ONLY)
 PRE_BF16_BOUNDS = {"itm": (6e-2, 0.98), "mlm": (5e-5, 0.999),
                    "mrfr": (2e-5, 0.9997), "mrckl": (1e-3, 0.9997)}
 PRE_CONTROL_MANTISSA_BITS = 3
+PRE_CONTROL_COSINE_ONLY = {"mlm"}
 # the VQA head's LayerNorm rows (batch, width): 4 x 768 = 3,072 wide, 8 x
 # 768 = 6,144 with --vqa_intersection; the training batch (64), the
 # validation batch (coco_ft.json's valid_batch_size, 256) and a ragged 37
@@ -390,6 +398,9 @@ VQA_ANSWERS = 3129
 # drivers' phases recorded: fewer than the other rows' (7, 10), for the
 # number of shapes
 RECORDED_TIMING = (3, 5)
+# reads of a float32 FMA kernel and its yardstick, taken in turn, whose
+# medians kd_phase compares at the KD teacher's largest shapes
+KD_YARDSTICK_ROUNDS = 7
 
 CAPTIONS = [
     "A man riding a horse on the beach .",
@@ -568,18 +579,32 @@ def make_randn(seed):
     return randn, g
 
 
+def _attention_inputs(b, s, d, dtype, randn, g):
+    """q, k, v [b, s, 12, d] and the additive key bias of ragged masks."""
+    dev = torch.device("cuda")
+    q, k, v = (randn(b, s, 12, d, dtype=dtype) for _ in range(3))
+    lens = torch.randint(1, s + 1, (b,), device=dev, generator=g)
+    mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
+    return q, k, v, ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+
+
+def _ffn_inputs(n, dtype, randn):
+    """x [n, 768], w1, b1, w2, b2 of a 768 -> 3,072 -> 768 FFN."""
+    return (randn(n, 768, dtype=dtype),
+            randn(768, 3072, scale=0.02, dtype=dtype),
+            randn(3072, scale=0.02),
+            randn(3072, 768, scale=0.02, dtype=dtype),
+            randn(768, scale=0.02))
+
+
 def attention_row(b, s, d, dtype, device_name, randn, g, **kw):
     """B2 at [b, s, 12 heads, d] with ragged key masks: float32 bit for bit
     (every row sums in the twin's order); bfloat16 within the tolerance,
     as accurate as the twin, deterministic. Library: SDPA."""
     from lightningdot_tpu_torch.ops import attention
 
-    dev = torch.device("cuda")
     isz = torch.finfo(dtype).bits // 8
-    q, k, v = (randn(b, s, 12, d, dtype=dtype) for _ in range(3))
-    lens = torch.randint(1, s + 1, (b,), device=dev, generator=g)
-    mask = torch.arange(s, device=dev)[None, :] < lens[:, None]
-    bias = ((1.0 - mask.float()) * -10000.0)[:, None, None, :]
+    q, k, v, bias = _attention_inputs(b, s, d, dtype, randn, g)
     half = dtype == torch.bfloat16
     return compare(
         "attention", (b, s, 12, d), dtype,
@@ -600,36 +625,41 @@ def ffn_rows(n, dtype, device_name, randn, train, **kw):
     """B3 over n rows (768 -> 3072 -> 768): the forward, and where
     ``train`` the training forward that also writes h1 and gelu(h1).
     bfloat16 on the tensor cores within a bf16 ulp, as accurate as the twin
-    against the float32 computation of the same inputs, the same bits
-    again; float32 on FMA units within 1e-5."""
+    against the float32 computation of the same inputs; float32 on FMA
+    units within 1e-5, its first 16 rows alone (the narrow tile) giving
+    the same bits. Both the same bits again on a second launch."""
     from lightningdot_tpu_torch.ops import ffn
 
     isz = torch.finfo(dtype).bits // 8
     half = dtype == torch.bfloat16
     name = "ffn_mma" if half else "ffn"
-    x = randn(n, 768, dtype=dtype)
-    w1 = randn(768, 3072, scale=0.02, dtype=dtype)
-    b1 = randn(3072, scale=0.02)
-    w2 = randn(3072, 768, scale=0.02, dtype=dtype)
-    b2 = randn(768, scale=0.02)
+    x, w1, b1, w2, b2 = _ffn_inputs(n, dtype, randn)
     io = (2 * n * 768 + 2 * 768 * 3072) * isz + (768 + 3072) * 4
     held = dict(
         reference=lambda: ffn._ffn_math(x.float(), w1.float(), b1,
                                         w2.float(), b2)[0],
-        repeat=True) if half else {}
+        repeat=True) if half else dict(repeat=True)
+    if not half and n > 16:
+        # the first 16 rows alone take the narrow tile: the same bits
+        held["rows16_bits_equal"] = bool(torch.equal(
+            ffn.ffn_gelu(x[:16], w1, b1, w2, b2),
+            ffn.ffn_gelu(x, w1, b1, w2, b2)[:16]))
     rows = [compare(
         name, (n, 768, 3072), dtype,
         lambda: ffn.ffn_gelu(x, w1, b1, w2, b2),
         lambda: ffn._ffn_math(x, w1, b1, w2, b2)[0], device_name,
         (io, 4 * n * 768 * 3072, _peak(dtype)), mode="forward", **held,
         **kw)]
+    check(rows[0].get("rows16_bits_equal", True),
+          f"ffn {n} rows float32: the first 16 rows alone gave other bits")
     if train:
         def twin_h1(x=x, w1=w1, w2=w2):
             out, h1 = ffn._ffn_math(x, w1, b1, w2, b2)
             return out, h1, ffn.gelu(h1)
 
         held = dict(reference=lambda: twin_h1(
-            x.float(), w1.float(), w2.float()), repeat=True) if half else {}
+            x.float(), w1.float(), w2.float()), repeat=True) if half else \
+            dict(repeat=True)
         rows.append(compare(
             name, (n, 768, 3072), dtype,
             lambda: ffn.ffn_cuda(x, w1, b1, w2, b2, with_h1=True),
@@ -2314,13 +2344,15 @@ def train_phase(args, device_name):
 
 
 class ShapeRecorder:
-    """Record the bfloat16 shapes at which the towers and the pre-training
-    heads call the kernels' ops, by wrapping those ops where
-    ``models/encoder.py`` calls them: the training attention ("attention
-    train", [B, S], forward and backward), the attention ("attention",
-    [B, S]), the FFN (rows; with gradient: the forward writing h1 and dh1),
-    ``dropout_add_ln`` and ``layer_norm`` (rows, hidden, prologue variant;
-    with gradient: the backward kernel too). :func:`hold_recorded` holds a
+    """Record the shapes at which the towers and the pre-training heads
+    call the kernels' ops, by wrapping those ops where ``models/encoder.py``
+    calls them, each key (kind, dtype, ...): in bfloat16 the training
+    attention ("attention_train", [B, S], forward and backward), the
+    attention ("attention", [B, S]), the FFN (rows; with gradient: the
+    forward writing h1 and dh1), ``dropout_add_ln`` and ``layer_norm``
+    (rows, hidden, prologue variant; with gradient: the backward kernel
+    too); in float32, the cross-encoder teachers' dtype, the attention and
+    the FFN (B2's and B3's FMA kernels). :func:`hold_recorded` holds a
     kernel row at each."""
 
     OPS = ("fused_attention_train", "multi_head_attention",
@@ -2336,21 +2368,25 @@ class ShapeRecorder:
 
     def _key(self, name, args, kw):
         x = args[0]
-        if x.dtype != torch.bfloat16 or not x.is_cuda:
+        if not x.is_cuda or x.dtype not in (torch.bfloat16, torch.float32):
+            return None
+        dt = str(x.dtype).replace("torch.", "")
+        if dt == "float32" and name not in ("multi_head_attention",
+                                            "attention_nodrop", "ffn_gelu"):
             return None
         if name == "fused_attention_train":
-            return ("attention_train", x.shape[0], x.shape[1])
+            return ("attention_train", dt, x.shape[0], x.shape[1])
         if name in ("multi_head_attention", "attention_nodrop"):
-            return ("attention", x.shape[0], x.shape[1])
+            return ("attention", dt, x.shape[0], x.shape[1])
         rows, h = x.numel() // x.shape[-1], x.shape[-1]
         if name == "ffn_gelu":
-            return ("ffn", rows, self._grad(*args))
+            return ("ffn", dt, rows, self._grad(*args))
         if name == "dropout_add_ln":
             keep = args[4] if len(args) > 4 else kw.get("keep")
-            return ("layernorm", rows, h,
+            return ("layernorm", dt, rows, h,
                     "res" if keep is None else "res_keep",
                     self._grad(*args[:4]))
-        return ("layernorm", rows, h, None, self._grad(*args[:3]))
+        return ("layernorm", dt, rows, h, None, self._grad(*args[:3]))
 
     def __enter__(self):
         from lightningdot_tpu_torch.models import encoder
@@ -2385,15 +2421,18 @@ _HELD: set = set()
 
 def hold_recorded(path, seen, device_name):
     """A kernel row (against its twin, with its bound, library call and
-    time at ``RECORDED_TIMING``) at every bfloat16 shape a path recorded:
-    B2 at each [B, S]; B5's forward and backward at each training [B, S];
-    B3 at each row count, with h1 out and B6's dh1 where a gradient ran;
-    B1's forward at each (rows, hidden, variant) and its backward where a
-    gradient ran. A shape that an earlier path held is not held again.
-    Returns the rows and the kernel shapes."""
+    time at ``RECORDED_TIMING``) at every shape a path recorded, in its
+    dtype: B2 at each [B, S] (float32 bit for bit, SDPA in float32 beside
+    it); B5's forward and backward at each training [B, S]; B3 at each row
+    count (float32 within ``TOL``, its twin the cuBLAS float32 pair), with
+    h1 out and (bf16) B6's dh1 where a gradient ran; B1's forward at each
+    (rows, hidden, variant) and its backward where a gradient ran. A shape
+    that an earlier path held is not held again. Returns the rows and the
+    kernel shapes."""
     seen = set(seen) - _HELD
     _HELD.update(seen)
     bf16 = torch.bfloat16
+    dtypes = {"bfloat16": bf16, "float32": torch.float32}
     randn, gen = make_randn(11)
     kw = dict(timing=RECORDED_TIMING, path=path)
     ffn_rows_seen = {}
@@ -2404,22 +2443,30 @@ def hold_recorded(path, seen, device_name):
         if kind == "attention":
             attention.add(key[1:])
         elif kind == "attention_train":
-            train_attention.add(key[1:])
+            train_attention.add(key[2:])
         elif kind == "ffn":
-            ffn_rows_seen[key[1]] = ffn_rows_seen.get(key[1], False) or key[2]
+            at = key[1:3]
+            ffn_rows_seen[at] = ffn_rows_seen.get(at, False) or key[3]
         else:
-            _, rows, h, variant, grad = key
+            _, _, rows, h, variant, grad = key
             ln_fwd.add((rows, h, variant))
             if grad:
                 ln_bwd.add((rows, h, variant or "ln"))
     rows = []
-    for b, s in sorted(attention):
-        rows.append(attention_row(b, s, 64, bf16, device_name, randn, gen,
-                                  **kw))
+    for dt, b, s in sorted(attention):
+        rows.append(attention_row(b, s, 64, dtypes[dt], device_name, randn,
+                                  gen, **kw))
     for b, s in sorted(train_attention):
         rows += train_attention_rows(b, s, 64, bf16, device_name, randn, gen,
                                      **kw)
-    for n, train in sorted(ffn_rows_seen.items()):
+    for (dt, n), train in sorted(ffn_rows_seen.items()):
+        if dt == "float32":
+            check(not torch.backends.cuda.matmul.allow_tf32,
+                  f"{path}: TF32 is on")
+            rows += ffn_rows(n, torch.float32, device_name, randn, train,
+                             plain="cuBLAS float32 GEMM pair, TF32 off",
+                             **kw)
+            continue
         rows += ffn_rows(n, bf16, device_name, randn, train, **kw)
         if train:
             rows.append(dh1_row(n, bf16, device_name, randn, **kw))
@@ -2750,8 +2797,9 @@ def pretrain_phase(args, device_name):
     gradient leaf) at 2 layers a tower, with TF32 products as the control,
     and bf16 vs f32 at full depth (loss, gradient cosine) within
     ``PRE_BF16_BOUNDS``, whose control (coarse precision) each bound must
-    refuse. Printed: ms per update and tokens/s per task, a profile row per
-    task."""
+    refuse (mlm's loss bound excepted, ``PRE_CONTROL_COSINE_ONLY``).
+    Printed: ms per update and tokens/s per task, a profile row per task.
+    """
     from dataclasses import replace
 
     from lightningdot_tpu_torch.cli import pretrain as cli
@@ -2985,7 +3033,8 @@ def pretrain_phase(args, device_name):
                 emit(**row)
                 check(rel <= loss_max and cos >= cos_min,
                       f"pretrain {t}: bfloat16 vs float32: {row}")
-                check(ctrl_rel > loss_max and ctrl_cos < cos_min,
+                check(ctrl_cos < cos_min and (t in PRE_CONTROL_COSINE_ONLY
+                                              or ctrl_rel > loss_max),
                       f"pretrain {t}: a bound passes its control: {row}")
                 del read
         del model, opt, staged
@@ -3246,6 +3295,9 @@ def rerank_phase(args, device_name):
         emit(phase="rerank_block", pairs=128, ms=block_ms,
              f32_over_bf16=block_ms["float32"] / block_ms["bfloat16"],
              device=device_name)
+        # the float32 block (the CLI's teacher): its device costs
+        emit_profile("rerank_f32", 128, lambda: scorer.score_pairs(*pairs),
+                     block_ms["float32"], calls=3)
         s16, s32 = read[torch.bfloat16], read[torch.float32]
         spread = float(s32.max() - s32.min())
         c16, c32 = s16 - s16.mean(), s32 - s32.mean()
@@ -3533,6 +3585,25 @@ def train_teacher_phase(args, device_name):
     return dict(counts=counts, rows=rows)
 
 
+def _f32_yardstick_calls(name, shape):
+    """(kernel, yardstick) calls of B3 or B2 in float32 at a held row's
+    shape: the FFN and the twin's cuBLAS float32 pair, the attention and
+    SDPA in float32."""
+    from lightningdot_tpu_torch.ops import attention, ffn
+
+    randn, gen = make_randn(13)
+    if name == "ffn":
+        x, w1, b1, w2, b2 = _ffn_inputs(shape[0], torch.float32, randn)
+        return (lambda: ffn.ffn_gelu(x, w1, b1, w2, b2),
+                lambda: ffn._ffn_math(x, w1, b1, w2, b2)[0])
+    b, s, _, d = shape
+    q, k, v, bias = _attention_inputs(b, s, d, torch.float32, randn, gen)
+    return (lambda: attention.multi_head_attention(q, k, v, bias),
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=bias))
+
+
 def kd_phase(args, device_name):
     """``cli/train_itm.main --teacher_checkpoint`` at configs/coco_ft.json
     (batch 64, bf16) with a UNITER-base teacher directory, one epoch over
@@ -3649,15 +3720,35 @@ def kd_phase(args, device_name):
              device=device_name)
         emit_profile("kd_teacher", 640, forward, p50, calls=3)
         del teacher, staged
-        # B3's float32 FMA form at the teacher's rows against its twin,
-        # whose two products are cuBLAS float32 GEMMs with TF32 off
-        check(not torch.backends.cuda.matmul.allow_tf32, "kd: TF32 is on")
-        f32_rows = ffn_rows(rows_, torch.float32, device_name,
-                            make_randn(12)[0], False, timing=(2, 2),
-                            path="kd_teacher_f32",
-                            plain="cuBLAS float32 GEMM pair, TF32 off")
+    # the recorded shapes, the float32 teacher's among them (B2 at [640,
+    # 167], B3 at its ~107k rows); at the largest, each float32 FMA kernel
+    # must be no slower than its yardstick: B3 the twin's cuBLAS float32
+    # pair (TF32 off), B2 SDPA in float32, each the median of
+    # KD_YARDSTICK_ROUNDS reads taken in turn with the kernel's
     rows, _ = hold_recorded("kd", recorder.seen, device_name)
-    return dict(counts=counts, rows=rows + f32_rows)
+    for name, yardstick in (("ffn", "plain_ms"), ("attention", "library_ms")):
+        mine = [r for r in rows if r["kernel"] == name
+                and r["dtype"] == "float32" and r.get("mode") != "train"]
+        check(bool(mine), f"kd: no float32 {name} row was held")
+        top = max(mine, key=lambda r: math.prod(r["shape"]))
+        kernel, other = _f32_yardstick_calls(name, top["shape"])
+        reads = [(time_ms(kernel, *RECORDED_TIMING),
+                  time_ms(other, *RECORDED_TIMING))
+                 for _ in range(KD_YARDSTICK_ROUNDS)]
+        del kernel, other
+        ms = statistics.median(r[0] for r in reads)
+        yard_ms = statistics.median(r[1] for r in reads)
+        ratios = [a / b for a, b in reads]
+        row = dict(phase="kd_f32_yardstick", kernel=name, shape=top["shape"],
+                   ms=ms, yardstick=yardstick, yardstick_ms=yard_ms,
+                   ratio=ms / yard_ms, ratio_min=min(ratios),
+                   ratio_max=max(ratios), rounds=len(reads),
+                   device=device_name)
+        emit(**row)
+        check(ms <= yard_ms,
+              f"kd: the float32 {name} kernel is slower than its "
+              f"yardstick at the teacher's largest shape: {row}")
+    return dict(counts=counts, rows=rows)
 
 
 def pretrain_kd_phase(args, device_name):
@@ -4954,7 +5045,9 @@ def main() -> int:
     # kernel per bucket of keys (32, 64, 128, 256) and epilogue (0
     # deferred, 1 normalized); the backward's dq and dk/dv kernels; the
     # FFN's GEMM (epilogue 0 fc1, 1 fc2, 2 dh1) and its split pass; the
-    # int8 FFN's GEMM (0 fc1, 1 fc2) and its split pass
+    # int8 FFN's GEMM (0 fc1, 1 fc2) and its split pass; and the float32
+    # FMA kernels: the FFN's GEMM, gemm_kernel<epilogue> (0 fc1, 1 fc2)
+    # and narrow_kernel<epilogue, rows a thread>, and the attention
     for name, (regs, spill_st, spill_ld) in sorted(
             _build.ptxas_report("attention_mma").items()):
         keys, epilogue = re.search(r"kernelILi(\d+)ELi(\d)E", name).groups()
@@ -4973,12 +5066,15 @@ def main() -> int:
         emit(phase="resources", kernel="layernorm", entry=entry,
              registers=regs, spill_store_bytes=spill_st,
              spill_load_bytes=spill_ld)
-    for stem in ("attention_mma_bwd", "ffn_mma", "ffn_int8"):
+    for stem in ("attention_mma_bwd", "ffn_mma", "ffn_int8", "ffn",
+                 "attention"):
         for name, (regs, spill_st, spill_ld) in sorted(
                 _build.ptxas_report(stem).items()):
-            entry = re.search(r"\d([a-z_]+_kernel)(?:ILi(\d)E)?", name)
+            entry = re.search(r"\d([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?",
+                              name)
+            targs = re.findall(r"Li(\d+)E", entry.group(2) or "")
             emit(phase="resources", kernel=stem, entry=entry.group(1) + (
-                f"<{entry.group(2)}>" if entry.group(2) else ""),
+                f"<{','.join(targs)}>" if targs else ""),
                  registers=regs, spill_store_bytes=spill_st,
                  spill_load_bytes=spill_ld)
 

@@ -1,282 +1,402 @@
-// Fused feed-forward block, forward, in float32:
+// float32 feed-forward block on the FMA units:
 //   out = gelu(x W1 + b1) W2 + b2,  x [rows, H], W1 [H, I], W2 [I, H],
-// and, for the backward, optionally h1 = x W1 + b1 and inter = gelu(h1)
-// [rows, I].
+// and, for the backward, optionally h1 = x W1 + b1 (inter = gelu(h1)
+// [rows, I] is written in any case).
 //
 // Replaces, in float32, the TPU kernel lightningdot_tpu/ops/ffn.py::
-// _ffn_kernel (launched by _ffn_pallas; with_h1 and with_inter under the
-// default "store" policy when the training path needs a gradient); bfloat16
-// runs on the tensor cores (ffn_mma.cu). float32 serves the checks of the
-// card against the CPU (the tensor cores have no float32 product). The
-// kernel stays generic in its element type T. Numerics follow
-// ops/ffn.py::_ffn_math: both products accumulate in float32, b1 is added
-// in float32 and h1 is rounded to the compute dtype, the erf GELU is
-// evaluated op by op with the compute dtype's rounding after each op (as
-// the plain version does), then the second product, + b2, and one final
-// rounding. GELU uses the exact erff; the TPU kernel's polynomial existed
-// only because Mosaic had no erf.
+// _ffn_kernel (:77; launched by _ffn_pallas, :122; with_h1 and with_inter
+// under the default "store" policy when the training path needs a
+// gradient); bfloat16 runs on the tensor cores (ffn_mma.cu). float32 is
+// what the cross-encoder teacher computes in (KD, re-ranking: every
+// teacher layer, 106,880 rows a KD step), and the card-vs-CPU checks. TF32
+// stays out: it computes another function than the twin's float32, and
+// Hopper has no other tensor-core path for float32.
 //
-// Bound: at serving batch sizes the rows are few (32 at batch 1) and the
-// block reads the two weight matrices (2 x 768 x 3072 values) for very
-// little arithmetic, so device-memory bytes and the number of SMs reading
-// them bound it; at thousands of rows the float32 FMA rate does. As on the
-// TPU, the [rows, I] intermediate never reaches device memory. To keep the
-// card busy at 32 rows, the intermediate dimension is split across blocks
-// as well as the rows: block (t, s) takes a 16-row tile t and the s-th range
-// of 32-column chunks of I. Per chunk it computes fc1 for 16 x 32 values
-// (the eight warps split the H reduction and sum their partials in a fixed
-// order), applies b1 and GELU in shared memory, and accumulates the chunk's
-// fc2 contribution into 16 x H float32 registers. With one range the block
-// adds b2 and writes the output; with several, each writes its partial sum
-// to a float32 workspace [splits, rows, H] and a second pass sums the
-// partials in split order, adds b2 and casts. No atomics: the result does
-// not depend on block scheduling, so rankings do not jitter between runs.
-// Each (tile, chunk) belongs to exactly one block, which also writes that
-// chunk's h1 and gelu(h1) when asked: the [rows, I] tensors the backward
-// reads cost one write each and no extra pass.
+// Rounding points, as the twin (ops/ffn.py::_ffn_math): both products
+// accumulate in float32; h1 = (x W1) + b1, one rounding; inter =
+// ldot::gelu_rounded<float>(h1), the erf GELU op by op (common.cuh, exact
+// erff); out = (inter W2) + b2. Only the order of the float32 sums differs
+// from the twin (cuBLAS), so it is held within 1e-5 of it, not bit for bit.
 //
-// Weights are read in their [in, out] layout, so the lanes of a warp read
-// neighbouring columns and every weight load is coalesced. Plain FMA, no
-// tensor cores: simple and right first.
+// Bound: 4 rows H I flops at 67 TFLOP/s (15.05 ms at the KD teacher's
+// 106,880 rows, 1.7-3.0 ms at a re-ranking block's 12,288-21,504); at a few
+// dozen rows the weights' 18.9 MB at 3.35 TB/s (5.6 us).
+//
+// Design: one float32 GEMM, C = A B with A [M, K] and B [K, N] row-major
+// (the weights in their [in, out] layout), launched twice as ffn_mma.cu's
+// is: fc1 (A = x, B = W1), whose epilogue adds b1, writes h1 when asked,
+// applies GELU and writes inter; fc2 (A = inter, B = W2), whose epilogue
+// adds b2. inter makes a device-memory round trip (2.6 GB at 106,880 rows,
+// ~0.8 ms at 3.35 TB/s against the 15 ms bound): a 128-row tile of the
+// 3,072-wide intermediate would not fit a block's shared memory.
+// Within the GEMM: 128 x 128 output tiles of 256 threads, each thread an
+// 8 x 8 register microtile (rows 4 ty + {0..3} and 64 + 4 ty + {0..3},
+// columns 4 tx + {0..3} and 64 + 4 tx + {0..3}) filled by outer products:
+// per k, two 128-bit shared loads of A and two of B feed 64 FMAs. A warp
+// holds 4 ty x 8 tx, so its A loads read 64 contiguous bytes and its B
+// loads 128: no bank conflicts. A 4-stage cp.async ring of k slices of 16
+// (65 KB, so 2 blocks share an SM: 16 warps): A is copied one float at a
+// time into k-major order, As[k][m] (rows padded by 4 floats, 16-byte
+// aligned), B in 16-byte chunks as it lies, Bs[k][n]. The register budget
+// is 128 a thread (__launch_bounds__(256, 2)); in development comparisons
+// on an H100 (not kept), k slices of 8 or 32, 128 x 256 tiles of 8 x 16
+// microtiles at one block an SM, and fragments double-buffered in
+// registers were within 3 % of this at 106,880 rows. Few rows take a
+// narrow tile instead (narrow_kernel, 128 threads: 16 x 8 outputs, one a
+// thread, or 32 x 32, 2 x 4 a thread), so that the grid still spreads
+// over the card (fc2 at 32 rows: 192 blocks of 16 x 8, against 6 of 128 x
+// 128); ops/gemm.py::f32_gemm_tile picks the tile from the measured
+// crossings (scripts/perf_torch_f32_kernels.py). The reduction is never
+// split: in any tile each output is one FMA chain over k = 0 .. K-1 in
+// order, so a row's bits depend neither on the tile nor on how many rows
+// share the launch. A split chosen by the row count, as the bf16 GEMM's,
+// made two ranks of 32 rows and one process of 64 run different sums:
+// chip_smoke's float32 two-ranks-vs-one-process loss read 1.07e-5 against
+// its 1e-5 bound, and 6.4e-6 unsplit, on an H100. No atomics: a second
+// launch gives the same bits. Ragged edges: rows and k past the end are
+// zero by cp.async's zero fill, never written; H and I must be multiples
+// of 4 (whole 16-byte chunks of rows and of the float4 epilogue), x, W1,
+// W2 and the outputs 16-byte aligned.
+#include <cstdint>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRows = 16;    // rows per tile
-constexpr int kChunk = 32;   // intermediate columns per chunk (one per lane)
-constexpr int kMaxHidden = 1024;
+constexpr int kBM = 128, kBN = 128, kBK = 16;
+constexpr int kStages = 4;
+constexpr int kThreads = 256;                 // 16 x 16 threads of 8 x 8
+constexpr int kLdA = kBM + 4;                 // As[k][m] row stride, floats
+constexpr int kATile = kBK * kLdA;            // floats
+constexpr int kBTile = kBK * kBN;             // floats
+constexpr int kStageFloats = kATile + kBTile;
+constexpr int kSmem = kStages * kStageFloats * 4;   // 66,560 bytes
+static_assert(kBM * kBK % kThreads == 0 && kBK * kBN / 4 % kThreads == 0,
+              "whole copy rounds");
 
-// kOut = ceil(H / kThreads): output columns each thread accumulates
-template <typename T, int kOut>
-__global__ void __launch_bounds__(kThreads)
-    ffn_kernel(const T* __restrict__ x, const T* __restrict__ w1,
-               const float* __restrict__ b1, const T* __restrict__ w2,
-               const float* __restrict__ b2, T* __restrict__ out,
-               T* __restrict__ h1_out, T* __restrict__ inter_out,
-               float* __restrict__ workspace, int rows, int H, int I,
-               int chunks_per_split) {
-  extern __shared__ float smem[];
-  float* xs = smem;                        // [kRows][H]
-  float* part = xs + kRows * H;            // [kWarps][kRows][kChunk]
-  float* gs = part + kWarps * kRows * kChunk;  // [kRows][kChunk]
+enum Epilogue : int { kFc1 = 0, kFc2 = 1 };
 
+struct Gemm {
+  const float* a;       // [m, k] row-major
+  const float* b;       // [k, n] row-major
+  const float* bias;    // [n]
+  float* out;           // [m, n]: inter (fc1) or the output (fc2)
+  float* h1;            // [m, n]: written by fc1 when not null
+  int m, n, k;
+};
+
+// 4 bytes global -> shared; ok = false reads nothing and writes a zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+
+// the epilogue of columns col .. col + 3 of one row, from their float32 sums
+template <int EPI>
+__device__ __forceinline__ void finish(const Gemm& p, int row, int col,
+                                       float4 s) {
+  const size_t at = static_cast<size_t>(row) * p.n + col;
+  const float4 y = make_float4(
+      __fadd_rn(s.x, p.bias[col]), __fadd_rn(s.y, p.bias[col + 1]),
+      __fadd_rn(s.z, p.bias[col + 2]), __fadd_rn(s.w, p.bias[col + 3]));
+  if constexpr (EPI == kFc1) {
+    if (p.h1 != nullptr) *reinterpret_cast<float4*>(p.h1 + at) = y;
+    *reinterpret_cast<float4*>(p.out + at) = make_float4(
+        ldot::gelu_rounded<float>(y.x), ldot::gelu_rounded<float>(y.y),
+        ldot::gelu_rounded<float>(y.z), ldot::gelu_rounded<float>(y.w));
+  } else {
+    *reinterpret_cast<float4*>(p.out + at) = y;
+  }
+}
+
+// the epilogue of one output, from its float32 sum
+template <int EPI>
+__device__ __forceinline__ void finish1(const Gemm& p, int row, int col,
+                                        float s) {
+  const size_t at = static_cast<size_t>(row) * p.n + col;
+  const float y = __fadd_rn(s, p.bias[col]);
+  if constexpr (EPI == kFc1) {
+    if (p.h1 != nullptr) p.h1[at] = y;
+    p.out[at] = ldot::gelu_rounded<float>(y);
+  } else {
+    p.out[at] = y;
+  }
+}
+
+// block (blockIdx.x, blockIdx.y) = (column tile, row tile) of 128 x 128:
+// every k slice, in order
+template <int EPI>
+__global__ void __launch_bounds__(kThreads, 2) gemm_kernel(Gemm p) {
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   const int tid = threadIdx.x;
-  const int lane = tid % 32;
-  const int warp = tid / 32;
-  const int row0 = blockIdx.x * kRows;
-  const int split = blockIdx.y;
-  const int n_chunks = I / kChunk;
-  const int chunk_begin = split * chunks_per_split;
-  const int chunk_end = min(chunk_begin + chunks_per_split, n_chunks);
+  const int n0 = blockIdx.x * kBN;
+  const int m0 = blockIdx.y * kBM;
+  const int nkt = (p.k + kBK - 1) / kBK;
 
-  // stage the x tile as float32; rows past the end are zero
-  for (int idx = tid; idx < kRows * H; idx += kThreads) {
-    const int r = idx / H;
-    const int c = idx - r * H;
-    xs[idx] = row0 + r < rows
-                  ? ldot::to_f32(x[static_cast<size_t>(row0 + r) * H + c])
-                  : 0.f;
+  auto load = [&](int kt, int slot) {
+    const uint32_t sa = s0 + slot * kStageFloats * 4;
+    const uint32_t sb = sa + kATile * 4;
+    const int k0 = kt * kBK;
+    // A: a warp copies 2 rows x 16 k (coalesced), stored k-major
+#pragma unroll
+    for (int it = 0; it < kBM * kBK / kThreads; ++it) {
+      const int e = tid + it * kThreads;
+      const int r = e / kBK, c = e % kBK;
+      const int row = m0 + r, kk = k0 + c;
+      const bool ok = row < p.m && kk < p.k;
+      cp_async4(sa + (c * kLdA + r) * 4,
+                ok ? p.a + static_cast<size_t>(row) * p.k + kk : p.a, ok);
+    }
+    // B: 16 k rows of 32 16-byte chunks
+#pragma unroll
+    for (int it = 0; it < kBK * kBN / 4 / kThreads; ++it) {
+      const int e = tid + it * kThreads;
+      const int r = e / (kBN / 4), ch = e % (kBN / 4);
+      const int kk = k0 + r, col = n0 + ch * 4;
+      const bool ok = kk < p.k && col < p.n;
+      ldot::cp_async16(sb + (r * kBN + ch * 4) * 4,
+                       ok ? p.b + static_cast<size_t>(kk) * p.n + col : p.b,
+                       ok);
+    }
+  };
+
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);   // 0..15
+  const int tx = (warp & 1) * 8 + (lane & 7);     // 0..15
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
   }
-  __syncthreads();
 
-  float acc_out[kRows][kOut];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nkt) load(st, st);
+    ldot::cp_async_commit();
+  }
+  for (int i = 0; i < nkt; ++i) {
+    ldot::cp_async_wait<kStages - 2>();
+    __syncthreads();   // slice i landed; every warp is done with i - 1
+    if (i + kStages - 1 < nkt)
+      load(i + kStages - 1, (i + kStages - 1) % kStages);
+    ldot::cp_async_commit();
+    const float* as = smem + (i % kStages) * kStageFloats;
+    const float* bs = as + kATile;
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) acc_out[r][j] = 0.f;
-
-  // this warp's share of the H reduction in fc1
-  const int k_per_warp = H / kWarps;
-  const int k_begin = warp * k_per_warp;
-  const int k_end = k_begin + k_per_warp;
-
-  for (int chunk = chunk_begin; chunk < chunk_end; ++chunk) {
-    const int col = chunk * kChunk + lane;
-
-    // fc1 partial: 16 rows x this lane's column over the warp's k range
-    float acc[kRows];
+    for (int kk = 0; kk < kBK; ++kk) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(as + kk * kLdA + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + kk * kLdA + 64 + ty * 4);
+      const float4 b0 =
+          *reinterpret_cast<const float4*>(bs + kk * kBN + tx * 4);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(bs + kk * kBN + 64 + tx * 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    for (int k = k_begin; k < k_end; k += 4) {
-      const float wa = ldot::to_f32(w1[static_cast<size_t>(k) * I + col]);
-      const float wb = ldot::to_f32(w1[static_cast<size_t>(k + 1) * I + col]);
-      const float wc = ldot::to_f32(w1[static_cast<size_t>(k + 2) * I + col]);
-      const float wd = ldot::to_f32(w1[static_cast<size_t>(k + 3) * I + col]);
+      for (int r = 0; r < 8; ++r) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 xv = *reinterpret_cast<const float4*>(xs + r * H + k);
-        float a = acc[r];
-        a = fmaf(xv.x, wa, a);
-        a = fmaf(xv.y, wb, a);
-        a = fmaf(xv.z, wc, a);
-        a = fmaf(xv.w, wd, a);
-        acc[r] = a;
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
       }
     }
+  }
+  ldot::cp_async_wait<0>();
+
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      part[(warp * kRows + r) * kChunk + lane] = acc[r];
+  for (int r = 0; r < 8; ++r) {
+    const int row = m0 + (r & 4) * 16 + ty * 4 + (r & 3);
+    if (row >= p.m) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + h * 64 + tx * 4;
+      if (col >= p.n) continue;
+      finish<EPI>(p, row, col,
+                  make_float4(acc[r][4 * h], acc[r][4 * h + 1],
+                              acc[r][4 * h + 2], acc[r][4 * h + 3]));
+    }
+  }
+}
+
+// Few rows: 16 TM x 8 TN output tiles of 128 threads, thread (ty, tx) =
+// (tid / 8, tid % 8) holding rows ty + 16 i (i < TM) by columns TN tx ..
+// TN tx + TN - 1. Both operands are copied as they lie, in 16-byte chunks:
+// As[m][k] (rows padded by 4 floats) and Bs[k][n]. Per 4 k, TM 128-bit
+// loads of A and 4 of B (128-bit at TN 4, one float at TN 1) feed 4 TM TN
+// FMAs; a warp's loads touch 4 rows of A and 8 TN contiguous floats of a
+// row of B, conflict-free. A 4-stage cp.async ring of k slices of 64 at
+// TN 1, 32 at TN 4. One output a thread (TM = TN = 1) puts the most
+// threads on the few outputs of few rows; 2 x 4 loads less for more.
+constexpr int kNThreads = 128;
+
+template <int EPI, int TM, int TN>
+__global__ void __launch_bounds__(kNThreads) narrow_kernel(Gemm p) {
+  constexpr int BM = 16 * TM, BN = 8 * TN, BK = TN == 1 ? 64 : 32;
+  constexpr int kLd = BK + 4;   // As[m][k] row stride, floats
+  constexpr int kA = BM * kLd, kStage = kA + BK * BN;
+  static_assert(BM * BK / 4 % kNThreads == 0 && BK * BN / 4 % kNThreads == 0,
+                "whole copy rounds");
+  __shared__ __align__(16) float smem[kStages * kStage];
+  const uint32_t s0 = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  const int tid = threadIdx.x;
+  const int ty = tid >> 3, tx = tid & 7;
+  const int n0 = blockIdx.x * BN;
+  const int m0 = blockIdx.y * BM;
+  const int nkt = (p.k + BK - 1) / BK;
+
+  auto load = [&](int kt, int slot) {
+    const uint32_t sa = s0 + slot * kStage * 4;
+    const uint32_t sb = sa + kA * 4;
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int it = 0; it < BM * BK / 4 / kNThreads; ++it) {
+      const int e = tid + it * kNThreads;
+      const int r = e / (BK / 4), ch = e % (BK / 4);
+      const int row = m0 + r, kk = k0 + ch * 4;
+      const bool ok = row < p.m && kk < p.k;
+      ldot::cp_async16(sa + (r * kLd + ch * 4) * 4,
+                       ok ? p.a + static_cast<size_t>(row) * p.k + kk : p.a,
+                       ok);
+    }
+#pragma unroll
+    for (int it = 0; it < BK * BN / 4 / kNThreads; ++it) {
+      const int e = tid + it * kNThreads;
+      const int r = e / (BN / 4), ch = e % (BN / 4);
+      const int kk = k0 + r, col = n0 + ch * 4;
+      const bool ok = kk < p.k && col < p.n;
+      ldot::cp_async16(sb + (r * BN + ch * 4) * 4,
+                       ok ? p.b + static_cast<size_t>(kk) * p.n + col : p.b,
+                       ok);
+    }
+  };
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+  }
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < nkt) load(st, st);
+    ldot::cp_async_commit();
+  }
+  for (int s = 0; s < nkt; ++s) {
+    ldot::cp_async_wait<kStages - 2>();
     __syncthreads();
-
-    // sum the warps' partials in warp order, + b1, round, GELU
-    for (int idx = tid; idx < kRows * kChunk; idx += kThreads) {
-      const int r = idx / kChunk;
-      const int c = idx % kChunk;
-      float h = 0.f;
+    if (s + kStages - 1 < nkt)
+      load(s + kStages - 1, (s + kStages - 1) % kStages);
+    ldot::cp_async_commit();
+    const float* as = smem + (s % kStages) * kStage;
+    const float* bs = as + kA;
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) h += part[w * kRows * kChunk + idx];
-      const float h1 = ldot::round_to<T>(h + b1[chunk * kChunk + c]);
-      const float g = ldot::gelu_rounded<T>(h1);
-      gs[idx] = g;
-      if (h1_out != nullptr && row0 + r < rows) {
-        const size_t at =
-            static_cast<size_t>(row0 + r) * I + chunk * kChunk + c;
-        h1_out[at] = ldot::from_f32<T>(h1);
-        inter_out[at] = ldot::from_f32<T>(g);
+    for (int kk = 0; kk < BK; kk += 4) {
+      float a[TM][4], b[4][TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            as + (ty + 16 * i) * kLd + kk);
+        a[i][0] = v.x, a[i][1] = v.y, a[i][2] = v.z, a[i][3] = v.w;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* row = bs + (kk + q) * BN + tx * TN;
+        if constexpr (TN == 4) {
+          const float4 v = *reinterpret_cast<const float4*>(row);
+          b[q][0] = v.x, b[q][1] = v.y, b[q][2] = v.z, b[q][3] = v.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) b[q][j] = row[j];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int i = 0; i < TM; ++i) {
+#pragma unroll
+          for (int j = 0; j < TN; ++j)
+            acc[i][j] = fmaf(a[i][q], b[q][j], acc[i][j]);
+        }
       }
     }
-    __syncthreads();
-
-    // fc2: acc_out[r][o] += gs[r][c] * W2[chunk * kChunk + c][o]
-    for (int c = 0; c < kChunk; ++c) {
-      const T* w2row = w2 + static_cast<size_t>(chunk * kChunk + c) * H;
-      float wv[kOut];
-#pragma unroll
-      for (int j = 0; j < kOut; ++j) {
-        const int o = tid + j * kThreads;
-        wv[j] = o < H ? ldot::to_f32(w2row[o]) : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float g = gs[r * kChunk + c];
-#pragma unroll
-        for (int j = 0; j < kOut; ++j)
-          acc_out[r][j] = fmaf(g, wv[j], acc_out[r][j]);
-      }
-    }
-    // part and gs are rewritten by the next chunk
-    __syncthreads();
   }
+  ldot::cp_async_wait<0>();
 
-  const bool direct = gridDim.y == 1;
-  float* ws = workspace + static_cast<size_t>(split) * rows * H;
+  const int col = n0 + tx * TN;
+  if (col >= p.n) return;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    if (row0 + r >= rows) break;
+  for (int i = 0; i < TM; ++i) {
+    const int row = m0 + ty + 16 * i;
+    if (row >= p.m) continue;
+    if constexpr (TN == 4) {
+      finish<EPI>(p, row, col,
+                  make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+    } else {
 #pragma unroll
-    for (int j = 0; j < kOut; ++j) {
-      const int o = tid + j * kThreads;
-      if (o >= H) continue;
-      const size_t at = static_cast<size_t>(row0 + r) * H + o;
-      if (direct)
-        out[at] = ldot::from_f32<T>(acc_out[r][j] + b2[o]);
-      else
-        ws[at] = acc_out[r][j];
+      for (int j = 0; j < TN; ++j) finish1<EPI>(p, row, col + j, acc[i][j]);
     }
   }
 }
 
-// out = cast(sum over splits of workspace + b2), splits summed in order
-template <typename T>
-__global__ void ffn_reduce_kernel(const float* __restrict__ workspace,
-                                  const float* __restrict__ b2,
-                                  T* __restrict__ out, int rows, int H,
-                                  int splits) {
-  const size_t n = static_cast<size_t>(rows) * H;
-  for (size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-       idx < n; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float acc = 0.f;
-    for (int s = 0; s < splits; ++s) acc += workspace[s * n + idx];
-    out[idx] = ldot::from_f32<T>(acc + b2[idx % H]);
+// the output tiles, rows x cols, that a launch takes: 128 x 128
+// (gemm_kernel), 16 x 8 and 32 x 32 (narrow_kernel)
+bool tile_ok(int m, int rows, int cols) {
+  return (rows == kBM && cols == kBN) || (rows == 16 && cols == 8) ||
+                 (rows == 32 && cols == 32)
+             ? (m + rows - 1) / rows <= 65535
+             : false;
+}
+
+// one GEMM in output tiles of rows x cols (tile_ok)
+template <int EPI>
+cudaError_t run(const Gemm& p, int rows, int cols, cudaStream_t stream) {
+  const dim3 grid((p.n + cols - 1) / cols, (p.m + rows - 1) / rows);
+  if (rows == kBM) {
+    static cudaError_t granted = cudaFuncSetAttribute(
+        gemm_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmem);
+    if (granted != cudaSuccess) return granted;
+    gemm_kernel<EPI><<<grid, kThreads, kSmem, stream>>>(p);
+  } else if (rows == 16) {
+    narrow_kernel<EPI, 1, 1><<<grid, kNThreads, 0, stream>>>(p);
+  } else {
+    narrow_kernel<EPI, 2, 4><<<grid, kNThreads, 0, stream>>>(p);
   }
-}
-
-size_t smem_bytes(int H) {
-  return (static_cast<size_t>(kRows) * H + kWarps * kRows * kChunk +
-          kRows * kChunk) *
-         sizeof(float);
-}
-
-template <typename T, int kOut>
-cudaError_t launch_main(const void* x, const void* w1, const float* b1,
-                        const void* w2, const float* b2, void* out, void* h1,
-                        void* inter, float* workspace, int rows, int H, int I,
-                        int splits, cudaStream_t stream) {
-  static cudaError_t granted = cudaFuncSetAttribute(
-      ffn_kernel<T, kOut>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes(kMaxHidden)));
-  if (granted != cudaSuccess) return granted;
-  const int n_chunks = I / kChunk;
-  const int per = (n_chunks + splits - 1) / splits;
-  const dim3 grid((rows + kRows - 1) / kRows, splits);
-  ffn_kernel<T, kOut><<<grid, kThreads, smem_bytes(H), stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w1), b1,
-      static_cast<const T*>(w2), b2, static_cast<T*>(out),
-      static_cast<T*>(h1), static_cast<T*>(inter), workspace, rows, H, I,
-      per);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch(const void* x, const void* w1, const float* b1,
-                     const void* w2, const float* b2, void* out, void* h1,
-                     void* inter, float* workspace, int rows, int H, int I,
-                     int splits, cudaStream_t stream) {
-  const int out_per_thread = (H + kThreads - 1) / kThreads;
-  cudaError_t err;
-  switch (out_per_thread) {
-    case 1:
-      err = launch_main<T, 1>(x, w1, b1, w2, b2, out, h1, inter, workspace,
-                              rows, H, I, splits, stream);
-      break;
-    case 2:
-      err = launch_main<T, 2>(x, w1, b1, w2, b2, out, h1, inter, workspace,
-                              rows, H, I, splits, stream);
-      break;
-    case 3:
-      err = launch_main<T, 3>(x, w1, b1, w2, b2, out, h1, inter, workspace,
-                              rows, H, I, splits, stream);
-      break;
-    case 4:
-      err = launch_main<T, 4>(x, w1, b1, w2, b2, out, h1, inter, workspace,
-                              rows, H, I, splits, stream);
-      break;
-    default:
-      return cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess || splits == 1) return err;
-  const size_t n = static_cast<size_t>(rows) * H;
-  const int threads = 256;
-  const int blocks = static_cast<int>(
-      (n + threads - 1) / threads < 4096 ? (n + threads - 1) / threads
-                                         : 4096);
-  ffn_reduce_kernel<T><<<blocks, threads, 0, stream>>>(
-      workspace, b2, static_cast<T*>(out), rows, H, splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// x, out: [rows, H]; w1: [H, I]; w2: [I, H] (all contiguous float32, dtype
-// code 0; any other code is refused); b1 [I], b2 [H] float32. h1, inter:
-// [rows, I] float32, both given or both null. workspace: float32
-// [splits, rows, H] when splits > 1 (unused otherwise). H % 32 == 0,
-// H <= 1024, I % 32 == 0, 1 <= splits <= I / 32.
+// x, out: [rows, H]; w1: [H, I]; w2: [I, H] (contiguous float32, 16-byte
+// aligned); b1 [I], b2 [H] float32; inter: [rows, I]
+// float32, always written (fc2 reads it), 16-byte aligned; h1: [rows, I]
+// or null. rows1 x cols1, rows2 x cols2: fc1's and fc2's output tiles
+// (ops/gemm.py::f32_gemm_tile). H % 4 == 0, I % 4 == 0.
 extern "C" int ldot_ffn(const void* x, const void* w1, const float* b1,
                         const void* w2, const float* b2, void* out, void* h1,
-                        void* inter, float* workspace, int rows, int H, int I,
-                        int splits, int dtype, void* stream) {
-  if (rows <= 0 || H <= 0 || H % 32 != 0 || H > kMaxHidden || I <= 0 ||
-      I % kChunk != 0 || splits < 1 || splits > I / kChunk ||
-      (splits > 1 && workspace == nullptr) ||
-      ((h1 == nullptr) != (inter == nullptr)))
+                        void* inter, int rows, int H, int I, int rows1,
+                        int cols1, int rows2, int cols2, void* stream) {
+  if (rows <= 0 || H <= 0 || I <= 0 || H % 4 != 0 || I % 4 != 0 ||
+      !tile_ok(rows, rows1, cols1) || !tile_ok(rows, rows2, cols2) ||
+      inter == nullptr || !ldot::aligned16(x) || !ldot::aligned16(w1) ||
+      !ldot::aligned16(w2) ||
+      !ldot::aligned16(out) || !ldot::aligned16(inter) ||
+      (h1 != nullptr && !ldot::aligned16(h1)))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ldot::kFloat32)
-    return dispatch<float>(x, w1, b1, w2, b2, out, h1, inter, workspace,
-                           rows, H, I, splits, s);
-  return cudaErrorInvalidValue;   // bfloat16: ldot_ffn_mma (ffn_mma.cu)
+  const Gemm fc1{static_cast<const float*>(x), static_cast<const float*>(w1),
+                 b1, static_cast<float*>(inter), static_cast<float*>(h1),
+                 rows, I, H};
+  cudaError_t err = run<kFc1>(fc1, rows1, cols1, s);
+  if (err != cudaSuccess) return err;
+  const Gemm fc2{static_cast<const float*>(inter),
+                 static_cast<const float*>(w2), b2, static_cast<float*>(out),
+                 nullptr, rows, H, I};
+  return run<kFc2>(fc2, rows2, cols2, s);
 }

@@ -49,11 +49,11 @@ _SIGNATURES = {
     # q, k, v, bias, out, batch, seq, heads, head_dim, scale, defer, dtype,
     # stream
     "ldot_attention": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
-    # x, w1, b1, w2, b2, out, h1, inter, workspace, rows, H, I, splits,
-    # dtype, stream
-    "ldot_ffn": (_P,) * 9 + (_I, _I, _I, _I, _I, _P),
+    # x, w1, b1, w2, b2, out, h1, inter, rows, H, I, rows1, cols1, rows2,
+    # cols2, stream (float32)
+    "ldot_ffn": (_P,) * 8 + (_I,) * 7 + (_P,),
     # x, w1, b1, w2, b2, out, h1, inter, workspace, rows, H, I, splits1,
-    # per1, splits2, per2, stream
+    # per1, splits2, per2, stream (bfloat16)
     "ldot_ffn_mma": (_P,) * 9 + (_I,) * 7 + (_P,),
     # g, h1, w2, dh1, rows, H, I, stream (float32)
     "ldot_ffn_dh1": (_P, _P, _P, _P, _I, _I, _I, _P),

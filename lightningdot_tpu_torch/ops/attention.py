@@ -7,9 +7,11 @@ dropout) and in the projection-native ``bshd`` layout only: q, k, v are
 ``_attention_pallas``), split by dtype in the C entry point: bfloat16 runs
 on the tensor cores (``csrc/attention_mma.cu``: the twin's rounding points,
 float32 sums in another order, so within a bf16 ulp of the twin rather than
-bit-equal), float32 on FMA units (``csrc/attention.cu``, bit-equal to the
-twin). Unlike the TPU dispatch, which sent only batch * heads <= 128 to the
-kernel, every CUDA call takes a kernel.
+bit-equal), float32 on FMA units (``csrc/attention.cu``: register
+microtiles, 64 queries a block, bit-equal to the twin; the float32
+cross-encoder teacher's attention in KD and re-ranking). Unlike the TPU
+dispatch, which sent only batch * heads <= 128 to the kernel, every CUDA
+call takes a kernel.
 :func:`attention_nodrop` adds the gradient of ``_attention_nodrop``
 (:136-163) for training at dropout 0 and in eval mode under autograd.
 
@@ -27,8 +29,8 @@ from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.fused import attention_vjp
 
 # both kernels hold one head's k and v in shared memory (csrc/attention.cu
-# 173 KB in float32 at S = 256, D = 64; csrc/attention_mma.cu 73 KB in
-# bfloat16); CAP_LEN_BUCKETS (const.py) reach 256
+# 156 KB in float32 at S = 256, D = 64, K^T and V in turn; csrc/
+# attention_mma.cu 73 KB in bfloat16); CAP_LEN_BUCKETS (const.py) reach 256
 MAX_SEQ = 256
 MAX_HEAD_DIM = 64
 
@@ -99,7 +101,6 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     every query row's scores.
     """
     what = "attention kernel"
-    _build.require_cuda(what, q, k, v, key_bias)
     code = _build.dtype_code(q, what)
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"{what}: q, k, v must share one [B,S,H,D] shape, "
@@ -114,6 +115,7 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if key_bias.dtype != torch.float32 or key_bias.shape != (b, s):
         raise ValueError(f"{what}: key bias must be float32 [{b}, {s}], got "
                          f"{key_bias.dtype} {tuple(key_bias.shape)}")
+    _build.require_cuda(what, q, k, v, key_bias)
     if q.dtype == torch.bfloat16:
         check_tensor_core_operands(what, d, q, k, v)
     out = torch.empty_like(q)

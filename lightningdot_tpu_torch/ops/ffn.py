@@ -5,11 +5,20 @@ Counterpart of lightningdot_tpu/ops/ffn.py (``_ffn_math``, ``_ffn`` and its
 custom VJP ``_ffn_fwd``/``_ffn_bwd``, :193-241). The kernels replace the TPU
 kernel ``_ffn_kernel`` (lightningdot_tpu/ops/ffn.py:77, launched by
 ``_ffn_pallas``), split by dtype in :func:`ffn_cuda`: bfloat16 runs on the
-tensor cores (``csrc/ffn_mma.cu``, :func:`ffn_mma_cuda`: the twin's
-rounding points, float32 sums in another order, so within a bf16 ulp of the
-twin rather than bit-equal), float32 on FMA units (``csrc/ffn.cu``,
-:func:`ffn_fma_cuda`). Without a gradient they write the output only; under
-autograd also h1 and gelu(h1) (``with_h1``/``with_inter`` under the default
+tensor cores (``csrc/ffn_mma.cu``, :func:`ffn_mma_cuda`), float32 on the
+FMA units (``csrc/ffn.cu``, :func:`ffn_fma_cuda`: a tiled float32 GEMM with
+register microtiles, the float32 cross-encoder teacher's FFN in KD and
+re-ranking). Both are two launches of one GEMM, fc1 with the bias-GELU
+epilogue and fc2: bfloat16 tiled as
+:func:`~lightningdot_tpu_torch.ops.gemm.gemm_plan` says, its reduction
+split at few rows; float32 never split, in the output tile that
+:func:`~lightningdot_tpu_torch.ops.gemm.f32_gemm_tile` picks, so that a
+row's bits depend neither on the tile nor on how many rows share the
+launch. Both keep the twin's rounding points and sum in float32 in
+another order, so they are held within a tolerance of the twin rather
+than bit for bit. Without a
+gradient they write the output (and the intermediate, which fc2 reads);
+under autograd also h1 (``with_h1``/``with_inter`` under the default
 "store" policy, :176-181). The backward's dh1 goes through
 ``ops/ffn_dh1.py``'s kernel; its three weight products are plain
 float32-accumulated products, as JAX leaves them to XLA. The TPU dispatch
@@ -25,13 +34,9 @@ import torch
 from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.activations import gelu
 from lightningdot_tpu_torch.ops.ffn_dh1 import ffn_dh1
-from lightningdot_tpu_torch.ops.gemm import check_mma_operands, gemm_plan
+from lightningdot_tpu_torch.ops.gemm import (check_mma_operands,
+                                             f32_gemm_tile, gemm_plan)
 from lightningdot_tpu_torch.ops.matmul import mm_f32
-
-# csrc/ffn.cu (float32): 16-row tiles, 32-column chunks of the intermediate
-_TILE_ROWS = 16
-_CHUNK = 32
-MAX_HIDDEN = 1024
 
 
 def _ffn_math(x, w1, b1, w2, b2):
@@ -42,23 +47,10 @@ def _ffn_math(x, w1, b1, w2, b2):
     return (mm_f32(inter, w2) + b2).to(x.dtype), h1
 
 
-def ffn_splits(rows: int, inter: int, num_sms: int) -> int:
-    """How many blocks share one row tile's intermediate dimension in the
-    float32 kernel.
-
-    Enough that the grid covers every SM about twice, at most one 32-wide
-    chunk per block; then evened out so that no split is empty.
-    """
-    n_chunks = inter // _CHUNK
-    tiles = -(-rows // _TILE_ROWS)
-    splits = max(1, min(n_chunks, -(-2 * num_sms // tiles)))
-    per = -(-n_chunks // splits)
-    return -(-n_chunks // per)
-
-
 def _check_ffn(what, x2d, w1, b1, w2, b2, dtype):
-    _build.require_cuda(what, x2d, w1, b1, w2, b2)
-    code = _build.dtype_code(x2d, what)
+    """The operands' dtypes and shapes; the wrappers check the device after
+    their ranges, so that a CPU tensor of a shape the kernel refuses is
+    refused for its shape."""
     if x2d.dtype != dtype:
         raise TypeError(f"{what}: takes {dtype}, got {x2d.dtype}")
     rows, h = x2d.shape
@@ -72,37 +64,42 @@ def _check_ffn(what, x2d, w1, b1, w2, b2, dtype):
                          f"form an FFN")
     if b1.dtype != torch.float32 or b2.dtype != torch.float32:
         raise TypeError(f"{what}: biases must be float32")
-    return code, rows, h, inter
+    return rows, h, inter
+
+
+def _aligned16(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (a view
+    at an odd offset): the float32 GEMM copies its operands in whole
+    16-byte chunks."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def ffn_fma_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                  w2: torch.Tensor, b2: torch.Tensor, *,
                  with_h1: bool = False):
-    """Launch the float32 FFN kernel (``csrc/ffn.cu``) on a [rows, H] CUDA
-    tensor -> out, or with ``with_h1`` (out, h1, gelu(h1)), the last two
-    [rows, I]."""
+    """Launch the float32 FFN (``csrc/ffn.cu``: fc1 with the bias-GELU
+    epilogue, then fc2, each in the output tile :func:`f32_gemm_tile`
+    picks) on a [rows, H] CUDA tensor -> out, or with ``with_h1`` (out, h1,
+    gelu(h1)), the last two [rows, I]. H and I must be multiples of 4
+    (whole 16-byte chunks of the weights' rows)."""
     what = "ffn kernel"
-    code, rows, h, inter = _check_ffn(what, x2d, w1, b1, w2, b2,
-                                      torch.float32)
-    if h % 32 or h > MAX_HIDDEN or inter % _CHUNK:
-        raise ValueError(f"{what}: needs H % 32 == 0, H <= {MAX_HIDDEN} and "
-                         f"I % {_CHUNK} == 0, got H={h}, I={inter}")
-    splits = ffn_splits(rows, inter, _build.num_sms(x2d.device))
+    rows, h, inter = _check_ffn(what, x2d, w1, b1, w2, b2, torch.float32)
+    if h % 4 or inter % 4:
+        raise ValueError(f"{what}: needs H and I multiples of 4, got H={h}, "
+                         f"I={inter}")
+    _build.require_cuda(what, x2d, w1, b1, w2, b2)
+    x2d, w1, w2 = _aligned16(x2d), _aligned16(w1), _aligned16(w2)
+    sms = _build.num_sms(x2d.device)
+    tile1, tile2 = (f32_gemm_tile(rows, n, sms) for n in (inter, h))
     out = torch.empty_like(x2d)
-    h1 = inter_out = None
-    if with_h1:
-        h1 = x2d.new_empty((rows, inter))
-        inter_out = x2d.new_empty((rows, inter))
-    workspace = (torch.empty((splits, rows, h), dtype=torch.float32,
-                             device=x2d.device) if splits > 1 else None)
+    inter_out = x2d.new_empty((rows, inter))
+    h1 = x2d.new_empty((rows, inter)) if with_h1 else None
     with torch.cuda.device(x2d.device):
         _build.check(_build.lib().ldot_ffn(
             x2d.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
             b2.data_ptr(), out.data_ptr(),
-            h1.data_ptr() if with_h1 else None,
-            inter_out.data_ptr() if with_h1 else None,
-            workspace.data_ptr() if workspace is not None else None,
-            rows, h, inter, splits, code, _build.stream_ptr(x2d)), what)
+            h1.data_ptr() if with_h1 else None, inter_out.data_ptr(),
+            rows, h, inter, *tile1, *tile2, _build.stream_ptr(x2d)), what)
     ffn_fma_cuda.launches += 1
     return (out, h1, inter_out) if with_h1 else out
 
@@ -119,9 +116,9 @@ def ffn_mma_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     gelu(h1)). H and I must be multiples of 8 and x, w1, w2 16-byte
     aligned (the kernel copies whole 16-byte chunks)."""
     what = "ffn tensor-core kernel"
-    _, rows, h, inter = _check_ffn(what, x2d, w1, b1, w2, b2,
-                                   torch.bfloat16)
+    rows, h, inter = _check_ffn(what, x2d, w1, b1, w2, b2, torch.bfloat16)
     check_mma_operands(what, h, inter, x2d, w1, w2)
+    _build.require_cuda(what, x2d, w1, b1, w2, b2)
     sms = _build.num_sms(x2d.device)
     fc1, fc2 = gemm_plan(rows, inter, h, sms), gemm_plan(rows, h, inter, sms)
     out = torch.empty_like(x2d)

@@ -150,54 +150,120 @@ def test_ffn_matches_pallas_kernel_interpret(rows):
                                atol=3e-6)
 
 
-@pytest.mark.parametrize("rows,inter,sms,expect", [
-    (32, 3072, 132, 96), (2048, 3072, 132, 3), (16384, 3072, 132, 1),
-    (16, 3072, 132, 96), (256, 3072, 132, 16)])
-def test_ffn_splits_cover_the_card_without_empty_splits(rows, inter, sms,
-                                                        expect):
-    splits = ffn.ffn_splits(rows, inter, sms)
-    assert splits == expect
-    n_chunks = inter // 32
-    per = -(-n_chunks // splits)
-    assert per * (splits - 1) < n_chunks <= per * splits
-
-
 # fc1 and fc2 of the FFN at its row counts; dh1 = g W2^T
 # (ops/ffn_dh1.py::ffn_dh1_mma_cuda), fc1's shape with W2 as B, at the
-# training rows and a split (256) and ragged (130) count
-@pytest.mark.parametrize("rows,n,k", [
-    pytest.param(rows, n, k, id=f"{rows}-{n}-{k}")
+# training rows and a split (256) and ragged (130) count; the float32 GEMM
+# (csrc/ffn.cu, never split) at its rows from one to the KD teacher's
+# 106,880, the re-ranking block's 21,504 among them
+@pytest.mark.parametrize("rows,n,k,f32", [
+    pytest.param(rows, n, k, False, id=f"{rows}-{n}-{k}")
     for rows in (32, 256, 2048, 4096, 13312, 1, 31, 130, 257)
     for n, k in ((3072, 768), (768, 3072))] + [
-    pytest.param(rows, 3072, 768, id=f"{rows}-dh1")
-    for rows in (130, 256, 2048, 4096)])
-def test_ffn_gemm_plan_covers_every_tile_and_k_slice_once(rows, n, k):
-    """The tensor-core FFN's GEMM plan (csrc/ffn_mma.cu, blocks as the
-    kernel reads its block index): every 128 x 128 output tile and every k
-    tile of 64 is reduced by exactly one block, no split is empty, the
-    ranges stop at the matrix's edges, and the kernel's plan check
-    (``plan_ok``) holds. Few rows split the reduction to cover the card."""
-    k_tile = gemm.GEMM_K_TILE
-    plan = gemm.gemm_plan(rows, n, k, 132, k_tile=k_tile)
+    pytest.param(rows, 3072, 768, False, id=f"{rows}-dh1")
+    for rows in (130, 256, 2048, 4096)] + [
+    pytest.param(rows, n, k, True, id=f"f32-{rows}-{n}-{k}")
+    for rows in (1, 31, 32, 130, 256, 2048, 21504, 106880)
+    for n, k in ((3072, 768), (768, 3072))])
+def test_ffn_gemm_plan_covers_every_tile_and_k_slice_once(rows, n, k, f32):
+    """The FFN's GEMM plans (blocks as the kernels read their block index):
+    every output tile and every k tile is reduced by exactly one block, no
+    split is empty, the ranges stop at the matrix's edges, and the kernels'
+    plan checks hold. In bfloat16 (csrc/ffn_mma.cu, 128 x 128 tiles) few
+    rows split the reduction to cover the card. In float32 (csrc/ffn.cu)
+    one block reduces all of k for each output, so each row's sums run
+    over k in order whatever the tile and the number of rows; the narrow
+    tiles take the rows for which 128 x 128 tiles leave more than half the
+    SMs without a block, and launch more blocks than those would."""
+    if f32:
+        tile_r, tile_c = gemm.f32_gemm_tile(rows, n, 132)
+        k_tile = k
+        plan = gemm.GemmPlan(-(-rows // tile_r), -(-n // tile_c), 1, 1)
+        wide = -(-rows // 128) * -(-n // 128)
+        assert ((tile_r, tile_c) == gemm.F32_WIDE) == (wide >= 132 // 2)
+        assert plan.row_tiles * plan.col_tiles >= wide
+        assert (tile_r, tile_c) in (gemm.F32_WIDE, *gemm.F32_NARROW)
+        # one output a thread while the outputs are few
+        one = rows * n <= gemm.F32_ONE_OUTPUT_MAX and wide < 132 // 2
+        assert ((tile_r, tile_c) == gemm.F32_NARROW[0]) == one
+    else:
+        tile_r = tile_c = gemm.GEMM_TILE
+        k_tile = gemm.GEMM_K_TILE
+        plan = gemm.gemm_plan(rows, n, k, 132, k_tile=k_tile)
     k_tiles = -(-k // k_tile)
-    tile = gemm.GEMM_TILE
     assert (plan.splits - 1) * plan.per < k_tiles <= plan.splits * plan.per
     count = np.zeros((plan.row_tiles, plan.col_tiles, k_tiles), np.int64)
     row_ends, col_ends = set(), set()
-    for z, r, c, kr in gemm.gemm_blocks(plan, rows, n, k, k_tile=k_tile):
+    for z, r, c, kr in gemm.gemm_blocks(plan, rows, n, k, k_tile=k_tile,
+                                        row_tile=tile_r, col_tile=tile_c):
         assert len(r) and len(c) and len(kr)
-        assert len(r) <= tile and len(c) <= tile
-        assert r.start % tile == 0 and c.start % tile == 0
+        assert len(r) <= tile_r and len(c) <= tile_c
+        assert r.start % tile_r == 0 and c.start % tile_c == 0
         assert kr.start == z * plan.per * k_tile
-        count[r.start // tile, c.start // tile,
+        count[r.start // tile_r, c.start // tile_c,
               kr.start // k_tile:-(-kr.stop // k_tile)] += 1
         row_ends.add(r.stop)
         col_ends.add(c.stop)
     assert (count == 1).all()
     assert max(row_ends) == rows and max(col_ends) == n
-    if rows * n <= 256 * 3072:     # few tiles: the reduction is split
+    if f32:                        # one block sums all of k for an output
+        assert plan.splits == 1 and kr == range(k)
+    elif rows * n <= 256 * 3072:   # few tiles: the reduction is split
         assert plan.splits > 1     # to about one block per SM
         assert plan.row_tiles * plan.col_tiles * plan.splits >= 132 // 2
+
+
+def test_float32_kernel_wrappers_refuse_what_the_kernels_do_not_take():
+    """``ffn_fma_cuda`` and ``attention_cuda`` check dtype, shape and range
+    before the device: each refusal below is the kernel's, on CPU tensors.
+    The float32 FFN takes H and I multiples of 4 (a width past the earlier
+    kernel's 1,024 and an I off its multiples of 32 reach the device
+    check); the attention takes S <= 256 and head_dim <= 64."""
+    def ffn_args(rows, h, inter, dt=torch.float32, bias_dt=torch.float32):
+        return (torch.zeros(rows, h, dtype=dt),
+                torch.zeros(h, inter, dtype=dt),
+                torch.zeros(inter, dtype=bias_dt),
+                torch.zeros(inter, h, dtype=dt),
+                torch.zeros(h, dtype=bias_dt))
+
+    with pytest.raises(TypeError, match="takes torch.float32"):
+        ffn.ffn_fma_cuda(*ffn_args(4, 32, 64, dt=torch.bfloat16))
+    with pytest.raises(TypeError, match="biases must be float32"):
+        ffn.ffn_fma_cuda(*ffn_args(4, 32, 64, bias_dt=torch.float64))
+    x, w1, b1, w2, b2 = ffn_args(4, 32, 64)
+    with pytest.raises(ValueError, match="do not form an FFN"):
+        ffn.ffn_fma_cuda(x, w1, b1, w2.t(), b2)
+    for h, inter in ((30, 64), (32, 66)):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            ffn.ffn_fma_cuda(*ffn_args(4, h, inter))
+    for h, inter in ((1028, 64), (32, 36), (768, 3072)):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            ffn.ffn_fma_cuda(*ffn_args(3, h, inter), with_h1=True)
+    # a weight view that starts off 16 bytes is copied, an aligned one not
+    w = torch.zeros(65 * 32)
+    assert ffn._aligned16(w[32:].view(64, 32)).data_ptr() % 16 == 0
+    assert ffn._aligned16(w).data_ptr() == w.data_ptr()
+
+    bias = torch.zeros(2, 16)
+    q = torch.zeros(2, 16, 3, 8)
+    with pytest.raises(TypeError, match="unsupported dtype"):
+        attention.attention_cuda(q.double(), q.double(), q.double(), bias,
+                                 0.3, False)
+    with pytest.raises(TypeError, match="dtypes differ"):
+        attention.attention_cuda(q, q.to(torch.bfloat16), q, bias, 0.3,
+                                 False)
+    with pytest.raises(ValueError, match="share one"):
+        attention.attention_cuda(q, q[:, :8], q, bias, 0.3, False)
+    with pytest.raises(ValueError, match="key bias"):
+        attention.attention_cuda(q, q, q, bias[:, :8], 0.3, False)
+    for s, d in ((257, 64), (16, 65)):
+        t = torch.zeros(1, s, 2, d)
+        with pytest.raises(ValueError, match="not supported"):
+            attention.attention_cuda(t, t, t, torch.zeros(1, s), 0.3, False)
+    for s, d in ((256, 64), (167, 64), (37, 30)):
+        t = torch.zeros(1, s, 2, d)
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            attention.attention_cuda(t, t, t, torch.zeros(1, s), 0.3, False)
+    assert launch_counts()["ffn"] == launch_counts()["attention"] == 0
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
