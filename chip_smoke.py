@@ -111,12 +111,20 @@ Phases, each of which exits non-zero on failure (no result is printed):
    fail), the ranks' weights bit-equal, bf16 at every step within the
    bf16-vs-f32 bound beside a control that must fail, a kernel row at
    every bf16 shape the ranks ran; the step time of two ranks against one
-   process and the collectives' times;
-   ``cli/train_itm`` under ``torch.distributed.run`` (one writer, one
-   result); NCCL at world 1 bit-equal to no group (two NCCL ranks where
-   there are two cards); the bf16 and int8 Retriever and
+   process and the collectives' times; the same ranks' KD steps (A13:
+   a UNITER-base teacher in float32) and VQA steps (A14: 3,129 answers,
+   both head forms), in float32 and bf16, held the same way, each beside
+   a planted fault that must fail (``_hold_dist_kd_vqa``);
+   ``cli/train_itm``, ``cli/train_itm --teacher_checkpoint`` and
+   ``cli/train_vqa`` under ``torch.distributed.run`` (one writer, one
+   result each); NCCL at world 1 bit-equal to no group (two NCCL ranks
+   where there are two cards); the bf16 and int8 Retriever and
    ``DenseShardedIndex`` over ``DeviceMesh([cuda:0, cuda:0])`` against
-   the unsharded ones (``dist_phase``).
+   the unsharded ones (``dist_phase``);
+14. ``examples`` (A15): ``examples/demo_retrieval_torch.py``'s ``main()``
+   on the card, its answers equal to ``Retriever.retrieve_query``, and one
+   ``/search`` through ``examples/serve_http_torch.py``'s server, equal to
+   a direct ``retrieve_query``.
 
 The kernel rows also hold the training kernels at the step's shapes: the
 FFN forward writing h1 and gelu(h1) and dh1 at 2,048 and 4,096 rows (in
@@ -262,10 +270,21 @@ PATH_KERNELS["dist_sharded_int8"] = PATH_KERNELS["int8_serving"]
 # bi-encoder's kernels
 PATH_KERNELS["rerank"] = ("layernorm", "attention", "ffn_mma", "ffn")
 PATH_KERNELS["kd"] = PATH_KERNELS["kd"] + ("ffn",)
+# KD and VQA across the dist ranks (ROADMAP A13, A14) at dropout 0: the
+# bf16 steps through the tensor-core FFN and dh1, the attention forward
+# (its backward recomputes) and the LayerNorm backward; KD's float32
+# teacher through the float32 FFN too; their float32 steps through the
+# FMA forms. The examples: the query and encode paths' kernels
+PATH_KERNELS["dist_kd"] = ("layernorm", "layernorm_bwd", "attention",
+                           "ffn_mma", "ffn_dh1_mma", "adamw", "ffn")
+PATH_KERNELS["dist_vqa"] = PATH_KERNELS["dist_kd"][:-1]
+PATH_KERNELS["dist_kd_f32"] = PATH_KERNELS["dist_f32"]
+PATH_KERNELS["dist_vqa_f32"] = PATH_KERNELS["dist_f32"]
+PATH_KERNELS["examples"] = PATH_KERNELS["text_bf16"]
 # the FMA forms that a bf16 path must not launch, and those that a path's
 # float32 part (the teachers) does launch
 FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
-FMA_ALLOWED = {"rerank": ("ffn",), "kd": ("ffn",)}
+FMA_ALLOWED = {"rerank": ("ffn",), "kd": ("ffn",), "dist_kd": ("ffn",)}
 
 
 def hold_path(path, counts):
@@ -423,7 +442,13 @@ def check(cond: bool, msg: str) -> None:
         raise Failure(msg)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(**fields) -> None:
+    """One JSON row, stamped with the seconds since the script started
+    (``elapsed_s``: where the run's time goes, phase by phase)."""
+    fields.setdefault("elapsed_s", round(time.perf_counter() - _T0, 1))
     print(json.dumps(fields), flush=True)
 
 
@@ -4327,8 +4352,28 @@ DIST_VARIANTS = (("f32", "float32", 0), ("f32_hn", "float32", 1),
 # keeps only its own queries' gradient of its rows; the parameter
 # gradients are still summed, so the ranks stay bit-equal)
 DIST_FAULT = ("f32_fault", "float32", 0)
+# KD and VQA across the ranks (ROADMAP A13, A14), DIST_STEPS steps each
+# on the same rows as the ITM variants, against one process on the global
+# batch: KD's UNITER-base teacher (TEACHER_CONFIG) in float32, its T, the
+# term's weight and n_teacher (min(10, 64): rank 0's first rows); the VQA
+# head (VQA_ANSWERS answers) at DIST_VQA_LR_MUL the learning rate, plain
+# (its LayerNorm 3,072 wide) and with the intersection (6,144). (name,
+# dtype[, intersection])
+DIST_KD_T = 2.0
+DIST_KD_WEIGHT = 1.0
+DIST_KD_TEACHERS = 10
+DIST_KD_VARIANTS = (("kd_f32", "float32"), ("kd_bf16", "bfloat16"))
+DIST_VQA_VARIANTS = (("vqa_f32", "float32", False),
+                     ("vqa_bf16", "bfloat16", False),
+                     ("vqa_bf16_x", "bfloat16", True))
+DIST_VQA_LR_MUL = 10.0
+# the planted faults that the float32 bounds must refuse: every rank
+# differentiates the whole KD term (the step's 1/W share undone), and the
+# VQA step without its gradient all-reduce
+DIST_KD_FAULT = ("kd_fault", "float32")
+DIST_VQA_FAULT = ("vqa_fault", "float32", False)
 # the driver under torch.distributed.run: train and val split images (x 5
-# captions), one epoch
+# captions, or VQA questions), one epoch
 DIST_DRIVER_IMAGES = (64, 16)
 # the sharded corpus: two shards on the one card; the index check's corpus
 # and k (k wider than a shard of 256 rows)
@@ -4395,9 +4440,10 @@ def _dist_batches(seed, negs):
     return glob, local
 
 
-def _dist_step(state, dtype, negs, device, dropout=0.0):
+def _dist_step(state, dtype, negs, device, dropout=0.0, **step_kw):
     """coco_ft.json's step (clip 2.0, AdamW, the linear schedule from lr
-    DIST_LR without warmup) on a model holding ``state``."""
+    DIST_LR without warmup) on a model holding ``state``; ``step_kw`` go
+    to ``make_itm_train_step`` (KD's ``kd_fn``)."""
     from lightningdot_tpu_torch.models import BiEncoder
     from lightningdot_tpu_torch.training.itm_step import make_itm_train_step
     from lightningdot_tpu_torch.training.optim import (make_optimizer,
@@ -4409,11 +4455,13 @@ def _dist_step(state, dtype, negs, device, dropout=0.0):
     model.train()
     step = make_itm_train_step(model, make_optimizer(
         model, schedule_linear(DIST_LR, 0, 1000), max_grad_norm=2.0),
-        num_hard_negatives=negs, device=device)
+        num_hard_negatives=negs, device=device, **step_kw)
     return model, step
 
 
-def _timed_steps(step, batches, gen_of):
+def _timed_steps(step, batches, gen_of, kd_losses=None):
+    """Each step's loss and wall time (the card synchronized around it);
+    ``kd_losses`` collects the KD term where the step has one."""
     losses, lat = [], []
     for i, b in enumerate(batches):
         torch.cuda.synchronize()
@@ -4422,7 +4470,98 @@ def _timed_steps(step, batches, gen_of):
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
         losses.append(float(m["loss"]))
+        if kd_losses is not None:
+            kd_losses.append(float(m["kd_loss"]))
     return losses, lat
+
+
+def _dist_kd_fn(teacher, fault=False):
+    """KD's term at DIST_KD_T over DIST_KD_TEACHERS images; ``fault``: the
+    DIST_KD_FAULT, every rank differentiating the whole term (the step
+    adds 1/W of what it is handed)."""
+    from lightningdot_tpu_torch.training.itm_step import make_kd_fn
+
+    kd_fn = make_kd_fn(teacher, T=DIST_KD_T, n_teacher=DIST_KD_TEACHERS)
+    if not fault:
+        return kd_fn
+    return lambda batch, embs: (kd_fn(batch, embs)
+                                * torch.distributed.get_world_size())
+
+
+def _dist_kd_batches(seed):
+    """The ITM variants' global batches with the one-process teacher grid,
+    as the one-process driver stages it (the ranks take ``_dist_batches``'
+    parts: their step builds their blocks)."""
+    from lightningdot_tpu_torch.data.itm import make_teacher_batch
+
+    n = 2 * DIST_LOCAL_BATCH
+    return [dict(b, sample_size=n, teacher=make_teacher_batch(
+        dict(b, sample_size=n), DIST_KD_TEACHERS))
+        for b in _dist_batches(seed, 0)[0]]
+
+
+def _dist_vqa_batches(seed):
+    """The ITM variants' rows as VQA batches: soft targets of 1-3 of the
+    VQA_ANSWERS answers a question (scores 1/3, 2/3 or 1, as
+    ``make_synth_dataset`` draws them); global and each rank's part."""
+    glob, local = _dist_batches(seed, 0)
+    rng = np.random.default_rng(seed + 7)
+    n = 2 * DIST_LOCAL_BATCH
+    for s, b in enumerate(glob):
+        t = np.zeros((n, VQA_ANSWERS), np.float32)
+        for i in range(n):
+            k = int(rng.integers(1, 4))
+            t[i, rng.choice(VQA_ANSWERS, k, replace=False)] = \
+                rng.integers(1, 4, k) / 3.0
+        b["targets"] = t
+        for r in range(2):
+            local[r][s]["targets"] = t[r * DIST_LOCAL_BATCH:
+                                       (r + 1) * DIST_LOCAL_BATCH]
+    return glob, local
+
+
+_DIST_VQA_MASTERS: dict = {}
+
+
+def _dist_vqa_master(state, seed, intersection):
+    """The VQA model over the ITM variants' towers (``state``), its head
+    drawn from ``seed`` (``init_vqa_head_``) with noise of 0.02 (no leaf
+    starts at zero, as ``_dist_master``), on the CPU: the same weights in
+    every process. Kept for the process's later variants."""
+    from lightningdot_tpu_torch.models import BiEncoder
+    from lightningdot_tpu_torch.models.vqa import (BiEncoderForVQA,
+                                                   init_vqa_head_)
+
+    key = (seed, intersection)
+    if key not in _DIST_VQA_MASTERS:
+        bi = BiEncoder(*train_configs(0.0))
+        bi.load_state_dict(state)
+        model = BiEncoderForVQA(bi, bi.txt_cfg.out_size, VQA_ANSWERS,
+                                intersection=intersection)
+        init_vqa_head_(model, torch.Generator().manual_seed(seed))
+        perturb_(model.vqa_output, 0.02, seed + 1)
+        _DIST_VQA_MASTERS[key] = model
+    return _DIST_VQA_MASTERS[key]
+
+
+def _dist_vqa_step(state, seed, dtype, intersection, device):
+    """The VQA driver's optimizer (UNITER's betas, eps and decay, clip 2.0,
+    the head at DIST_VQA_LR_MUL the learning rate DIST_LR) and step on a
+    copy of the master weights (``_dist_vqa_master``)."""
+    import copy
+
+    from lightningdot_tpu_torch.training.optim import (make_optimizer,
+                                                       schedule_linear)
+    from lightningdot_tpu_torch.training.vqa_step import make_vqa_train_step
+
+    model = copy.deepcopy(_dist_vqa_master(state, seed, intersection))
+    model.biencoder.compute_dtype = getattr(torch, dtype)
+    model.train()
+    opt = make_optimizer(model, schedule_linear(DIST_LR, 0, 1000),
+                         betas=(0.9, 0.98), adam_eps=1e-6, weight_decay=0.01,
+                         max_grad_norm=2.0, first_lr_step=1,
+                         lr_mul={"vqa_output.": DIST_VQA_LR_MUL})
+    return model, make_vqa_train_step(model, opt, device=device)
 
 
 class _CollectiveClock:
@@ -4573,10 +4712,73 @@ def dist_worker(cfg):
         del model, step
         gc.collect()
         torch.cuda.empty_cache()
+    if cfg.get("teacher_dir"):
+        out.update(_dist_kd_vqa_ranks(cfg, state, device, recorder))
     out["shapes"] = sorted(recorder.seen, key=str)
     torch.distributed.destroy_process_group()
     print("DIST " + json.dumps(out), flush=True)
     return 0
+
+
+def _dist_kd_vqa_ranks(cfg, state, device, recorder):
+    """One rank's KD and VQA variants (``dist_worker``), DIST_STEPS steps
+    each on this rank's rows at dropout 0: the losses (and KD's term),
+    step times, launch counts and a weight digest; rank 0 saves the
+    float32 variants' weights and records the shapes of the bf16 ones (the
+    float32 teacher's grid among them). The planted faults run on the
+    same ranks."""
+    from lightningdot_tpu_torch.models.factory import load_cross_encoder
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training import vqa_step
+    from lightningdot_tpu_torch.utils.misc import state_digest
+
+    rank = cfg["rank"]
+    out = {}
+
+    def run(name, dtype, model, step, batches, fault, kd):
+        reset_launch_counts()
+        kd_losses = [] if kd else None
+        with fault, (recorder if rank == 0 and dtype == "bfloat16"
+                     else contextlib.nullcontext()):
+            losses, lat = _timed_steps(step, batches, lambda i: None,
+                                       kd_losses)
+        out[name] = dict(losses=losses, kd_losses=kd_losses, ms=lat,
+                         counts=launch_counts(), digest=state_digest(model),
+                         device=str(device),
+                         peak_mem_gb=torch.cuda.max_memory_allocated()
+                         / 2 ** 30)
+        if rank == 0 and dtype == "float32":
+            torch.save({k: v.detach().cpu() for k, v in
+                        model.state_dict().items()},
+                       os.path.join(cfg["workdir"], f"{name}.pt"))
+
+    teacher = load_cross_encoder(cfg["teacher_dir"],
+                                 compute_dtype=torch.float32, device=device)
+    _, local = _dist_batches(cfg["seed"], 0)
+    for name, dtype in DIST_KD_VARIANTS + (DIST_KD_FAULT,):
+        model, step = _dist_step(
+            state, dtype, 0, device, kd_fn=_dist_kd_fn(
+                teacher, fault=name == DIST_KD_FAULT[0]),
+            kd_loss_weight=DIST_KD_WEIGHT)
+        run(name, dtype, model, step, local[rank],
+            contextlib.nullcontext(), kd=True)
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    del teacher
+    _, local = _dist_vqa_batches(cfg["seed"])
+    for name, dtype, intersection in DIST_VQA_VARIANTS + (DIST_VQA_FAULT,):
+        model, step = _dist_vqa_step(state, cfg["seed"], dtype,
+                                     intersection, device)
+        fault = (_patched(vqa_step, "all_reduce_grads_",
+                          lambda real: lambda params: None)
+                 if name == DIST_VQA_FAULT[0] else contextlib.nullcontext())
+        run(name, dtype, model, step, local[rank], fault, kd=False)
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    _DIST_VQA_MASTERS.clear()
+    return out
 
 
 def _start_dist(cfgs):
@@ -4617,62 +4819,104 @@ def _dist_leaf_rel_l2(got, want):
                for k, w in want.items())
 
 
-def _dist_driver(args, workdir, device_name):
+def _dist_drivers(args, workdir, teacher_dir, device_name):
     """``python -m torch.distributed.run --nproc_per_node 2 -m
-    lightningdot_tpu_torch.cli.train_itm ... --device cuda:0
-    --dist_backend gloo`` over synthetic DBs, one epoch: exactly one set of
-    ``biencoder.*`` files (rank 0's), and the same results JSON on both
-    ranks, seconds aside."""
+    lightningdot_tpu_torch.cli.<driver> ... --device cuda:0 --dist_backend
+    gloo`` over synthetic DBs, one epoch, the three drivers at once:
+    ``train_itm``, ``train_itm --teacher_checkpoint`` (KD across the ranks)
+    and ``train_vqa`` (3,129 answers, the head at 10x the learning rate).
+    Each writes exactly one set of checkpoints (rank 0's), and both ranks
+    print the same results JSON, seconds aside."""
+    from lightningdot_tpu_torch.data.synth import make_synth_dataset
+
     n_train, n_val = DIST_DRIVER_IMAGES
     train = write_eval_dbs(workdir / "train", n_train, 5, args.seed + 31)
     val = write_eval_dbs(workdir / "val", n_val, 5, args.seed + 32)
-    out = workdir / "out"
-    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node",
-           "2", "--master_port", str(_free_port()), "-m",
-           "lightningdot_tpu_torch.cli.train_itm", "--config", FT_CONFIG,
-           "--itm_global_file", "", "--img_checkpoint", "none", "--seed",
-           str(args.seed), "--train_txt_dbs", train[0], "--train_img_dbs",
-           train[1], "--val_txt_db", val[0], "--val_img_db", val[1],
-           "--test_txt_db", "", "--num_train_epochs", "1",
-           "--output_dir", str(out), "--device", DEVICE + ":0",
-           "--dist_backend", "gloo"]
+    synth = dict(txts_per_img=5, img_dim=IMG_DIM, min_bb=10, max_bb=100,
+                 max_txt_len=23, vqa_answers=VQA_ANSWERS)
+    vqa_train = make_synth_dataset(str(workdir / "vqa_train"),
+                                   n_imgs=n_train, seed=args.seed + 35,
+                                   **synth)
+    vqa_val = make_synth_dataset(str(workdir / "vqa_val"), n_imgs=n_val,
+                                 seed=args.seed + 36, **synth)
+    itm = ["--config", FT_CONFIG, "--itm_global_file", "",
+           "--img_checkpoint", "none", "--seed", str(args.seed),
+           "--train_txt_dbs", train[0], "--train_img_dbs", train[1],
+           "--val_txt_db", val[0], "--val_img_db", val[1],
+           "--test_txt_db", "", "--num_train_epochs", "1"]
+    runs = {
+        "train_itm": ("train_itm", itm, "biencoder.", "best_val_recall_mean"),
+        "train_itm_kd": ("train_itm", itm + [
+            "--teacher_checkpoint", teacher_dir, "--T", "2.0",
+            "--kd_loss_weight", "0.5"], "biencoder.",
+            "best_val_recall_mean"),
+        "train_vqa": ("train_vqa", [
+            "--config", FT_CONFIG, "--img_checkpoint", "none", "--seed",
+            str(args.seed), "--train_txt_dbs", vqa_train[0],
+            "--train_img_dbs", vqa_train[1], "--val_txt_db", vqa_val[0],
+            "--val_img_db", vqa_val[1], "--num_answers", str(VQA_ANSWERS),
+            "--vqa_lr_mul", "10", "--num_train_epochs", "1"], "vqa.",
+            "best_val_acc")}
+    procs = {}
     t = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=DIST_WORKER_TIMEOUT)
+    for name, (module, cli, _, _) in runs.items():
+        out = workdir / name
+        procs[name] = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run",
+             "--nproc_per_node", "2", "--master_port", str(_free_port()),
+             "-m", f"lightningdot_tpu_torch.cli.{module}"] + cli + [
+                "--output_dir", str(out), "--device", DEVICE + ":0",
+                "--dist_backend", "gloo"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    outs = {}
+    try:
+        for name, proc in procs.items():
+            outs[name] = proc.communicate(timeout=DIST_WORKER_TIMEOUT)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
     seconds = time.perf_counter() - t
-    check(proc.returncode == 0, f"torch.distributed.run train_itm failed "
-          f"(rc {proc.returncode}):\n{proc.stdout[-2000:]}\n"
-          f"{proc.stderr[-4000:]}")
-    # each rank prints its results JSON last, into one pipe: two lines may
-    # run together, so each object is decoded where it starts
-    decoder = json.JSONDecoder()
-    results = [decoder.raw_decode(proc.stdout, m.start())[0] for m in
-               re.finditer(r'\{"best_val_recall_mean"', proc.stdout)]
 
     def strip(r):
         return {k: ([strip(e) for e in v] if k == "epochs" else v)
                 for k, v in r.items() if k not in DIST_TIMING_KEYS}
 
-    files = sorted(os.listdir(out))
-    written = sorted(f for f in files if f.startswith("biencoder."))
-    row = dict(phase="dist_driver", ranks=2, backend="gloo",
-               device=DEVICE + ":0", cli_seconds=seconds,
-               results=len(results),
-               same_results=len(results) == 2
-               and strip(results[0]) == strip(results[1]),
-               written=written, temporaries=[f for f in files
-                                             if f.endswith(".tmp")],
-               steps_per_rank=[e["steps"] for e in results[0]["epochs"]]
-               if results else None,
-               train_images=n_train, val_images=n_val, nvidia_smi=smi_line(),
-               card=device_name)
-    emit(**row)
-    check(row["same_results"], f"dist driver: the ranks' results differ or "
-          f"are missing: {results}\n{proc.stdout[-3000:]}\n"
-          f"{proc.stderr[-3000:]}")
-    check(written == ["biencoder.best.json", "biencoder.best.pt",
-                      "biencoder.last.json", "biencoder.last.pt"]
-          and not row["temporaries"], f"dist driver: not one writer: {row}")
+    for name, (module, _, prefix, first_key) in runs.items():
+        stdout, stderr = outs[name]
+        proc = procs[name]
+        check(proc.returncode == 0, f"torch.distributed.run {name} failed "
+              f"(rc {proc.returncode}):\n{stdout[-2000:]}\n"
+              f"{stderr[-4000:]}")
+        # each rank prints its results JSON last, into one pipe: two lines
+        # may run together, so each object is decoded where it starts
+        decoder = json.JSONDecoder()
+        results = [decoder.raw_decode(stdout, m.start())[0] for m in
+                   re.finditer(r'\{"' + first_key + '"', stdout)]
+        out = workdir / name
+        files = sorted(os.listdir(out))
+        written = sorted(f for f in files if f.startswith(prefix))
+        row = dict(phase="dist_driver", driver=name, ranks=2,
+                   backend="gloo", device=DEVICE + ":0",
+                   cli_seconds_all_three=seconds, results=len(results),
+                   same_results=len(results) == 2
+                   and strip(results[0]) == strip(results[1]),
+                   result=strip(results[0]) if results else None,
+                   written=written, temporaries=[f for f in files
+                                                 if f.endswith(".tmp")],
+                   train_images=n_train, val_images=n_val,
+                   nvidia_smi=smi_line(), card=device_name)
+        if "epochs" in (results[0] if results else {}):
+            row["steps_per_rank"] = [e["steps"] for e in results[0]["epochs"]]
+        emit(**row)
+        check(row["same_results"], f"dist driver {name}: the ranks' results "
+              f"differ or are missing: {results}\n{stdout[-3000:]}\n"
+              f"{stderr[-3000:]}")
+        check(written == [f"{prefix}{w}.{e}" for w in ("best", "last")
+                          for e in ("json", "pt")]
+              and not row["temporaries"],
+              f"dist driver {name}: not one writer: {row}")
 
 
 def _dist_corpus(args, tok, device_name):
@@ -4880,16 +5124,151 @@ def _hold_dist_ranks(ranks, one, master, workdir, backend, what, smi,
     return bf16
 
 
+def _dist_kd_vqa_one_process(state, seed, teacher_dir):
+    """One process on the KD and VQA variants' global batches (the KD grid
+    built on the host, as the one-process driver stages it): the losses
+    (and KD's term), step times and the float32 variants' final weights;
+    VQA also in float32 with the intersection head (the bf16 bound's
+    float32 reference) and its master weights."""
+    from lightningdot_tpu_torch.models.factory import load_cross_encoder
+
+    teacher = load_cross_encoder(teacher_dir, compute_dtype=torch.float32,
+                                 device=DEVICE)
+    one = {}
+
+    def run(name, dtype, model, step, batches, kd):
+        kd_losses = [] if kd else None
+        losses, lat = _timed_steps(step, batches, lambda i: None, kd_losses)
+        one[name] = dict(losses=losses, kd_losses=kd_losses, ms=lat)
+        if dtype == "float32":
+            one[name]["weights"] = {k: v.detach().cpu() for k, v in
+                                    model.state_dict().items()}
+
+    glob = _dist_kd_batches(seed)
+    for name, dtype in DIST_KD_VARIANTS:
+        model, step = _dist_step(state, dtype, 0, DEVICE,
+                                 kd_fn=_dist_kd_fn(teacher),
+                                 kd_loss_weight=DIST_KD_WEIGHT)
+        run(name, dtype, model, step, glob, kd=True)
+        del model, step
+    del teacher, glob
+    glob, _ = _dist_vqa_batches(seed)
+    for name, dtype, intersection in DIST_VQA_VARIANTS + (
+            ("vqa_f32_x", "float32", True),):
+        model, step = _dist_vqa_step(state, seed, dtype, intersection,
+                                     DEVICE)
+        run(name, dtype, model, step, glob, kd=False)
+        del model, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    one["vqa_master"] = {k: v.detach().clone() for k, v in _dist_vqa_master(
+        state, seed, False).state_dict().items()}
+    _DIST_VQA_MASTERS.clear()
+    return one
+
+
+def _hold_dist_kd_vqa(ranks, one, state, workdir, smi, device_name):
+    """Two ranks' KD and VQA variants against one process on the global
+    batch: the ranks' losses and weights equal to each other; float32
+    within DIST_LOSS_RTOL per step (KD's term too), DIST_LEAF_RTOL per leaf
+    and DIST_UPDATE_RTOL of one process's update, where the planted faults
+    must fail; bf16 at every step within TRAIN_BF16_LOSS_RTOL of one
+    process's bf16 and float32; each path's launches; the step times of
+    two ranks against one process's. Returns the paths' launch counts."""
+    counts = {}
+    faults = (DIST_KD_FAULT[0], DIST_VQA_FAULT[0])
+    for name, dtype, *head in (DIST_KD_VARIANTS + (DIST_KD_FAULT,)
+                               + DIST_VQA_VARIANTS + (DIST_VQA_FAULT,)):
+        kd = name.startswith("kd")
+        r0, r1 = ranks[0][name], ranks[1][name]
+        ref = {DIST_KD_FAULT[0]: "kd_f32",
+               DIST_VQA_FAULT[0]: "vqa_f32"}.get(name, name)
+        o = one[ref]
+        row = dict(phase="dist_kd_vqa_vs_one_process", backend="gloo",
+                   variant=name, dtype=dtype, path="kd" if kd else "vqa",
+                   head=("intersection" if head and head[0] else "plain")
+                   if not kd else None, lr=DIST_LR,
+                   losses_ranks=[r0["losses"], r1["losses"]],
+                   losses_one_process=o["losses"],
+                   kd_losses_ranks=r0["kd_losses"],
+                   kd_losses_one_process=o["kd_losses"],
+                   losses_equal_across_ranks=r0["losses"] == r1["losses"],
+                   weights_bit_equal_across_ranks=r0["digest"]
+                   == r1["digest"],
+                   loss_rel=_rel_per_step(r0["losses"], o["losses"]),
+                   ms_two_ranks_p50=statistics.median(r0["ms"]),
+                   ms_one_process_p50=statistics.median(o["ms"]),
+                   peak_mem_gb=[r0["peak_mem_gb"], r1["peak_mem_gb"]],
+                   nvidia_smi=smi, card=device_name)
+        agree = (row["losses_equal_across_ranks"]
+                 and row["weights_bit_equal_across_ranks"])
+        if kd:
+            # the KD term's part of the loss delta, read against the loss
+            row["kd_loss_rel"] = max(
+                abs(a - b) / abs(w) for a, b, w in zip(
+                    r0["kd_losses"], o["kd_losses"], o["losses"]))
+        if name in faults:
+            row["control"] = ("planted fault: " + (
+                "every rank differentiates the whole KD term" if kd else
+                "no gradient all-reduce") + "; must fail")
+        else:
+            check(agree, f"dist {name}: the ranks disagree: {row}")
+        if dtype == "float32":
+            master = state if kd else one["vqa_master"]
+            got = torch.load(os.path.join(workdir, f"{name}.pt"))
+            upd_rel, upd_size = _update_rel(got, o["weights"], master)
+            row.update(loss_rel_max=DIST_LOSS_RTOL,
+                       leaf_rel_l2=_dist_leaf_rel_l2(got, o["weights"]),
+                       leaf_rel_l2_max=DIST_LEAF_RTOL, update_rel_l2=upd_rel,
+                       update_rel_l2_max=DIST_UPDATE_RTOL,
+                       update_size_rel_l2=upd_size)
+            held = (agree and row["loss_rel"] <= DIST_LOSS_RTOL
+                    and row.get("kd_loss_rel", 0.0) <= DIST_LOSS_RTOL
+                    and row["leaf_rel_l2"] <= DIST_LEAF_RTOL
+                    and upd_rel <= DIST_UPDATE_RTOL)
+            emit(**row)
+            if name in faults:
+                check(not held, f"dist {name}: the planted fault passed the "
+                      f"float32 bounds, which cannot see it: {row}")
+                continue
+            check(held, f"dist {name}: two ranks vs one process: {row}")
+            counts[f"dist_{row['path']}_f32"] = r0["counts"]
+            continue
+        f32 = one[("kd_f32" if kd else "vqa_f32_x" if head[0]
+                   else "vqa_f32")]["losses"]
+        row.update(bf16_vs_one_process_bf16_rel=row.pop("loss_rel"),
+                   bf16_vs_f32_rel=_rel_per_step(r0["losses"], f32),
+                   bf16_vs_f32_rel_max=TRAIN_BF16_LOSS_RTOL,
+                   one_process_bf16_vs_f32_rel=_rel_per_step(o["losses"],
+                                                             f32))
+        emit(**row)
+        check(row["bf16_vs_one_process_bf16_rel"] <= TRAIN_BF16_LOSS_RTOL
+              and row["bf16_vs_f32_rel"] <= TRAIN_BF16_LOSS_RTOL,
+              f"dist {name} bf16: {row}")
+        path = f"dist_{row['path']}"
+        counts[path] = {k: v + counts.get(path, {}).get(k, 0)
+                        for k, v in r0["counts"].items()}
+    for path, c in sorted(counts.items()):
+        hold_path(path, c)
+    return counts
+
+
 def dist_phase(args, device_name):
     """ROADMAP A11 on the card. Two ranks on the one card over gloo
     (processes of this script), each with DIST_LOCAL_BATCH rows of a
     global batch of 64, DIST_STEPS ITM steps at coco_ft.json's full width
     through the kernels, in float32 (TF32 off), float32 with one hard
     negative per item, and bf16, held against one process on the global
-    batch (``_hold_dist_ranks``); then the driver under
-    torch.distributed.run (one writer, one result); NCCL at world 1
-    bit-equal to no group; where there are two cards, two NCCL ranks a
-    card each held as the gloo ranks are; the sharded corpus."""
+    batch (``_hold_dist_ranks``); the same ranks' KD steps (a UNITER-base
+    teacher in float32; float32, bf16 and a planted fault) and VQA steps
+    (3,129 answers, both head forms in bf16; float32 and a planted fault),
+    held the same way (``_hold_dist_kd_vqa``); then the ITM, KD and VQA
+    drivers under torch.distributed.run (one writer, one result each);
+    NCCL at world 1 bit-equal to no group; where there are two cards, two
+    NCCL ranks a card each held as the gloo ranks are (ITM); the sharded
+    corpus."""
+    from lightningdot_tpu_torch.models.factory import resolve_encoder_config
+
     smi = smi_line()
     gc.collect()
     torch.cuda.empty_cache()   # what earlier phases cached, for the ranks
@@ -4901,11 +5280,15 @@ def dist_phase(args, device_name):
         torch.save(state, master)
         base = dict(master=str(master), workdir=tmp, seed=args.seed + 30,
                     variants=DIST_VARIANTS + (DIST_FAULT,))
+        teacher_dir = save_teacher_dir(make_teacher(
+            resolve_encoder_config(TEACHER_CONFIG), args.seed + 34),
+            str(work / "teacher"))
         port = _free_port()
         t0 = time.perf_counter()
         ranks = _collect_dist(_start_dist([
             dict(base, scenario="steps", rank=r, world=2, backend="gloo",
-                 port=port, device_index=0) for r in range(2)]))
+                 port=port, device_index=0, teacher_dir=teacher_dir)
+            for r in range(2)]))
         emit(phase="dist_setup", backend="gloo", world=2,
              devices=[r[DIST_VARIANTS[0][0]]["device"] for r in ranks],
              local_batch=DIST_LOCAL_BATCH, global_batch=2 * DIST_LOCAL_BATCH,
@@ -4916,12 +5299,16 @@ def dist_phase(args, device_name):
             ranks, one, state, tmp, "gloo", "two processes sharing one H100 over "
             "gloo's host copies against one process: not a scaling number",
             smi, device_name)
+        kd_vqa = _hold_dist_kd_vqa(
+            ranks, _dist_kd_vqa_one_process(state, args.seed + 30,
+                                            teacher_dir),
+            state, tmp, smi, device_name)
 
-        # NCCL at world 1 runs beside the driver: neither is timed
+        # NCCL at world 1 runs beside the drivers: none is timed
         t0 = time.perf_counter()
         nccl1 = _start_dist([dict(base, scenario="nccl1", rank=0, world=1,
                                   port=_free_port(), device_index=0)])
-        _dist_driver(args, work, device_name)
+        _dist_drivers(args, work, teacher_dir, device_name)
         driver_s = time.perf_counter() - t0
         (n1,) = _collect_dist(nccl1)
         emit(phase="dist_nccl_world_1", backend=n1["backend"],
@@ -4952,7 +5339,78 @@ def dist_phase(args, device_name):
              corpus_seconds=time.perf_counter() - t0)
     rows, _ = hold_recorded("dist", [tuple(k) for k in ranks[0]["shapes"]],
                             device_name)
-    return dict(counts=gloo["timed_counts"], sharded=counts, rows=rows)
+    return dict(counts=gloo["timed_counts"], sharded=counts, rows=rows,
+                kd_vqa=kd_vqa)
+
+
+def _load_example(name):
+    """``examples/<name>.py`` of this checkout as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "examples" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def examples_phase(args, device_name):
+    """The port's examples on the card at their widths (ROADMAP A15):
+    ``examples/demo_retrieval_torch.py``'s ``main()`` (BERT-base cased and
+    UNITER-base in bf16, 64 synthetic images encoded, two queries), each
+    top 5 equal to ``Retriever.retrieve_query`` on the retriever it built;
+    then ``examples/serve_http_torch.py``'s ``build`` behind
+    ``RetrievalServer`` on a free port: one ``/search?q=...&top=5``,
+    equal to a direct ``retrieve_query``. The demo's launches are held."""
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.serving_http import RetrievalServer
+
+    demo = _load_example("demo_retrieval_torch")
+    built = []
+
+    def keep(real):
+        def build(*a, **k):
+            built.append(real(*a, **k))
+            return built[-1]
+        return build
+
+    reset_launch_counts()
+    t = time.perf_counter()
+    with _patched(demo, "build", keep):
+        got = demo.main([])
+    demo_s = time.perf_counter() - t
+    counts = launch_counts()
+    (retriever,) = built
+    want = {q: retriever.retrieve_query(q, top=5) for q in demo.QUERIES}
+    emit(phase="examples_demo", seconds=demo_s,
+         corpus=retriever.corpus_size, device=str(retriever.device),
+         top5=got, equal_to_retrieve_query=got == want, card=device_name)
+    check(got == want and all(len(v) == 5 and all(np.isfinite(s) for _, s
+                                                  in v)
+                              for v in got.values()),
+          f"examples: the demo's answers {got} are not retrieve_query's "
+          f"{want}")
+    hold_path("examples", counts)
+    del retriever, built[:]
+
+    serve = _load_example("serve_http_torch")
+    query = "two dogs play in the park"
+    with tempfile.TemporaryDirectory() as tmp:
+        t = time.perf_counter()
+        frontend = serve.build(tmp)
+        build_s = time.perf_counter() - t
+        with RetrievalServer(frontend) as srv:
+            url = f"{srv.address}/search?q={quote(query)}&top=5"
+            with urllib.request.urlopen(url, timeout=120) as r:
+                body = json.loads(r.read())
+        answer = [tuple(x) for x in body["results"]]
+        direct = frontend.retriever.retrieve_query(query, top=5)
+    emit(phase="examples_serve_http", build_seconds=build_s,
+         corpus=frontend.retriever.corpus_size, top5=answer,
+         equal_to_retrieve_query=answer == direct, card=device_name)
+    check(answer == direct, f"examples: /search answered {answer}, "
+          f"retrieve_query {direct}")
+    return counts
 
 
 REPLACES = {
@@ -5112,6 +5570,8 @@ def main() -> int:
     dist = dist_phase(args, device_name)
     paths["dist"] = dist["counts"]
     paths["dist_sharded_int8"] = dist["sharded"]["int8"]
+    paths.update(dist["kd_vqa"])
+    paths["examples"] = examples_phase(args, device_name)
     check(all(any(c[name] > 0 for c in paths.values()) for name in REPLACES),
           f"a kernel was launched on no path: {paths}")
 

@@ -20,7 +20,10 @@ teacher directory) adds the distillation term (``--T``,
 texts against its first ``min(10, batch)`` images (``make_teacher_batch``,
 tiled into the page-locked pool and staged with the batch); the teacher
 computes in float32 whatever ``--compute_dtype`` is, as JAX's
-(cli/train_itm.py:54-59), and stays in eval mode.
+(cli/train_itm.py:54-59), and stays in eval mode. Across processes the
+term is that of the global batch (``min(10, global batch)`` images), and
+its grid is built on the device inside the step (``make_kd_fn``), where
+its collectives run on the step's thread.
 
 Under ``torchrun`` each process trains on its card (``cuda:LOCAL_RANK``
 unless ``--device`` names one; ``--dist_backend gloo`` lets two ranks
@@ -30,8 +33,8 @@ The weights are checked equal across ranks at the start, every rank runs
 the same number of steps per epoch (the fewest any rank's shard gives),
 the preemption flag is OR-reduced every ``--preempt_check_steps``, rank 0
 alone logs metrics and writes checkpoints, and every rank evaluates on the
-whole validation set, as the JAX driver does. KD across ranks raises
-(ROADMAP §C).
+whole validation set, as the JAX driver does. With a teacher, its
+weights are checked equal across ranks too.
 
 Usage (reference-compatible config JSONs):
   python -m lightningdot_tpu_torch.cli.train_itm \\
@@ -136,15 +139,20 @@ def _main(args, guard):
         assert_same_across_hosts(state_digest(model), "initial weights")
     args.vector_size = model.txt_cfg.out_size
     kd_fn = None
-    n_teacher = min(10, args.train_batch_size)  # N_EXAMPLES_TEACHER clamp
+    # the N_EXAMPLES_TEACHER clamp, on the global batch
+    n_teacher = min(10, args.train_batch_size * process_count())
     if args.teacher_checkpoint:
         LOGGER.info("teacher checkpoint provided, using KD framework")
         teacher = load_cross_encoder(args.teacher_checkpoint,
                                      model_config=args.img_model_config,
                                      compute_dtype=torch.float32,
                                      device=device)
+        if process_count() > 1:
+            assert_same_across_hosts(state_digest(teacher),
+                                     "teacher weights")
         kd_fn = make_kd_fn(teacher, T=args.T, n_teacher=n_teacher,
-                           caption_score_weight=args.caption_score_weight)
+                           caption_score_weight=args.caption_score_weight,
+                           num_hard_negatives=args.num_hard_negatives)
 
     all_img_dbs = ImageDbGroup(args.conf_th, args.max_bb, args.min_bb,
                                args.num_bb)
@@ -157,9 +165,10 @@ def _main(args, guard):
         items, CollateConfig(fixed_batch=args.valid_batch_size))
     # page-locks the buffer pool on the card before any loader starts
     stager = PinnedStager(device)
-    if kd_fn is not None:
+    if kd_fn is not None and process_count() == 1:
         # the teacher grid is built one batch ahead of the step, with the
-        # batch's staging (cli/train_itm.py:229-233)
+        # batch's staging (cli/train_itm.py:229-233); across processes the
+        # step builds it, since it gathers images from other ranks
         plain_stager = stager
         stager = lambda b: plain_stager(  # noqa: E731
             dict(b, teacher=make_teacher_batch(b, n_teacher)))

@@ -23,10 +23,24 @@ passed. The dropout masks of step N come from a generator derived from
 (seed, N) (``utils/runtime.step_generator``). Evaluation puts the model in
 eval mode; it goes back to training mode after each.
 
+Under ``torchrun`` each process trains on its card (``cuda:LOCAL_RANK``
+unless ``--device`` names one; ``--dist_backend gloo`` lets two ranks
+share one card) over its rank-strided shard of the training DBs (JAX's
+cli/train_vqa.py:95-99), with the loss over the global valid count and
+the gradients summed once per update (``make_vqa_train_step``), where
+JAX's replicas exchange none. The weights are checked equal across ranks
+at the start, every rank runs the steps that the smallest shard gives,
+the preemption flag is OR-reduced every ``--preempt_check_steps``, every
+rank evaluates on the whole validation set and so takes the same
+best-checkpoint decision, and rank 0 alone logs metrics and writes
+``vqa.*``.
+
 Usage:
   python -m lightningdot_tpu_torch.cli.train_vqa --config configs/coco_ft.json \\
       --train_txt_dbs vqa_train.db --train_img_dbs img/ --val_txt_db ... \\
       --val_img_db ... --img_checkpoint none --output_dir out/vqa
+  python -m torch.distributed.run --nproc_per_node 2 \\
+      -m lightningdot_tpu_torch.cli.train_vqa ...   # a card per rank, NCCL
 """
 from __future__ import annotations
 
@@ -38,19 +52,21 @@ import time
 import numpy as np
 import torch
 
-from lightningdot_tpu_torch.config import (add_itm_params, add_logging_params,
-                                           default_params, parse_with_config,
-                                           print_args)
+from lightningdot_tpu_torch.config import (add_dist_params, add_itm_params,
+                                           add_logging_params, default_params,
+                                           parse_with_config, print_args)
 from lightningdot_tpu_torch.data.feat_db import ImageDbGroup
 from lightningdot_tpu_torch.data.loader import DevicePrefetcher, PinnedStager
 from lightningdot_tpu_torch.data.padding import Recycler
 from lightningdot_tpu_torch.data.txt_db import TxtTokDb
 from lightningdot_tpu_torch.data.vqa import (VqaCollateConfig, VqaDataset,
                                              VqaEvalDataset, vqa_collate)
-from lightningdot_tpu_torch.device import resolve_device
-from lightningdot_tpu_torch.parallel.mesh import launch_world_size
 from lightningdot_tpu_torch.models.factory import build_biencoder
 from lightningdot_tpu_torch.models.vqa import BiEncoderForVQA, init_vqa_head_
+from lightningdot_tpu_torch.parallel.mesh import (assert_same_across_hosts,
+                                                  barrier, is_main_process,
+                                                  process_count,
+                                                  process_index, setup_process)
 from lightningdot_tpu_torch.training.checkpoints import save_checkpoint
 from lightningdot_tpu_torch.training.optim import (make_optimizer,
                                                    schedule_linear)
@@ -60,6 +76,7 @@ from lightningdot_tpu_torch.training.vqa_step import (evaluate_vqa,
                                                       make_vqa_train_step)
 from lightningdot_tpu_torch.utils.logging import (LOGGER, TB_LOGGER,
                                                   RunningMeter)
+from lightningdot_tpu_torch.utils.misc import host_all_gather, state_digest
 from lightningdot_tpu_torch.utils.preemption import PreemptionGuard
 from lightningdot_tpu_torch.utils.runtime import setup_runtime, step_generator
 
@@ -77,9 +94,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--vqa_lr_mul", default=1.0, type=float,
                         help="learning-rate multiplier for the vqa_output "
                              "head (train_vqa.py:52-76)")
-    parser.add_argument("--device", default=None, type=str,
-                        help="default: the CUDA card (raises without "
-                             "one); 'cpu' runs the plain PyTorch path")
+    add_dist_params(parser)
     return parser
 
 
@@ -109,15 +124,11 @@ def main(cmds=None):
 def _main(args, guard):
     os.makedirs(args.output_dir, exist_ok=True)
     print_args(args, LOGGER.info)
-    TB_LOGGER.create(os.path.join(args.output_dir, "metrics.jsonl"))
+    device = setup_process(args.device, args.dist_backend, args.dp_size)
+    rank = process_index()
+    if is_main_process():
+        TB_LOGGER.create(os.path.join(args.output_dir, "metrics.jsonl"))
     setup_runtime(args)
-    if launch_world_size() > 1:
-        # JAX's driver shards the DBs by rank but steps without a mesh, so
-        # its replicas never exchange gradients (cli/train_vqa.py:95-99,155)
-        raise NotImplementedError(
-            "VQA across ranks is not ported: see ROADMAP §C, \"VQA across "
-            "ranks\"")
-    device = resolve_device(args.device)
     np.random.seed(args.seed)
 
     if isinstance(args.train_txt_dbs, str):
@@ -126,10 +137,15 @@ def _main(args, guard):
         args.train_img_dbs = [args.train_img_dbs]
 
     model = build_model(args).to(device)
+    if process_count() > 1:
+        assert_same_across_hosts(state_digest(model), "initial weights")
     all_img_dbs = ImageDbGroup(args.conf_th, args.max_bb, args.min_bb,
                                args.num_bb)
+    # rank-strided shards of the training DBs (JAX's cli/train_vqa.py:
+    # 95-99); the validation DB is whole on every rank
     train_sets = [VqaDataset(args.num_answers,
-                             TxtTokDb(t, args.max_txt_len),
+                             TxtTokDb(t, args.max_txt_len, rank=rank,
+                                      world_size=process_count()),
                              all_img_dbs[im])
                   for t, im in zip(args.train_txt_dbs, args.train_img_dbs)]
     train_dataset = (train_sets[0] if len(train_sets) == 1
@@ -148,7 +164,10 @@ def _main(args, guard):
     val_loader = build_dataloader(val_dataset, eval_collate, False, args)
 
     accum = args.gradient_accumulation_steps
-    updates_per_epoch = max(len(train_loader) // accum, 1)
+    # the ranks' shards may differ by an item: every rank takes the steps
+    # that the smallest shard gives
+    n_steps = min(host_all_gather(len(train_loader)))
+    updates_per_epoch = max(n_steps // accum, 1)
     total_updates = updates_per_epoch * max(args.num_train_epochs, 1)
     lr_schedule = schedule_linear(args.learning_rate,
                                   int(0.1 * total_updates), total_updates)
@@ -183,8 +202,10 @@ def _main(args, guard):
         steps = 0
         for step, batch in enumerate(DevicePrefetcher(train_loader,
                                                       put=stager)):
+            if step == n_steps:
+                break
             metrics = train_step(batch, step_generator(args.seed,
-                                                       global_step))
+                                                       global_step, rank))
             global_step += 1
             steps += 1
             n_ex += batch["n_valid"]
@@ -215,8 +236,10 @@ def _main(args, guard):
         if preempted or guard.sync():
             # the accumulation window's mean is not saved: the weights are
             # those of the last update, as JAX's MultiSteps snapshot
-            save_checkpoint(os.path.join(args.output_dir, "vqa.last"),
-                            model=model, step=global_step, epoch=epoch)
+            if is_main_process():
+                save_checkpoint(os.path.join(args.output_dir, "vqa.last"),
+                                model=model, step=global_step, epoch=epoch)
+            barrier()
             LOGGER.warning("exiting after preemption checkpoint at step %d",
                            global_step)
             break
@@ -230,13 +253,18 @@ def _main(args, guard):
                                   prefix="val")
 
         def ckpt(name):
-            save_checkpoint(os.path.join(args.output_dir, f"vqa.{name}"),
-                            model=model, step=global_step, epoch=epoch)
+            # rank 0 alone writes: the ranks hold the same weights
+            if is_main_process():
+                save_checkpoint(os.path.join(args.output_dir, f"vqa.{name}"),
+                                model=model, step=global_step, epoch=epoch)
 
+        # every rank evaluated the whole validation set with the same
+        # weights, so every rank takes the same decision
         if val["acc"] > best_acc:
             best_acc = val["acc"]
             ckpt("best")
         ckpt("last")
+        barrier()
         epochs.append(dict(epoch=epoch, steps=steps, train_s=train_s,
                            eval_s=eval_s, val_loss=val["loss"],
                            val_acc=val["acc"], answers=val["results"]))

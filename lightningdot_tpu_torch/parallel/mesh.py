@@ -107,15 +107,6 @@ def initialize_distributed(backend: str, *, init_method: Optional[str] = None,
     return True
 
 
-def launch_world_size() -> int:
-    """How many processes this one runs among: the group's size, else the
-    launcher's ``WORLD_SIZE``, else 1 (for the paths that refuse to run
-    across processes, whether or not a group was joined)."""
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
-
-
 def local_rank() -> int:
     """This process's index on its host (``LOCAL_RANK``; 0 alone)."""
     return int(os.environ.get("LOCAL_RANK", "0"))
@@ -217,18 +208,39 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, x)
         ctx.rows = x.shape[0]
         ctx.rank = dist.get_rank()
-        return torch.cat(parts)
+        return all_gather_rows(x)
 
     @staticmethod
     def backward(ctx, g):
         g = g.contiguous().clone()
         dist.all_reduce(g)
         return g[ctx.rank * ctx.rows:(ctx.rank + 1) * ctx.rows]
+
+
+def all_gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every process's ``x`` [n, ...] stacked in rank order along the rows
+    (one all-gather), without a gradient; without a group, ``x``. Every
+    rank passes the same shape."""
+    if not in_group():
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size())]
+    dist.all_gather(parts, x)
+    return torch.cat(parts)
+
+
+def global_max(values: Sequence[int]) -> List[int]:
+    """Each of the host integers ``values``, its largest over the processes
+    (one all-reduce): the common padding of tensors whose shapes differ
+    from rank to rank."""
+    if not in_group():
+        return list(values)
+    t = torch.tensor(list(values), dtype=torch.int64,
+                     device=_collective_device())
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return [int(v) for v in t.tolist()]
 
 
 def gather_rows(x: torch.Tensor) -> torch.Tensor:

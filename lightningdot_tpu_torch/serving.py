@@ -454,3 +454,21 @@ def get_model_encoded_vecs(model: BiEncoder, dataloader, *,
             "caption_embed": dict(zip(fnames, rows["cap"])),
             "txt_embed": dict(zip(tids, rows["txt"])),
             "img_name": fnames}
+
+
+def display_img(img_meta: dict, name: str, img_only: bool = False) -> None:
+    """Show image ``name`` of ``img_meta`` and print its annotation and
+    first caption (the port's copy of ``display_img``,
+    lightningdot_tpu/serving.py:467-478; reference dvl/utils.py:191-202).
+    Needs matplotlib, imported here, and the image files on disk."""
+    import matplotlib.image as mpimg
+    import matplotlib.pyplot as plt
+
+    img = mpimg.imread(img_meta[name]["img_file"])
+    plt.imshow(img)
+    plt.show()
+    if not img_only:
+        print("annotation")
+        print("\t" + "\n\t".join(img_meta[name]["annotation"]))
+        print("caption")
+        print("\t" + img_meta[name]["caption"][0])

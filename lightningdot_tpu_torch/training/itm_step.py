@@ -20,9 +20,11 @@ from lightningdot_tpu_torch.data.loader import host_tensor
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
 from lightningdot_tpu_torch.ops.matmul import mm_f32
-from lightningdot_tpu_torch.parallel.mesh import (all_reduce_grads_,
+from lightningdot_tpu_torch.parallel.mesh import (all_gather_rows,
+                                                  all_reduce_grads_,
                                                   gather_batch_rows,
-                                                  gather_rows, global_sums,
+                                                  gather_rows, global_max,
+                                                  global_sums,
                                                   process_count,
                                                   process_index)
 from lightningdot_tpu_torch.training.optim import FusedAdamW
@@ -100,8 +102,63 @@ def itm_loss_fn(model: BiEncoder, batch: Dict[str, Any], generators=None, *,
     return loss, metrics, (txt, img, cap)
 
 
+def _pad_dim1(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` [B, m, ...] zero-padded along dim 1 to ``n`` (the collate's
+    padding: id 0, mask 0, zero features)."""
+    return torch.nn.functional.pad(
+        x, (0, 0) * (x.dim() - 2) + (0, n - x.shape[1]))
+
+
+def global_teacher_grid(batch: Dict[str, Any], n_teacher: int,
+                        bs: int) -> Dict[str, Any]:
+    """This rank's block of the global KD pair grid, on the device: its
+    ``bs`` positive texts against the first ``n_teacher`` images of the
+    GLOBAL batch (rank-major positives), text-major (text i x n_teacher +
+    image j), as ``make_teacher_batch`` lays out one process's grid. The
+    ranks' blocks, in rank order, are that grid's rows.
+
+    Texts and regions are padded to their largest length over the ranks,
+    which is the padding one process's collate gives the global batch; the
+    image side's [CLS] mask column is dropped (``make_teacher_batch``).
+    The first images may live on several ranks (``bs < n_teacher``): every
+    rank sends its first ``min(bs, n_teacher)`` image rows, packed into one
+    float32 gather. Collectives: one max and one all-gather, issued from
+    the step's thread (a collective from the loader's prefetch thread
+    could interleave with the step's in another order on another rank)."""
+    txts, imgs = batch["txts"], batch["imgs"]
+    ids = txts["input_ids"][:bs]
+    txt_mask = txts["attention_mask"][:bs]
+    feat, pos = imgs["img_feat"][:bs], imgs["img_pos_feat"][:bs]
+    img_mask = imgs["attention_mask"][:bs, 1:]
+    length, regions = global_max((ids.shape[1], feat.shape[1]))
+    k = min(bs, n_teacher)
+    d_feat, d_pos = feat.shape[2], pos.shape[2]
+    packed = torch.cat([_pad_dim1(feat[:k].float(), regions),
+                        _pad_dim1(pos[:k].float(), regions),
+                        _pad_dim1(img_mask[:k], regions)[..., None].float()],
+                       dim=2)
+    first = all_gather_rows(packed)[:n_teacher]
+    img_feat = first[..., :d_feat].to(feat.dtype)
+    img_pos = first[..., d_feat:d_feat + d_pos].to(pos.dtype)
+    img_mask = first[..., -1].to(img_mask.dtype)
+    ids = _pad_dim1(ids, length).repeat_interleave(n_teacher, dim=0)
+    txt_mask = _pad_dim1(txt_mask, length).repeat_interleave(n_teacher,
+                                                             dim=0)
+    return {
+        "input_ids": ids,
+        "position_ids": torch.arange(length, dtype=ids.dtype,
+                                     device=ids.device).expand(
+            ids.shape[0], length),
+        "img_feat": img_feat.repeat(bs, 1, 1),
+        "img_pos_feat": img_pos.repeat(bs, 1, 1),
+        "attn_masks": torch.cat([txt_mask, img_mask.repeat(bs, 1)], dim=1),
+        "gather_index": None,
+    }
+
+
 def make_kd_fn(teacher, *, T: float = 1.0, n_teacher: int = 10,
-               caption_score_weight: float = 0.0) -> Callable:
+               caption_score_weight: float = 0.0,
+               num_hard_negatives: int = 0) -> Callable:
     """The distillation term ``kd_fn(batch, (txt, img, cap)) -> loss``
     (``make_kd_fn``, itm_step.py:124-166; train_itm.py:224-239).
 
@@ -112,25 +169,47 @@ def make_kd_fn(teacher, *, T: float = 1.0, n_teacher: int = 10,
     (``make_teacher_batch``: text i x image j), run in eval mode without a
     gradient, as [n_teacher, bs]. Returns KL(softmax(teacher / T) ||
     log_softmax(student / T)) x T², the elementwise mean (``nn.KLDivLoss``);
-    entries where the teacher's probability is 0 count as 0."""
+    entries where the teacher's probability is 0 count as 0.
+
+    Across W processes the term is one process's on the global batch of
+    G = W x bs positives, the same value on every rank: the student's
+    rows are scored against every rank's positives (``gather_batch_rows``,
+    which puts them first also with ``num_hard_negatives``), [n_teacher,
+    G], and the teacher scores each rank's texts against the first
+    ``n_teacher`` global images (:func:`global_teacher_grid`, built here
+    from the batch's device tensors; ``batch['teacher']`` is not read),
+    whose blocks are gathered in rank order. The step adds 1/W of it on
+    each rank (:func:`make_itm_train_step`)."""
+
+    def teacher_scores(grid, bs):
+        teacher.eval()      # the students' train() never reaches it
+        with torch.no_grad():
+            t = teacher.rank_scores(grid)
+        return t.reshape(bs, n_teacher).t().float()
 
     def kd_fn(batch: Dict[str, Any], embs) -> torch.Tensor:
         txt, img, cap = embs
-        bs = batch["teacher"]["input_ids"].shape[0] // n_teacher
+        if process_count() > 1:
+            bs = txt.shape[0] // (1 + num_hard_negatives)
+            with torch.no_grad():
+                block = teacher_scores(
+                    global_teacher_grid(batch, n_teacher, bs), bs)
+                t_scores = all_gather_rows(block.t().contiguous()).t()
+        else:
+            bs = batch["teacher"]["input_ids"].shape[0] // n_teacher
+            t_scores = teacher_scores(batch["teacher"], bs)
+        txt, img, cap = gather_batch_rows(
+            (txt[:bs], img[:bs], None if cap is None else cap[:bs]), bs)
 
         def blended(q, ctx):
             s = _scores(q, ctx)
             if cap is not None and caption_score_weight != 0:
                 s = ((1 - caption_score_weight) * s
-                     + caption_score_weight * _scores(q, cap[:bs]))
+                     + caption_score_weight * _scores(q, cap))
             return s
 
-        student = (0.5 * blended(img[:bs], txt[:bs])
-                   + 0.5 * blended(txt[:bs], img[:bs]))[:n_teacher]
-        teacher.eval()      # the students' train() never reaches it
-        with torch.no_grad():
-            t_scores = teacher.rank_scores(batch["teacher"])
-        t_scores = t_scores.reshape(bs, n_teacher).t().float()
+        student = (0.5 * blended(img, txt)
+                   + 0.5 * blended(txt, img))[:n_teacher]
         logp = torch.log_softmax(student / T, dim=1)
         q = torch.softmax(t_scores / T, dim=1)
         pos = q > 0
@@ -266,16 +345,15 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
     loss takes the global in-batch negatives (:func:`itm_loss_fn`), and the
     gradients are summed over the ranks once per update, after the
     accumulation and before the clip, so that the clip reads the global
-    batch's norm and every rank takes the same update. KD raises there
-    (ROADMAP §C, "KD across ranks").
+    batch's norm and every rank takes the same update. The KD term there is
+    the global batch's, the same on every rank (``make_kd_fn``); each rank
+    adds 1/W of it to the loss it differentiates, since the gathers'
+    backward sums the ranks' cotangents (a full term on every rank would
+    give W times one process's gradient), and reports it whole.
 
     float32 compute on the card needs ``torch.backends.cuda.matmul.
     allow_tf32`` off: the JAX package's float32 products are true float32.
     """
-    if kd_fn is not None and process_count() > 1:
-        raise NotImplementedError(
-            "KD across ranks: the teacher grid of the global batch is not "
-            "laid out yet (ROADMAP §C, \"KD across ranks\")")
     device = resolve_device(device)
     model.to(device)
     accumulator = GradAccumulator(optimizer.params, accum_steps)
@@ -297,9 +375,12 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
             num_hard_negatives=num_hard_negatives)
         if kd_fn is not None:
             kd = kd_fn(dev_batch, embs)
-            loss = loss + kd_loss_weight * kd
+            world = process_count()
+            loss = loss + kd_loss_weight * (kd / world if world > 1 else kd)
+            # the global values: the KD term is already the same on every
+            # rank, so it does not go through global_sums
             metrics["kd_loss"] = kd.detach()
-            metrics["loss"] = loss.detach()
+            metrics["loss"] = metrics["loss"] + kd_loss_weight * kd.detach()
         loss.backward()
         if accumulator.add():
             all_reduce_grads_(optimizer.params)

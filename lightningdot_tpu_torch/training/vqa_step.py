@@ -24,6 +24,8 @@ from lightningdot_tpu_torch.data.loader import DevicePrefetcher, PinnedStager
 from lightningdot_tpu_torch.data.padding import Recycler
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.vqa import BiEncoderForVQA, bce_with_logits
+from lightningdot_tpu_torch.parallel.mesh import (all_reduce_grads_,
+                                                  global_count, global_sums)
 from lightningdot_tpu_torch.training.itm_step import (GradAccumulator,
                                                       batch_to_device,
                                                       pass_generators)
@@ -48,7 +50,13 @@ def vqa_score(scores: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
 def vqa_loss_fn(model: BiEncoderForVQA, batch: Dict[str, Any],
                 generators=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Masked instance-level BCE (``vqa_loss_fn``, vqa_step.py:26-47) on a
-    batch of device tensors -> (loss, metrics{loss, score})."""
+    batch of device tensors -> (loss, metrics{loss, score}).
+
+    In a process group the mean is over the GLOBAL valid count
+    (``global_count``): the ranks' losses sum to one process's loss of the
+    global batch and their gradients (summed, ``all_reduce_grads_``) to its
+    gradient. The metrics are the global values (``global_sums``), the
+    same bits on every rank."""
     scores = model.apply(batch, generators)
     t = batch["targets"].float()
     elem = bce_with_logits(scores, t)
@@ -56,10 +64,10 @@ def vqa_loss_fn(model: BiEncoderForVQA, batch: Dict[str, Any],
     valid = (torch.ones(elem.shape[0], device=elem.device) if valid is None
              else valid.to(device=elem.device, dtype=torch.float32))
     per_row = elem.sum(dim=1)
-    n_valid = torch.clamp(valid.sum(), min=1.0)
+    n_valid = torch.clamp(global_count(valid.sum()), min=1.0)
     loss = (per_row * valid).sum() / n_valid
     score = (vqa_score(scores.detach(), t) * valid).sum() / n_valid
-    return loss, {"loss": loss.detach(), "score": score}
+    return loss, global_sums({"loss": loss, "score": score})
 
 
 def make_vqa_train_step(model: BiEncoderForVQA, optimizer: FusedAdamW, *,
@@ -73,7 +81,13 @@ def make_vqa_train_step(model: BiEncoderForVQA, optimizer: FusedAdamW, *,
     mode it is in (``train()`` turns dropout on, seeded from ``generator``,
     a CPU ``torch.Generator``, as JAX splits one key). The metrics (loss,
     score, the pre-clip ``grad_norm`` of the last update) stay on the
-    device."""
+    device.
+
+    In a process group every rank calls the step with its own batch: the
+    loss is its share of the global batch's (:func:`vqa_loss_fn`), and the
+    gradients are summed over the ranks once per update, after the
+    accumulation and before the clip, so that every rank takes the same
+    update (the head's learning-rate factor included)."""
     device = resolve_device(device)
     model.to(device)
     accumulator = GradAccumulator(optimizer.params, accum_steps)
@@ -92,6 +106,7 @@ def make_vqa_train_step(model: BiEncoderForVQA, optimizer: FusedAdamW, *,
                                     pass_generators(generator, device))
         loss.backward()
         if accumulator.add():
+            all_reduce_grads_(optimizer.params)
             last_norm[0] = optimizer.step()
         metrics["grad_norm"] = last_norm[0]
         return metrics

@@ -39,7 +39,9 @@ def _forbidden(name: str) -> bool:
 
 
 @pytest.mark.parametrize("path", _port_modules() + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "bench_torch_serving.py"],
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "bench_torch_serving.py",
+    ROOT / "examples" / "demo_retrieval_torch.py",
+    ROOT / "examples" / "serve_http_torch.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_or_the_jax_package(path):
     """An ``ast`` walk: no ``import``/``from`` of jax or lightningdot_tpu,
@@ -626,9 +628,11 @@ def _prepro_flags(main):
 
 
 def test_vqa_and_prepro_cli_flags_match_jax():
-    """``train_vqa`` registers the JAX CLI's flags with their defaults,
-    less the option groups' flags that nothing reads, plus ``--device``;
-    ``prepro`` has the JAX CLI's tasks, flags, defaults and choices."""
+    """``train_vqa`` registers the JAX CLI's flags with their defaults
+    (``--dp_size`` among them, since it trains across processes), less the
+    option groups' flags that nothing reads, plus ``--device`` and
+    ``--dist_backend``; ``prepro`` has the JAX CLI's tasks, flags, defaults
+    and choices."""
     from lightningdot_tpu.cli import prepro as jprepro
     from lightningdot_tpu.cli import train_vqa as jtrain_vqa
     from lightningdot_tpu_torch.cli import prepro, train_vqa
@@ -638,8 +642,9 @@ def test_vqa_and_prepro_cli_flags_match_jax():
                 if a.dest != "help"}
 
     got, want = (flags(m.build_parser()) for m in (train_vqa, jtrain_vqa))
-    assert got.keys() - want.keys() == {"device"}
-    assert want.keys() - got.keys() == _GROUPS_UNREAD & want.keys()
+    assert got.keys() - want.keys() == {"device", "dist_backend"}
+    assert want.keys() - got.keys() == (_GROUPS_UNREAD - {"dp_size"}) \
+        & want.keys()
     assert {k: got[k] for k in want.keys() & got.keys()} == \
         {k: want[k] for k in want.keys() & got.keys()}
     assert _prepro_flags(prepro.main) == _prepro_flags(jprepro.main)

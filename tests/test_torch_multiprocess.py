@@ -17,8 +17,12 @@ tiny model and the same per-(step, rank) batches (tests/mp_common.py):
   cross-encoder teacher steps (``cli/train_teacher.make_teacher_step``);
 * ``driver``: ``cli/pretrain.main`` across processes (fixed-row batches,
   one writer, auto-resume, equal validation), then ``cli/train_itm.main``
-  (one writer, the same recall on every rank) and ``cli/train_teacher.main``
-  (mined negatives, one writer, the same weights on every rank).
+  (one writer, the same recall on every rank), with a teacher (KD),
+  ``cli/train_teacher.main`` (mined negatives, one writer, the same weights
+  on every rank) and ``cli/train_vqa.main``.
+
+Other files run their own scenarios through this worker
+(``"module:function"``): tests/test_torch_multiprocess_kd_vqa.py.
 
 Each worker has its own timeout; the worker imports no JAX.
 """
@@ -312,7 +316,8 @@ def run_journey(cfg) -> None:
 
 
 def run_driver(cfg) -> None:
-    from lightningdot_tpu_torch.cli import pretrain, train_itm, train_teacher
+    from lightningdot_tpu_torch.cli import (pretrain, train_itm, train_teacher,
+                                            train_vqa)
 
     rank = cfg["rank"]
     for phase, extra in (("initial", []), ("resume", [
@@ -326,8 +331,17 @@ def run_driver(cfg) -> None:
     emit("train_itm", rank=rank, recall=[
         (e["recall_txt"], e["recall_img"]) for e in results["epochs"]],
          best=results["best_val_recall_mean"], digest=_digest(model))
+    results, model = train_itm.main(cfg["itm_args"] + cfg["kd_args"])
+    emit("train_itm_kd", rank=rank, recall=[
+        (e["recall_txt"], e["recall_img"]) for e in results["epochs"]],
+         best=results["best_val_recall_mean"], digest=_digest(model))
     results, model = train_teacher.main(cfg["teacher_args"])
     emit("train_teacher", rank=rank, losses=results["losses"],
+         digest=_digest(model))
+    results, model = train_vqa.main(cfg["vqa_args"])
+    emit("train_vqa", rank=rank, best=results["best_val_acc"],
+         last=results["last_val"], answers=results["epochs"][-1]["answers"],
+         steps=[e["steps"] for e in results["epochs"]],
          digest=_digest(model))
 
 
@@ -340,7 +354,17 @@ def worker_main() -> None:
 
     assert initialize_distributed("gloo")    # from the environment
     assert process_count() == cfg["world"]
-    {"journey": run_journey, "driver": run_driver}[cfg["scenario"]](cfg)
+    scenario = cfg["scenario"]
+    if ":" in scenario:
+        # another test file's scenario, "module:function" (the module
+        # imports no JAX at its top)
+        import importlib
+
+        module, name = scenario.split(":")
+        run = getattr(importlib.import_module(module), name)
+    else:
+        run = {"journey": run_journey, "driver": run_driver}[scenario]
+    run(cfg)
     emit("done", rank=cfg["rank"])
 
 
@@ -584,7 +608,48 @@ def driver_fixtures(tmp_path_factory):
                     "--warmup_steps", "1", "--max_bb", "12", "--min_bb",
                     "5", "--num_bb", "10", "--compute_dtype", "f32",
                     "--device", "cpu"]
-    return cfg, out_dir, itm_args, itm_out, teacher_args, teacher_out
+    # a KD teacher directory at the model's configuration, noise 0.2 on
+    # its weights (at init scale every pair scores alike); KD's n_teacher
+    # is min(10, 2 x 8): its first images span both ranks
+    from lightningdot_tpu_torch.config import EncoderConfig
+    from lightningdot_tpu_torch.models.cross_encoder import (
+        CrossEncoder, init_cross_encoder_)
+    from lightningdot_tpu_torch.training.checkpoints import save_checkpoint
+
+    with open(model_cfg) as f:
+        teacher = CrossEncoder(EncoderConfig(**json.load(f)))
+    gen = torch.Generator().manual_seed(8)
+    init_cross_encoder_(teacher, gen)
+    with torch.no_grad():
+        for p in teacher.parameters():
+            p.add_(0.2 * torch.randn(p.shape, generator=gen))
+    kd_dir = root / "kd_teacher"
+    os.makedirs(kd_dir)
+    (kd_dir / "config.json").write_text(json.dumps(teacher.cfg.to_dict()))
+    save_checkpoint(str(kd_dir / "model"), model=teacher)
+    kd_out = str(root / "itm_kd")
+    kd_args = ["--teacher_checkpoint", str(kd_dir), "--T", "2.0",
+               "--kd_loss_weight", "0.5", "--output_dir", kd_out]
+    vqa_txt, vqa_img = make_synth_dataset(
+        str(root / "vqa"), n_imgs=8, txts_per_img=2, img_dim=32, min_bb=5,
+        max_bb=12, max_txt_len=20, seed=4, vqa_answers=12)
+    vqa_out = str(root / "vqa_out")
+    # 8 questions a rank in batches of 4: one update at accumulation 2
+    vqa_args = ["--txt_model_config", model_cfg, "--img_model_config",
+                model_cfg, "--img_checkpoint", "none", "--train_txt_dbs",
+                vqa_txt, "--train_img_dbs", vqa_img, "--val_txt_db",
+                vqa_txt, "--val_img_db", vqa_img, "--num_answers", "12",
+                "--train_batch_size", "4", "--valid_batch_size", "8",
+                "--num_train_epochs", "1", "--max_txt_len", "20",
+                "--conf_th", "0.2", "--max_bb", "12", "--min_bb", "5",
+                "--num_bb", "10", "--compute_dtype", "f32",
+                "--learning_rate", "1e-3", "--vqa_lr_mul", "10",
+                "--gradient_accumulation_steps", "2", "--loader_workers",
+                "1", "--output_dir", vqa_out, "--device", "cpu"]
+    return dict(cfg=cfg, out_dir=out_dir, itm_args=itm_args,
+                itm_out=itm_out, teacher_args=teacher_args,
+                teacher_out=teacher_out, kd_args=kd_args, kd_out=kd_out,
+                vqa_args=vqa_args, vqa_out=vqa_out)
 
 
 def test_drivers_two_process(driver_fixtures):
@@ -595,12 +660,19 @@ def test_drivers_two_process(driver_fixtures):
     ``cli/train_itm.main``: one writer of ``biencoder.*``, the same recall
     and weights on both ranks; then ``cli/train_teacher.main`` with mined
     negatives: the same losses and weights on both ranks, one teacher
-    directory, each rank's text map and one merged image map."""
-    cfg, out_dir, itm_args, itm_out, teacher_args, teacher_out = \
-        driver_fixtures
-    events = run_workers(2, "driver", timeout=300, pretrain_config=cfg,
-                         resume_steps=6, itm_args=itm_args,
-                         teacher_args=teacher_args)
+    directory, each rank's text map and one merged image map; then
+    ``cli/train_itm.main --teacher_checkpoint`` (KD across the ranks) and
+    ``cli/train_vqa.main`` (rank-sharded DBs, summed gradients), each held
+    as the ITM run is held: one writer, the same results and weights on
+    both ranks."""
+    fx = driver_fixtures
+    out_dir, itm_out, teacher_out = (fx["out_dir"], fx["itm_out"],
+                                     fx["teacher_out"])
+    events = run_workers(2, "driver", timeout=300,
+                         pretrain_config=fx["cfg"], resume_steps=6,
+                         itm_args=fx["itm_args"], kd_args=fx["kd_args"],
+                         teacher_args=fx["teacher_args"],
+                         vqa_args=fx["vqa_args"])
     for phase in ("initial", "resume"):
         res = [_one(events[r], "driver", phase=phase)["results"]
                for r in range(2)]
@@ -611,13 +683,21 @@ def test_drivers_two_process(driver_fixtures):
     assert {"model_step_4.pt", "model_step_6.pt"} <= set(ckpts), ckpts
     assert not [c for c in ckpts if c.endswith(".tmp")]
     assert len({_one(events[r], "digest")["value"] for r in range(2)}) == 1
-    itm = [_one(events[r], "train_itm") for r in range(2)]
-    assert itm[0]["recall"] == itm[1]["recall"]
-    assert itm[0]["digest"] == itm[1]["digest"]
-    written = sorted(f for f in os.listdir(itm_out)
-                     if f.startswith("biencoder."))
-    assert written == ["biencoder.best.json", "biencoder.best.pt",
-                       "biencoder.last.json", "biencoder.last.pt"], written
+    for event, out in (("train_itm", itm_out),
+                       ("train_itm_kd", fx["kd_out"])):
+        runs = [_one(events[r], event) for r in range(2)]
+        assert runs[0] == dict(runs[1], rank=0), event
+        written = sorted(f for f in os.listdir(out)
+                         if f.startswith("biencoder."))
+        assert written == ["biencoder.best.json", "biencoder.best.pt",
+                           "biencoder.last.json", "biencoder.last.pt"], \
+            (event, written)
+    vqa = [_one(events[r], "train_vqa") for r in range(2)]
+    assert vqa[0] == dict(vqa[1], rank=0)
+    assert vqa[0]["steps"] == [2] and np.isfinite(vqa[0]["last"]["loss"])
+    assert sorted(os.listdir(fx["vqa_out"])) == [
+        "metrics.jsonl", "vqa.best.json", "vqa.best.pt", "vqa.last.json",
+        "vqa.last.pt"]
     teacher = [_one(events[r], "train_teacher") for r in range(2)]
     assert teacher[0] == dict(teacher[1], rank=0)
     assert all(np.isfinite(teacher[0]["losses"]))
@@ -628,25 +708,40 @@ def test_drivers_two_process(driver_fixtures):
             "txt2hardimgs_rank1.json"]
 
 
-def test_kd_and_vqa_refuse_several_processes(monkeypatch, tmp_path):
-    """KD and VQA across ranks raise, naming their ROADMAP §C entries,
-    rather than run as rank 0 of 1."""
-    from lightningdot_tpu_torch.cli import train_vqa
+def test_kd_and_vqa_reach_the_process_group_under_two_processes(
+        monkeypatch, tmp_path):
+    """Under ``WORLD_SIZE=2`` KD and VQA no longer refuse: ``cli/train_vqa.
+    main`` and ``cli/train_itm.main --teacher_checkpoint`` go on to join
+    the process group (stopped there), and the ITM step builds with a KD
+    term in a group of two."""
+    from lightningdot_tpu_torch.cli import train_itm, train_vqa
     from lightningdot_tpu_torch.config import EncoderConfig
     from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
     from lightningdot_tpu_torch.training.itm_step import make_itm_train_step
 
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="VQA across ranks"):
-        train_vqa.main(["--img_checkpoint", "none", "--device", "cpu",
-                        "--output_dir", str(tmp_path)])
+    class Joined(Exception):
+        pass
+
+    def init_process_group(backend, **kw):
+        raise Joined(backend, kw["world_size"], kw["rank"])
+
+    for name, value in (("WORLD_SIZE", "2"), ("RANK", "0"),
+                        ("MASTER_ADDR", "127.0.0.1"), ("MASTER_PORT", "1")):
+        monkeypatch.setenv(name, value)
+    monkeypatch.setattr(torch.distributed, "init_process_group",
+                        init_process_group)
+    for main, extra in ((train_vqa.main, []), (train_itm.main, [
+            "--teacher_checkpoint", str(tmp_path / "teacher")])):
+        with pytest.raises(Joined) as joined:
+            main(["--img_checkpoint", "none", "--device", "cpu",
+                  "--output_dir", str(tmp_path)] + extra)
+        assert joined.value.args == ("gloo", 2, 0)
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size",
                         lambda group=None: 2)
     model = BiEncoder(EncoderConfig(**mpc.TINY))
-    with pytest.raises(NotImplementedError, match="KD across ranks"):
-        make_itm_train_step(model, _optimizer(model), kd_fn=lambda *a: 0,
-                            device="cpu")
+    assert callable(make_itm_train_step(model, _optimizer(model),
+                                        kd_fn=lambda *a: 0, device="cpu"))
 
 
 if __name__ == "__main__":
