@@ -60,7 +60,10 @@ Phases, each of which exits non-zero on failure (no result is printed):
    against a fresh model, the loss falling on a fixed batch, float32 card
    vs CPU (at dropout 0, and at attention dropout 0.1 with one step seed on
    both devices) and bfloat16 vs float32, each bound beside a control (see
-   ``train_phase``);
+   ``train_phase``); and the same step at full width in float32 (TF32 off,
+   dropout 0.1: training with ``--compute_dtype f32``): ms/step, a profiler
+   pass with the share of the device time that the training attention's
+   float32 kernels take (``itm_train_f32_full``);
 8. eval: ``cli/eval_itm.main`` of the port on the card at
    configs/coco_eval.json's model (BERT-base cased + UNITER-base,
    ``project_dim`` 768, bf16, batch 80) over synthetic DBs written by the
@@ -133,7 +136,10 @@ plan, and 130, a ragged one; in float32 on FMA units, ``ffn_dh1``),
 ``adamw`` over every parameter of both towers
 with a float32 and a bfloat16 first moment, bit for bit, and the fused
 training attention (``attention_train_fwd``/``_bwd``) at rate 0.1 at
-[64, 32|37|64|104], [8, 256] and head dim 32, after ``mask`` rows that read
+[64, 32|37|64|104], [8, 256] and head dim 32 (float32 also at [128, 104],
+and ``train_attn_f32_yardstick`` rows: at [64, 104] and [128, 104] each
+float32 kernel against SDPA in float32, which fail above
+``TRAIN_ATTN_F32_RATIO_MAX``), after ``mask`` rows that read
 the kernels' Philox keep masks against ``philox_keep`` bit for bit: the
 forward's (q = k = 0, v = I), the dk/dv kernel's (g = I) and the dq
 kernel's (k = I, g v^T = 1). The float32 kernels of the attention and the
@@ -150,8 +156,9 @@ after it: the bf16 query, encode and training paths must go through the
 tensor-core FFN (``ffn_mma``), dh1 (``ffn_dh1_mma``) and backward
 (``attention_train_bwd_mma``) and through no FMA form; the float32 checks
 of the query tower and of a training step against the CPU (``text_f32``,
-``itm_train_f32``) through the FMA forms; the training paths through the
-LayerNorm backward kernel (``layernorm_bwd``); the bf16 evaluation
+``itm_train_f32``) and the float32 step at full width
+(``itm_train_f32_full``) through the FMA forms; the training paths through
+the LayerNorm backward kernel (``layernorm_bwd``); the bf16 evaluation
 (``eval``) through the tensor-core FFN and no FMA form. Then one JSON line listing the
 kernels, and as the last line ``{"ok": true, "device": {...}}``. The script
 imports no JAX.
@@ -239,6 +246,9 @@ PATH_KERNELS = {"text_f32": ("layernorm", "attention", "ffn"),
                                   "ffn_dh1", "adamw", "attention_train_fwd",
                                   "attention_train_bwd"),
                 "eval": ("layernorm", "attention", "ffn_mma")}
+# the float32 step at full width (configs/coco_ft.json, dropout 0.1): the
+# FMA forms, as the float32 check at batch 8
+PATH_KERNELS["itm_train_f32_full"] = PATH_KERNELS["itm_train_f32"]
 # the training drivers (cli/train_itm.py, cli/pretrain.py): every bf16
 # training kernel, and the attention forward of their evaluations
 PATH_KERNELS.update({
@@ -281,6 +291,10 @@ PATH_KERNELS["dist_vqa"] = PATH_KERNELS["dist_kd"][:-1]
 PATH_KERNELS["dist_kd_f32"] = PATH_KERNELS["dist_f32"]
 PATH_KERNELS["dist_vqa_f32"] = PATH_KERNELS["dist_f32"]
 PATH_KERNELS["examples"] = PATH_KERNELS["text_bf16"]
+# the device kernels of B5's float32 forms (the forward is attention.cu's
+# kernel with its dropout pass), whose share of the float32 step the
+# profile row reads
+B5_F32_KERNELS = r"attention_kernel<true>|bwd_q_kernel|bwd_kv_kernel"
 # the FMA forms that a bf16 path must not launch, and those that a path's
 # float32 part (the teachers) does launch
 FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
@@ -293,7 +307,7 @@ def hold_path(path, counts):
     emit(phase="main_path_launches", path=path, **counts)
     check(all(counts[k] > 0 for k in PATH_KERNELS[path]),
           f"{path}: a kernel of the path was not launched: {counts}")
-    check(path.endswith("f32") or all(
+    check("f32" in path.split("_") or all(
         counts[k] == 0 for k in FMA_KERNELS
         if k not in FMA_ALLOWED.get(path, ())),
         f"{path}: the bf16 path went through an FMA kernel: {counts}")
@@ -420,6 +434,13 @@ RECORDED_TIMING = (3, 5)
 # reads of a float32 FMA kernel and its yardstick, taken in turn, whose
 # medians kd_phase compares at the KD teacher's largest shapes
 KD_YARDSTICK_ROUNDS = 7
+# B5's float32 kernels at the image tower's training shapes (batch 64, and
+# 128 rows with a mined negative; S 104 at max_bb 100) against SDPA in
+# float32, read KD_YARDSTICK_ROUNDS times in turn: the median of kernel /
+# SDPA may be at most this. The first port (one thread an output element
+# from shared memory) read about 3.0; the redesign's goal is 1.0
+TRAIN_ATTN_YARDSTICK_SHAPES = ((64, 104), (128, 104))
+TRAIN_ATTN_F32_RATIO_MAX = 1.5
 
 CAPTIONS = [
     "A man riding a horse on the beach .",
@@ -737,6 +758,8 @@ def kernel_phase(device_name):
                         + [(EVAL_BATCH, s, 64) for s in EVAL_SEQS]):
             rows.append(attention_row(b, s, d, dtype, device_name, randn, g))
         rows += fused_attention_rows(dtype, device_name, randn)
+        if dtype == torch.float32:
+            train_attn_f32_yardstick(device_name)
         # query rows (batch x length), the training rows (text 2,048 and
         # image 4,096, also with h1 and gelu(h1) out), then in bfloat16 the
         # encode batches: 128 captions x 32, 128 images x 64 and x 104, and
@@ -968,13 +991,70 @@ def train_attention_rows(b, s, d, dtype, device_name, randn, gen, **kw):
 def fused_attention_rows(dtype, device_name, randn):
     """The fused training attention at the training shapes: batch 64 at
     text S 32 and image S 64 and 104, [8, 256] (the longest caption
-    bucket), and S 37 and head dim 32 for the ragged paths."""
+    bucket), and S 37 and head dim 32 for the ragged paths; in float32
+    also [128, 104] (a tower's 128 rows with a mined negative)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     rows = []
     for b, s, d in ((64, 32, 64), (64, 37, 64), (64, 64, 64), (64, 104, 64),
-                    (8, 256, 64), (64, 64, 32)):
+                    (8, 256, 64), (64, 64, 32)) + (
+                        ((128, 104, 64),) if dtype == torch.float32 else ()):
         rows += train_attention_rows(b, s, d, dtype, device_name, randn, gen)
     return rows
+
+
+def train_attn_f32_yardstick(device_name):
+    """B5's float32 kernels against SDPA in float32 at rate 0 (the forward
+    against SDPA's forward, the backward against SDPA's forward and
+    backward, each in a CUDA graph) at [64, 104] and [128, 104]: kernel /
+    SDPA read ``KD_YARDSTICK_ROUNDS`` times in turn, the median and the
+    spread. Fails if a median exceeds ``TRAIN_ATTN_F32_RATIO_MAX``."""
+    from lightningdot_tpu_torch.ops import attention_fused as af
+
+    f = torch.nn.functional
+    dev = torch.device("cuda")
+    randn, gen = make_randn(17)
+    seed = torch.tensor([0x5EED_0000_1234], device=dev)
+    for b, s in TRAIN_ATTN_YARDSTICK_SHAPES:
+        d = 64
+        q, k, v, g = (randn(b, s, 12 * d) for _ in range(4))
+        lens = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
+        bias = ((torch.arange(s, device=dev)[None, :] >= lens[:, None])
+                .float() * -10000.0)
+        kw = dict(nh=12, rate=0.1, scale=d ** -0.5)
+        heads = [t.view(b, s, 12, d).transpose(1, 2) for t in (q, k, v)]
+        leaves = [t.detach().clone().requires_grad_() for t in heads]
+        g4 = g.view(b, s, 12, d).transpose(1, 2)
+        mask4 = bias[:, None, None, :]
+
+        def sdpa_fwd_bwd():
+            out = f.scaled_dot_product_attention(*leaves, attn_mask=mask4)
+            return torch.autograd.grad(out, leaves, g4)
+
+        pairs = (("attention_train_fwd",
+                  lambda: af.attention_train_fwd(q, k, v, bias, seed, **kw),
+                  lambda: f.scaled_dot_product_attention(*heads,
+                                                         attn_mask=mask4)),
+                 ("attention_train_bwd",
+                  lambda: af.attention_train_bwd(q, k, v, bias, seed, g,
+                                                 **kw),
+                  sdpa_fwd_bwd))
+        for name, kernel, sdpa in pairs:
+            reads = [(time_ms(kernel, *RECORDED_TIMING),
+                      time_ms(sdpa, *RECORDED_TIMING))
+                     for _ in range(KD_YARDSTICK_ROUNDS)]
+            ratios = [a / y for a, y in reads]
+            row = dict(phase="train_attn_f32_yardstick", kernel=name,
+                       shape=[b, s, 12, d], rate=0.1, library_rate=0.0,
+                       ms=statistics.median(r[0] for r in reads),
+                       sdpa_ms=statistics.median(r[1] for r in reads),
+                       ratio=statistics.median(ratios),
+                       ratio_min=min(ratios), ratio_max=max(ratios),
+                       ratio_max_allowed=TRAIN_ATTN_F32_RATIO_MAX,
+                       rounds=len(reads), device=device_name)
+            emit(**row)
+            check(row["ratio"] <= TRAIN_ATTN_F32_RATIO_MAX,
+                  f"{name} float32 at {[b, s]}: {row['ratio']:.3f} x SDPA "
+                  f"float32: {row}")
 
 
 def mask_rows(device_name):
@@ -1165,11 +1245,13 @@ def _profile_activities():
     return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
-def _device_stats(prof, calls):
+def _device_stats(prof, calls, share=None):
     """Device busy time per call (the union of the device's kernel and
     copy intervals), the eight costliest device kernels, as [name, ms per
     call, launches per call], and the device events per call by kind
-    (``_kind``), of a finished profiler over ``calls`` calls."""
+    (``_kind``), of a finished profiler over ``calls`` calls; with
+    ``share`` (a regular expression), also the device ms per call of the
+    kernels whose names match it (``share_ms``) and their launches."""
     spans, by_name, kinds = [], {}, {}
     for e in prof.events():
         if str(e.device_type) != "DeviceType.CUDA":
@@ -1185,13 +1267,20 @@ def _device_stats(prof, calls):
             busy_us += end - max(start, reach)
             reach = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-    return dict(calls=calls, busy_ms=busy_us / 1e3 / calls if spans else None,
-                top=[[name[:70], ms / calls, n / calls]
-                     for name, (ms, n) in top],
-                launches_per_call={k: n / calls for k, n in kinds.items()})
+    stats = dict(calls=calls,
+                 busy_ms=busy_us / 1e3 / calls if spans else None,
+                 top=[[name[:70], ms / calls, n / calls]
+                      for name, (ms, n) in top],
+                 launches_per_call={k: n / calls for k, n in kinds.items()})
+    if share is not None:
+        mine = [v for name, v in by_name.items() if re.search(share, name)]
+        stats.update(share_pattern=share,
+                     share_ms=sum(ms for ms, _ in mine) / calls,
+                     share_launches=sum(n for _, n in mine) / calls)
+    return stats
 
 
-def device_profile(fn, calls):
+def device_profile(fn, calls, share=None):
     """torch.profiler over ``calls`` calls of ``fn`` (after one warm-up
     call): ``_device_stats``."""
     from torch.profiler import profile
@@ -1202,13 +1291,17 @@ def device_profile(fn, calls):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return _device_stats(prof, calls)
+    return _device_stats(prof, calls, share)
 
 
-def emit_profile(path, batch, fn, wall_ms, calls=10):
+def emit_profile(path, batch, fn, wall_ms, calls=10, share=None):
     """One profiler row; the idle share is against ``wall_ms``, measured
     without the profiler."""
-    emit_profile_stats(path, batch, device_profile(fn, calls), wall_ms)
+    stats = device_profile(fn, calls, share)
+    extra = {}
+    if share is not None and stats["busy_ms"]:
+        extra["share_of_busy"] = stats["share_ms"] / stats["busy_ms"]
+    emit_profile_stats(path, batch, stats, wall_ms, **extra)
 
 
 def emit_profile_stats(path, batch, stats, wall_ms, **extra):
@@ -2210,6 +2303,42 @@ def train_phase(args, device_name):
     check(same, "eval after training steps serves stale weights")
     del model, fresh, step
 
+    # the same step in float32 (--compute_dtype f32, TF32 off), dropout
+    # 0.1: every layer's attention through B5's float32 kernels; the share
+    # of the device time they take
+    model = build(torch.float32, 0.1)
+    step = make_itm_train_step(model, make_optimizer(
+        model, schedule_linear(DIST_LR, 0, 1000), max_grad_norm=2.0),
+        device=DEVICE)
+    for i in range(3):
+        step(batches[i % 4], dropout_gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    lat, losses = [], []
+    for i in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        metrics = step(batches[i % 4], dropout_gen)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(metrics["loss"]))
+    counts_f32_full = launch_counts()
+    p50_f32 = statistics.median(lat)
+    emit(phase="itm_train_f32_full", batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+         dtype="float32", dropout=0.1, tf32=False,
+         ms_per_step_p50=p50_f32,
+         ms_per_step_p90=float(np.percentile(lat, 90)),
+         pairs_per_s=TRAIN_BATCH * 1e3 / p50_f32,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+         loss_first=losses[0], loss_last=losses[-1], device=device_name)
+    check(all(np.isfinite(losses)),
+          f"non-finite float32 training loss: {losses}")
+    hold_path("itm_train_f32_full", counts_f32_full)
+    emit_profile("itm_train_f32_full", TRAIN_BATCH,
+                 lambda: step(batches[0], dropout_gen), p50_f32, calls=3,
+                 share=B5_F32_KERNELS)
+    del model, step
+
     # learning: one fixed batch, constant lr
     model = build(torch.bfloat16, 0.1)
     step = make_itm_train_step(model, make_optimizer(
@@ -2365,7 +2494,8 @@ def train_phase(args, device_name):
     check(row["loss_rel"] <= TRAIN_BF16_LOSS_RTOL
           and row["grad_cosine"] >= TRAIN_BF16_COSINE_MIN,
           f"bfloat16 training vs float32: {row}")
-    return dict(counts=counts, counts_f32=counts_f32, n_params=n_params)
+    return dict(counts=counts, counts_f32=counts_f32,
+                counts_f32_full=counts_f32_full, n_params=n_params)
 
 
 class ShapeRecorder:
@@ -5472,7 +5602,7 @@ REPORT_PATH = {"layernorm": "text_bf16", "layernorm_bwd": "itm_train",
                "ffn_dh1": "itm_train_f32",
                "adamw": "itm_train", "attention_train_fwd": "itm_train",
                "attention_train_bwd_mma": "itm_train",
-               "attention_train_bwd": "itm_train_f32"}
+               "attention_train_bwd": "itm_train_f32_full"}
 
 
 def main() -> int:
@@ -5505,7 +5635,9 @@ def main() -> int:
     # FFN's GEMM (epilogue 0 fc1, 1 fc2, 2 dh1) and its split pass; the
     # int8 FFN's GEMM (0 fc1, 1 fc2) and its split pass; and the float32
     # FMA kernels: the FFN's GEMM, gemm_kernel<epilogue> (0 fc1, 1 fc2)
-    # and narrow_kernel<epilogue, rows a thread>, and the attention
+    # and narrow_kernel<epilogue, rows a thread>, the attention
+    # (attention_kernel<dropout>: 1 is the training forward) and the
+    # training attention's backward (bwd_q_kernel, bwd_kv_kernel<tile>)
     for name, (regs, spill_st, spill_ld) in sorted(
             _build.ptxas_report("attention_mma").items()):
         keys, epilogue = re.search(r"kernelILi(\d+)ELi(\d)E", name).groups()
@@ -5525,12 +5657,12 @@ def main() -> int:
              registers=regs, spill_store_bytes=spill_st,
              spill_load_bytes=spill_ld)
     for stem in ("attention_mma_bwd", "ffn_mma", "ffn_int8", "ffn",
-                 "attention"):
+                 "attention", "attention_fused"):
         for name, (regs, spill_st, spill_ld) in sorted(
                 _build.ptxas_report(stem).items()):
-            entry = re.search(r"\d([a-z_]+_kernel)(?:I((?:Li\d+E)+)E)?",
+            entry = re.search(r"\d([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
                               name)
-            targs = re.findall(r"Li(\d+)E", entry.group(2) or "")
+            targs = re.findall(r"L[ib](\d+)E", entry.group(2) or "")
             emit(phase="resources", kernel=stem, entry=entry.group(1) + (
                 f"<{','.join(targs)}>" if targs else ""),
                  registers=regs, spill_store_bytes=spill_st,
@@ -5559,6 +5691,7 @@ def main() -> int:
     train = train_phase(args, device_name)
     paths["itm_train"] = train["counts"]
     paths["itm_train_f32"] = train["counts_f32"]
+    paths["itm_train_f32_full"] = train["counts_f32_full"]
     paths["train_itm_cli"] = train_itm_cli_phase(args, device_name)["counts"]
     paths["pretrain"] = pretrain_phase(args, device_name)["counts"]
     paths["rerank"] = rerank_phase(args, device_name)["counts"]

@@ -2,6 +2,14 @@
 // the FMA units, one block per (batch, head, tile of 64 queries): out =
 // softmax(q k^T * scale + key_bias) v. The bfloat16 forms go to the
 // tensor-core kernel (attention_mma.cu); the C entry below splits by dtype.
+// The same kernel with a dropout pass (kDrop) is the training attention's
+// float32 forward (ldot_attention_train_fwd, attention_fused.cu), which
+// replaces lightningdot_tpu/ops/experimental/attention_fused.py::
+// _fwd_kernel (:117): p = e / sum, then p * mscale where the element's
+// Philox word (philox.cuh) is below thresh and 0 elsewhere, before p v
+// (ops/attention_fused.py::_fused_attn_fwd_math). The building blocks
+// (staging, the score and P V microtiles, the warp-order softmax) are in
+// attention_fma.cuh, shared with the training attention's backward.
 //
 // Replaces the TPU kernel lightningdot_tpu/ops/attention.py::_attn_kernel
 // (:87, launched by _attention_pallas, :125) in float32, the dtype the
@@ -27,7 +35,10 @@
 // Two numeric paths mirror ops/attention.py::_attention_math: defer = 0,
 // normalized probabilities (p = e / sum) before p v; defer = 1,
 // un-normalized e, the float32 row sum kept aside and the division applied
-// after e v.
+// after e v. The dropout pass (defer 0) takes a row's keys in groups of 4,
+// one Philox draw a group, the 4 threads of the row at groups c, c + 4,
+// ..., each walking its group from element c on (mod 4), so that the 4
+// threads hit 4 distinct banks of P.
 //
 // Bound: 4 B H S^2 D flops at 67 TFLOP/s (0.82 ms at the KD teacher's
 // [640, 167, 12, 64]); q, k, v and out once each at 3.35 TB/s (0.39 ms).
@@ -56,89 +67,32 @@
 // unrolled division passes were each no faster at [640, 167].
 #include <cstdint>
 
+#include "attention_fma.cuh"
 #include "attention_mma.cuh"
-#include "mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace ldot::fma;
+
 constexpr int kTile = 64;          // query rows per block
 constexpr int kLdP = kTile + 8;    // P [j][query] row stride, floats
-constexpr int kMaxSeq = 256;
-constexpr int kMaxHeadDim = 64;
-
-__host__ __device__ constexpr int round4(int x) { return (x + 3) & ~3; }
+constexpr int kPvRowsFwd = 8;      // rows of a P V microtile
 
 // K [S][D4 + 4] (V [S][D4] over it once the scores are done), Q [kTile][D4
 // + 4], P [S][kLdP], the row sums [kTile]; every part a multiple of 4 floats
 __host__ __device__ constexpr size_t smem_floats(int seq, int head_dim) {
-  return static_cast<size_t>(seq + kTile) * (round4(head_dim) + 4) +
+  return static_cast<size_t>(seq + kTile) * operand_ld(head_dim) +
          static_cast<size_t>(seq) * kLdP + kTile;
 }
 
-struct Attn {
-  const float* q;        // [B, S, H, D] contiguous
-  const float* k;
-  const float* v;
-  const float* bias;     // [B, S]
-  float* out;            // [B, S, H, D]
-  int seq, heads, head_dim, tiles;
-  float scale;
-  int defer;
-  int vec;               // D % 4 == 0 and q, k, v, out 16-byte aligned
-};
-
-// one 16-query x 32-key chunk of scores with NY keys a thread (NY < 4 only
-// in a last, partial chunk): sequential FMAs over d, then * scale, + bias
-template <int NY>
-__device__ __forceinline__ void score_chunk(const float* qp, const float* kp,
-                                            int ldk, int d4, float scale,
-                                            const float* brow, int kb, int S,
-                                            float* pp) {
-  float acc[4][NY];
-#pragma unroll
-  for (int x = 0; x < 4; ++x) {
-#pragma unroll
-    for (int y = 0; y < NY; ++y) acc[x][y] = 0.f;
-  }
-#pragma unroll 2
-  for (int d = 0; d < d4; d += 4) {
-    float4 qv[4], kv[NY];
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      qv[x] = *reinterpret_cast<const float4*>(qp + 4 * x * ldk + d);
-#pragma unroll
-    for (int y = 0; y < NY; ++y)
-      kv[y] = *reinterpret_cast<const float4*>(kp + 8 * y * ldk + d);
-#pragma unroll
-    for (int x = 0; x < 4; ++x) {
-#pragma unroll
-      for (int y = 0; y < NY; ++y) {
-        acc[x][y] = fmaf(qv[x].x, kv[y].x, acc[x][y]);
-        acc[x][y] = fmaf(qv[x].y, kv[y].y, acc[x][y]);
-        acc[x][y] = fmaf(qv[x].z, kv[y].z, acc[x][y]);
-        acc[x][y] = fmaf(qv[x].w, kv[y].w, acc[x][y]);
-      }
-    }
-  }
-#pragma unroll
-  for (int y = 0; y < NY; ++y) {
-    const int j = kb + 8 * y;
-    if (j >= S) break;
-    const float bj = brow[j];
-#pragma unroll
-    for (int x = 0; x < 4; ++x)
-      pp[j * kLdP + 4 * x] = __fadd_rn(__fmul_rn(acc[x][y], scale), bj);
-  }
-}
-
-__global__ void __launch_bounds__(kThreads, 2) attention_kernel(Attn a) {
+template <bool kDrop>
+__global__ void __launch_bounds__(kThreads, 2)
+    attention_kernel(ldot::AttnFma a, int tiles, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int S = a.seq;
   const int D = a.head_dim;
   const int D4 = round4(D);
-  const int ldk = D4 + 4;
+  const int ldk = operand_ld(D);
   float* sk = smem;                              // K [S][ldk]
   float* sv = smem;                              // V [S][D4], after scores
   float* sq = smem + static_cast<size_t>(S) * ldk;   // Q [kTile][ldk]
@@ -146,10 +100,8 @@ __global__ void __launch_bounds__(kThreads, 2) attention_kernel(Attn a) {
   float* srow = sp + S * kLdP;                   // [kTile]
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int tile = blockIdx.x % a.tiles;
-  const int bh = blockIdx.x / a.tiles;
+  const int tile = blockIdx.x % tiles;
+  const int bh = blockIdx.x / tiles;
   const int b = bh / a.heads;
   const int h = bh % a.heads;
   const int i0 = tile * kTile;                   // first query row
@@ -159,115 +111,52 @@ __global__ void __launch_bounds__(kThreads, 2) attention_kernel(Attn a) {
                       static_cast<size_t>(h) * D;
 
   // Q and K as they lie, zero past the tile's rows and past D
-  if (a.vec) {
-    const int c4 = D / 4;
-    const uint32_t dq = static_cast<uint32_t>(__cvta_generic_to_shared(sq));
-    const uint32_t dk = static_cast<uint32_t>(__cvta_generic_to_shared(sk));
-    for (int idx = tid; idx < kTile * c4; idx += kThreads) {
-      const int i = idx / c4, c = idx % c4;
-      const bool ok = i < nq;
-      ldot::cp_async16(dq + (i * ldk + c * 4) * 4,
-                       ok ? a.q + base + (i0 + i) * rs + c * 4 : a.q, ok);
-    }
-    for (int idx = tid; idx < S * c4; idx += kThreads) {
-      const int j = idx / c4, c = idx % c4;
-      ldot::cp_async16(dk + (j * ldk + c * 4) * 4,
-                       a.k + base + j * rs + c * 4, true);
-    }
+  stage(a.q, base, rs, i0, nq, kTile, D, ldk, sq, vec);
+  stage(a.k, base, rs, 0, S, S, D, ldk, sk, vec);
+  if (vec) {
     ldot::cp_async_commit();
     ldot::cp_async_wait<0>();
-  } else {
-    for (int idx = tid; idx < kTile * D4; idx += kThreads) {
-      const int i = idx / D4, d = idx % D4;
-      sq[i * ldk + d] =
-          i < nq && d < D ? a.q[base + (i0 + i) * rs + d] : 0.f;
-    }
-    for (int idx = tid; idx < S * D4; idx += kThreads) {
-      const int j = idx / D4, d = idx % D4;
-      sk[j * ldk + d] = d < D ? a.k[base + j * rs + d] : 0.f;
-    }
   }
   __syncthreads();
 
-  // scores: a warp takes a 16-query x 32-key chunk at a time
   const float* brow = a.bias + static_cast<size_t>(b) * S;
-  {
-    const int ql = lane & 3, kl = lane >> 2;
-    const int cq = (nq + 15) / 16;
-    const int chunks = cq * ((S + 31) / 32);
-    for (int ch = warp; ch < chunks; ch += kWarps) {
-      const int qb = (ch % cq) * 16 + ql;
-      const int kb0 = (ch / cq) * 32;
-      const int kb = kb0 + kl;
-      const float* qp = sq + qb * ldk;
-      const float* kp = sk + kb * ldk;
-      float* pp = sp + qb;
-      const int ny = min(4, (S - kb0 + 7) / 8);   // keys a thread, uniform
-      if (ny == 4)
-        score_chunk<4>(qp, kp, ldk, D4, a.scale, brow, kb, S, pp);
-      else if (ny == 3)
-        score_chunk<3>(qp, kp, ldk, D4, a.scale, brow, kb, S, pp);
-      else if (ny == 2)
-        score_chunk<2>(qp, kp, ldk, D4, a.scale, brow, kb, S, pp);
-      else
-        score_chunk<1>(qp, kp, ldk, D4, a.scale, brow, kb, S, pp);
-    }
-  }
+  score_phase<kLdP, kBiasCol>(sq, nq, sk, S, ldk, D4, a.scale, brow, sp);
   __syncthreads();   // P complete; K no longer read
 
   // V over K's space, in flight during the softmax
-  if (a.vec) {
-    const int c4 = D / 4;
-    const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(sv));
-    for (int idx = tid; idx < S * c4; idx += kThreads) {
-      const int j = idx / c4, c = idx % c4;
-      ldot::cp_async16(dst + (j * D4 + c * 4) * 4,
-                       a.v + base + j * rs + c * 4, true);
-    }
-    ldot::cp_async_commit();
-  } else {
-    for (int idx = tid; idx < S * D4; idx += kThreads) {
-      const int j = idx / D4, d = idx % D4;
-      sv[idx] = d < D ? a.v[base + j * rs + d] : 0.f;
-    }
-  }
+  stage(a.v, base, rs, 0, S, S, D, D4, sv, vec);
+  if (vec) ldot::cp_async_commit();
 
-  // softmax: 4 threads a row (c = tid % 4 holds the partials of lanes c,
-  // c + 4, ..., c + 28 of torch's warp softmax); rows past the tile's run
-  // no element but take part in the shuffles
+  // softmax: 4 threads a row (c = tid % 4); rows past the tile's run no
+  // element but take part in the shuffles
   {
     const int r = tid >> 2;
     const int c = tid & 3;
     const int js = r < nq ? S : 0;
     float* col = sp + r;
-    float m = -INFINITY;
-    for (int j = c; j < js; j += 4) m = fmaxf(m, col[j * kLdP]);
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
-    float part[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) part[u] = 0.f;
-    for (int j0 = 0; j0 < js; j0 += 32) {
-#pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        const int j = j0 + c + 4 * u;
-        if (j < js) {
-          const float e = expf(col[j * kLdP] - m);
-          col[j * kLdP] = e;
-          part[u] = __fadd_rn(part[u], e);
-        }
-      }
-    }
-    // the butterfly: offsets 16, 8 and 4 inside the thread, 2 and 1 across
-    const float s0 = __fadd_rn(part[0], part[4]);
-    const float s1 = __fadd_rn(part[1], part[5]);
-    const float s2 = __fadd_rn(part[2], part[6]);
-    const float s3 = __fadd_rn(part[3], part[7]);
-    float sum = __fadd_rn(__fadd_rn(s0, s2), __fadd_rn(s1, s3));
-    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
-    sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+    const float sum = softmax_exp<4, kLdP>(col, js, c).y;
     if (a.defer) {
       if (c == 0 && r < nq) srow[r] = sum;
+    } else if (kDrop) {
+      // a group whose e are all 0 (masked keys) stays 0, undrawn
+      __syncwarp();
+      const uint2 key = ldot::seed_key(a.seed);
+      for (int g = c; 4 * g < js; g += 4) {
+        if (all_zero<kLdP>(col, g, js)) continue;
+        unsigned w[4];
+        keep_words(w, key, g, i0 + r, h, b);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int u = (c + t) & 3;
+          const int j = 4 * g + u;
+          if (j < js) {
+            const float e = col[j * kLdP];
+            col[j * kLdP] = ldot::pick4(w, u) < a.thresh && e != 0.f
+                                ? __fmul_rn(e / sum, a.mscale)
+                                : 0.f;
+          }
+        }
+      }
     } else {
       for (int j = c; j < js; j += 4) {
         const float e = col[j * kLdP];
@@ -275,78 +164,44 @@ __global__ void __launch_bounds__(kThreads, 2) attention_kernel(Attn a) {
       }
     }
   }
-  if (a.vec) ldot::cp_async_wait<0>();
+  if (vec) ldot::cp_async_wait<0>();
   __syncthreads();
 
-  // out = P V: a warp takes 4 query octets x 8 head-dim quads at a time
-  {
-    const int ndq = D4 / 4;
-    const int no = (nq + 7) / 8;
-    const int co = (no + 3) / 4;
-    const int chunks = co * ((ndq + 7) / 8);
-    for (int ch = warp; ch < chunks; ch += kWarps) {
-      const int qo = (ch % co) * 4 + (lane & 3);
-      const int dq = (ch / co) * 8 + (lane >> 2);
-      if (qo >= no || dq >= ndq) continue;
-      float acc[8][4];
-#pragma unroll
-      for (int x = 0; x < 8; ++x) {
-#pragma unroll
-        for (int y = 0; y < 4; ++y) acc[x][y] = 0.f;
-      }
-      const float* pp = sp + qo * 8;
-      const float* vp = sv + dq * 4;
-#pragma unroll 4
-      for (int j = 0; j < S; ++j) {
-        const float4 p0 = *reinterpret_cast<const float4*>(pp + j * kLdP);
-        const float4 p1 =
-            *reinterpret_cast<const float4*>(pp + j * kLdP + 4);
-        const float4 vv = *reinterpret_cast<const float4*>(vp + j * D4);
-        const float pa[8] = {p0.x, p0.y, p0.z, p0.w,
-                             p1.x, p1.y, p1.z, p1.w};
-        const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int x = 0; x < 8; ++x) {
-#pragma unroll
-          for (int y = 0; y < 4; ++y)
-            acc[x][y] = fmaf(pa[x], va[y], acc[x][y]);
-        }
-      }
-#pragma unroll
-      for (int x = 0; x < 8; ++x) {
-        const int i = qo * 8 + x;
-        if (i >= nq) break;
-        float o[4];
-#pragma unroll
-        for (int y = 0; y < 4; ++y)
-          o[y] = a.defer ? acc[x][y] / srow[i] : acc[x][y];
-        float* dst = a.out + base + (i0 + i) * rs + dq * 4;
-        if (a.vec) {
-          *reinterpret_cast<float4*>(dst) = make_float4(o[0], o[1], o[2],
-                                                        o[3]);
-        } else {
-#pragma unroll
-          for (int y = 0; y < 4; ++y)
-            if (dq * 4 + y < D) dst[y] = o[y];
-        }
-      }
-    }
-  }
+  // out = P V
+  pv_phase<kLdP, kPvRowsFwd>(sp, sv, D4, S, nq, D4,
+                             a.out + base + static_cast<size_t>(i0) * rs, rs,
+                             D, vec, a.defer ? srow : nullptr);
 }
 
-cudaError_t launch(const Attn& a, int batch, cudaStream_t stream) {
+template <bool kDrop>
+cudaError_t launch(const ldot::AttnFma& a, int batch, cudaStream_t stream) {
   // above 48 KB a block's shared memory must be granted explicitly; grant
   // the largest supported shape once
   static cudaError_t granted = cudaFuncSetAttribute(
-      attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      attention_kernel<kDrop>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem_floats(kMaxSeq, kMaxHeadDim) * sizeof(float)));
   if (granted != cudaSuccess) return granted;
+  const int tiles = (a.seq + kTile - 1) / kTile;
+  const int vec = a.head_dim % 4 == 0 && ldot::aligned16(a.q) &&
+                  ldot::aligned16(a.k) && ldot::aligned16(a.v) &&
+                  ldot::aligned16(a.out);
   const size_t smem = smem_floats(a.seq, a.head_dim) * sizeof(float);
-  attention_kernel<<<batch * a.heads * a.tiles, kThreads, smem, stream>>>(a);
+  attention_kernel<kDrop><<<batch * a.heads * tiles, kThreads, smem,
+                            stream>>>(a, tiles, vec);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+cudaError_t ldot::attention_fma(const AttnFma& a, int batch,
+                                cudaStream_t stream) {
+  if (batch <= 0 || a.seq <= 0 || a.heads <= 0 || a.head_dim <= 0 ||
+      a.seq > kMaxSeq || a.head_dim > kMaxHeadDim ||
+      (a.dropout && a.defer))
+    return cudaErrorInvalidValue;
+  return a.dropout ? launch<true>(a, batch, stream)
+                   : launch<false>(a, batch, stream);
+}
 
 // q, k, v, out: [batch, seq, heads, head_dim] contiguous, float32 or
 // bfloat16 (dtype code); bias: [batch, seq] float32 additive key bias.
@@ -360,21 +215,21 @@ extern "C" int ldot_attention(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ldot::kFloat32) {
-    const Attn a{static_cast<const float*>(q),
-                 static_cast<const float*>(k),
-                 static_cast<const float*>(v),
-                 bias,
-                 static_cast<float*>(out),
-                 seq,
-                 heads,
-                 head_dim,
-                 (seq + kTile - 1) / kTile,
-                 scale,
-                 defer,
-                 head_dim % 4 == 0 && ldot::aligned16(q) &&
-                     ldot::aligned16(k) && ldot::aligned16(v) &&
-                     ldot::aligned16(out)};
-    return launch(a, batch, s);
+    const ldot::AttnFma a{static_cast<const float*>(q),
+                          static_cast<const float*>(k),
+                          static_cast<const float*>(v),
+                          bias,
+                          static_cast<float*>(out),
+                          seq,
+                          heads,
+                          head_dim,
+                          scale,
+                          defer,
+                          nullptr,
+                          1.f,
+                          0u,
+                          0};
+    return ldot::attention_fma(a, batch, s);
   }
   if (dtype == ldot::kBFloat16) {
     const ldot::AttnMma a{static_cast<const __nv_bfloat16*>(q),

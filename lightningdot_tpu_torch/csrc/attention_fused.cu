@@ -8,398 +8,368 @@
 // ops/attention_fused.py::_fused_attn_fwd_math and ::_fused_attn_bwd_math).
 // bfloat16 runs on the tensor cores (the forward in attention_mma.cu, the
 // backward in attention_mma_bwd.cu: the same rounding points, float32 sums
-// in another order); float32 runs on the FMA kernels below, bit-equal to the
-// twins:
+// in another order). float32, the dtype of training with --compute_dtype
+// f32 (every layer of both towers at a dropout rate above 0), runs on the
+// FMA units, bit-equal to the twins:
 //   forward:  s = (q.k) * scale + key_bias, float32 softmax e / sum(e),
-//             p rounded to T, then p * keep * (1/(1-rate) rounded to T),
-//             out = dropped . v accumulated in float32;
+//             then p * keep * (1/(1-rate) in float32), out = dropped . v
+//             accumulated in float32: attention.cu's register-blocked
+//             kernel with its dropout pass (ldot::attention_fma);
 //   backward: the forward recomputed; dv = dropped^T . g; dp = (g . v^T) *
-//             keep * (1/(1-rate) in float32), left in float32; ds = p * (dp -
-//             sum(dp * p)); ds * scale rounded to T before dq = ds . k and
-//             dk = ds^T . q.
+//             keep * (1/(1-rate) in float32); ds = p * (dp - sum(dp * p));
+//             ds * scale before dq = ds . k and dk = ds^T . q: the two
+//             kernels below.
 // The keep mask comes from counter-based Philox4x32-10 (philox.cuh), one
 // draw per (batch item, head, row, column), a pure function of its
 // coordinates: the forward and both backward kernels, each blocked its own
 // way, regenerate the same mask in registers; it never reaches memory. The
 // seed is read from device memory, so a layer never waits on the host.
 //
-// Bound: at the training shapes (B 64, S 32 / 64 / 104, up to 256; H 12,
-// D 64) the forward moves 4 B S H D elements and does 4 B H S^2 D flops,
-// the backward 7 B S H D elements and 10 B H S^2 D flops (the recomputed
-// scores twice): between 10 and 100 flops per byte, so the float32 FMA rate
-// bounds these float32 kernels, not the memory. The design is simple rather
-// than fast: float32 FMA from shared memory. Each block stages
-// one head's K and V (or Q and G) whole and a 32-row tile of the other side
-// in shared memory as float32, rows padded by one word where threads of a
-// warp walk across rows, and keeps 32 whole rows of scores, so every
-// softmax row is reduced in one warp in the twin's order (lane-strided
-// partial sums, then a butterfly: ops/attention.py::_warp_order_sum).
-//   fwd:  grid (B*H, ceil(S/32) query tiles); 173 KB of shared memory at S
-//         256 (float32 only);
-//   bwd1: grid (B*H, query tiles): dq, and per row the softmax max and sum
-//         and sum(dp * p) for the second kernel; 215 KB at S 256;
-//   bwd2: grid (B*H, ceil(S/32) key tiles): dv and dk, recomputing p from
-//         the first kernel's row statistics (bit-equal to its own); 218 KB.
+// Bound: at the training shapes (B 64-128, S 32 / 64 / 104, up to 256; H
+// 12, D 64) the forward moves 4 B S H D elements and does 4 B H S^2 D
+// flops, the backward 7 B S H D elements and at least 10 B H S^2 D flops
+// (the scores recomputed once): 10-100 flops per byte, so the float32 FMA
+// rate bounds these kernels, not the memory.
+//
+// The backward's design (attention_fma.cuh's building blocks: every product
+// in 4 x 4 or 8 x 4 register microtiles fed by 128-bit shared-memory loads,
+// every sum in the twin's order). The work splits so that every chain has a
+// fixed order and no atomics: dq by query tiles, dk and dv by key tiles,
+// each block one (batch item, head, tile), the tiles of a head adjacent in
+// the grid so that they find its operands in L2.
+//   bwd_q:  stages G's tile and V by cp.async, computes dp = G V^T into DS
+//           [S][kLd] (the tile's queries minor), then Q's tile and K over
+//           them, the scores into P [S][kLd]; R = 256 / tile threads a row
+//           take the softmax (warp order), the keep mask (one Philox draw
+//           per 4 keys, the R threads of a row in distinct banks),
+//           delta = sum(dp * p) (warp order) and ds * scale in place; dq =
+//           DS^T K. Writes each row's max, sum and delta.
+//   bwd_kv: stages V's tile and G, computes dp^T into DS [S][kLd] (the
+//           tile's keys minor), then K's tile and Q, the scores into P; p =
+//           exp(s - max) / sum from the stored statistics, bit-equal to
+//           bwd_q's (the same score, max and sum), then dropped and ds in
+//           place, a float4 of keys and one Philox draw a thread; dk = DS^T
+//           Q, then G restaged over Q, dv = P^T G.
+// The P^T V products run in 4 x 4 microtiles, so that a 64-row tile keeps
+// all 256 threads busy. Groups of 4 keys whose probabilities are all 0
+// (masked keys) take no Philox draw: p = 0 makes dropped, ds and the
+// group's terms of delta 0 whatever the mask says.
+// Development comparisons on an H100 80GB HBM3 at 700 W (not kept): 8 x 4
+// P^T V microtiles were as fast at 64-row tiles and 11-13 % slower at
+// 32-row tiles and at head dim 32; the Philox round keys computed once a
+// thread gained nothing; without dropout bwd_q takes ~9 % and bwd_kv ~4 %
+// less time at [128, 104].
+// The dk/dv kernel recomputes g v^T rather than read it: handing dp (or ds)
+// over from bwd_q means writing and reading B H S^2 floats, 33 MB a layer
+// at [64, 104], about 20 us at 3.35 TB/s against the ~16 us that the
+// recomputed product costs at the float32 peak, and a 33 MB scratch. So the
+// design does 14 B H S^2 D flops (bwd_q 6, bwd_kv 8) where 10 would do.
+// Tiles: 64 rows where two 8-warp blocks of each kernel share an SM (S <=
+// 112 at D 64), else 32 (8 threads a softmax row). Shared memory at D 64:
+// tile ld + round8(S) ld + 2 S kLd floats (ld = 68; kLd = tile + tile / 8),
+// + 3 S for bwd_kv: at S 104 (tile 64) 105,600 B and 106,848 B, two blocks
+// an SM; at S 256 (tile 32) 152,064 B and 155,136 B, one.
 #include <cstdint>
 
+#include "attention_fma.cuh"
 #include "attention_mma.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;
-constexpr int kMaxSeq = 256;
-constexpr int kMaxHeadDim = 64;
+using namespace ldot::fma;
 
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
+// the shared memory two blocks of a kernel may each take on an SM (228 KB,
+// less 1 KB a block the runtime keeps)
+constexpr size_t kTwoBlockBytes = 113 * 1024;
+constexpr int kPvRowsBwd = 4;      // rows of a P^T V microtile
+
+struct Bwd {
+  const float* q;           // [B, S, H*D] contiguous, as g, dq, dk, dv
+  const float* k;
+  const float* v;
+  const float* g;
   const float* bias;        // [B, S] additive key bias
-  const long long* seed;    // [1], on the device
+  const long long* seed;    // one int64 on the device; read iff dropout
+  float* dq;
+  float* dk;
+  float* dv;
+  float* stats;             // [3, B*H, S]: each row's max, sum, delta
   int seq, heads, head_dim;
   float scale;
-  float mscale;             // 1 / (1 - rate) rounded to T
-  float mscale_f32;         // 1 / (1 - rate) rounded to float32
-  unsigned thresh;          // keep iff bits < thresh
-  int dropout;              // rate > 0
+  float mscale;             // 1 / (1 - rate) rounded to float32
+  unsigned thresh;          // keep iff the Philox word < thresh
+  int dropout;
+  int tiles;                // ceil(seq / tile)
+  int vec;                  // head_dim % 4 == 0, every tensor 16-byte aligned
 };
 
-using ldot::keep_draw;
-using ldot::seed_key;
+__host__ __device__ constexpr int ld_p(int tile) { return tile + tile / 8; }
 
-// the dropped probability: p rounded to T, then * keep * mscale in T
-template <typename T>
-__device__ __forceinline__ float dropped(const Args& a, float p, uint2 key,
-                                         int b, int h, int i, int j) {
-  const float pc = ldot::round_to<T>(p);
-  if (!a.dropout) return pc;
-  return keep_draw(key, b, h, i, j, a.thresh)
-             ? ldot::round_to<T>(__fmul_rn(pc, a.mscale))
-             : 0.f;
+size_t bwd_q_floats(int tile, int seq, int head_dim) {
+  return static_cast<size_t>(tile + round8(seq)) * operand_ld(head_dim) +
+         static_cast<size_t>(2) * seq * ld_p(tile);
 }
 
-// (g . v^T) * keep * mscale, left in float32
-__device__ __forceinline__ float dprob(const Args& a, float ddrop, uint2 key,
-                                       int b, int h, int i, int j) {
-  if (!a.dropout) return ddrop;
-  return keep_draw(key, b, h, i, j, a.thresh) ? __fmul_rn(ddrop, a.mscale_f32)
-                                              : 0.f;
+size_t bwd_kv_floats(int tile, int seq, int head_dim) {
+  return bwd_q_floats(tile, seq, head_dim) + static_cast<size_t>(3) * seq;
 }
 
-__device__ __forceinline__ float score(const float* x, const float* y, int D,
-                                       float scale, float bias) {
-  float acc = 0.f;
-  for (int d = 0; d < D; ++d) acc = fmaf(x[d], y[d], acc);
-  return __fadd_rn(__fmul_rn(acc, scale), bias);
-}
-
-__device__ __forceinline__ float dot(const float* x, const float* y, int D) {
-  float acc = 0.f;
-  for (int d = 0; d < D; ++d) acc = fmaf(x[d], y[d], acc);
-  return acc;
-}
-
-// one head's rows [0, n) of x ([B, S, H*D]) into s[r * stride + d]
-template <typename T>
-__device__ __forceinline__ void stage(const T* x, size_t base, size_t rs,
-                                      int r0, int n, int D, float* s,
-                                      int stride) {
-  for (int idx = threadIdx.x; idx < n * D; idx += kThreads) {
-    const int r = idx / D;
-    const int d = idx - r * D;
-    s[r * stride + d] = ldot::to_f32(x[base + (r0 + r) * rs + d]);
-  }
-}
-
-// softmax of a row of scores in place: max, e = exp(s - max), the sum in
-// warp order, p = e / sum. Returns (max, sum) to every lane.
-__device__ __forceinline__ float2 softmax_row(float* row, int S, int lane) {
-  float m = -INFINITY;
-  for (int j = lane; j < S; j += 32) m = fmaxf(m, row[j]);
-  m = ldot::warp_max(m);
-  float sum = 0.f;
-  for (int j = lane; j < S; j += 32) {
-    const float e = expf(row[j] - m);
-    row[j] = e;
-    sum += e;
-  }
-  sum = ldot::warp_sum(sum);
-  for (int j = lane; j < S; j += 32) row[j] = row[j] / sum;
-  return make_float2(m, sum);
-}
-
-size_t fwd_floats(int S, int D) {
-  // k [S][D+1], v [S][D], q [T][D], p [T][S+1]
-  return static_cast<size_t>(S) * (2 * D + 1) + kTile * D +
-         static_cast<size_t>(kTile) * (S + 1);
-}
-
-size_t bwd_q_floats(int S, int D) {
-  // k, v [S][D+1]; q, g [T][D]; p, ds [T][S+1]
-  return static_cast<size_t>(S) * 2 * (D + 1) + 2 * kTile * D +
-         static_cast<size_t>(2) * kTile * (S + 1);
-}
-
-size_t bwd_kv_floats(int S, int D) {
-  // q, g [S][D+1]; k, v [T][D]; p^T, x^T [T][S+1]; max, sum, delta [S]
-  return bwd_q_floats(S, D) + static_cast<size_t>(3) * S;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fwd_kernel(Args a, T* __restrict__ out) {
-  extern __shared__ float smem[];
-  const int S = a.seq, D = a.head_dim, kd = D + 1, ps = S + 1;
-  float* sk = smem;
-  float* sv = sk + S * kd;
-  float* sq = sv + S * D;
-  float* sp = sq + kTile * D;
-
-  const int b = blockIdx.x / a.heads;
-  const int h = blockIdx.x % a.heads;
-  const int i0 = blockIdx.y * kTile;
-  const int nq = min(kTile, S - i0);
-  const size_t rs = static_cast<size_t>(a.heads) * D;
-  const size_t base = static_cast<size_t>(b) * S * rs +
-                      static_cast<size_t>(h) * D;
-  stage(static_cast<const T*>(a.k), base, rs, 0, S, D, sk, kd);
-  stage(static_cast<const T*>(a.v), base, rs, 0, S, D, sv, D);
-  stage(static_cast<const T*>(a.q), base, rs, i0, nq, D, sq, D);
-  __syncthreads();
-
-  const float* brow = a.bias + static_cast<size_t>(b) * S;
-  for (int idx = threadIdx.x; idx < nq * S; idx += kThreads) {
-    const int i = idx / S;
-    const int j = idx - i * S;
-    sp[i * ps + j] = score(sq + i * D, sk + j * kd, D, a.scale, brow[j]);
-  }
-  __syncthreads();
-
-  const uint2 key = seed_key(a.seed);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int i = warp; i < nq; i += kWarps) {
-    float* row = sp + i * ps;
-    softmax_row(row, S, lane);
-    for (int j = lane; j < S; j += 32)
-      row[j] = dropped<T>(a, row[j], key, b, h, i0 + i, j);
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < nq * D; idx += kThreads) {
-    const int i = idx / D;
-    const int d = idx - i * D;
-    const float* pi = sp + i * ps;
-    float acc = 0.f;
-    for (int j = 0; j < S; ++j) acc = fmaf(pi[j], sv[j * D + d], acc);
-    out[base + (i0 + i) * rs + d] = ldot::from_f32<T>(acc);
-  }
+int bwd_tile(int seq, int head_dim) {
+  return bwd_kv_floats(64, seq, head_dim) * sizeof(float) <= kTwoBlockBytes
+             ? 64
+             : 32;
 }
 
 // dq for a tile of query rows, and per row: softmax max, sum, sum(dp * p)
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bwd_q_kernel(Args a, const T* __restrict__ g, T* __restrict__ dq,
-                 float* __restrict__ stats) {
-  extern __shared__ float smem[];
-  const int S = a.seq, D = a.head_dim, kd = D + 1, ps = S + 1;
-  float* sk = smem;
-  float* sv = sk + S * kd;
-  float* sq = sv + S * kd;
-  float* sg = sq + kTile * D;
-  float* sp = sg + kTile * D;
-  float* sd = sp + kTile * ps;
+template <int kTile>
+__global__ void __launch_bounds__(kThreads, 2) bwd_q_kernel(Bwd a) {
+  constexpr int R = kThreads / kTile;    // threads a softmax row
+  constexpr int kLd = ld_p(kTile);
+  extern __shared__ __align__(16) float smem[];
+  const int S = a.seq, D = a.head_dim, D4 = round4(D), ld = operand_ld(D);
+  float* sx = smem;                              // G's tile, then Q's
+  float* sy = sx + kTile * ld;                   // V, then K [round8(S)]
+  float* sp = sy + round8(S) * ld;               // p [S][kLd]
+  float* sd = sp + S * kLd;                      // dp, then ds [S][kLd]
 
-  const int bh = blockIdx.x;
+  const int tile = blockIdx.x % a.tiles;
+  const int bh = blockIdx.x / a.tiles;
   const int b = bh / a.heads;
   const int h = bh % a.heads;
-  const int i0 = blockIdx.y * kTile;
+  const int i0 = tile * kTile;
   const int nq = min(kTile, S - i0);
   const size_t rs = static_cast<size_t>(a.heads) * D;
   const size_t base = static_cast<size_t>(b) * S * rs +
                       static_cast<size_t>(h) * D;
-  stage(static_cast<const T*>(a.k), base, rs, 0, S, D, sk, kd);
-  stage(static_cast<const T*>(a.v), base, rs, 0, S, D, sv, kd);
-  stage(static_cast<const T*>(a.q), base, rs, i0, nq, D, sq, D);
-  stage(g, base, rs, i0, nq, D, sg, D);
+
+  stage(a.g, base, rs, i0, nq, kTile, D, ld, sx, a.vec);
+  stage(a.v, base, rs, 0, S, round8(S), D, ld, sy, a.vec);
+  if (a.vec) {
+    ldot::cp_async_commit();
+    ldot::cp_async_wait<0>();
+  }
+  __syncthreads();
+  score_phase<kLd, kRaw>(sx, nq, sy, S, ld, D4, 1.f, nullptr, sd);
+  __syncthreads();
+  stage(a.q, base, rs, i0, nq, kTile, D, ld, sx, a.vec);
+  stage(a.k, base, rs, 0, S, round8(S), D, ld, sy, a.vec);
+  if (a.vec) {
+    ldot::cp_async_commit();
+    ldot::cp_async_wait<0>();
+  }
+  __syncthreads();
+  score_phase<kLd, kBiasCol>(sx, nq, sy, S, ld, D4, a.scale,
+                             a.bias + static_cast<size_t>(b) * S, sp);
   __syncthreads();
 
-  const float* brow = a.bias + static_cast<size_t>(b) * S;
-  for (int idx = threadIdx.x; idx < nq * S; idx += kThreads) {
-    const int i = idx / S;
-    const int j = idx - i * S;
-    sp[i * ps + j] = score(sq + i * D, sk + j * kd, D, a.scale, brow[j]);
-    sd[i * ps + j] = dot(sg + i * D, sv + j * kd, D);     // g . v^T
+  // the rows: R threads each (c = the thread's place), in one warp
+  {
+    const int r = threadIdx.x / R;
+    const int c = threadIdx.x % R;
+    const int js = r < nq ? S : 0;
+    float* pc = sp + r;
+    float* dc = sd + r;
+    const float2 ms = softmax_exp<R, kLd>(pc, js, c);
+    if (a.dropout) {
+      // dp * keep * mscale: groups of 4 keys g = c, c + R, ..., each
+      // walked from element c on (mod 4), one Philox draw a group; a
+      // group whose e are all 0 (masked keys) keeps its dp undrawn, as
+      // p = 0 leaves its ds and its term of delta 0 either way
+      __syncwarp();
+      const uint2 key = ldot::seed_key(a.seed);
+      for (int g = c; 4 * g < js; g += R) {
+        if (all_zero<kLd>(pc, g, js)) continue;
+        unsigned w[4];
+        keep_words(w, key, g, i0 + r, h, b);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int u = (c + t) & 3;
+          const int j = 4 * g + u;
+          if (j < js)
+            dc[j * kLd] = ldot::pick4(w, u) < a.thresh
+                              ? __fmul_rn(dc[j * kLd], a.mscale)
+                              : 0.f;
+        }
+      }
+      __syncwarp();
+    }
+    // p = e / sum in place, and delta = sum(dp * p) in the warp's order
+    float part[32 / R];
+#pragma unroll
+    for (int u = 0; u < 32 / R; ++u) part[u] = 0.f;
+    for (int j0 = 0; j0 < js; j0 += 32) {
+#pragma unroll
+      for (int u = 0; u < 32 / R; ++u) {
+        const int j = j0 + c + R * u;
+        if (j < js) {
+          float p = pc[j * kLd];
+          if (p != 0.f) {
+            p = p / ms.y;
+            pc[j * kLd] = p;
+          }
+          part[u] = __fadd_rn(part[u], __fmul_rn(dc[j * kLd], p));
+        }
+      }
+    }
+    const float delta = warp_order_sum<R>(part);
+    for (int j = c; j < js; j += R)
+      dc[j * kLd] = __fmul_rn(
+          __fmul_rn(pc[j * kLd], __fsub_rn(dc[j * kLd], delta)), a.scale);
+    if (c == 0 && r < nq) {
+      const size_t n_rows = static_cast<size_t>(gridDim.x / a.tiles) * S;
+      const size_t at = static_cast<size_t>(bh) * S + i0 + r;
+      a.stats[at] = ms.x;
+      a.stats[n_rows + at] = ms.y;
+      a.stats[2 * n_rows + at] = delta;
+    }
   }
   __syncthreads();
 
-  const size_t n_rows = static_cast<size_t>(gridDim.x) * S;
-  const size_t at = static_cast<size_t>(bh) * S + i0;
-  const uint2 key = seed_key(a.seed);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int i = warp; i < nq; i += kWarps) {
-    float* prow = sp + i * ps;
-    float* drow = sd + i * ps;
-    const float2 ms = softmax_row(prow, S, lane);
-    float part = 0.f;
-    for (int j = lane; j < S; j += 32) {
-      const float dp = dprob(a, drow[j], key, b, h, i0 + i, j);
-      drow[j] = dp;
-      part = __fadd_rn(part, __fmul_rn(dp, prow[j]));
-    }
-    const float delta = ldot::warp_sum(part);
-    for (int j = lane; j < S; j += 32) {
-      const float ds = __fmul_rn(prow[j], __fsub_rn(drow[j], delta));
-      drow[j] = ldot::round_to<T>(__fmul_rn(ds, a.scale));
-    }
-    if (lane == 0) {
-      stats[at + i] = ms.x;
-      stats[n_rows + at + i] = ms.y;
-      stats[2 * n_rows + at + i] = delta;
-    }
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < nq * D; idx += kThreads) {
-    const int i = idx / D;
-    const int d = idx - i * D;
-    const float* di = sd + i * ps;
-    float acc = 0.f;
-    for (int j = 0; j < S; ++j) acc = fmaf(di[j], sk[j * kd + d], acc);
-    dq[base + (i0 + i) * rs + d] = ldot::from_f32<T>(acc);
-  }
+  pv_phase<kLd, kPvRowsBwd>(sd, sy, ld, S, nq, D4,
+                            a.dq + base + static_cast<size_t>(i0) * rs, rs,
+                            D, a.vec, nullptr);
 }
 
-// dv and dk for a tile of key columns
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    bwd_kv_kernel(Args a, const T* __restrict__ g, T* __restrict__ dk,
-                  T* __restrict__ dv, const float* __restrict__ stats) {
-  extern __shared__ float smem[];
-  const int S = a.seq, D = a.head_dim, kd = D + 1, ps = S + 1;
-  float* sq = smem;
-  float* sg = sq + S * kd;
-  float* sk = sg + S * kd;
-  float* sv = sk + kTile * D;
-  float* sp = sv + kTile * D;       // p^T [key][query]
-  float* sx = sp + kTile * ps;      // dropped^T, then ds^T
-  float* sm = sx + kTile * ps;
+// dk and dv for a tile of key columns
+template <int kTile>
+__global__ void __launch_bounds__(kThreads, 2) bwd_kv_kernel(Bwd a) {
+  constexpr int kLd = ld_p(kTile);
+  extern __shared__ __align__(16) float smem[];
+  const int S = a.seq, D = a.head_dim, D4 = round4(D), ld = operand_ld(D);
+  float* sx = smem;                              // V's tile, then K's
+  float* sy = sx + kTile * ld;                   // G, Q, G [round8(S)]
+  float* sp = sy + round8(S) * ld;               // s, then dropped [S][kLd]
+  float* sd = sp + S * kLd;                      // dp, then ds [S][kLd]
+  float* sm = sd + S * kLd;                      // max, sum, delta [S] each
   float* sl = sm + S;
   float* sdel = sl + S;
 
-  const int bh = blockIdx.x;
+  const int tile = blockIdx.x % a.tiles;
+  const int bh = blockIdx.x / a.tiles;
   const int b = bh / a.heads;
   const int h = bh % a.heads;
-  const int j0 = blockIdx.y * kTile;
+  const int j0 = tile * kTile;
   const int nk = min(kTile, S - j0);
   const size_t rs = static_cast<size_t>(a.heads) * D;
   const size_t base = static_cast<size_t>(b) * S * rs +
                       static_cast<size_t>(h) * D;
-  stage(static_cast<const T*>(a.q), base, rs, 0, S, D, sq, kd);
-  stage(g, base, rs, 0, S, D, sg, kd);
-  stage(static_cast<const T*>(a.k), base, rs, j0, nk, D, sk, D);
-  stage(static_cast<const T*>(a.v), base, rs, j0, nk, D, sv, D);
-  const size_t n_rows = static_cast<size_t>(gridDim.x) * S;
-  const size_t at = static_cast<size_t>(bh) * S;
-  for (int i = threadIdx.x; i < S; i += kThreads) {
-    sm[i] = stats[at + i];
-    sl[i] = stats[n_rows + at + i];
-    sdel[i] = stats[2 * n_rows + at + i];
+
+  stage(a.v, base, rs, j0, nk, kTile, D, ld, sx, a.vec);
+  stage(a.g, base, rs, 0, S, round8(S), D, ld, sy, a.vec);
+  if (a.vec) ldot::cp_async_commit();
+  {
+    const size_t n_rows = static_cast<size_t>(gridDim.x / a.tiles) * S;
+    const size_t at = static_cast<size_t>(bh) * S;
+    for (int i = threadIdx.x; i < S; i += kThreads) {
+      sm[i] = a.stats[at + i];
+      sl[i] = a.stats[n_rows + at + i];
+      sdel[i] = a.stats[2 * n_rows + at + i];
+    }
+  }
+  if (a.vec) ldot::cp_async_wait<0>();
+  __syncthreads();
+  score_phase<kLd, kRaw>(sx, nk, sy, S, ld, D4, 1.f, nullptr, sd);
+  __syncthreads();
+  stage(a.k, base, rs, j0, nk, kTile, D, ld, sx, a.vec);
+  stage(a.q, base, rs, 0, S, round8(S), D, ld, sy, a.vec);
+  if (a.vec) {
+    ldot::cp_async_commit();
+    ldot::cp_async_wait<0>();
+  }
+  __syncthreads();
+  score_phase<kLd, kBiasRow>(sx, nk, sy, S, ld, D4, a.scale,
+                             a.bias + static_cast<size_t>(b) * S + j0, sp);
+  __syncthreads();
+
+  // p from the row statistics, then the dropped probabilities and ds * scale
+  // in place: a thread takes 4 keys of a row, one Philox draw
+  {
+    const uint2 key = a.dropout ? ldot::seed_key(a.seed) : make_uint2(0, 0);
+    const int ng = (nk + 3) / 4;
+    for (int idx = threadIdx.x; idx < S * ng; idx += kThreads) {
+      const int i = idx / ng, g = idx % ng;
+      float4* pp = reinterpret_cast<float4*>(sp + i * kLd + 4 * g);
+      float4* dp = reinterpret_cast<float4*>(sd + i * kLd + 4 * g);
+      float s[4] = {pp->x, pp->y, pp->z, pp->w};
+      float d[4] = {dp->x, dp->y, dp->z, dp->w};
+      const float m = sm[i], l = sl[i], del = sdel[i];
+      float p4[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p4[e] = expf(s[e] - m) / l;
+      // no draw where the four p are 0: dropped and ds are 0 either way
+      unsigned w[4] = {0u, 0u, 0u, 0u};
+      if (a.dropout && (p4[0] != 0.f || p4[1] != 0.f || p4[2] != 0.f ||
+                        p4[3] != 0.f))
+        keep_words(w, key, (j0 >> 2) + g, i, h, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = p4[e];
+        const bool keep = !a.dropout || w[e] < a.thresh;
+        const float dpk =
+            !a.dropout ? d[e] : keep ? __fmul_rn(d[e], a.mscale) : 0.f;
+        s[e] = !a.dropout ? p : keep ? __fmul_rn(p, a.mscale) : 0.f;
+        d[e] = __fmul_rn(__fmul_rn(p, __fsub_rn(dpk, del)), a.scale);
+      }
+      *pp = make_float4(s[0], s[1], s[2], s[3]);
+      *dp = make_float4(d[0], d[1], d[2], d[3]);
+    }
   }
   __syncthreads();
 
-  // p (bit-equal to the first kernel's: the same score, max and sum) and
-  // the dropped probabilities, transposed
-  const uint2 key = seed_key(a.seed);
-  const float* brow = a.bias + static_cast<size_t>(b) * S + j0;
-  for (int idx = threadIdx.x; idx < nk * S; idx += kThreads) {
-    const int j = idx / S;
-    const int i = idx - j * S;
-    const float s = score(sq + i * kd, sk + j * D, D, a.scale, brow[j]);
-    const float p = expf(s - sm[i]) / sl[i];
-    sp[j * ps + i] = p;
-    sx[j * ps + i] = dropped<T>(a, p, key, b, h, i, j0 + j);
+  pv_phase<kLd, kPvRowsBwd>(sd, sy, ld, S, nk, D4,
+                            a.dk + base + static_cast<size_t>(j0) * rs, rs,
+                            D, a.vec, nullptr);
+  __syncthreads();
+  stage(a.g, base, rs, 0, S, round8(S), D, ld, sy, a.vec);
+  if (a.vec) {
+    ldot::cp_async_commit();
+    ldot::cp_async_wait<0>();
   }
   __syncthreads();
-
-  for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
-    const int j = idx / D;
-    const int d = idx - j * D;
-    const float* xj = sx + j * ps;
-    float acc = 0.f;
-    for (int i = 0; i < S; ++i) acc = fmaf(xj[i], sg[i * kd + d], acc);
-    dv[base + (j0 + j) * rs + d] = ldot::from_f32<T>(acc);
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < nk * S; idx += kThreads) {
-    const int j = idx / S;
-    const int i = idx - j * S;
-    const float dp = dprob(a, dot(sg + i * kd, sv + j * D, D), key, b, h, i,
-                           j0 + j);
-    const float ds = __fmul_rn(sp[j * ps + i], __fsub_rn(dp, sdel[i]));
-    sx[j * ps + i] = ldot::round_to<T>(__fmul_rn(ds, a.scale));
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
-    const int j = idx / D;
-    const int d = idx - j * D;
-    const float* xj = sx + j * ps;
-    float acc = 0.f;
-    for (int i = 0; i < S; ++i) acc = fmaf(xj[i], sq[i * kd + d], acc);
-    dk[base + (j0 + j) * rs + d] = ldot::from_f32<T>(acc);
-  }
+  pv_phase<kLd, kPvRowsBwd>(sp, sy, ld, S, nk, D4,
+                            a.dv + base + static_cast<size_t>(j0) * rs, rs,
+                            D, a.vec, nullptr);
 }
 
 // above 48 KB a block's shared memory must be granted explicitly; grant
-// the largest supported shape once per kernel
+// each kernel the most its tile is used at once: tile 64 only where two
+// blocks fit (bwd_tile), tile 32 up to the largest shape
 template <typename K>
-cudaError_t grant(K kernel, size_t floats) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(floats * sizeof(float)));
+cudaError_t grant(K kernel, size_t bytes) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  cudaGetLastError();   // a refusal must not stay behind as the last error
+  return err;
 }
 
-template <typename T>
-cudaError_t launch_fwd(const Args& a, int batch, void* out,
-                       cudaStream_t stream) {
-  static cudaError_t granted =
-      grant(fwd_kernel<T>, fwd_floats(kMaxSeq, kMaxHeadDim));
-  if (granted != cudaSuccess) return granted;
-  const dim3 grid(batch * a.heads, (a.seq + kTile - 1) / kTile);
-  fwd_kernel<T><<<grid, kThreads, fwd_floats(a.seq, a.head_dim) *
-                                      sizeof(float), stream>>>(
-      a, static_cast<T*>(out));
-  return cudaGetLastError();
+template <int kTile>
+size_t granted_bytes(size_t (*floats)(int, int, int)) {
+  return kTile == 64 ? kTwoBlockBytes
+                     : floats(kTile, kMaxSeq, kMaxHeadDim) * sizeof(float);
 }
 
-template <typename T>
-cudaError_t launch_bwd(const Args& a, int batch, const void* g, void* dq,
-                       void* dk, void* dv, float* stats,
-                       cudaStream_t stream) {
+template <int kTile>
+cudaError_t launch_bwd(Bwd a, int batch, cudaStream_t stream) {
   static cudaError_t granted_q =
-      grant(bwd_q_kernel<T>, bwd_q_floats(kMaxSeq, kMaxHeadDim));
+      grant(bwd_q_kernel<kTile>, granted_bytes<kTile>(bwd_q_floats));
   static cudaError_t granted_kv =
-      grant(bwd_kv_kernel<T>, bwd_kv_floats(kMaxSeq, kMaxHeadDim));
+      grant(bwd_kv_kernel<kTile>, granted_bytes<kTile>(bwd_kv_floats));
   if (granted_q != cudaSuccess) return granted_q;
   if (granted_kv != cudaSuccess) return granted_kv;
-  const dim3 grid(batch * a.heads, (a.seq + kTile - 1) / kTile);
-  bwd_q_kernel<T><<<grid, kThreads,
-                    bwd_q_floats(a.seq, a.head_dim) * sizeof(float),
-                    stream>>>(a, static_cast<const T*>(g),
-                              static_cast<T*>(dq), stats);
-  cudaError_t err = cudaGetLastError();
+  a.tiles = (a.seq + kTile - 1) / kTile;
+  const int grid = batch * a.heads * a.tiles;
+  bwd_q_kernel<kTile><<<grid, kThreads,
+                        bwd_q_floats(kTile, a.seq, a.head_dim) *
+                            sizeof(float),
+                        stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_kv_kernel<T><<<grid, kThreads,
-                     bwd_kv_floats(a.seq, a.head_dim) * sizeof(float),
-                     stream>>>(a, static_cast<const T*>(g),
-                               static_cast<T*>(dk), static_cast<T*>(dv),
-                               stats);
+  bwd_kv_kernel<kTile><<<grid, kThreads,
+                         bwd_kv_floats(kTile, a.seq, a.head_dim) *
+                             sizeof(float),
+                         stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -420,10 +390,24 @@ extern "C" int ldot_attention_train_fwd(
     int head_dim, float scale, float mscale, unsigned thresh, int dropout,
     int dtype, void* stream) {
   if (bad_shape(batch, seq, heads, head_dim)) return cudaErrorInvalidValue;
-  const Args a{q, k, v, bias, seed, seq, heads, head_dim, scale, mscale,
-               0.f, thresh, dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ldot::kFloat32) return launch_fwd<float>(a, batch, out, s);
+  if (dtype == ldot::kFloat32) {
+    const ldot::AttnFma a{static_cast<const float*>(q),
+                          static_cast<const float*>(k),
+                          static_cast<const float*>(v),
+                          bias,
+                          static_cast<float*>(out),
+                          seq,
+                          heads,
+                          head_dim,
+                          scale,
+                          0,
+                          seed,
+                          mscale,
+                          thresh,
+                          dropout};
+    return ldot::attention_fma(a, batch, s);
+  }
   if (dtype == ldot::kBFloat16) {
     const ldot::AttnMma m{static_cast<const __nv_bfloat16*>(q),
                           static_cast<const __nv_bfloat16*>(k),
@@ -454,11 +438,33 @@ extern "C" int ldot_attention_train_bwd(
     float mscale, float mscale_f32, unsigned thresh, int dropout, int dtype,
     void* stream) {
   if (bad_shape(batch, seq, heads, head_dim)) return cudaErrorInvalidValue;
-  const Args a{q, k, v, bias, seed, seq, heads, head_dim, scale, mscale,
-               mscale_f32, thresh, dropout};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == ldot::kFloat32)
-    return launch_bwd<float>(a, batch, g, dq, dk, dv, stats, s);
+  if (dtype == ldot::kFloat32) {
+    const Bwd a{static_cast<const float*>(q),
+                static_cast<const float*>(k),
+                static_cast<const float*>(v),
+                static_cast<const float*>(g),
+                bias,
+                seed,
+                static_cast<float*>(dq),
+                static_cast<float*>(dk),
+                static_cast<float*>(dv),
+                stats,
+                seq,
+                heads,
+                head_dim,
+                scale,
+                mscale_f32,
+                thresh,
+                dropout,
+                0,
+                head_dim % 4 == 0 && ldot::aligned16(q) &&
+                    ldot::aligned16(k) && ldot::aligned16(v) &&
+                    ldot::aligned16(g) && ldot::aligned16(dq) &&
+                    ldot::aligned16(dk) && ldot::aligned16(dv)};
+    return bwd_tile(seq, head_dim) == 64 ? launch_bwd<64>(a, batch, s)
+                                         : launch_bwd<32>(a, batch, s);
+  }
   if (dtype == ldot::kBFloat16) {
     const ldot::AttnMmaBwd m{static_cast<const __nv_bfloat16*>(q),
                              static_cast<const __nv_bfloat16*>(k),

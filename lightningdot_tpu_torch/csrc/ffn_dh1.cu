@@ -1,5 +1,5 @@
-// FFN backward through the GELU, float32, on FP32 FMA units (a check-only
-// path: the float32 training step held against the CPU):
+// FFN backward through the GELU, float32, on FP32 FMA units (every FFN
+// layer's backward in training with --compute_dtype f32):
 //   dh1 = (g W2^T) * gelu'(h1),  g [rows, H], h1 [rows, I], W2 [I, H].
 //
 // Replaces, in float32, the TPU kernel lightningdot_tpu/ops/experimental/

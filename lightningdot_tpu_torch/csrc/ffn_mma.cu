@@ -9,9 +9,9 @@
 // below, which ops/ffn.py::ffn_cuda calls for bfloat16; and
 // lightningdot_tpu/ops/experimental/ffn_dh1.py::_dh1_kernel (:28; launched
 // by dh1_pallas), through ldot_ffn_dh1_mma, which ops/ffn_dh1.py::
-// ffn_dh1_cuda calls for bfloat16. The float32 forms stay on FMA kernels,
-// ffn.cu and ffn_dh1.cu, check-only paths: the tensor cores have no float32
-// product.
+// ffn_dh1_cuda calls for bfloat16. The float32 forms (the float32 teacher,
+// training with --compute_dtype f32) stay on FMA kernels, ffn.cu and
+// ffn_dh1.cu: the tensor cores have no float32 product.
 //
 // Rounding points, as the twins (ops/ffn.py::_ffn_math, ops/ffn_dh1.py::
 // _dh1_math): h1 = round_bf16(x W1 + b1), the product summed in float32 and

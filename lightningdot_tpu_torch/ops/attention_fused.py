@@ -9,10 +9,13 @@ under ``LDOT_ATTN_KERNEL=1`` (lightningdot_tpu/models/encoder.py:308-324).
 bfloat16 runs on the tensor cores: the forward in ``csrc/attention_mma.cu``
 (the kernel of bfloat16 ``multi_head_attention`` with a normalize-and-drop
 epilogue), the backward in ``csrc/attention_mma_bwd.cu``; both keep the
-twins' rounding points and sum in float32 in another order. float32 runs
-on FMA units, bit-equal to the twins. In the port it is the
-training attention of every tower at a dropout rate above 0, on both
-devices: the kernels on CUDA, the twins on the CPU.
+twins' rounding points and sum in float32 in another order. float32
+(training with ``--compute_dtype f32``) runs on the FMA units, bit-equal
+to the twins: the forward is ``csrc/attention.cu``'s register-blocked
+kernel with a dropout pass, the backward two register-blocked kernels in
+``csrc/attention_fused.cu``. In the port it is the training attention of
+every tower at a dropout rate above 0, on both devices: the kernels on
+CUDA, the twins on the CPU.
 
 q, k and v are the raw projections, [B, S, H*D]; the head split is done by
 strides. The keep mask comes from counter-based Philox4x32-10
@@ -38,9 +41,9 @@ from lightningdot_tpu_torch.ops.activations import weak_const
 from lightningdot_tpu_torch.ops.attention import (_warp_order_sum,
                                                   check_tensor_core_operands)
 
-# csrc/attention_fused.cu keeps one head's K and V (or Q and G) and a
-# 32-row tile in shared memory as float32: up to 218 KB at S 256, D 64
-# (csrc/attention_mma_bwd.cu 81 KB in bfloat16)
+# the float32 backward (csrc/attention_fused.cu) keeps one head's K (or Q
+# and G) and a tile of 32 or 64 rows in shared memory: up to 155 KB at S
+# 256, D 64 (csrc/attention_mma_bwd.cu 81 KB in bfloat16)
 MAX_SEQ = 256
 MAX_HEAD_DIM = 64
 
@@ -263,7 +266,8 @@ def attention_train_bwd_fma(q: torch.Tensor, k: torch.Tensor,
                             seed: torch.Tensor, g: torch.Tensor, *, nh: int,
                             rate: float, scale: float):
     """Launch the float32 backward kernels (``csrc/attention_fused.cu``: dq
-    with the per-row statistics, then dk and dv) on contiguous CUDA tensors
+    with the per-row statistics by query tiles, then dk and dv by key
+    tiles) on contiguous CUDA tensors
     as :func:`attention_train_fwd` takes them, ``g`` the output's
     cotangent. Returns (dq, dk, dv)."""
     grads = _launch_bwd("attention_train_bwd kernel", torch.float32, q, k,

@@ -10,7 +10,8 @@ polynomial, split by dtype in :func:`ffn_dh1_cuda`: bfloat16 runs on the
 tensor cores, as an epilogue of the FFN's GEMM (``csrc/ffn_mma.cu``,
 :func:`ffn_dh1_mma_cuda`: the twin's rounding points, float32 sums in
 another order, so within a bf16 ulp of the twin), float32 on FMA units
-(``csrc/ffn_dh1.cu``, :func:`ffn_dh1_fma_cuda`, a check-only path). Shapes:
+(``csrc/ffn_dh1.cu``, :func:`ffn_dh1_fma_cuda`: every FFN layer's backward
+when training with ``--compute_dtype f32``). Shapes:
 g [rows, H], h1 [rows, I], w2 [I, H] in the JAX package's [in, out] layout;
 float32 or bfloat16, all one dtype.
 """

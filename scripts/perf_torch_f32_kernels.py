@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Time the port's float32 FMA kernels (the FFN, B3; the attention, B2) on
-one CUDA card.
+"""Time the port's float32 FMA kernels (the FFN, B3; the attention, B2;
+the training attention, B5) and the float32 training step on one CUDA
+card.
 
 Run from the root of the repository, on a machine with the card and nvcc:
 
     python3 scripts/perf_torch_f32_kernels.py [--root DIR] [--label NAME]
+        [--phases ffn,attention,train_attention,step]
 
 ``--root`` names the checkout whose ``lightningdot_tpu_torch`` is timed
 (default: this one), so that two commits can be compared in one call:
@@ -21,6 +23,16 @@ change, change, parent.
 2. The float32 attention at the KD teacher's [640, 167] and a re-ranking
    block's [128, 168] (12 heads of 64) against SDPA in float32, read
    ``--rounds`` times alternately, with the spread of kernel / SDPA.
+3. ``train_attention``: the training attention's float32 forward and
+   backward (``ops.attention_fused``, rate 0.1) at the fine-tuning shapes
+   (batch 64 at text S 32, image S 64 and 104; 128 rows at S 104) against
+   SDPA in float32 at rate 0 (the forward; the forward and backward
+   through autograd), read ``--rounds`` times alternately; each kernel's
+   output must equal its twin's bit for bit.
+4. ``step``: the ITM step at configs/coco_ft.json's full width in float32
+   (TF32 off, dropout 0.1, batch 64) through ``make_itm_train_step``: the
+   p50 of 20 steps after 3 warm-up steps, and a profile of 3 steps (device
+   busy, the training attention's float32 kernels' share of it).
 
 Times are chip_smoke.py's ``time_ms`` (calls in a CUDA graph, the median
 of replays, inputs L2-warm), one JSON line per row, with the card's name
@@ -31,8 +43,11 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import re
+import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -41,6 +56,14 @@ FFN_ROWS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 12288, 21504,
             106880)
 FORCED_MAX_ROWS = 4096
 ATTN_SHAPES = ((640, 167), (128, 168))
+TRAIN_ATTN_SHAPES = ((64, 32), (64, 64), (64, 104), (128, 104))
+PHASES = ("ffn", "attention", "train_attention", "step")
+STEPS, WARM_UP = 20, 3
+# the training attention's float32 kernels by device name, in this tree
+# (the forward is attention.cu's kernel with its dropout pass) and in the
+# first port (fwd_kernel<float>, bwd_q_kernel<float>, bwd_kv_kernel<float>)
+B5_F32_KERNELS = (r"::(attention_kernel<true>|fwd_kernel<float>|"
+                  r"bwd_q_kernel|bwd_kv_kernel)")
 
 
 def emit(**row) -> None:
@@ -113,18 +136,132 @@ def attention_phase(label, attention, time_ms, gen, rounds):
              ratio_min=min(ratios), ratio_max=max(ratios))
 
 
+def train_attention_phase(label, af, time_ms, gen, rounds):
+    dev = torch.device("cuda")
+    f = torch.nn.functional
+    seed = torch.tensor([0x5EED_0000_1234], device=dev)
+    for b, s in TRAIN_ATTN_SHAPES:
+        d = 64
+        q, k, v, g = (torch.randn(b, s, 12 * d, device=dev, generator=gen)
+                      for _ in range(4))
+        lens = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
+        bias = ((torch.arange(s, device=dev)[None, :] >= lens[:, None])
+                .float() * -10000.0)
+        kw = dict(nh=12, rate=0.1, scale=d ** -0.5)
+        heads = [t.view(b, s, 12, d).transpose(1, 2) for t in (q, k, v)]
+        leaves = [t.detach().clone().requires_grad_() for t in heads]
+        g4 = g.view(b, s, 12, d).transpose(1, 2)
+        mask4 = bias[:, None, None, :]
+        fwd = lambda: af.attention_train_fwd(q, k, v, bias, seed, **kw)
+        bwd = lambda: af.attention_train_bwd(q, k, v, bias, seed, g, **kw)
+        equal = (torch.equal(fwd(), af._fused_attn_fwd_math(
+            q, k, v, bias, seed, 12, 0.1, d ** -0.5)) and all(
+                torch.equal(x, y) for x, y in zip(
+                    bwd(), af._fused_attn_bwd_math(q, k, v, bias, seed, g,
+                                                   12, 0.1, d ** -0.5))))
+
+        def sdpa_fwd_bwd():
+            out = f.scaled_dot_product_attention(*leaves, attn_mask=mask4)
+            return torch.autograd.grad(out, leaves, g4)
+
+        for name, mine, sdpa in (
+                ("attention_train_fwd", fwd,
+                 lambda: f.scaled_dot_product_attention(*heads,
+                                                        attn_mask=mask4)),
+                ("attention_train_bwd", bwd, sdpa_fwd_bwd)):
+            reads = [(time_ms(mine, 3, 5), time_ms(sdpa, 3, 5))
+                     for _ in range(rounds)]
+            ratios = [m / y for m, y in reads]
+            emit(label=label, kernel=name, shape=[b, s, 12, d], rate=0.1,
+                 bit_equal_to_twin=bool(equal),
+                 ms=[m for m, _ in reads], library_ms=[y for _, y in reads],
+                 ratio_min=min(ratios), ratio_max=max(ratios))
+
+
+def step_phase(label, chip_smoke, time_profile):
+    from dataclasses import replace
+
+    from lightningdot_tpu_torch.models import BiEncoder, init_tower_
+    from lightningdot_tpu_torch.training.itm_step import make_itm_train_step
+    from lightningdot_tpu_torch.training.optim import (make_optimizer,
+                                                       schedule_linear)
+
+    txt_cfg, img_cfg = chip_smoke.train_configs(0.1)
+    master = BiEncoder(txt_cfg, img_cfg)
+    gen = torch.Generator().manual_seed(3)
+    init_tower_(master.txt_model, gen)
+    init_tower_(master.img_model, gen)
+    model = BiEncoder(*(replace(c, hidden_dropout_prob=0.1,
+                                attention_probs_dropout_prob=0.1)
+                        for c in (txt_cfg, img_cfg)),
+                      compute_dtype=torch.float32)
+    model.load_state_dict(master.state_dict())
+    del master
+    model.train()
+    step = make_itm_train_step(model, make_optimizer(
+        model, schedule_linear(2e-5, 0, 1000), max_grad_norm=2.0),
+        device="cuda")
+    data = chip_smoke.SynthImages(4 * 64, chip_smoke.NUM_BB, 3, "train")
+    batches = list(chip_smoke.image_loader(data, 64))
+    dropout_gen = torch.Generator().manual_seed(0)
+    for i in range(WARM_UP):
+        step(batches[i % 4], dropout_gen)
+    torch.cuda.synchronize()
+    lat = []
+    for i in range(STEPS):
+        t = time.perf_counter()
+        step(batches[i % 4], dropout_gen)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    busy, b5 = time_profile(lambda: step(batches[0], dropout_gen), 3)
+    p50 = statistics.median(lat)
+    emit(label=label, kernel="itm_train_f32_full", batch=64,
+         ms_per_step_p50=p50, ms_per_step=lat, busy_ms=busy,
+         idle_share=1.0 - busy / p50, b5_f32_ms=b5, b5_share=b5 / busy)
+
+
+def profile_b5(fn, calls):
+    """(device busy ms, ms of the training attention's float32 kernels)
+    per call, from torch.profiler's device events over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    spans, b5 = [], 0.0
+    for e in prof.events():
+        if str(e.device_type) != "DeviceType.CUDA":
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        if re.search(B5_F32_KERNELS, e.name):
+            b5 += e.time_range.end - e.time_range.start
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    return busy / 1e3 / calls, b5 / 1e3 / calls
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--label", default="this")
     ap.add_argument("--rounds", type=int, default=7)
+    ap.add_argument("--phases", default=",".join(PHASES))
     args = ap.parse_args()
+    phases = args.phases.split(",")
     if not torch.cuda.is_available():
         print("perf_torch_f32_kernels: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(args.root).resolve()))
     import chip_smoke
-    from lightningdot_tpu_torch.ops import _build, attention, ffn, gemm
+    from lightningdot_tpu_torch.ops import (_build, attention,
+                                            attention_fused, ffn, gemm)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     emit(smi=subprocess.run(
@@ -133,9 +270,16 @@ def main() -> int:
         timeout=60).stdout.strip(), label=args.label, root=args.root,
         package=str(Path(ffn.__file__).resolve()))
     gen = torch.Generator(device="cuda").manual_seed(0)
-    ffn_phase(args.label, ffn, gemm, _build, chip_smoke.time_ms, gen)
-    attention_phase(args.label, attention, chip_smoke.time_ms, gen,
-                    args.rounds)
+    if "ffn" in phases:
+        ffn_phase(args.label, ffn, gemm, _build, chip_smoke.time_ms, gen)
+    if "attention" in phases:
+        attention_phase(args.label, attention, chip_smoke.time_ms, gen,
+                        args.rounds)
+    if "train_attention" in phases:
+        train_attention_phase(args.label, attention_fused,
+                              chip_smoke.time_ms, gen, args.rounds)
+    if "step" in phases:
+        step_phase(args.label, chip_smoke, profile_b5)
     return 0
 
 

@@ -5,8 +5,11 @@ against the JAX package, on the same inputs.
 Inputs come from numpy seeds. On the CPU the port takes its plain twins; the
 JAX side runs the TPU kernels in interpret mode, as tests/test_attention_
 fused.py runs them. Sizes: B 4, S 9 and 33, 3 heads, D 8 (S 192 and 256
-for the long-sequence attention twin). The CUDA kernels are held against
-the same twins by the ``cuda``-marked test at the end and by chip_smoke.py.
+for the long-sequence attention twin); in float32 also the shapes the CUDA
+kernels' tiling must get right: S 104 with a ragged key bias, S 65 (one
+query past a 64-row tile) and head dim 32. The CUDA kernels are held
+against the same twins by the ``cuda``-marked test at the end and by
+chip_smoke.py.
 
 Tolerances, relative to the largest magnitude of the JAX result: float32
 1e-5 (the same math summed in another order); bfloat16 2**-7, one bf16 ulp
@@ -41,10 +44,10 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().float().numpy()
 
 
-def _inputs(s, seed, n=4):
-    """q, k, v (and more) [B, s, W] and a ragged [B, s] key bias."""
+def _inputs(s, seed, n=4, hd=HD):
+    """q, k, v (and more) [B, s, NH * hd] and a ragged [B, s] key bias."""
     rng = np.random.default_rng(seed)
-    arrays = [rng.standard_normal((B, s, W)).astype(np.float32)
+    arrays = [rng.standard_normal((B, s, NH * hd)).astype(np.float32)
               for _ in range(n)]
     mask = np.ones((B, s), np.float32)
     for i in range(B):
@@ -59,7 +62,7 @@ def _both(a, dtype):
 
 
 def _r4(x):
-    return x.reshape(x.shape[0], x.shape[1], NH, HD)
+    return x.reshape(x.shape[0], x.shape[1], NH, -1)
 
 
 SEED = torch.tensor([0x1234_5678_9ABC_DEF], dtype=torch.int64)
@@ -136,72 +139,88 @@ def test_site_seeds_are_a_function_of_the_host_seed():
 RATE0_TOL = {"float32": 1e-5, "bfloat16": 0.0}
 
 
-@pytest.mark.parametrize("s", [9, 33])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_fwd_twin_matches_jax_kernel_rate0(dtype, s):
-    (q, k, v, _), bias2d = _inputs(s, seed=1)
+# (dtype, S, head dim): S 9 and 33 in both dtypes; in float32 the shapes
+# the CUDA kernels' tiles must get right: S 104 (ragged key bias), S 65 (one
+# query past a 64-row tile) and head dim 32
+TWIN_CASES = [pytest.param(dt, s, HD, id=f"{dt}-{s}")
+              for dt in ("float32", "bfloat16") for s in (9, 33)] + [
+    pytest.param("float32", 104, HD, id="float32-104"),
+    pytest.param("float32", 65, HD, id="float32-65"),
+    pytest.param("float32", 65, 32, id="float32-65-hd32")]
+
+
+@pytest.mark.parametrize("dtype,s,hd", TWIN_CASES)
+def test_fwd_twin_matches_jax_kernel_rate0(dtype, s, hd):
+    (q, k, v, _), bias2d = _inputs(s, seed=1, hd=hd)
     (qt, qj), (kt, kj), (vt, vj) = (_both(a, dtype) for a in (q, k, v))
     got = af._fused_attn_fwd_math(qt, kt, vt, torch.from_numpy(bias2d),
-                                  SEED, NH, 0.0, HD ** -0.5)
+                                  SEED, NH, 0.0, hd ** -0.5)
     assert got.dtype == qt.dtype and got.shape == qt.shape
     want = jaf.fused_attention_train(qj, kj, vj, jnp.asarray(bias2d), None,
                                      nh=NH, rate=0.0, interpret=True)
     assert _rel(_np(got), np.asarray(want, np.float32)) <= RATE0_TOL[dtype]
 
 
-@pytest.mark.parametrize("s", [9, 33])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bwd_twin_matches_jax_kernel_rate0(dtype, s):
-    (q, k, v, g), bias2d = _inputs(s, seed=2)
+@pytest.mark.parametrize("dtype,s,hd", TWIN_CASES)
+def test_bwd_twin_matches_jax_kernel_rate0(dtype, s, hd):
+    (q, k, v, g), bias2d = _inputs(s, seed=2, hd=hd)
     pairs = [_both(a, dtype) for a in (q, k, v, g)]
     got = af._fused_attn_bwd_math(*(p[0] for p in pairs[:3]),
                                   torch.from_numpy(bias2d), SEED,
-                                  pairs[3][0], NH, 0.0, HD ** -0.5)
+                                  pairs[3][0], NH, 0.0, hd ** -0.5)
     qj, kj, vj, gj = (_r4(p[1]) for p in pairs)
     want = jaf._call(jaf._bwd_kernel, 3, qj, kj, vj, jnp.asarray(bias2d),
                      jnp.zeros((1,), jnp.int32), nh=NH, rate=0.0,
-                     scale=HD ** -0.5, interpret=True, extra=(gj,))
+                     scale=hd ** -0.5, interpret=True, extra=(gj,))
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == pairs[0][0].dtype
-        err = _rel(_np(a), np.asarray(w, np.float32).reshape(B, s, W))
+        err = _rel(_np(a), np.asarray(w, np.float32).reshape(B, s, -1))
         assert err <= RATE0_TOL[dtype], f"{name}: {err}"
 
 
-def _core_inputs(s, seed, rate):
-    (q, k, v, g), bias2d = _inputs(s, seed)
+def _core_inputs(s, seed, rate, hd=HD):
+    (q, k, v, g), bias2d = _inputs(s, seed, hd=hd)
     keep = af.philox_keep(SEED, B, NH, s, s, rate)
     return q, k, v, g, bias2d, keep
 
 
-@pytest.mark.parametrize("s", [9, 33])
-def test_twins_match_attn_core_with_the_philox_mask(s):
-    """Rate 0.3, float32, the Philox mask injected into JAX's default
-    composition: the forward twin equals ``_attn_core``, the backward twin
-    ``jax.vjp`` of it (within 1e-5)."""
-    rate = 0.3
-    q, k, v, g, bias2d, keep = _core_inputs(s, 3, rate)
+# (S, head dim, rate): rate 0.3 at S 9 and 33; the training rate 0.1 at the
+# float32 kernels' tiling shapes (TWIN_CASES)
+CORE_CASES = [pytest.param(s, HD, 0.3, id=str(s)) for s in (9, 33)] + [
+    pytest.param(104, HD, 0.1, id="104-rate0.1"),
+    pytest.param(65, HD, 0.1, id="65-rate0.1"),
+    pytest.param(65, 32, 0.1, id="65-hd32-rate0.1")]
+
+
+@pytest.mark.parametrize("s,hd,rate", CORE_CASES)
+def test_twins_match_attn_core_with_the_philox_mask(s, hd, rate):
+    """float32, the Philox mask injected into JAX's default composition:
+    the forward twin equals ``_attn_core``, the backward twin ``jax.vjp``
+    of it (within 1e-5)."""
+    q, k, v, g, bias2d, keep = _core_inputs(s, 3, rate, hd)
     args = [torch.from_numpy(a) for a in (q, k, v)]
     out = af._fused_attn_fwd_math(*args, torch.from_numpy(bias2d), SEED, NH,
-                                  rate, HD ** -0.5)
+                                  rate, hd ** -0.5)
     grads = af._fused_attn_bwd_math(*args, torch.from_numpy(bias2d), SEED,
                                     torch.from_numpy(g), NH, rate,
-                                    HD ** -0.5)
+                                    hd ** -0.5)
 
     def jf(q_, k_, v_):
         o = jfused._attn_core(_r4(q_), _r4(k_), _r4(v_),
                               jnp.asarray(bias2d)[:, None, None, :],
-                              jnp.asarray(keep.numpy()), rate, HD ** -0.5,
+                              jnp.asarray(keep.numpy()), rate, hd ** -0.5,
                               jax.lax.Precision.HIGHEST)
-        return o.reshape(B, s, W)
+        return o.reshape(B, s, -1)
 
     want, vjp = jax.vjp(jf, *map(jnp.asarray, (q, k, v)))
     assert _rel(_np(out), np.asarray(want)) <= 1e-5
     for name, a, w in zip(("dq", "dk", "dv"), grads, vjp(jnp.asarray(g))):
         assert _rel(_np(a), np.asarray(w)) <= 1e-5, name
-    # the mask is live: about 30 % of the probabilities are dropped
-    assert 0.6 < keep.float().mean().item() < 0.8
+    # the mask is live: about a share ``rate`` of the probabilities is
+    # dropped
+    assert abs(keep.float().mean().item() - (1.0 - rate)) < 0.1
     assert not np.allclose(_np(out), _np(af._fused_attn_fwd_math(
-        *args, torch.from_numpy(bias2d), SEED, NH, 0.0, HD ** -0.5)))
+        *args, torch.from_numpy(bias2d), SEED, NH, 0.0, hd ** -0.5)))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -310,9 +329,12 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fused_kernels_match_twins_on_card(dtype):
     """Both kernels within the kernels' tolerance of their twins at rate
-    0.1 at a training shape and at a ragged one (keys padded to 48, head
-    rows to 64), and the forward kernel's mask (read with q = k = 0 and v =
-    I) equal to ``philox_keep``."""
+    0.1 (float32: bit for bit, and the same bits on a second launch) at
+    training shapes and at the shapes the tiles must get right: a ragged S
+    37 at head dim 32, S 104 with a ragged key bias, S 65 (one query past a
+    64-row tile) at head dims 64 and 32, S 128 and 256 (32-row tiles); and
+    the forward kernel's mask (read with q = k = 0 and v = I) equal to
+    ``philox_keep``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -321,20 +343,28 @@ def test_fused_kernels_match_twins_on_card(dtype):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     seed = SEED.to(dev)
-    for b, s, nh, d in ((8, 64, 12, 64), (3, 37, 12, 32)):
+    for b, s, nh, d in ((8, 64, 12, 64), (3, 37, 12, 32), (4, 104, 12, 64),
+                        (4, 65, 12, 64), (4, 65, 12, 32), (4, 128, 12, 64),
+                        (2, 256, 12, 64)):
         q, k, v, g = (torch.randn((b, s, nh * d), device=dev, generator=gen)
                       .to(tdt) for _ in range(4))
-        bias = torch.zeros((b, s), device=dev)
-        bias[0, 20:] = -10000.0
+        lens = torch.randint(1, s + 1, (b,), device=dev, generator=gen)
+        bias = ((torch.arange(s, device=dev)[None, :] >= lens[:, None])
+                .float() * -10000.0)
         kw = dict(nh=nh, rate=0.1, scale=d ** -0.5)
-        out = af.attention_train_fwd(q, k, v, bias, seed, **kw)
-        want = af._fused_attn_fwd_math(q, k, v, bias, seed, nh, 0.1,
-                                       d ** -0.5)
-        assert _rel(_np(out.cpu()), _np(want.cpu())) <= tol
-        for a, w in zip(af.attention_train_bwd(q, k, v, bias, seed, g, **kw),
-                        af._fused_attn_bwd_math(q, k, v, bias, seed, g, nh,
-                                                0.1, d ** -0.5)):
+        got = [af.attention_train_fwd(q, k, v, bias, seed, **kw),
+               *af.attention_train_bwd(q, k, v, bias, seed, g, **kw)]
+        want = [af._fused_attn_fwd_math(q, k, v, bias, seed, nh, 0.1,
+                                        d ** -0.5),
+                *af._fused_attn_bwd_math(q, k, v, bias, seed, g, nh, 0.1,
+                                         d ** -0.5)]
+        again = [af.attention_train_fwd(q, k, v, bias, seed, **kw),
+                 *af.attention_train_bwd(q, k, v, bias, seed, g, **kw)]
+        for a, w, a2 in zip(got, want, again):
             assert _rel(_np(a.cpu()), _np(w.cpu())) <= tol
+            if tdt == torch.float32:
+                assert torch.equal(a, w), (b, s, d)
+                assert torch.equal(a, a2), (b, s, d)
     b, s, nh, d = 8, 64, 12, 64
     kw = dict(nh=nh, rate=0.1, scale=0.125)
     bias = torch.zeros((b, s), device=dev)
