@@ -62,8 +62,8 @@ Phases, each of which exits non-zero on failure (no result is printed):
    both devices) and bfloat16 vs float32, each bound beside a control (see
    ``train_phase``); and the same step at full width in float32 (TF32 off,
    dropout 0.1: training with ``--compute_dtype f32``): ms/step, a profiler
-   pass with the share of the device time that the training attention's
-   float32 kernels take (``itm_train_f32_full``);
+   pass with the shares of the device time that the training attention's
+   float32 kernels and B6's float32 dh1 take (``itm_train_f32_full``);
 8. eval: ``cli/eval_itm.main`` of the port on the card at
    configs/coco_eval.json's model (BERT-base cased + UNITER-base,
    ``project_dim`` 768, bf16, batch 80) over synthetic DBs written by the
@@ -108,7 +108,7 @@ Phases, each of which exits non-zero on failure (no result is printed):
    record read back), then ``cli/eval_itm`` on the card over the result;
 13. ``dist`` (A11): two ranks on the one card over gloo (processes of this
    script, ``--dist_worker``) at coco_ft.json's width, 32 rows each of a
-   global batch of 64, 3 ITM steps in float32 (TF32 off), float32 with a
+   global batch of 64, 2 ITM steps in float32 (TF32 off), float32 with a
    hard negative and bf16, held against one process on the global batch
    (float32 also against one process's update, where a planted fault must
    fail), the ranks' weights bit-equal, bf16 at every step within the
@@ -132,8 +132,13 @@ Phases, each of which exits non-zero on failure (no result is printed):
 The kernel rows also hold the training kernels at the step's shapes: the
 FFN forward writing h1 and gelu(h1) and dh1 at 2,048 and 4,096 rows (in
 bfloat16 on the tensor cores, ``ffn_dh1_mma``, also at 256 rows, a split
-plan, and 130, a ragged one; in float32 on FMA units, ``ffn_dh1``),
-``adamw`` over every parameter of both towers
+plan, and 130, a ragged one; in float32 on FMA units, ``ffn_dh1``, the
+float32 GEMM of ``ffn.cu`` with its dh1 epilogue, also at 16, 130 and
+1,024 rows, the same bits again on a second launch, its first 16 rows
+bit-equal to a 16-row call, and ``dh1_f32_yardstick`` rows: at 2,048 and
+4,096 rows against its twin and ``torch.mm(g, w2.t())`` alone, which fail
+if it is slower than its twin), ``adamw`` over every parameter of both
+towers
 with a float32 and a bfloat16 first moment, bit for bit, and the fused
 training attention (``attention_train_fwd``/``_bwd``) at rate 0.1 at
 [64, 32|37|64|104], [8, 256] and head dim 32 (float32 also at [128, 104],
@@ -295,6 +300,11 @@ PATH_KERNELS["examples"] = PATH_KERNELS["text_bf16"]
 # kernel with its dropout pass), whose share of the float32 step the
 # profile row reads
 B5_F32_KERNELS = r"attention_kernel<true>|bwd_q_kernel|bwd_kv_kernel"
+# and B6's float32 form: ffn.cu's transpose of W2, then its GEMM with the
+# dh1 epilogue (2), in the wide or the narrow tile (no tensor-core GEMM
+# runs in the float32 step): two device kernels a launch
+DH1_F32_KERNELS = r"::(transpose_b_kernel|(gemm|narrow)_kernel<2[,>])"
+DH1_F32_DEVICE_KERNELS = 2
 # the FMA forms that a bf16 path must not launch, and those that a path's
 # float32 part (the teachers) does launch
 FMA_KERNELS = ("ffn", "ffn_dh1", "attention_train_bwd")
@@ -441,6 +451,10 @@ KD_YARDSTICK_ROUNDS = 7
 # from shared memory) read about 3.0; the redesign's goal is 1.0
 TRAIN_ATTN_YARDSTICK_SHAPES = ((64, 104), (128, 104))
 TRAIN_ATTN_F32_RATIO_MAX = 1.5
+# B6's float32 kernel at the float32 step's rows (text 64 x 32, image 64
+# x 64) against its twin, read KD_YARDSTICK_ROUNDS times in turn: the
+# median of kernel / twin may be at most 1
+DH1_YARDSTICK_ROWS = (2048, 4096)
 
 CAPTIONS = [
     "A man riding a horse on the beach .",
@@ -715,24 +729,85 @@ def ffn_rows(n, dtype, device_name, randn, train, **kw):
     return rows
 
 
+def _dh1_inputs(n, dtype, randn):
+    """g [n, 768], h1 [n, 3,072] and w2 [3,072, 768] of B6."""
+    return (randn(n, 768, dtype=dtype), randn(n, 3072, dtype=dtype),
+            randn(3072, 768, scale=0.02, dtype=dtype))
+
+
+def _dh1_work(n, dtype):
+    """B6's (bytes, operations, peak) over n rows: g, h1 and w2 read once,
+    dh1 written once; 2 n H I flops."""
+    isz = torch.finfo(dtype).bits // 8
+    return ((n * 768 + 2 * n * 3072 + 3072 * 768) * isz,
+            2 * n * 768 * 3072, _peak(dtype))
+
+
 def dh1_row(n, dtype, device_name, randn, **kw):
     """B6, dh1 over n rows: bf16 on the tensor cores (``ffn_dh1_mma``),
-    held as the bf16 FFN rows; float32 on FMA units (``ffn_dh1``)."""
+    held as the bf16 FFN rows; float32 on FMA units (``ffn_dh1``, the
+    float32 GEMM of ``ffn.cu`` with its dh1 epilogue) within 1e-5, its
+    first 16 rows alone (the narrow tile) giving the same bits. Both the
+    same bits again on a second launch."""
     from lightningdot_tpu_torch.ops import ffn_dh1
 
-    isz = torch.finfo(dtype).bits // 8
     half = dtype == torch.bfloat16
-    gr = randn(n, 768, dtype=dtype)
-    h1 = randn(n, 3072, dtype=dtype)
-    w2 = randn(3072, 768, scale=0.02, dtype=dtype)
+    gr, h1, w2 = _dh1_inputs(n, dtype, randn)
     held = dict(reference=lambda: ffn_dh1._dh1_math(
-        gr.float(), h1.float(), w2.float()), repeat=True) if half else {}
-    return compare(
+        gr.float(), h1.float(), w2.float()), repeat=True) if half else \
+        dict(repeat=True)
+    if not half and n > 16:
+        # the first 16 rows alone take the narrow tile: the same bits
+        held["rows16_bits_equal"] = bool(torch.equal(
+            ffn_dh1.ffn_dh1(gr[:16], h1[:16], w2),
+            ffn_dh1.ffn_dh1(gr, h1, w2)[:16]))
+    row = compare(
         "ffn_dh1_mma" if half else "ffn_dh1", (n, 768, 3072), dtype,
         lambda: ffn_dh1.ffn_dh1_cuda(gr, h1, w2),
         lambda: ffn_dh1._dh1_math(gr, h1, w2), device_name,
-        ((n * 768 + 2 * n * 3072 + 3072 * 768) * isz,
-         2 * n * 768 * 3072, _peak(dtype)), **held, **kw)
+        _dh1_work(n, dtype), **held, **kw)
+    check(row.get("rows16_bits_equal", True),
+          f"ffn_dh1 {n} rows float32: the first 16 rows alone gave other "
+          f"bits")
+    return row
+
+
+def dh1_f32_yardstick(device_name):
+    """B6's float32 kernel at the float32 step's rows (text 2,048, image
+    4,096) against its twin (cuBLAS's float32 g W2^T, then gelu' in eager
+    ops) and against ``torch.mm(g, w2.t())`` alone (TF32 off), read
+    ``KD_YARDSTICK_ROUNDS`` times in turn: the medians of kernel / twin,
+    kernel / product and kernel / bound. Fails if the kernel is slower
+    than its twin."""
+    from lightningdot_tpu_torch.ops import ffn_dh1
+
+    randn, _ = make_randn(19)
+    for n in DH1_YARDSTICK_ROWS:
+        gr, h1, w2 = _dh1_inputs(n, torch.float32, randn)
+        bound_ms = bound(*_dh1_work(n, torch.float32))[0]
+        reads = [(time_ms(lambda: ffn_dh1.ffn_dh1_cuda(gr, h1, w2),
+                          *RECORDED_TIMING),
+                  time_ms(lambda: ffn_dh1._dh1_math(gr, h1, w2),
+                          *RECORDED_TIMING),
+                  time_ms(lambda: torch.mm(gr, w2.t()), *RECORDED_TIMING))
+                 for _ in range(KD_YARDSTICK_ROUNDS)]
+        twin = [k / t for k, t, _ in reads]
+        row = dict(phase="dh1_f32_yardstick", kernel="ffn_dh1",
+                   shape=[n, 768, 3072],
+                   ms=statistics.median(r[0] for r in reads),
+                   plain_ms=statistics.median(r[1] for r in reads),
+                   product_ms=statistics.median(r[2] for r in reads),
+                   bound_ms=bound_ms, ratio_to_twin=statistics.median(twin),
+                   ratio_to_twin_min=min(twin), ratio_to_twin_max=max(twin),
+                   ratio_to_product=statistics.median(
+                       k / m for k, _, m in reads),
+                   ratio_to_bound=statistics.median(
+                       k / bound_ms for k, _, _ in reads),
+                   rounds=len(reads), device=device_name)
+        emit(**row)
+        check(row["ratio_to_twin"] <= 1.0,
+              f"ffn_dh1 float32 at {n} rows: {row['ratio_to_twin']:.3f} x "
+              f"its twin: {row}")
 
 
 def kernel_phase(device_name):
@@ -769,10 +844,15 @@ def kernel_phase(device_name):
                 (8192, 13312) + EVAL_ROWS if half else ()):
             rows += ffn_rows(n, dtype, device_name, randn,
                              train=n in (2048, 4096))
-        # dh1 at the training rows (text 2,048, image 4,096) and, in
-        # bfloat16, a split plan (256 rows) and a ragged one (130)
-        for n in (130, 256, 2048, 4096) if half else (2048, 4096):
+        # dh1 at the training rows (text 2,048, image 4,096), a ragged
+        # count (130) and, in bfloat16, a split plan (256 rows); in float32
+        # the narrow tiles (16, 130 rows) and the dist ranks' text rows
+        # (1,024)
+        for n in (130, 256, 2048, 4096) if half else (16, 130, 1024, 2048,
+                                                       4096):
             rows.append(dh1_row(n, dtype, device_name, randn))
+        if not half:
+            dh1_f32_yardstick(device_name)
     # the int8 FFN takes bfloat16 activations only; per-channel int8
     # weights, quantized as QuantizedDense does, in the [in, out] view of
     # out-major storage
@@ -1245,13 +1325,14 @@ def _profile_activities():
     return [ProfilerActivity.CPU, ProfilerActivity.CUDA]
 
 
-def _device_stats(prof, calls, share=None):
+def _device_stats(prof, calls, shares=None):
     """Device busy time per call (the union of the device's kernel and
     copy intervals), the eight costliest device kernels, as [name, ms per
     call, launches per call], and the device events per call by kind
     (``_kind``), of a finished profiler over ``calls`` calls; with
-    ``share`` (a regular expression), also the device ms per call of the
-    kernels whose names match it (``share_ms``) and their launches."""
+    ``shares`` ({key: regular expression}), also, under ``shares[key]``,
+    the device ms per call of the kernels whose names match it and their
+    launches per call."""
     spans, by_name, kinds = [], {}, {}
     for e in prof.events():
         if str(e.device_type) != "DeviceType.CUDA":
@@ -1272,15 +1353,18 @@ def _device_stats(prof, calls, share=None):
                  top=[[name[:70], ms / calls, n / calls]
                       for name, (ms, n) in top],
                  launches_per_call={k: n / calls for k, n in kinds.items()})
-    if share is not None:
-        mine = [v for name, v in by_name.items() if re.search(share, name)]
-        stats.update(share_pattern=share,
-                     share_ms=sum(ms for ms, _ in mine) / calls,
-                     share_launches=sum(n for _, n in mine) / calls)
+    if shares:
+        stats["shares"] = {}
+        for key, pattern in shares.items():
+            mine = [v for name, v in by_name.items()
+                    if re.search(pattern, name)]
+            stats["shares"][key] = dict(
+                pattern=pattern, ms=sum(ms for ms, _ in mine) / calls,
+                launches=sum(n for _, n in mine) / calls)
     return stats
 
 
-def device_profile(fn, calls, share=None):
+def device_profile(fn, calls, shares=None):
     """torch.profiler over ``calls`` calls of ``fn`` (after one warm-up
     call): ``_device_stats``."""
     from torch.profiler import profile
@@ -1291,17 +1375,18 @@ def device_profile(fn, calls, share=None):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return _device_stats(prof, calls, share)
+    return _device_stats(prof, calls, shares)
 
 
-def emit_profile(path, batch, fn, wall_ms, calls=10, share=None):
+def emit_profile(path, batch, fn, wall_ms, calls=10, shares=None):
     """One profiler row; the idle share is against ``wall_ms``, measured
-    without the profiler."""
-    stats = device_profile(fn, calls, share)
-    extra = {}
-    if share is not None and stats["busy_ms"]:
-        extra["share_of_busy"] = stats["share_ms"] / stats["busy_ms"]
-    emit_profile_stats(path, batch, stats, wall_ms, **extra)
+    without the profiler; each of ``shares`` with its share of the busy
+    time (``of_busy``)."""
+    stats = device_profile(fn, calls, shares)
+    for v in stats.get("shares", {}).values():
+        v["of_busy"] = v["ms"] / stats["busy_ms"] if stats["busy_ms"] else None
+    emit_profile_stats(path, batch, stats, wall_ms)
+    return stats
 
 
 def emit_profile_stats(path, batch, stats, wall_ms, **extra):
@@ -2334,9 +2419,17 @@ def train_phase(args, device_name):
     check(all(np.isfinite(losses)),
           f"non-finite float32 training loss: {losses}")
     hold_path("itm_train_f32_full", counts_f32_full)
-    emit_profile("itm_train_f32_full", TRAIN_BATCH,
-                 lambda: step(batches[0], dropout_gen), p50_f32, calls=3,
-                 share=B5_F32_KERNELS)
+    prof = emit_profile("itm_train_f32_full", TRAIN_BATCH,
+                        lambda: step(batches[0], dropout_gen), p50_f32,
+                        calls=3, shares={"b5_f32": B5_F32_KERNELS,
+                                         "dh1_f32": DH1_F32_KERNELS})
+    # the profile's dh1 kernels are the wrapper's launches (a transpose
+    # and a GEMM each)
+    check(prof["shares"]["dh1_f32"]["launches"] == DH1_F32_DEVICE_KERNELS
+          * counts_f32_full["ffn_dh1"] / TRAIN_STEPS,
+          f"float32 step: the profile's dh1 kernels {prof['shares']} are "
+          f"not the {counts_f32_full['ffn_dh1']} launches of "
+          f"{TRAIN_STEPS} steps")
     del model, step
 
     # learning: one fixed batch, constant lr
@@ -4456,10 +4549,12 @@ def prepro_phase(args, device_name):
 # ---------------------------------------------------------------------------
 
 # rows per rank (the global batch is 64, coco_ft.json's), the held steps,
-# and more bf16 steps for timing only
+# and more bf16 steps for timing only. Two held steps: the second runs on
+# the weights the first updated, so every bound reads a step after an
+# update, and the ranks keep the whole run well inside its 1,200 s limit
 DIST_LOCAL_BATCH = 32
-DIST_STEPS = 3
-DIST_TIMED_STEPS = 5
+DIST_STEPS = 2
+DIST_TIMED_STEPS = 3
 # float32 with TF32 off, two ranks against one process on the global
 # batch: each step's loss, and the final weights (relative L2 per leaf,
 # against the leaf's own norm): the bounds of the driver's parity with
@@ -5559,7 +5654,7 @@ REPLACES = {
                  "lightningdot_tpu/ops/experimental/ffn_int8_pallas.py:24"),
     "ffn_dh1_mma": ("lightningdot_tpu_torch/csrc/ffn_mma.cu",
                     "lightningdot_tpu/ops/experimental/ffn_dh1.py:28"),
-    "ffn_dh1": ("lightningdot_tpu_torch/csrc/ffn_dh1.cu",
+    "ffn_dh1": ("lightningdot_tpu_torch/csrc/ffn.cu",
                 "lightningdot_tpu/ops/experimental/ffn_dh1.py:28"),
     "adamw": ("lightningdot_tpu_torch/csrc/adamw.cu",
               "lightningdot_tpu/ops/experimental/adamw_pallas.py:27"),

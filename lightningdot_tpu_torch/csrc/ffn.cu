@@ -1,34 +1,54 @@
 // float32 feed-forward block on the FMA units:
 //   out = gelu(x W1 + b1) W2 + b2,  x [rows, H], W1 [H, I], W2 [I, H],
 // and, for the backward, optionally h1 = x W1 + b1 (inter = gelu(h1)
-// [rows, I] is written in any case).
+// [rows, I] is written in any case); and the backward through the GELU:
+//   dh1 = (g W2^T) * gelu'(h1),  g [rows, H], h1 [rows, I].
 //
-// Replaces, in float32, the TPU kernel lightningdot_tpu/ops/ffn.py::
+// Replaces, in float32, the TPU kernels lightningdot_tpu/ops/ffn.py::
 // _ffn_kernel (:77; launched by _ffn_pallas, :122; with_h1 and with_inter
 // under the default "store" policy when the training path needs a
-// gradient); bfloat16 runs on the tensor cores (ffn_mma.cu). float32 is
-// what the cross-encoder teacher computes in (KD, re-ranking: every
-// teacher layer, 106,880 rows a KD step), and the card-vs-CPU checks. TF32
-// stays out: it computes another function than the twin's float32, and
-// Hopper has no other tensor-core path for float32.
+// gradient) and lightningdot_tpu/ops/experimental/ffn_dh1.py::_dh1_kernel
+// (:28, launched by dh1_pallas, :45); bfloat16 runs on the tensor cores
+// (ffn_mma.cu, whose GEMM has the same three epilogues). float32 is what
+// the cross-encoder teacher computes in (KD, re-ranking: every teacher
+// layer, 106,880 rows a KD step), what training with --compute_dtype f32
+// runs in every FFN layer (dh1 at 2,048 text and 4,096 image rows, 24
+// launches a step), and the card-vs-CPU checks. TF32 stays out: it
+// computes another function than the twin's float32, and Hopper has no
+// other tensor-core path for float32.
 //
-// Rounding points, as the twin (ops/ffn.py::_ffn_math): both products
-// accumulate in float32; h1 = (x W1) + b1, one rounding; inter =
-// ldot::gelu_rounded<float>(h1), the erf GELU op by op (common.cuh, exact
-// erff); out = (inter W2) + b2. Only the order of the float32 sums differs
-// from the twin (cuBLAS), so it is held within 1e-5 of it, not bit for bit.
+// Rounding points, as the twins (ops/ffn.py::_ffn_math, ops/ffn_dh1.py::
+// _dh1_math): every product accumulates in float32; h1 = (x W1) + b1, one
+// rounding; inter = ldot::gelu_rounded<float>(h1), the erf GELU op by op
+// (common.cuh, exact erff); out = (inter W2) + b2; dh1 = (g W2^T) times
+// ldot::gelu_grad_rounded<float>(h1) (op by op, exact erff and expf; the
+// TPU kernel's A&S erf polynomial existed only because Mosaic had no erf),
+// one __fmul_rn. Only the order of the float32 sums differs from the twins
+// (cuBLAS), so they are held within 1e-5 of them, not bit for bit.
 //
-// Bound: 4 rows H I flops at 67 TFLOP/s (15.05 ms at the KD teacher's
-// 106,880 rows, 1.7-3.0 ms at a re-ranking block's 12,288-21,504); at a few
-// dozen rows the weights' 18.9 MB at 3.35 TB/s (5.6 us).
+// Bound: 4 rows H I flops (the FFN) and 2 rows H I (dh1) at 67 TFLOP/s:
+// 15.05 ms at the KD teacher's 106,880 rows, 1.7-3.0 ms at a re-ranking
+// block's 12,288-21,504; dh1 144.2 us at 2,048 rows and 288.5 at 4,096; at
+// a few dozen rows the weights' 9.4-18.9 MB at 3.35 TB/s (2.8-5.6 us).
 //
 // Design: one float32 GEMM, C = A B with A [M, K] and B [K, N] row-major
-// (the weights in their [in, out] layout), launched twice as ffn_mma.cu's
-// is: fc1 (A = x, B = W1), whose epilogue adds b1, writes h1 when asked,
-// applies GELU and writes inter; fc2 (A = inter, B = W2), whose epilogue
-// adds b2. inter makes a device-memory round trip (2.6 GB at 106,880 rows,
-// ~0.8 ms at 3.35 TB/s against the 15 ms bound): a 128-row tile of the
-// 3,072-wide intermediate would not fit a block's shared memory.
+// (the weights in their [in, out] layout), launched twice for the FFN as
+// ffn_mma.cu's is: fc1 (A = x, B = W1), whose epilogue adds b1, writes h1
+// when asked, applies GELU and writes inter; fc2 (A = inter, B = W2), whose
+// epilogue adds b2. inter makes a device-memory round trip (2.6 GB at
+// 106,880 rows, ~0.8 ms at 3.35 TB/s against the 15 ms bound): a 128-row
+// tile of the 3,072-wide intermediate would not fit a block's shared
+// memory. dh1 is fc1's shape with W2^T as B: transpose_b_kernel first
+// writes W2^T [H, I] into a workspace (18.9 MB of traffic), then the GEMM
+// (A = g, B = W2^T) runs with the dh1 epilogue, which reads h1 four floats
+// at a time and writes dh1 once; dinter [rows, I] never reaches device
+// memory.
+// Reading W2 as stored instead, copied k-major one float at a time into
+// shared memory as A is, was slower on an H100 80GB HBM3 at 700 W in a
+// development comparison (not kept; medians of 5 in one call): 285.6 /
+// 555.7 / 1,724.4 us at 2,048 / 4,096 / 13,312 rows against 271.0 / 516.6
+// / 1,584.5 with the copy (its own time included), faster only at 16 rows
+// (15.1 against 21.2 us) and level at 130.
 // Within the GEMM: 128 x 128 output tiles of 256 threads, each thread an
 // 8 x 8 register microtile (rows 4 ty + {0..3} and 64 + 4 ty + {0..3},
 // columns 4 tx + {0..3} and 64 + 4 tx + {0..3}) filled by outer products:
@@ -41,22 +61,24 @@
 // is 128 a thread (__launch_bounds__(256, 2)); in development comparisons
 // on an H100 (not kept), k slices of 8 or 32, 128 x 256 tiles of 8 x 16
 // microtiles at one block an SM, and fragments double-buffered in
-// registers were within 3 % of this at 106,880 rows. Few rows take a
+// registers were within 3 % of this at 106,880 rows; for dh1, 64 x 128
+// tiles (4 x 8 microtiles, three blocks an SM) took 153.1 against 186.2 us
+// at 1,024 rows but 280.2 against 271.0 at 2,048. Few rows take a
 // narrow tile instead (narrow_kernel, 128 threads: 16 x 8 outputs, one a
 // thread, or 32 x 32, 2 x 4 a thread), so that the grid still spreads
 // over the card (fc2 at 32 rows: 192 blocks of 16 x 8, against 6 of 128 x
 // 128); ops/gemm.py::f32_gemm_tile picks the tile from the measured
-// crossings (scripts/perf_torch_f32_kernels.py). The reduction is never
-// split: in any tile each output is one FMA chain over k = 0 .. K-1 in
-// order, so a row's bits depend neither on the tile nor on how many rows
-// share the launch. A split chosen by the row count, as the bf16 GEMM's,
-// made two ranks of 32 rows and one process of 64 run different sums:
-// chip_smoke's float32 two-ranks-vs-one-process loss read 1.07e-5 against
-// its 1e-5 bound, and 6.4e-6 unsplit, on an H100. No atomics: a second
-// launch gives the same bits. Ragged edges: rows and k past the end are
-// zero by cp.async's zero fill, never written; H and I must be multiples
-// of 4 (whole 16-byte chunks of rows and of the float4 epilogue), x, W1,
-// W2 and the outputs 16-byte aligned.
+// crossings (scripts/perf_torch_f32_kernels.py), dh1's as fc1's. The
+// reduction is never split: in any tile each output is one FMA chain over
+// k = 0 .. K-1 in order, so a row's bits depend neither on the tile nor on
+// how many rows share the launch. A split chosen by the row count, as the
+// bf16 GEMM's, made two ranks of 32 rows and one process of 64 run
+// different sums: chip_smoke's float32 two-ranks-vs-one-process loss read
+// 1.07e-5 against its 1e-5 bound, and 6.4e-6 unsplit, on an H100. No
+// atomics: a second launch gives the same bits. Ragged edges: rows and k
+// past the end are zero by cp.async's zero fill, never written; H and I
+// must be multiples of 4 (whole 16-byte chunks of rows and of the float4
+// epilogue), every operand and output 16-byte aligned.
 #include <cstdint>
 
 #include "common.cuh"
@@ -75,14 +97,14 @@ constexpr int kSmem = kStages * kStageFloats * 4;   // 66,560 bytes
 static_assert(kBM * kBK % kThreads == 0 && kBK * kBN / 4 % kThreads == 0,
               "whole copy rounds");
 
-enum Epilogue : int { kFc1 = 0, kFc2 = 1 };
+enum Epilogue : int { kFc1 = 0, kFc2 = 1, kDh1 = 2 };
 
 struct Gemm {
   const float* a;       // [m, k] row-major
   const float* b;       // [k, n] row-major
-  const float* bias;    // [n]
-  float* out;           // [m, n]: inter (fc1) or the output (fc2)
-  float* h1;            // [m, n]: written by fc1 when not null
+  const float* bias;    // [n]; null for dh1
+  float* out;           // [m, n]: inter (fc1), the output (fc2) or dh1
+  float* h1;            // [m, n]: written by fc1 when not null, read by dh1
   int m, n, k;
 };
 
@@ -99,6 +121,15 @@ template <int EPI>
 __device__ __forceinline__ void finish(const Gemm& p, int row, int col,
                                        float4 s) {
   const size_t at = static_cast<size_t>(row) * p.n + col;
+  if constexpr (EPI == kDh1) {
+    const float4 h = *reinterpret_cast<const float4*>(p.h1 + at);
+    *reinterpret_cast<float4*>(p.out + at) = make_float4(
+        __fmul_rn(s.x, ldot::gelu_grad_rounded<float>(h.x)),
+        __fmul_rn(s.y, ldot::gelu_grad_rounded<float>(h.y)),
+        __fmul_rn(s.z, ldot::gelu_grad_rounded<float>(h.z)),
+        __fmul_rn(s.w, ldot::gelu_grad_rounded<float>(h.w)));
+    return;
+  }
   const float4 y = make_float4(
       __fadd_rn(s.x, p.bias[col]), __fadd_rn(s.y, p.bias[col + 1]),
       __fadd_rn(s.z, p.bias[col + 2]), __fadd_rn(s.w, p.bias[col + 3]));
@@ -117,6 +148,10 @@ template <int EPI>
 __device__ __forceinline__ void finish1(const Gemm& p, int row, int col,
                                         float s) {
   const size_t at = static_cast<size_t>(row) * p.n + col;
+  if constexpr (EPI == kDh1) {
+    p.out[at] = __fmul_rn(s, ldot::gelu_grad_rounded<float>(p.h1[at]));
+    return;
+  }
   const float y = __fadd_rn(s, p.bias[col]);
   if constexpr (EPI == kFc1) {
     if (p.h1 != nullptr) p.h1[at] = y;
@@ -344,6 +379,30 @@ __global__ void __launch_bounds__(kNThreads) narrow_kernel(Gemm p) {
   }
 }
 
+// dst [cols, rows] = src [rows, cols]^T through 32 x 32 shared tiles of
+// 32 x 8 threads: a warp reads 128 contiguous bytes of a row of src and
+// writes 128 of a row of dst; the tile's rows padded by one float
+__global__ void __launch_bounds__(256)
+    transpose_b_kernel(const float* __restrict__ src,
+                       float* __restrict__ dst, int rows, int cols) {
+  __shared__ float tile[32][33];
+  const int c0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int r = r0 + i, c = c0 + tx;
+    if (r < rows && c < cols)
+      tile[i][tx] = src[static_cast<size_t>(r) * cols + c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = ty; i < 32; i += 8) {
+    const int c = c0 + i, r = r0 + tx;
+    if (c < cols && r < rows)
+      dst[static_cast<size_t>(c) * rows + r] = tile[tx][i];
+  }
+}
+
 // the output tiles, rows x cols, that a launch takes: 128 x 128
 // (gemm_kernel), 16 x 8 and 32 x 32 (narrow_kernel)
 bool tile_ok(int m, int rows, int cols) {
@@ -399,4 +458,25 @@ extern "C" int ldot_ffn(const void* x, const void* w1, const float* b1,
                  static_cast<const float*>(w2), b2, static_cast<float*>(out),
                  nullptr, rows, H, I};
   return run<kFc2>(fc2, rows2, cols2, s);
+}
+
+// g: [rows, H]; h1, dh1: [rows, I]; w2: [I, H]; w2t: [H, I], a workspace
+// into which W2^T is written first; all contiguous float32, 16-byte
+// aligned. tile_rows x tile_cols: dh1's output tile (ops/gemm.py::
+// f32_gemm_tile, as fc1's). H % 4 == 0, I % 4 == 0.
+extern "C" int ldot_ffn_dh1(const void* g, const void* h1, const void* w2,
+                            void* w2t, void* dh1, int rows, int H, int I,
+                            int tile_rows, int tile_cols, void* stream) {
+  if (rows <= 0 || H <= 0 || I <= 0 || H % 4 != 0 || I % 4 != 0 ||
+      !tile_ok(rows, tile_rows, tile_cols) || !ldot::aligned16(g) ||
+      !ldot::aligned16(h1) || !ldot::aligned16(w2) ||
+      !ldot::aligned16(w2t) || !ldot::aligned16(dh1))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  transpose_b_kernel<<<dim3((H + 31) / 32, (I + 31) / 32), 256, 0, s>>>(
+      static_cast<const float*>(w2), static_cast<float*>(w2t), I, H);
+  const Gemm p{static_cast<const float*>(g), static_cast<const float*>(w2t),
+               nullptr, static_cast<float*>(dh1),
+               const_cast<float*>(static_cast<const float*>(h1)), rows, I, H};
+  return run<kDh1>(p, tile_rows, tile_cols, s);
 }

@@ -55,8 +55,9 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, out, h1, inter, workspace, rows, H, I, splits1,
     # per1, splits2, per2, stream (bfloat16)
     "ldot_ffn_mma": (_P,) * 9 + (_I,) * 7 + (_P,),
-    # g, h1, w2, dh1, rows, H, I, stream (float32)
-    "ldot_ffn_dh1": (_P, _P, _P, _P, _I, _I, _I, _P),
+    # g, h1, w2, w2t (workspace), dh1, rows, H, I, tile_rows, tile_cols,
+    # stream (float32)
+    "ldot_ffn_dh1": (_P,) * 5 + (_I,) * 5 + (_P,),
     # g, h1, w2, dh1, workspace, rows, H, I, splits, per, stream (bfloat16)
     "ldot_ffn_dh1_mma": (_P,) * 5 + (_I,) * 5 + (_P,),
     # table, chunks, n_chunks, scale, step_size, lr, b1, 1 - b1, b2,

@@ -9,9 +9,14 @@ The kernels replace the TPU kernel ``_dh1_kernel``
 polynomial, split by dtype in :func:`ffn_dh1_cuda`: bfloat16 runs on the
 tensor cores, as an epilogue of the FFN's GEMM (``csrc/ffn_mma.cu``,
 :func:`ffn_dh1_mma_cuda`: the twin's rounding points, float32 sums in
-another order, so within a bf16 ulp of the twin), float32 on FMA units
-(``csrc/ffn_dh1.cu``, :func:`ffn_dh1_fma_cuda`: every FFN layer's backward
-when training with ``--compute_dtype f32``). Shapes:
+another order, so within a bf16 ulp of the twin), float32 on FMA units, as
+the third epilogue of the float32 FFN's GEMM (``csrc/ffn.cu``,
+:func:`ffn_dh1_fma_cuda`: every FFN layer's backward when training with
+``--compute_dtype f32``; W2 transposed into a workspace first, so that the
+GEMM reads it as fc1 reads W1; each output one FMA chain over H in order,
+in the tile :func:`~lightningdot_tpu_torch.ops.gemm.f32_gemm_tile` picks,
+so a row's bits depend neither on the tile nor on how many rows share the
+launch; within 1e-5 of the twin, whose product is cuBLAS's). Shapes:
 g [rows, H], h1 [rows, I], w2 [I, H] in the JAX package's [in, out] layout;
 float32 or bfloat16, all one dtype.
 """
@@ -23,10 +28,9 @@ import torch
 
 from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.activations import SQRT_HALF, weak_const
-from lightningdot_tpu_torch.ops.gemm import check_mma_operands, gemm_plan
+from lightningdot_tpu_torch.ops.gemm import (check_mma_operands,
+                                             f32_gemm_tile, gemm_plan)
 from lightningdot_tpu_torch.ops.matmul import mm_f32
-
-_DEPTH = 32   # csrc/ffn_dh1.cu stages H in slices of 32
 
 
 def _gelu_grad(h1: torch.Tensor) -> torch.Tensor:
@@ -47,7 +51,9 @@ def _dh1_math(g, h1, w2):
 
 
 def _check_dh1(what, g, h1, w2, dtype):
-    _build.require_cuda(what, g, h1, w2)
+    """The operands' dtypes and shapes; the wrappers check the device after
+    their ranges, so that a CPU tensor of a shape the kernel refuses is
+    refused for its shape."""
     if g.dtype != dtype or h1.dtype != dtype or w2.dtype != dtype:
         raise TypeError(f"{what}: g, h1 and w2 must be {dtype}, got "
                         f"{g.dtype}, {h1.dtype}, {w2.dtype}")
@@ -62,17 +68,25 @@ def _check_dh1(what, g, h1, w2, dtype):
 
 def ffn_dh1_fma_cuda(g: torch.Tensor, h1: torch.Tensor,
                      w2: torch.Tensor) -> torch.Tensor:
-    """Launch the float32 dh1 kernel (``csrc/ffn_dh1.cu``) on CUDA tensors
-    g [rows, H], h1 [rows, I], w2 [I, H]; H a multiple of 32."""
+    """Launch the float32 dh1 on FMA units (``csrc/ffn.cu``: W2 transposed
+    into a workspace, then the float32 GEMM with the gelu' epilogue, in the
+    output tile :func:`f32_gemm_tile` picks for fc1's shape, never split)
+    on CUDA tensors g [rows, H], h1 [rows, I], w2 [I, H]. H and I must be
+    multiples of 4 and every operand 16-byte aligned (the kernel copies
+    rows in whole 16-byte chunks and reads h1 and writes dh1 four floats at
+    a time)."""
     what = "ffn_dh1 kernel"
     rows, h, inter = _check_dh1(what, g, h1, w2, torch.float32)
-    if h % _DEPTH:
-        raise ValueError(f"{what}: needs H % {_DEPTH} == 0, got H={h}")
+    check_mma_operands(what, h, inter, g, h1, w2, multiple=4)
+    _build.require_cuda(what, g, h1, w2)
+    tile = f32_gemm_tile(rows, inter, _build.num_sms(g.device))
+    w2t = w2.new_empty((h, inter))
     dh1 = torch.empty_like(h1)
     with torch.cuda.device(g.device):
         _build.check(_build.lib().ldot_ffn_dh1(
-            g.data_ptr(), h1.data_ptr(), w2.data_ptr(), dh1.data_ptr(),
-            rows, h, inter, _build.stream_ptr(g)), what)
+            g.data_ptr(), h1.data_ptr(), w2.data_ptr(), w2t.data_ptr(),
+            dh1.data_ptr(), rows, h, inter, *tile, _build.stream_ptr(g)),
+            what)
     ffn_dh1_fma_cuda.launches += 1
     return dh1
 
@@ -91,6 +105,7 @@ def ffn_dh1_mma_cuda(g: torch.Tensor, h1: torch.Tensor,
     what = "ffn_dh1 tensor-core kernel"
     rows, h, inter = _check_dh1(what, g, h1, w2, torch.bfloat16)
     check_mma_operands(what, h, inter, g, h1, w2)
+    _build.require_cuda(what, g, h1, w2)
     plan = gemm_plan(rows, inter, h, _build.num_sms(g.device))
     dh1 = torch.empty_like(h1)
     workspace = (torch.empty(plan.splits * rows * inter, dtype=torch.float32,

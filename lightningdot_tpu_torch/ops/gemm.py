@@ -7,8 +7,9 @@ and the backward's dh1; k tiles of 64 values) and the int8 GEMM of
 output into tiles of 128 columns; a launch is a grid of (col_tiles,
 row_tiles, splits) blocks, split z reducing k tiles [z per, (z + 1) per),
 and a split launch is followed by a pass that sums the partials in split
-order. The float32 GEMM of ``csrc/ffn.cu`` never splits its reduction
-(:func:`f32_gemm_tile` picks its output tile).
+order. The float32 GEMM of ``csrc/ffn.cu`` (the FFN's fc1 and fc2, and
+the backward's dh1) never splits its reduction (:func:`f32_gemm_tile`
+picks its output tile).
 """
 from __future__ import annotations
 
@@ -60,10 +61,10 @@ F32_ONE_OUTPUT_MAX = 65536     # outputs of a GEMM given one a thread
 
 def f32_gemm_tile(m: int, n: int, num_sms: int) -> tuple:
     """The float32 GEMM's (``csrc/ffn.cu``) output tile, (rows, columns),
-    for C [m, n]: 128 x 128 where that grid has a block for every other
-    SM; else 16 x 8, one output a thread, up to ``F32_ONE_OUTPUT_MAX``
-    outputs, and 32 x 32 past them, so that few rows still spread over
-    the card. The reduction is never split: every output is one FMA chain
+    for C [m, n] (fc1, fc2; dh1 takes fc1's): 128 x 128 where that grid
+    has a block for every other SM; else 16 x 8, one output a thread, up
+    to ``F32_ONE_OUTPUT_MAX`` outputs, and 32 x 32 past them, so that few
+    rows still spread over the card. The reduction is never split: every output is one FMA chain
     over k in order in any tile, so a row's bits do not depend on the
     tile, nor on how many rows share the launch."""
     if -(-m // F32_WIDE[0]) * -(-n // F32_WIDE[1]) >= num_sms // 2:
@@ -89,9 +90,10 @@ def gemm_blocks(plan: GemmPlan, m: int, n: int, k: int,
 
 def check_mma_operands(what: str, h: int, inter: int,
                        *tensors: torch.Tensor, multiple: int = 8) -> None:
-    """The tensor-core kernels copy whole 16-byte chunks of rows: H and I
-    must be multiples of ``multiple`` (8 bfloat16 values, 16 int8 values),
-    and every operand 16-byte aligned."""
+    """The tensor-core kernels (and the float32 dh1) copy whole 16-byte
+    chunks of rows: H and I must be multiples of ``multiple`` (8 bfloat16
+    values, 16 int8 values, 4 float32 values), and every operand 16-byte
+    aligned."""
     if h % multiple or inter % multiple:
         raise ValueError(f"{what}: needs H and I multiples of {multiple}, "
                          f"got H={h}, I={inter}")

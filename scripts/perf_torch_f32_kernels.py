@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Time the port's float32 FMA kernels (the FFN, B3; the attention, B2;
-the training attention, B5) and the float32 training step on one CUDA
-card.
+the training attention, B5; dh1, B6) and the float32 training step on one
+CUDA card.
 
 Run from the root of the repository, on a machine with the card and nvcc:
 
     python3 scripts/perf_torch_f32_kernels.py [--root DIR] [--label NAME]
-        [--phases ffn,attention,train_attention,step]
+        [--phases ffn,attention,train_attention,dh1,step]
 
 ``--root`` names the checkout whose ``lightningdot_tpu_torch`` is timed
 (default: this one), so that two commits can be compared in one call:
@@ -29,10 +29,19 @@ change, change, parent.
    SDPA in float32 at rate 0 (the forward; the forward and backward
    through autograd), read ``--rounds`` times alternately; each kernel's
    output must equal its twin's bit for bit.
-4. ``step``: the ITM step at configs/coco_ft.json's full width in float32
+4. ``dh1``: the FFN backward's dh1 in float32 (``ops.ffn_dh1.ffn_dh1``:
+   g [rows, 768], h1 [rows, 3,072], w2 [3,072, 768]) at rows 16-256
+   (narrow tiles), the dist ranks' 1,024, the float32 step's 2,048 and
+   4,096 and 13,312, against its twin (cuBLAS's float32 g w2^T, then
+   gelu' in eager ops) and ``torch.mm(g, w2.t())`` alone, read
+   ``--rounds`` times in turn; each kernel output within 1e-5 x max(1,
+   peak) of the twin, the same bits on a second launch, its first 16
+   rows equal to a 16-row call's.
+5. ``step``: the ITM step at configs/coco_ft.json's full width in float32
    (TF32 off, dropout 0.1, batch 64) through ``make_itm_train_step``: the
    p50 of 20 steps after 3 warm-up steps, and a profile of 3 steps (device
-   busy, the training attention's float32 kernels' share of it).
+   busy, the shares of it that the training attention's float32 kernels
+   and dh1's take).
 
 Times are chip_smoke.py's ``time_ms`` (calls in a CUDA graph, the median
 of replays, inputs L2-warm), one JSON line per row, with the card's name
@@ -57,13 +66,19 @@ FFN_ROWS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 12288, 21504,
 FORCED_MAX_ROWS = 4096
 ATTN_SHAPES = ((640, 167), (128, 168))
 TRAIN_ATTN_SHAPES = ((64, 32), (64, 64), (64, 104), (128, 104))
-PHASES = ("ffn", "attention", "train_attention", "step")
+DH1_ROWS = (16, 32, 130, 256, 1024, 2048, 4096, 13312)
+PHASES = ("ffn", "attention", "train_attention", "dh1", "step")
 STEPS, WARM_UP = 20, 3
 # the training attention's float32 kernels by device name, in this tree
 # (the forward is attention.cu's kernel with its dropout pass) and in the
 # first port (fwd_kernel<float>, bwd_q_kernel<float>, bwd_kv_kernel<float>)
 B5_F32_KERNELS = (r"::(attention_kernel<true>|fwd_kernel<float>|"
                   r"bwd_q_kernel|bwd_kv_kernel)")
+# dh1's float32 kernels: ffn.cu's transpose of W2 and its GEMM with the
+# dh1 epilogue (2), in this tree; the first port's dh1_kernel
+# (csrc/ffn_dh1.cu) in checkouts that have it (--root)
+DH1_F32_KERNELS = (r"::(transpose_b_kernel|(gemm|narrow)_kernel<2[,>]|"
+                   r"dh1_kernel)")
 
 
 def emit(**row) -> None:
@@ -178,6 +193,57 @@ def train_attention_phase(label, af, time_ms, gen, rounds):
                  ratio_min=min(ratios), ratio_max=max(ratios))
 
 
+def dh1_phase(label, ffn_dh1, time_ms, gen, rounds):
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, device=dev, generator=gen) * scale
+
+    w2 = randn(3072, 768, scale=0.02)
+    g_all, h1_all = randn(max(DH1_ROWS), 768), randn(max(DH1_ROWS), 3072)
+    first16 = ffn_dh1.ffn_dh1(g_all[:16], h1_all[:16], w2)
+    for rows in DH1_ROWS:
+        g, h1 = g_all[:rows], h1_all[:rows]
+        mine = lambda: ffn_dh1.ffn_dh1(g, h1, w2)
+        twin = lambda: ffn_dh1._dh1_math(g, h1, w2)
+        got, again, want = mine(), mine(), twin()
+        peak = float(want.abs().max())
+        reads = [(time_ms(mine, 3, 5), time_ms(twin, 3, 5),
+                  time_ms(lambda: torch.mm(g, w2.t()), 3, 5))
+                 for _ in range(rounds)]
+        emit(label=label, kernel="ffn_dh1", rows=rows,
+             max_abs_err=float((got - want).abs().max()),
+             tol=1e-5 * max(1.0, peak),
+             repeat_equal=bool(torch.equal(got, again)),
+             rows16_equal=bool(torch.equal(got[:16], first16)),
+             ms=[r[0] for r in reads], plain_ms=[r[1] for r in reads],
+             product_ms=[r[2] for r in reads],
+             bound_ms=2 * rows * 768 * 3072 / 67e12 * 1e3,
+             device_kernels_ms=device_kernels(mine))
+
+
+def device_kernels(fn, calls=5):
+    """{device kernel: ms per call} of ``fn`` (torch.profiler, after a
+    warm-up call): the share of each of a wrapper's kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if str(e.device_type) == "DeviceType.CUDA":
+            m = re.search(r"\w+_kernel(<[^>]*>)?", e.name)
+            name = m.group(0) if m else e.name[:60]
+            out[name] = (out.get(name, 0.0)
+                         + (e.time_range.end - e.time_range.start) / 1e3
+                         / calls)
+    return out
+
+
 def step_phase(label, chip_smoke, time_profile):
     from dataclasses import replace
 
@@ -213,16 +279,21 @@ def step_phase(label, chip_smoke, time_profile):
         step(batches[i % 4], dropout_gen)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t) * 1e3)
-    busy, b5 = time_profile(lambda: step(batches[0], dropout_gen), 3)
+    busy, (b5, dh1), dh1_launches = time_profile(
+        lambda: step(batches[0], dropout_gen), 3,
+        (B5_F32_KERNELS, DH1_F32_KERNELS))
     p50 = statistics.median(lat)
     emit(label=label, kernel="itm_train_f32_full", batch=64,
          ms_per_step_p50=p50, ms_per_step=lat, busy_ms=busy,
-         idle_share=1.0 - busy / p50, b5_f32_ms=b5, b5_share=b5 / busy)
+         idle_share=1.0 - busy / p50, b5_f32_ms=b5, b5_share=b5 / busy,
+         dh1_f32_ms=dh1, dh1_share=dh1 / busy,
+         dh1_launches_per_step=dh1_launches)
 
 
-def profile_b5(fn, calls):
-    """(device busy ms, ms of the training attention's float32 kernels)
-    per call, from torch.profiler's device events over ``calls`` calls."""
+def profile_shares(fn, calls, patterns):
+    """(device busy ms, [ms of the kernels whose names match each of
+    ``patterns``], launches of the last pattern's kernels) per call, from
+    torch.profiler's device events over ``calls`` calls."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -232,19 +303,22 @@ def profile_b5(fn, calls):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    spans, b5 = [], 0.0
+    spans, mine, last = [], [0.0] * len(patterns), 0
     for e in prof.events():
         if str(e.device_type) != "DeviceType.CUDA":
             continue
         spans.append((e.time_range.start, e.time_range.end))
-        if re.search(B5_F32_KERNELS, e.name):
-            b5 += e.time_range.end - e.time_range.start
+        for i, pattern in enumerate(patterns):
+            if re.search(pattern, e.name):
+                mine[i] += e.time_range.end - e.time_range.start
+                last += i == len(patterns) - 1
     busy, reach = 0.0, float("-inf")
     for start, end in sorted(spans):
         if end > reach:
             busy += end - max(start, reach)
             reach = end
-    return busy / 1e3 / calls, b5 / 1e3 / calls
+    return (busy / 1e3 / calls, [m / 1e3 / calls for m in mine],
+            last / calls)
 
 
 def main() -> int:
@@ -261,7 +335,8 @@ def main() -> int:
     sys.path.insert(0, str(Path(args.root).resolve()))
     import chip_smoke
     from lightningdot_tpu_torch.ops import (_build, attention,
-                                            attention_fused, ffn, gemm)
+                                            attention_fused, ffn, ffn_dh1,
+                                            gemm)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     emit(smi=subprocess.run(
@@ -278,8 +353,10 @@ def main() -> int:
     if "train_attention" in phases:
         train_attention_phase(args.label, attention_fused,
                               chip_smoke.time_ms, gen, args.rounds)
+    if "dh1" in phases:
+        dh1_phase(args.label, ffn_dh1, chip_smoke.time_ms, gen, args.rounds)
     if "step" in phases:
-        step_phase(args.label, chip_smoke, profile_b5)
+        step_phase(args.label, chip_smoke, profile_shares)
     return 0
 
 

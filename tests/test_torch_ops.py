@@ -154,7 +154,10 @@ def test_ffn_matches_pallas_kernel_interpret(rows):
 # (ops/ffn_dh1.py::ffn_dh1_mma_cuda), fc1's shape with W2 as B, at the
 # training rows and a split (256) and ragged (130) count; the float32 GEMM
 # (csrc/ffn.cu, never split) at its rows from one to the KD teacher's
-# 106,880, the re-ranking block's 21,504 among them
+# 106,880, the re-ranking block's 21,504 among them, and its dh1 epilogue
+# (ops/ffn_dh1.py::ffn_dh1_fma_cuda, fc1's shape) at the narrow tiles'
+# rows, the dist ranks' 1,024, the float32 step's 2,048 and 4,096 and the
+# pre-training update's 13,312
 @pytest.mark.parametrize("rows,n,k,f32", [
     pytest.param(rows, n, k, False, id=f"{rows}-{n}-{k}")
     for rows in (32, 256, 2048, 4096, 13312, 1, 31, 130, 257)
@@ -163,7 +166,9 @@ def test_ffn_matches_pallas_kernel_interpret(rows):
     for rows in (130, 256, 2048, 4096)] + [
     pytest.param(rows, n, k, True, id=f"f32-{rows}-{n}-{k}")
     for rows in (1, 31, 32, 130, 256, 2048, 21504, 106880)
-    for n, k in ((3072, 768), (768, 3072))])
+    for n, k in ((3072, 768), (768, 3072))] + [
+    pytest.param(rows, 3072, 768, True, id=f"f32-dh1-{rows}")
+    for rows in (1, 16, 130, 1024, 2048, 4096, 13312)])
 def test_ffn_gemm_plan_covers_every_tile_and_k_slice_once(rows, n, k, f32):
     """The FFN's GEMM plans (blocks as the kernels read their block index):
     every output tile and every k tile is reduced by exactly one block, no
@@ -264,6 +269,45 @@ def test_float32_kernel_wrappers_refuse_what_the_kernels_do_not_take():
         with pytest.raises(ValueError, match="CUDA tensors only"):
             attention.attention_cuda(t, t, t, torch.zeros(1, s), 0.3, False)
     assert launch_counts()["ffn"] == launch_counts()["attention"] == 0
+
+
+def test_float32_dh1_wrapper_refuses_what_the_kernel_does_not_take():
+    """``ffn_dh1_fma_cuda`` (csrc/ffn.cu's GEMM with its dh1 epilogue)
+    checks dtype, shape and range before the device: H and I multiples of
+    4 (whole 16-byte chunks of g's rows, h1 read and dh1 written four
+    floats at a time; the earlier kernel took H in multiples of 32) and
+    16-byte aligned operands; a CPU tensor it would take is refused for
+    its device. No refusal launches anything."""
+    def dh1_args(rows, h, inter, dt=torch.float32):
+        return (torch.zeros(rows, h, dtype=dt),
+                torch.zeros(rows, inter, dtype=dt),
+                torch.zeros(inter, h, dtype=dt))
+
+    fma = ffn_dh1.ffn_dh1_fma_cuda
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        fma(*dh1_args(4, 32, 64, dt=torch.bfloat16))
+    g, h1, w2 = dh1_args(4, 32, 64)
+    with pytest.raises(ValueError, match="do not match"):
+        fma(g, h1, w2.t())
+    with pytest.raises(ValueError, match="do not match"):
+        fma(g, h1[:3], w2)
+    for h, inter in ((30, 64), (32, 66), (770, 3072), (768, 3074)):
+        with pytest.raises(ValueError, match="multiples of 4"):
+            fma(*dh1_args(4, h, inter))
+    for i in range(3):                # each operand 4 bytes off 16
+        args = list(dh1_args(4, 32, 64))
+        args[i] = args[i].reshape(-1).repeat(2)[1:1 + args[i].numel()] \
+            .view(args[i].shape)
+        assert args[i].data_ptr() % 16 == 4
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            fma(*args)
+    # what the kernel takes reaches the device check: widths past the
+    # earlier kernel's multiples of 32, and the float32 step's
+    for rows, h, inter in ((3, 36, 68), (130, 768, 3072), (1, 4, 4)):
+        with pytest.raises(ValueError, match="CUDA tensors only"):
+            fma(*dh1_args(rows, h, inter))
+    counts = launch_counts()
+    assert counts["ffn_dh1"] == counts["ffn_dh1_mma"] == 0
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
