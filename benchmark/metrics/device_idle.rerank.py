@@ -1,0 +1,9 @@
+"""device_idle.rerank: the share of the traced window in which no kernel,
+copy or memset ran on the card, in percent: 100 (1 - busy / window), both
+from the same trace."""
+
+
+def read(run):
+    if run.trace is None or run.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - run.trace.busy_s / run.trace.window_s)

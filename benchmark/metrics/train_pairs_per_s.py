@@ -1,0 +1,10 @@
+"""train_pairs_per_s: the training pairs of every step completed in the
+window, over the whole window (host clock; the window ends when the device
+has finished its work)."""
+
+
+def read(run):
+    done = run.work.get("pairs")
+    if not done or not run.window_s:
+        return None
+    return done / run.window_s
