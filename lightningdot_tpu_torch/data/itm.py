@@ -24,6 +24,7 @@ from lightningdot_tpu_torch.data.padding import (_pool_get, bucket_len,
                                                  pad_feats, pad_ids, pad_mask,
                                                  position_ids)
 from lightningdot_tpu_torch.data.txt_db import TxtTokDb, get_ids_and_lens
+from lightningdot_tpu_torch.utils import tracing
 
 
 class ItmFastDataset:
@@ -134,10 +135,14 @@ def itm_fast_collate(items: List[Dict[str, Any]],
       imgs: positives then hard-negative images [bs + n_neg_img, 1 + R]
       caps: positives (+ hard-negative image captions) or None
     With ``cfg.fixed_batch``, a short batch repeats its last item up to that
-    size; ``n_valid`` and ``valid_mask`` mark the real items.
+    size; ``n_valid`` and ``valid_mask`` mark the real items. Counts on the
+    open span (``utils/tracing.py``): the text and image ``positions``
+    after padding, and the ``real_positions`` of the real items and their
+    negatives among them.
     """
     bs = len(items)
     n_valid = bs
+    real_items = items
     if cfg.fixed_batch and bs < cfg.fixed_batch:
         items = items + [items[-1]] * (cfg.fixed_batch - bs)
         bs = cfg.fixed_batch
@@ -170,6 +175,15 @@ def itm_fast_collate(items: List[Dict[str, Any]],
         "img_pos_feat": pad_feats([im["img_pos_feat"] for im in all_imgs],
                                   regions),
     }
+
+    real = 0
+    for it in real_items:
+        txts = [it["input_ids"]] + list(it["neg_txts"] or [])
+        ims = [it["img"]] + list(it["neg_imgs"] or [])
+        real += (sum(min(len(t), length) for t in txts)
+                 + sum(min(im["num_bb"], regions) + 1 for im in ims))
+    tracing.count("positions", len(all_txt) * length + n_img * (regions + 1))
+    tracing.count("real_positions", real)
 
     if imgs[0]["caption_ids"] is not None:
         all_caps = [im["caption_ids"] for im in all_imgs]

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from lightningdot_tpu_torch.data.padding import pin_pool, pinned_tensor
+from lightningdot_tpu_torch.utils import tracing
 
 
 class TokenBucketSampler:
@@ -194,6 +195,10 @@ class DataLoader:
     def _iter_multi(self, n_workers: int):
         """Order-preserving N-thread batch pipeline (see num_workers).
 
+        Spans (``utils/tracing.py``), each with the batch's sequence number
+        as its id: ``loader.collate`` on a worker thread (its items and
+        collate), ``loader.wait`` on the consumer's (a blocking get).
+
         A ticket semaphore bounds total in-flight batches (queued +
         reorder-buffered): without it, one slow in-order batch would let
         the workers collate the whole epoch into the reorder buffer."""
@@ -232,8 +237,9 @@ class DataLoader:
                         _put(("err", None, e))
                         return
                 try:
-                    items = [self.dataset[i] for i in batch_idx]
-                    out = self.collate_fn(items)
+                    with tracing.span("loader.collate", id=seq):
+                        items = [self.dataset[i] for i in batch_idx]
+                        out = self.collate_fn(items)
                 except BaseException as e:
                     _put(("err", None, e))
                     return
@@ -250,7 +256,8 @@ class DataLoader:
         done = 0
         try:
             while done < n_workers:
-                kind, seq, item = q.get()
+                with tracing.span("loader.wait", id=next_seq):
+                    kind, seq, item = q.get()
                 if kind == "err":
                     raise item
                 if kind == "done":
@@ -315,7 +322,9 @@ class PinnedStager:
     and is read in place; any other array is first copied into a pinned
     buffer (``pin_memory``; torch's pinned-memory allocator keeps the
     buffer until its copy is done). On the CPU the tensors alias the
-    arrays."""
+    arrays. Each call is a ``stage`` span (``utils/tracing.py``) that
+    counts the ``bytes`` staged and the ``unpooled_bytes`` among them that
+    went through ``pin_memory``."""
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -326,21 +335,24 @@ class PinnedStager:
 
     def __call__(self, batch) -> StagedBatch:
         def to_dev(a):
+            tracing.count("bytes", a.nbytes)
             if self.stream is None:
                 return torch.from_numpy(np.ascontiguousarray(a)).to(
                     self.device)
             t = pinned_tensor(a)
             if t is None:
+                tracing.count("unpooled_bytes", a.nbytes)
                 t = torch.from_numpy(np.ascontiguousarray(a)).pin_memory()
             return t.to(self.device, non_blocking=True)
 
-        if self.stream is None:
-            staged = StagedBatch(_map_arrays(batch, to_dev))
-        else:
-            with torch.cuda.stream(self.stream):
+        with tracing.span("stage"):
+            if self.stream is None:
                 staged = StagedBatch(_map_arrays(batch, to_dev))
-                staged.event = torch.cuda.Event()
-                staged.event.record(self.stream)
+            else:
+                with torch.cuda.stream(self.stream):
+                    staged = StagedBatch(_map_arrays(batch, to_dev))
+                    staged.event = torch.cuda.Event()
+                    staged.event.record(self.stream)
         staged.host = batch
         return staged
 

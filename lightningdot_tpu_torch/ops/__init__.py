@@ -2,8 +2,9 @@
 
 Counterpart of lightningdot_tpu/ops. Each op takes its kernel for a CUDA
 tensor (raising on a shape or dtype the kernel does not take) and its twin
-for a CPU tensor. Each kernel wrapper counts its launches in a
-``launches`` attribute; :func:`launch_counts` reads them all. Where a dtype
+for a CPU tensor. Each kernel wrapper counts its launches through
+``utils/tracing.py`` (:func:`~lightningdot_tpu_torch.utils.tracing.launched`);
+:func:`launch_counts` reads them for every kernel. Where a dtype
 has a kernel of its own (the FFN, its backward's dh1 and the training
 attention's backward: bfloat16 on the tensor cores, float32 on FMA units),
 each has its own wrapper and count ("ffn" / "ffn_mma", "ffn_dh1" /
@@ -25,28 +26,19 @@ from lightningdot_tpu_torch.ops.ffn_int8 import (  # noqa: F401
 from lightningdot_tpu_torch.ops.layernorm import (  # noqa: F401
     layer_norm, layer_norm_bwd_cuda, layer_norm_cuda)
 from lightningdot_tpu_torch.ops.matmul import mm_f32, mm_int8  # noqa: F401
+from lightningdot_tpu_torch.utils import tracing
 
-KERNEL_WRAPPERS = {
-    "layernorm": layer_norm_cuda,
-    "layernorm_bwd": layer_norm_bwd_cuda,
-    "attention": attention_cuda,
-    "ffn": ffn_fma_cuda,
-    "ffn_mma": ffn_mma_cuda,
-    "ffn_int8": ffn_int8_cuda,
-    "ffn_dh1": ffn_dh1_fma_cuda,
-    "ffn_dh1_mma": ffn_dh1_mma_cuda,
-    "adamw": adamw_cuda,
-    "attention_train_fwd": attention_train_fwd,
-    "attention_train_bwd": attention_train_bwd_fma,
-    "attention_train_bwd_mma": attention_train_bwd_mma,
-}
+KERNELS = ("layernorm", "layernorm_bwd", "attention", "ffn", "ffn_mma",
+           "ffn_int8", "ffn_dh1", "ffn_dh1_mma", "adamw",
+           "attention_train_fwd", "attention_train_bwd",
+           "attention_train_bwd_mma")
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches since the last reset}."""
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    """{kernel name: launches since the last reset}, every kernel."""
+    counts = tracing.launch_counts()
+    return {name: counts.get(name, 0) for name in KERNELS}
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNEL_WRAPPERS.values():
-        fn.launches = 0
+    tracing.reset_launch_counts()

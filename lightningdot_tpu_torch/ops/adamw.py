@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from lightningdot_tpu_torch.ops import _build
+from lightningdot_tpu_torch.utils import tracing
 
 CHUNK = 1 << 15   # csrc/adamw.cu: elements per block
 
@@ -105,10 +106,7 @@ def adamw_cuda(params: Sequence[torch.Tensor],
             clip_scale.data_ptr(), step_size, lr, b1, 1.0 - b1, b2,
             1.0 - b2, eps, int(m_dtype == torch.bfloat16),
             _build.stream_ptr(dev)), what)
-    adamw_cuda.launches += 1
-
-
-adamw_cuda.launches = 0
+    tracing.launched("adamw")
 
 
 @torch.no_grad()

@@ -27,6 +27,7 @@ import torch
 
 from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.fused import attention_vjp
+from lightningdot_tpu_torch.utils import tracing
 
 # both kernels hold one head's k and v in shared memory (csrc/attention.cu
 # 156 KB in float32 at S = 256, D = 64, K^T and V in turn; csrc/
@@ -124,11 +125,8 @@ def attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_bias.data_ptr(),
             out.data_ptr(), b, s, h, d, scale, int(defer), code,
             _build.stream_ptr(q)), what)
-    attention_cuda.launches += 1
+    tracing.launched("attention")
     return out
-
-
-attention_cuda.launches = 0
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

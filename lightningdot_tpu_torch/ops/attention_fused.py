@@ -40,6 +40,7 @@ from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.ops.activations import weak_const
 from lightningdot_tpu_torch.ops.attention import (_warp_order_sum,
                                                   check_tensor_core_operands)
+from lightningdot_tpu_torch.utils import tracing
 
 # the float32 backward (csrc/attention_fused.cu) keeps one head's K (or Q
 # and G) and a tile of 32 or 64 rows in shared memory: up to 155 KB at S
@@ -235,11 +236,8 @@ def attention_train_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             weak_const(1.0 / (1.0 - rate), q.dtype) if rate > 0 else 1.0,
             keep_threshold(rate), int(rate > 0), code,
             _build.stream_ptr(q)), what)
-    attention_train_fwd.launches += 1
+    tracing.launched("attention_train_fwd")
     return out
-
-
-attention_train_fwd.launches = 0
 
 
 def _launch_bwd(what, dtype, q, k, v, bias2d, seed, g, nh, rate, scale):
@@ -272,11 +270,8 @@ def attention_train_bwd_fma(q: torch.Tensor, k: torch.Tensor,
     cotangent. Returns (dq, dk, dv)."""
     grads = _launch_bwd("attention_train_bwd kernel", torch.float32, q, k,
                         v, bias2d, seed, g, nh, rate, scale)
-    attention_train_bwd_fma.launches += 1
+    tracing.launched("attention_train_bwd")
     return grads
-
-
-attention_train_bwd_fma.launches = 0
 
 
 def attention_train_bwd_mma(q: torch.Tensor, k: torch.Tensor,
@@ -290,11 +285,8 @@ def attention_train_bwd_mma(q: torch.Tensor, k: torch.Tensor,
     grads = _launch_bwd("attention_train_bwd tensor-core kernel",
                         torch.bfloat16, q, k, v, bias2d, seed, g, nh, rate,
                         scale)
-    attention_train_bwd_mma.launches += 1
+    tracing.launched("attention_train_bwd_mma")
     return grads
-
-
-attention_train_bwd_mma.launches = 0
 
 
 def attention_train_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

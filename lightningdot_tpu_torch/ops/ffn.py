@@ -37,6 +37,7 @@ from lightningdot_tpu_torch.ops.ffn_dh1 import ffn_dh1
 from lightningdot_tpu_torch.ops.gemm import (check_mma_operands,
                                              f32_gemm_tile, gemm_plan)
 from lightningdot_tpu_torch.ops.matmul import mm_f32
+from lightningdot_tpu_torch.utils import tracing
 
 
 def _ffn_math(x, w1, b1, w2, b2):
@@ -100,11 +101,8 @@ def ffn_fma_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             b2.data_ptr(), out.data_ptr(),
             h1.data_ptr() if with_h1 else None, inter_out.data_ptr(),
             rows, h, inter, *tile1, *tile2, _build.stream_ptr(x2d)), what)
-    ffn_fma_cuda.launches += 1
+    tracing.launched("ffn")
     return (out, h1, inter_out) if with_h1 else out
-
-
-ffn_fma_cuda.launches = 0
 
 
 def ffn_mma_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -136,11 +134,8 @@ def ffn_mma_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
             workspace.data_ptr() if workspace is not None else None,
             rows, h, inter, fc1.splits, fc1.per, fc2.splits, fc2.per,
             _build.stream_ptr(x2d)), what)
-    ffn_mma_cuda.launches += 1
+    tracing.launched("ffn_mma")
     return (out, h1, inter_out) if with_h1 else out
-
-
-ffn_mma_cuda.launches = 0
 
 
 def ffn_cuda(x2d: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

@@ -31,6 +31,7 @@ from lightningdot_tpu_torch.ops.activations import SQRT_HALF, weak_const
 from lightningdot_tpu_torch.ops.gemm import (check_mma_operands,
                                              f32_gemm_tile, gemm_plan)
 from lightningdot_tpu_torch.ops.matmul import mm_f32
+from lightningdot_tpu_torch.utils import tracing
 
 
 def _gelu_grad(h1: torch.Tensor) -> torch.Tensor:
@@ -87,11 +88,8 @@ def ffn_dh1_fma_cuda(g: torch.Tensor, h1: torch.Tensor,
             g.data_ptr(), h1.data_ptr(), w2.data_ptr(), w2t.data_ptr(),
             dh1.data_ptr(), rows, h, inter, *tile, _build.stream_ptr(g)),
             what)
-    ffn_dh1_fma_cuda.launches += 1
+    tracing.launched("ffn_dh1")
     return dh1
-
-
-ffn_dh1_fma_cuda.launches = 0
 
 
 def ffn_dh1_mma_cuda(g: torch.Tensor, h1: torch.Tensor,
@@ -116,11 +114,8 @@ def ffn_dh1_mma_cuda(g: torch.Tensor, h1: torch.Tensor,
             workspace.data_ptr() if workspace is not None else None,
             rows, h, inter, plan.splits, plan.per, _build.stream_ptr(g)),
             what)
-    ffn_dh1_mma_cuda.launches += 1
+    tracing.launched("ffn_dh1_mma")
     return dh1
-
-
-ffn_dh1_mma_cuda.launches = 0
 
 
 def ffn_dh1_cuda(g: torch.Tensor, h1: torch.Tensor,

@@ -24,6 +24,7 @@ from lightningdot_tpu_torch.ops.gemm import (GEMM_TILE, INT8_K_TILE,
                                              INT8_ROW_TILE, GemmPlan,
                                              check_mma_operands, gemm_plan)
 from lightningdot_tpu_torch.ops.matmul import mm_int8
+from lightningdot_tpu_torch.utils import tracing
 
 # csrc/ffn_int8.cu: fc1 keeps all of H's k tiles of its rows in shared
 # memory
@@ -142,11 +143,8 @@ def ffn_int8_cuda(x2d: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,
             rows, h, inter, cols, fc2.splits, fc2.per,
             _build.stream_ptr(x2d)),
             what)
-    ffn_int8_cuda.launches += 1
+    tracing.launched("ffn_int8")
     return out
-
-
-ffn_int8_cuda.launches = 0
 
 
 def ffn_gelu_int8(x: torch.Tensor, w1: torch.Tensor, s1: torch.Tensor,

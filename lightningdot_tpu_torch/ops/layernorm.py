@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from lightningdot_tpu_torch.ops import _build
+from lightningdot_tpu_torch.utils import tracing
 
 DEFAULT_EPS = 1e-12
 # the kernels' widest row: the towers' rows are 768-1,536 wide, the VQA
@@ -161,11 +162,8 @@ def layer_norm_cuda(x2d: torch.Tensor, scale: torch.Tensor,
             None if keep is None else keep.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), out.data_ptr(), rows, hidden, eps, keep_scale,
             code, _build.stream_ptr(x2d)), what)
-    layer_norm_cuda.launches += 1
+    tracing.launched("layernorm")
     return out
-
-
-layer_norm_cuda.launches = 0
 
 
 def layer_norm_bwd_cuda(x2d: torch.Tensor, scale: torch.Tensor,
@@ -200,11 +198,8 @@ def layer_norm_bwd_cuda(x2d: torch.Tensor, scale: torch.Tensor,
             None if keep is None else dx.data_ptr(), partial.data_ptr(),
             dscale.data_ptr(), dbias.data_ptr(), rows, hidden, blocks, eps,
             keep_scale, code, _build.stream_ptr(x2d)), what)
-    layer_norm_bwd_cuda.launches += 1
+    tracing.launched("layernorm_bwd")
     return dx, du, dscale, dbias
-
-
-layer_norm_bwd_cuda.launches = 0
 
 
 def _rows(t: Optional[torch.Tensor], hidden: int):

@@ -8,6 +8,11 @@ ladders. Every block is staged through pinned buffers on a side stream
 (``PinnedStager``) and launched without waiting on the host; the scores
 stay on the device and are pulled once at the end
 (cross_scorer.py:53-94).
+
+Spans (``utils/tracing.py``): ``score.call`` around a call (counting its
+``pairs``), and inside it per block ``score.collate`` (counting the joint
+``positions`` after padding and the ``real_positions`` of the block's own
+pairs), ``score.stage`` and ``score.launch``, then ``score.pull``.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ from lightningdot_tpu_torch.data.padding import (Recycler, bucket_len,
                                                  pad_feats, pad_ids, pad_mask,
                                                  position_ids)
 from lightningdot_tpu_torch.device import resolve_device
+from lightningdot_tpu_torch.utils import tracing
 
 
 class CrossScorer:
@@ -53,6 +59,10 @@ class CrossScorer:
             poss += [poss[-1]] * (b - n_valid)
         L = bucket_len(max(len(t) for t in tok), self.txt_buckets)
         R = bucket_len(max(f.shape[0] for f in feats), self.img_buckets)
+        tracing.count("positions", b * (L + R))
+        tracing.count("real_positions", sum(
+            min(len(t), L) + min(f.shape[0], R)
+            for t, f in zip(txt_tokens, img_feats)))
         return {
             "input_ids": pad_ids(tok, L),
             "position_ids": position_ids(b, L),
@@ -88,19 +98,26 @@ class CrossScorer:
         recycler = Recycler(enabled=self.device.type == "cuda")
         pending = []
         try:
-            for st in range(0, n, b):
-                host = self.block(txt_tokens[st:st + b],
-                                  img_feats[st:st + b],
-                                  img_pos_feats[st:st + b])
-                staged = await_staged(self.stager(host))
-                pending.append(self.score_batch(staged)[:min(b, n - st)])
-                done = None
-                if self.device.type == "cuda":
-                    done = torch.cuda.Event()
-                    done.record()
-                recycler.push(host, ready=done)
-            # one device -> host pull for every block
-            return torch.cat(pending).float().cpu().numpy()
+            with tracing.span("score.call"):
+                tracing.count("pairs", n)
+                for st in range(0, n, b):
+                    with tracing.span("score.collate"):
+                        host = self.block(txt_tokens[st:st + b],
+                                          img_feats[st:st + b],
+                                          img_pos_feats[st:st + b])
+                    with tracing.span("score.stage"):
+                        staged = await_staged(self.stager(host))
+                    with tracing.span("score.launch"):
+                        pending.append(
+                            self.score_batch(staged)[:min(b, n - st)])
+                    done = None
+                    if self.device.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record()
+                    recycler.push(host, ready=done)
+                # one device -> host pull for every block
+                with tracing.span("score.pull"):
+                    return torch.cat(pending).float().cpu().numpy()
         finally:
             recycler.flush()
 

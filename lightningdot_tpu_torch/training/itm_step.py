@@ -28,6 +28,7 @@ from lightningdot_tpu_torch.parallel.mesh import (all_gather_rows,
                                                   process_count,
                                                   process_index)
 from lightningdot_tpu_torch.training.optim import FusedAdamW
+from lightningdot_tpu_torch.utils import tracing
 
 NEG_INF = -1e30
 
@@ -353,6 +354,11 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
 
     float32 compute on the card needs ``torch.backends.cuda.matmul.
     allow_tf32`` off: the JAX package's float32 products are true float32.
+
+    Each call is a ``step`` span (``utils/tracing.py``) around its phases:
+    ``step.to_device``, ``step.forward`` (the loss), ``step.kd``,
+    ``step.backward`` and ``step.optimizer`` (accumulation, the all-reduce
+    and the update).
     """
     device = resolve_device(device)
     model.to(device)
@@ -367,25 +373,33 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
             raise RuntimeError("float32 training with TF32 products on: set "
                                "torch.backends.cuda.matmul.allow_tf32 = "
                                "False")
-        optimizer.zero_grad()
-        dev_batch = batch_to_device(batch, device)
-        loss, metrics, embs = itm_loss_fn(
-            model, dev_batch, pass_generators(generator, device),
-            caption_score_weight=caption_score_weight,
-            num_hard_negatives=num_hard_negatives)
-        if kd_fn is not None:
-            kd = kd_fn(dev_batch, embs)
-            world = process_count()
-            loss = loss + kd_loss_weight * (kd / world if world > 1 else kd)
-            # the global values: the KD term is already the same on every
-            # rank, so it does not go through global_sums
-            metrics["kd_loss"] = kd.detach()
-            metrics["loss"] = metrics["loss"] + kd_loss_weight * kd.detach()
-        loss.backward()
-        if accumulator.add():
-            all_reduce_grads_(optimizer.params)
-            last_norm[0] = optimizer.step()
-        metrics["grad_norm"] = last_norm[0]
+        with tracing.span("step"):
+            optimizer.zero_grad()
+            with tracing.span("step.to_device"):
+                dev_batch = batch_to_device(batch, device)
+            with tracing.span("step.forward"):
+                loss, metrics, embs = itm_loss_fn(
+                    model, dev_batch, pass_generators(generator, device),
+                    caption_score_weight=caption_score_weight,
+                    num_hard_negatives=num_hard_negatives)
+            if kd_fn is not None:
+                with tracing.span("step.kd"):
+                    kd = kd_fn(dev_batch, embs)
+                world = process_count()
+                loss = loss + kd_loss_weight * (kd / world if world > 1
+                                                else kd)
+                # the global values: the KD term is already the same on
+                # every rank, so it does not go through global_sums
+                metrics["kd_loss"] = kd.detach()
+                metrics["loss"] = (metrics["loss"]
+                                   + kd_loss_weight * kd.detach())
+            with tracing.span("step.backward"):
+                loss.backward()
+            with tracing.span("step.optimizer"):
+                if accumulator.add():
+                    all_reduce_grads_(optimizer.params)
+                    last_norm[0] = optimizer.step()
+            metrics["grad_norm"] = last_norm[0]
         return metrics
 
     return step
