@@ -4,10 +4,13 @@ uniter_model/inf_itm.py and train_itm.py:437-460).
 
 The re-ranker's stage 2 and ``cli/inf_itm.py`` score (text, image) pairs
 in blocks of ``pair_block`` pairs, each padded up the text and region
-ladders. Every block is staged through pinned buffers on a side stream
-(``PinnedStager``) and launched without waiting on the host; the scores
-stay on the device and are pulled once at the end
-(cross_scorer.py:53-94).
+ladders. Every pair is scored on its own, so a call's pairs are put in
+order of (text rung, region count) before they are cut into blocks: each
+block then holds pairs of like length and pads only to its own longest
+pair's rungs. Every block is staged through pinned buffers on a side
+stream (``PinnedStager``) and launched without waiting on the host; the
+scores stay on the device, are pulled once at the end and put back in the
+order of the call's pairs (cross_scorer.py:53-94).
 
 Spans (``utils/tracing.py``): ``score.call`` around a call (counting its
 ``pairs``), and inside it per block ``score.collate`` (counting the joint
@@ -36,8 +39,8 @@ class CrossScorer:
     none) and scores in eval mode without a gradient."""
 
     def __init__(self, model, *, pair_block: int = 128,
-                 txt_buckets: Sequence[int] = (32, 64),
-                 img_buckets: Sequence[int] = (32, 64, 104),
+                 txt_buckets: Sequence[int] = (16, 32, 64),
+                 img_buckets: Sequence[int] = tuple(range(16, 105, 8)),
                  use_itm_head: bool = False, device=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -95,16 +98,21 @@ class CrossScorer:
         if n == 0:
             return np.zeros((0,), np.float32)
         b = self.pair_block
+        # blocks of like pairs: a stable order by (text rung, region count)
+        order = sorted(range(n), key=lambda i: (
+            bucket_len(len(txt_tokens[i]), self.txt_buckets),
+            img_feats[i].shape[0]))
         recycler = Recycler(enabled=self.device.type == "cuda")
         pending = []
         try:
             with tracing.span("score.call"):
                 tracing.count("pairs", n)
                 for st in range(0, n, b):
+                    part = order[st:st + b]
                     with tracing.span("score.collate"):
-                        host = self.block(txt_tokens[st:st + b],
-                                          img_feats[st:st + b],
-                                          img_pos_feats[st:st + b])
+                        host = self.block([txt_tokens[i] for i in part],
+                                          [img_feats[i] for i in part],
+                                          [img_pos_feats[i] for i in part])
                     with tracing.span("score.stage"):
                         staged = await_staged(self.stager(host))
                     with tracing.span("score.launch"):
@@ -117,7 +125,10 @@ class CrossScorer:
                     recycler.push(host, ready=done)
                 # one device -> host pull for every block
                 with tracing.span("score.pull"):
-                    return torch.cat(pending).float().cpu().numpy()
+                    sorted_scores = torch.cat(pending).float().cpu().numpy()
+                scores = np.empty_like(sorted_scores)
+                scores[order] = sorted_scores
+                return scores
         finally:
             recycler.flush()
 

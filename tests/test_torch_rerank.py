@@ -28,10 +28,12 @@ from lightningdot_tpu.models.cross_encoder import CrossEncoder as JCross
 from lightningdot_tpu.training.cross_scorer import CrossScorer as JScorer
 from lightningdot_tpu_torch.cli import inf_itm, rerank
 from lightningdot_tpu_torch.data.feat_db import DetectFeatDb
+from lightningdot_tpu_torch.data.padding import bucket_len
 from lightningdot_tpu_torch.data.txt_db import TxtTokDb
 from lightningdot_tpu_torch.models.factory import load_cross_encoder
 from lightningdot_tpu_torch.training.checkpoints import save_checkpoint
 from lightningdot_tpu_torch.training.cross_scorer import CrossScorer
+from lightningdot_tpu_torch.utils import tracing
 
 SMALL = {"vocab_size": 28996, "hidden_size": 32, "num_hidden_layers": 2,
          "num_attention_heads": 4, "intermediate_size": 64,
@@ -89,6 +91,91 @@ def test_cross_scorer_matches_jax(world, use_itm_head):
                    use_itm_head=use_itm_head).score_pairs(toks, feats, poss)
     assert got.shape == (19,) and np.ptp(want) > 0.05
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def _ragged_pairs(seed, n, txt_lens, regions):
+    """``n`` pairs in shuffled order: captions of ``txt_lens`` tokens and
+    images of ``regions`` regions (img_dim 32), both drawn from ranges."""
+    r = np.random.default_rng(seed)
+    toks, feats, poss = [], [], []
+    for _ in range(n):
+        length = int(r.integers(*txt_lens))
+        toks.append([101] + r.integers(1000, 20000, length - 2).tolist()
+                    + [102])
+        nb = int(r.integers(*regions))
+        feats.append(r.random((nb, 32), np.float32))
+        poss.append(r.random((nb, 7), np.float32))
+    return toks, feats, poss
+
+
+def _scorer_seeing_blocks(world, pair_block):
+    """A CPU scorer whose ``block`` records each launched block's pairs
+    (text lengths and region counts) and its padded (L, R), as the
+    benchmark's runner wraps it."""
+    model = load_cross_encoder(str(world["root"] / "ce.pt"),
+                               model_config=world["cfg"], device="cpu")
+    scorer = CrossScorer(model, pair_block=pair_block, device="cpu")
+    seen, make_block = [], scorer.block
+
+    def observed(toks, feats, poss):
+        host = make_block(toks, feats, poss)
+        seen.append(([len(t) for t in toks], [f.shape[0] for f in feats],
+                     host["input_ids"].shape[1],
+                     host["img_feat"].shape[1]))
+        return host
+
+    scorer.block = observed
+    return scorer, seen, make_block
+
+
+def _consecutive_positions(make_block, toks, feats, poss, b):
+    """The joint positions of each block cut in input order."""
+    return [make_block(toks[st:st + b], feats[st:st + b],
+                       poss[st:st + b])["attn_masks"].shape
+            for st in range(0, len(toks), b)]
+
+
+def test_sorted_blocks_return_scores_in_input_order(world):
+    toks, feats, poss = _ragged_pairs(5, 29, (4, 41), (5, 61))
+    model = load_cross_encoder(str(world["root"] / "ce.pt"),
+                               model_config=world["cfg"], device="cpu")
+    scorer = CrossScorer(model, pair_block=8, device="cpu")
+    got = scorer.score_pairs(toks, feats, poss)       # a ragged last block
+    alone = np.array([scorer.score_pairs([t], [f], [p])[0]
+                      for t, f, p in zip(toks, feats, poss)])
+    assert got.shape == (29,) and np.ptp(alone) > 0.05
+    np.testing.assert_allclose(got, alone, atol=ATOL)
+
+
+def test_sorted_blocks_pad_to_their_own_rungs(world):
+    toks, feats, poss = _ragged_pairs(6, 45, (4, 41), (5, 61))
+    scorer, seen, make_block = _scorer_seeing_blocks(world, 8)
+    with tracing.recording():
+        scorer.score_pairs(toks, feats, poss)
+    collates = [r for r in tracing.records() if r.name == "score.collate"]
+    assert len(seen) == len(collates) == 6
+    keys = []
+    for lens, regs, L, R in seen:
+        assert L == bucket_len(max(lens), scorer.txt_buckets)
+        assert R == bucket_len(max(regs), scorer.img_buckets)
+        keys += [(bucket_len(n, scorer.txt_buckets), r)
+                 for n, r in zip(lens, regs)]
+    assert keys == sorted(keys)       # the blocks follow one sorted order
+    assert sum(r.counts["real_positions"] for r in collates) == sum(
+        len(t) + f.shape[0] for t, f in zip(toks, feats))
+    consecutive = _consecutive_positions(make_block, toks, feats, poss, 8)
+    assert sum(r.counts["positions"] for r in collates) < sum(
+        b * s for b, s in consecutive)
+
+
+def test_one_rung_call_launches_the_consecutive_shapes(world):
+    toks, feats, poss = _ragged_pairs(7, 21, (17, 33), (41, 49))
+    scorer, seen, make_block = _scorer_seeing_blocks(world, 8)
+    scorer.score_pairs(toks, feats, poss)
+    launched = [(8, L + R) for _, _, L, R in seen]
+    assert launched == [(8, 32 + 48)] * 3
+    assert launched == _consecutive_positions(make_block, toks, feats, poss,
+                                              8)
 
 
 def _teacher_dir(world):

@@ -16,6 +16,7 @@ from lightningdot_tpu_torch.config import EncoderConfig
 from lightningdot_tpu_torch.data.itm import CollateConfig, itm_fast_collate
 from lightningdot_tpu_torch.data.loader import (DataLoader, DevicePrefetcher,
                                                 PinnedStager)
+from lightningdot_tpu_torch.data.padding import bucket_len
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
 from lightningdot_tpu_torch.models.cross_encoder import CrossEncoder
 from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
@@ -307,11 +308,15 @@ def test_cross_scorer_blocks_are_spans_in_order():
     assert all(r.id == call.id for r in children)
     (stage0,) = [r for r in recs if r.parent == children[1].index]
     assert stage0.name == "stage" and stage0.counts["bytes"] > 0
+    # blocks are cut from the pairs in order of (text rung, region count)
+    order = sorted(range(10), key=lambda i: (
+        bucket_len(len(toks[i]), scorer.txt_buckets), feats[i].shape[0]))
     for k, rec in enumerate(_by_name(recs, "score.collate")):
-        part = slice(4 * k, 4 * k + 4)
-        host = scorer.block(toks[part], feats[part], boxes[part])
+        part = order[4 * k:4 * k + 4]
+        host = scorer.block([toks[i] for i in part], [feats[i] for i in part],
+                            [boxes[i] for i in part])
         assert rec.counts["positions"] == host["attn_masks"].size
         assert rec.counts["real_positions"] == sum(
-            len(t) + f.shape[0] for t, f in zip(toks[part], feats[part]))
+            len(toks[i]) + feats[i].shape[0] for i in part)
     last = _by_name(recs, "score.collate")[-1]
     assert last.counts["real_positions"] < last.counts["positions"] / 2
