@@ -127,7 +127,19 @@ Phases, each of which exits non-zero on failure (no result is printed):
 14. ``examples`` (A15): ``examples/demo_retrieval_torch.py``'s ``main()``
    on the card, its answers equal to ``Retriever.retrieve_query``, and one
    ``/search`` through ``examples/serve_http_torch.py``'s server, equal to
-   a direct ``retrieve_query``.
+   a direct ``retrieve_query``;
+15. ``moonlight``: the Moonlight-16B-A3B tower's kernels against their
+   twins at its fine-tuning step's shapes (batch 512, captions padded to
+   32): B1's RMS mode (``rmsnorm``, ``rmsnorm_bwd``; library
+   ``F.rms_norm``), RoPE, MLA's attention (q/k 192, v 128, causal with pad
+   keys masked; ``mla_attention``, ``mla_attention_bwd``; library SDPA),
+   the grouped SwiGLU GEMMs in every form (``moe_gemm``: the routed
+   experts, 8 of 64 held, the shared experts and the dense layer) and the
+   routing's gathers (``moe_combine``, ``moe_scatter_rows``,
+   ``moe_route_grad``); then one training step of a 3-layer cut beside
+   the image tower under ``torch.cuda.set_sync_debug_mode("error")``, its
+   spans and MoE counters recorded and its launches held
+   (``moonlight_phase``).
 
 The kernel rows also hold the training kernels at the step's shapes: the
 FFN forward writing h1 and gelu(h1) and dh1 at 2,048 and 4,096 rows (in
@@ -164,7 +176,8 @@ of the query tower and of a training step against the CPU (``text_f32``,
 ``itm_train_f32``) and the float32 step at full width
 (``itm_train_f32_full``) through the FMA forms; the training paths through
 the LayerNorm backward kernel (``layernorm_bwd``); the bf16 evaluation
-(``eval``) through the tensor-core FFN and no FMA form. Then one JSON line listing the
+(``eval``) through the tensor-core FFN and no FMA form; the Moonlight step
+(``moonlight``) through every kernel of its tower. Then one JSON line listing the
 kernels, and as the last line ``{"ok": true, "device": {...}}``. The script
 imports no JAX.
 """
@@ -296,6 +309,11 @@ PATH_KERNELS["dist_vqa"] = PATH_KERNELS["dist_kd"][:-1]
 PATH_KERNELS["dist_kd_f32"] = PATH_KERNELS["dist_f32"]
 PATH_KERNELS["dist_vqa_f32"] = PATH_KERNELS["dist_f32"]
 PATH_KERNELS["examples"] = PATH_KERNELS["text_bf16"]
+# the Moonlight step (eval mode, as dist_vqa's steps at dropout 0): the
+# image tower's bf16 kernels and every kernel of the text tower
+PATH_KERNELS["moonlight"] = PATH_KERNELS["dist_vqa"] + (
+    "rmsnorm", "rmsnorm_bwd", "mla_attention", "mla_attention_bwd", "rope",
+    "moe_gemm", "moe_combine", "moe_scatter_rows", "moe_route_grad")
 # the device kernels of B5's float32 forms (the forward is attention.cu's
 # kernel with its dropout pass), whose share of the float32 step the
 # profile row reads
@@ -572,7 +590,7 @@ def _flat(out):
 
 def compare(name, shape, dtype, kernel, twin, device_name, work,
             library=None, exact=False, reference=None, repeat=False,
-            timing=(7, 10), **extra):
+            timing=(7, 10), plain_eager=False, **extra):
     """Hold a kernel against its twin on the same inputs and time both (and
     ``library``, one PyTorch call computing the same function, where there
     is one); ``work`` = (bytes, operations, peak rate) for the bound;
@@ -580,7 +598,8 @@ def compare(name, shape, dtype, kernel, twin, device_name, work,
     same inputs, against which the kernel's relative L2 error may be at most
     ``ACCURACY_RATIO`` times the twin's; ``repeat``: a second launch must
     give the same bits; ``timing`` = (groups, calls per group) of
-    :func:`time_ms`."""
+    :func:`time_ms`; ``plain_eager``: the twin waits for the host, so it
+    is timed by :func:`time_eager_ms`."""
     got, want = kernel(), twin()
     again = kernel() if repeat else None
     torch.cuda.synchronize()
@@ -605,7 +624,9 @@ def compare(name, shape, dtype, kernel, twin, device_name, work,
     row = dict(phase="kernel", kernel=name, shape=list(shape),
                dtype=str(dtype).replace("torch.", ""), **extra,
                max_abs_err=err, tol=tol, differ_frac=differ, **held,
-               ms=time_ms(kernel, *timing), plain_ms=time_ms(twin, *timing),
+               ms=time_ms(kernel, *timing),
+               plain_ms=(time_eager_ms(twin) if plain_eager
+                         else time_ms(twin, *timing)),
                bound_ms=bound_ms, bound_by=bound_by,
                library_ms=None if library is None else time_ms(library,
                                                                *timing),
@@ -5638,6 +5659,352 @@ def examples_phase(args, device_name):
     return counts
 
 
+# the Moonlight tower (configs/moonlight_16b_a3b_card.json, one card's cut
+# of benchmark/configs/lightningdot-moonlight-16b-a3b.json): its kernel rows
+# at the fine-tuning step's shapes, batch 512 captions padded to 32 tokens
+# (13.9 real on average), 8 of each MoE layer's 64 experts held, top 6
+MOON_BATCH, MOON_SEQ, MOON_REAL = 512, 32, 13.9
+MOON_HIDDEN, MOON_LATENT, MOON_HEADS = 2048, 512, 16
+MOON_QK, MOON_V, MOON_ROPE = 192, 128, 64
+MOON_EXPERTS, MOON_HELD, MOON_TOPK = 64, 8, 6
+MOON_INTER = {"routed": 1408, "shared": 2816, "dense": 11264}
+MOON_EPS, MOON_THETA = 1e-5, 50000.0
+# the step whose launches and host syncs are held: 3 layers of the cut
+# (the dense layer and two MoE layers) at batch 64 beside the image tower
+MOON_STEP_LAYERS, MOON_STEP_BATCH, MOON_STEP_REGIONS = 3, 64, 103
+MOON_SPANS = ("moe.route", "moe.experts", "moe.shared", "moe.combine",
+              "mla.attention")
+
+
+def moon_rms_rows(device_name, randn):
+    """B1's RMS mode, forward and backward, at the tower's widths (hidden
+    2,048 and the 512-d KV latent) over the step's 16,384 token rows and a
+    ragged 37: within the twin's tolerance, as accurate as the twin against
+    the float32 computation, the same bits again. Library: ``F.rms_norm``
+    (forward)."""
+    from lightningdot_tpu_torch.ops import layernorm as ln
+
+    bf16, rows = torch.bfloat16, []
+    n = MOON_BATCH * MOON_SEQ
+    for r, h in ((n, MOON_HIDDEN), (n, MOON_LATENT), (37, MOON_HIDDEN)):
+        x = randn(r, h, dtype=bf16)
+        scale = 1 + randn(h, scale=0.1)
+        g = randn(r, h, dtype=bf16)
+        rows.append(compare(
+            "rmsnorm", (r, h), bf16,
+            lambda: ln.rms_norm_cuda(x, scale, MOON_EPS),
+            lambda: ln.rms_fwd_math(x, scale, MOON_EPS), device_name,
+            (2 * r * h * 2 + h * 4, 4 * r * h, PEAK_OPS["f32"]),
+            library=lambda: torch.nn.functional.rms_norm(
+                x, (h,), scale.to(bf16), MOON_EPS),
+            reference=lambda: ln.rms_fwd_math(x.float(), scale, MOON_EPS),
+            repeat=True))
+        # dx held as the forward is; dscale, float32 sums over the rows in
+        # another order, within 1e-5 of its peak
+        ds, ds_twin = (fn(x, scale, g, MOON_EPS)[1] for fn in (
+            ln.rms_norm_bwd_cuda, ln.rms_bwd_math))
+        ds_err = ((ds - ds_twin).abs().max()
+                  / ds_twin.abs().max().clamp(min=1.0)).item()
+        rows.append(compare(
+            "rmsnorm_bwd", (r, h), bf16,
+            lambda: ln.rms_norm_bwd_cuda(x, scale, g, MOON_EPS)[0],
+            lambda: ln.rms_bwd_math(x, scale, g, MOON_EPS)[0], device_name,
+            (3 * r * h * 2 + 2 * h * 4, 8 * r * h, PEAK_OPS["f32"]),
+            reference=lambda: ln.rms_bwd_math(x.float(), scale, g.float(),
+                                              MOON_EPS)[0],
+            repeat=True, dscale_rel_err=ds_err))
+        check(ds_err <= TOL[torch.float32],
+              f"rmsnorm_bwd ({r}, {h}): dscale off by {ds_err} of its peak")
+    return rows
+
+
+def moon_rope_rows(device_name, randn):
+    """RoPE (``csrc/rope.cu``) on the rope dims of q (16 heads) and of k_pe
+    (one head, shared by all) at the step's [512, 32], forward and inverse
+    (its backward): within the twin's tolerance, as accurate as the twin,
+    the same bits again."""
+    from lightningdot_tpu_torch.ops import rope
+
+    bf16, rows = torch.bfloat16, []
+    for heads in (MOON_HEADS, 1):
+        x = randn(MOON_BATCH, MOON_SEQ, heads, MOON_ROPE, dtype=bf16)
+        for inverse in (False, True):
+            rows.append(compare(
+                "rope", tuple(x.shape), bf16,
+                lambda: rope.rope_cuda(x, MOON_THETA, inverse),
+                lambda: rope.rope_math(x, MOON_THETA, inverse), device_name,
+                (2 * x.numel() * 2, 3 * x.numel(), PEAK_OPS["f32"]),
+                reference=lambda: rope.rope_math(x.float(), MOON_THETA,
+                                                 inverse),
+                repeat=True, **({"variant": "inverse"} if inverse else {})))
+    return rows
+
+
+def moon_mla_rows(device_name, randn, g):
+    """MLA's attention (``csrc/mla_attention.cu``): q/k 192, v 128, 16
+    heads, causal with pad keys masked, at [512, S] for S 32 (the step's
+    rung), 48 and 64 on ragged lengths, forward and backward: within the
+    twin's tolerance, as accurate as the twin against the float32
+    computation, the same bits again. The bound counts the (query, key)
+    pairs of real queries, the only ones the kernels compute. Library:
+    SDPA with the same boolean mask (forward)."""
+    from lightningdot_tpu_torch.ops import mla_attention as mla
+
+    bf16, rows = torch.bfloat16, []
+    b, nh, sc = MOON_BATCH, MOON_HEADS, MOON_QK ** -0.5
+    for s in (MOON_SEQ, 48, 64):
+        q, k = (randn(b, s, nh, MOON_QK, dtype=bf16) for _ in range(2))
+        v, go = (randn(b, s, nh, MOON_V, dtype=bf16) for _ in range(2))
+        lens = torch.randint(3, s + 1, (b,), device="cuda", generator=g)
+        key_ok = (torch.arange(s, device="cuda")[None]
+                  < lens[:, None]).float()
+        allowed = mla._allowed(key_ok, s, True)
+        f32 = [t.float() for t in (q, k, v)]
+        o, lse = mla.mla_attention_cuda(q, k, v, key_ok, sc)
+        pairs = float((lens * (lens + 1) // 2).sum()) * nh
+        rows.append(compare(
+            "mla_attention", (b, s, nh, MOON_QK), bf16,
+            lambda: mla.mla_attention_cuda(q, k, v, key_ok, sc)[0],
+            lambda: mla.mla_attention_math(q, k, v, key_ok, sc)[0],
+            device_name,
+            (2 * (q.numel() + k.numel() + 2 * v.numel()),
+             2 * pairs * (MOON_QK + MOON_V), PEAK_OPS["bf16"]),
+            library=lambda: torch.nn.functional.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=allowed, scale=sc),
+            reference=lambda: mla.mla_attention_math(*f32, key_ok, sc)[0],
+            repeat=True))
+        rows.append(compare(
+            "mla_attention_bwd", (b, s, nh, MOON_QK), bf16,
+            lambda: mla.mla_attention_bwd_cuda(q, k, v, o, go, key_ok, lse,
+                                               sc),
+            lambda: mla.mla_attention_bwd_math(q, k, v, o, go, key_ok, lse,
+                                               sc), device_name,
+            (2 * (2 * q.numel() + 2 * k.numel() + 3 * v.numel()),
+             2 * pairs * (3 * MOON_QK + 2 * MOON_V), PEAK_OPS["bf16"]),
+            reference=lambda: mla.mla_attention_bwd_math(
+                *f32, o.float(), go.float(), key_ok, lse, sc),
+            repeat=True))
+    return rows
+
+
+def _head(out, total):
+    """The rows the groups hold of a grouped kernel's output (the kernels
+    leave the rest unwritten, the twins zero)."""
+    if isinstance(out, tuple):
+        return tuple(t[:total] for t in out)
+    return out[:total]
+
+
+def moon_moe_rows(device_name, randn, g):
+    """The grouped SwiGLU GEMMs (``csrc/moe_gemm.cu``, ``moe_gemm``) in
+    every form the step runs (the gate/up GEMM with its SwiGLU epilogue,
+    the down GEMM, the SwiGLU backward, dx, and both weight gradients): for
+    the routed experts over 16,384 tokens (13.9 of 32 real) that choose 6
+    of 64 experts at random, 8 held; for the shared experts and the dense
+    layer over the real rows as one group. Then the routing's gather and
+    scatter kernels: ``moe_combine``, ``moe_scatter_rows`` and
+    ``moe_route_grad``. Each within the twin's tolerance on the rows the
+    groups hold, as accurate as the twin against the float32 computation
+    (``moe_route_grad``, float32 out, within 1e-5), the same bits again.
+    The twins read the groups' offsets on the host, so they are timed
+    eagerly."""
+    from lightningdot_tpu_torch.ops import moe
+
+    bf16, rows = torch.bfloat16, []
+    n, h = MOON_BATCH * MOON_SEQ, MOON_HIDDEN
+    real = torch.rand(n, device="cuda", generator=g) < MOON_REAL / MOON_SEQ
+    sel = torch.topk(randn(n, MOON_EXPERTS), MOON_TOPK, dim=-1).indices
+    routed = moe.route(sel, 0, MOON_HELD, real)
+    for block, r in (("routed", routed), ("shared", moe.real_rows(real)),
+                     ("dense", moe.real_rows(real))):
+        inter, groups = MOON_INTER[block], r.offsets.shape[0] - 1
+        off, tok, cap = r.offsets, r.tok, r.rows
+        total = int(off[-1])
+        x = randn(n, h, scale=0.5, dtype=bf16)
+        w_gu = randn(groups, 2 * inter, h, scale=0.02, dtype=bf16)
+        w_down = randn(groups, h, inter, scale=0.02, dtype=bf16)
+        dy = randn(cap, h, dtype=bf16)
+        dgu = randn(cap, 2 * inter, dtype=bf16)
+        gate, up, act = moe.gate_up(x, tok, off, w_gu, cap)
+        f = {name: t.float() for name, t in (
+            ("x", x), ("w_gu", w_gu), ("w_down", w_down), ("dy", dy),
+            ("dgu", dgu), ("gate", gate), ("up", up), ("act", act))}
+        # bytes of one weight stack, and of a [total, width] bf16 block
+        wb, rb = 2 * groups * h * inter, lambda width: 2 * total * width
+        flops = 2 * total * h * inter
+        forms = {
+            "gate_up": (
+                lambda: moe.gate_up(x, tok, off, w_gu, cap),
+                lambda: moe.gate_up_math(x, tok, off, w_gu, cap),
+                lambda: moe.gate_up_math(f["x"], tok, off, f["w_gu"], cap),
+                2 * wb + rb(h) + rb(3 * inter), 2 * flops),
+            "down": (
+                lambda: moe.down(act, off, w_down, cap),
+                lambda: moe.rows_times_math(act, off, w_down, True, cap),
+                lambda: moe.rows_times_math(f["act"], off, f["w_down"],
+                                            True, cap),
+                wb + rb(inter) + rb(h), flops),
+            "swiglu_bwd": (
+                lambda: moe.swiglu_bwd(dy, off, w_down, gate, up, cap),
+                lambda: moe.swiglu_bwd_math(dy, off, w_down, gate, up, cap),
+                lambda: moe.swiglu_bwd_math(f["dy"], off, f["w_down"],
+                                            f["gate"], f["up"], cap),
+                wb + rb(h) + rb(4 * inter), flops),
+            "dx": (
+                lambda: moe.dx_rows(dgu, off, w_gu, cap),
+                lambda: moe.rows_times_math(dgu, off, w_gu, False, cap),
+                lambda: moe.rows_times_math(f["dgu"], off, f["w_gu"], False,
+                                            cap),
+                2 * wb + rb(2 * inter) + rb(h), 2 * flops),
+            "weights_gu": (
+                lambda: moe.weight_grad(dgu, x, tok, off),
+                lambda: moe.weight_grad_math(dgu, x, tok, off),
+                lambda: moe.weight_grad_math(f["dgu"], f["x"], tok, off),
+                2 * wb + rb(2 * inter) + rb(h), 2 * flops),
+            "weights_down": (
+                lambda: moe.weight_grad(dy, act, None, off),
+                lambda: moe.weight_grad_math(dy, act, None, off),
+                lambda: moe.weight_grad_math(f["dy"], f["act"], None, off),
+                wb + rb(h) + rb(inter), flops)}
+        for form, (kernel, twin, ref, nbytes, ops) in forms.items():
+            rows_out = not form.startswith("weights")
+            cut = (lambda fn: lambda: _head(fn(), total)) if rows_out else (
+                lambda fn: fn)
+            rows.append(compare(
+                "moe_gemm", (n, h, inter), bf16, cut(kernel), cut(twin),
+                device_name, (nbytes, ops, PEAK_OPS["bf16"]),
+                reference=cut(ref), repeat=True, plain_eager=True,
+                variant=form, block=block, rows=total, groups=groups))
+        del gate, up, act, dy, dgu, f
+    r, total = routed, int(routed.offsets[-1])
+    y = randn(r.rows, h, dtype=bf16)
+    gt = randn(n, h, dtype=bf16)
+    w = torch.rand(n, MOON_TOPK, device="cuda", generator=g)
+    slots = n * MOON_TOPK * 8
+    rows.append(compare(
+        "moe_combine", (n, h), bf16, lambda: moe.combine(y, r.pos, w),
+        lambda: moe.combine_math(y, r.pos, w), device_name,
+        (2 * (total + n) * h + slots, 2 * total * h, PEAK_OPS["f32"]),
+        reference=lambda: moe.combine_math(y.float(), r.pos, w),
+        repeat=True, plain_eager=True, rows=total))
+    rows.append(compare(
+        "moe_scatter_rows", (n, h), bf16,
+        lambda: moe.scatter_rows(gt, r, w)[:total],
+        lambda: moe.scatter_rows_math(gt, r, w)[:total], device_name,
+        (2 * 2 * total * h + 8 * total, total * h, PEAK_OPS["f32"]),
+        reference=lambda: moe.scatter_rows_math(gt.float(), r, w)[:total],
+        repeat=True, plain_eager=True, rows=total))
+    # the gradient reads the cotangent of the tokens with a held slot only
+    held = int((r.pos >= 0).any(1).sum())
+    rows.append(compare(
+        "moe_route_grad", (n, h), torch.float32,
+        lambda: moe.route_grad(gt, y, r.pos),
+        lambda: moe.route_grad_math(gt, y, r.pos), device_name,
+        (2 * (held + total) * h + slots, 2 * total * h, PEAK_OPS["f32"]),
+        repeat=True, plain_eager=True, rows=total, tokens_held=held))
+    return rows
+
+
+def moon_step(device_name):
+    """One fine-tuning step of a 3-layer cut of the tower (the dense layer
+    and two MoE layers; batch 64, captions of 8-32 tokens) beside the
+    image tower in bf16 through ``make_itm_train_step``, after a warm-up
+    step, in eval mode (no dropout: the image tower's dropout seeds are a
+    host upload): launch counters reset just before it and read after it,
+    under ``torch.cuda.set_sync_debug_mode("error")``, so that a host sync
+    anywhere in the step, the routing's included, raises; its spans and
+    the MoE counters recorded. Returns the launch counts."""
+    from lightningdot_tpu_torch.config import EncoderConfig, MoonlightConfig
+    from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
+    from lightningdot_tpu_torch.models.encoder import init_tower_
+    from lightningdot_tpu_torch.models.moonlight import init_moonlight_
+    from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.training.itm_step import (batch_to_device,
+                                                          make_itm_train_step)
+    from lightningdot_tpu_torch.training.optim import make_optimizer
+    from lightningdot_tpu_torch.utils import tracing
+
+    with open(Path(__file__).parent / "configs"
+              / "moonlight_16b_a3b_card.json") as f:
+        cut = json.load(f)
+    cfg = MoonlightConfig.from_dict(dict(
+        cut, num_hidden_layers=MOON_STEP_LAYERS, project_dim=768))
+    model = BiEncoder(cfg, EncoderConfig(project_dim=768),
+                      compute_dtype=torch.bfloat16)
+    gen = torch.Generator().manual_seed(0)
+    init_moonlight_(model.txt_model, gen)
+    init_tower_(model.img_model, gen)
+    model.eval()
+    opt = make_optimizer(model, 2e-5, max_grad_norm=2.0)
+    step = make_itm_train_step(model, opt, device=torch.device(DEVICE))
+    b, s, r = MOON_STEP_BATCH, MOON_SEQ, MOON_STEP_REGIONS
+    gen = torch.Generator().manual_seed(1)
+    lens = torch.randint(8, s + 1, (b,), generator=gen)
+    mask = (torch.arange(s)[None] < lens[:, None]).long()
+    ids = torch.randint(999, cut["vocab_size"], (b, s), generator=gen) * mask
+    batch = batch_to_device({
+        "txts": {"input_ids": ids, "attention_mask": mask,
+                 "position_ids": torch.arange(s).expand(b, s)},
+        "imgs": {"input_ids": torch.full((b, 1), 101),
+                 "attention_mask": torch.ones(b, r + 1, dtype=torch.long),
+                 "img_feat": torch.rand(b, r, IMG_DIM, generator=gen),
+                 "img_pos_feat": torch.rand(b, r, 7, generator=gen)}},
+        torch.device(DEVICE))
+    step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    raised = None
+    with tracing.recording():
+        tracing.clear()
+        reset_launch_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            metrics = step(batch)
+        except RuntimeError as e:       # a host sync
+            raised = str(e)[:400]
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        recs = tracing.records()
+    spans = sorted({x.name for x in recs})
+    counters = {name: [x.counts[name] for x in recs
+                       if x.name == "moe.route" and name in x.counts]
+                for name in ("routed_rows", "max_expert_rows")}
+    emit(phase="moonlight_step", layers=MOON_STEP_LAYERS, batch=b,
+         raised=raised, loss=None if raised else float(metrics["loss"]),
+         spans=spans, **counters,
+         peak_gb=torch.cuda.max_memory_allocated() / 1e9, card=device_name)
+    check(raised is None, f"moonlight: the step synced the host: {raised}")
+    check(set(MOON_SPANS) <= set(spans),
+          f"moonlight: spans {spans} lack one of {MOON_SPANS}")
+    check(len(counters["routed_rows"]) == MOON_STEP_LAYERS - 1
+          and all(0 < m <= t for m, t in zip(counters["max_expert_rows"],
+                                             counters["routed_rows"])),
+          f"moonlight: MoE counters {counters}")
+    del step, opt, model, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def moonlight_phase(args, device_name):
+    """The Moonlight tower's kernels against their twins at the
+    fine-tuning step's shapes, then one step held to no host sync, its
+    launches held (``moonlight``). Returns {"rows", "counts"}."""
+    randn, g = make_randn(args.seed + 24)
+    rows = moon_rms_rows(device_name, randn)
+    rows += moon_rope_rows(device_name, randn)
+    rows += moon_mla_rows(device_name, randn, g)
+    rows += moon_moe_rows(device_name, randn, g)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = moon_step(device_name)
+    hold_path("moonlight", counts)
+    return {"rows": rows, "counts": counts}
+
+
 REPLACES = {
     "layernorm": ("lightningdot_tpu_torch/csrc/layernorm.cu",
                   "lightningdot_tpu/ops/layernorm.py:30"),
@@ -5668,6 +6035,15 @@ REPLACES = {
         "lightningdot_tpu_torch/csrc/attention_fused.cu",
         "lightningdot_tpu/ops/experimental/attention_fused.py:136"),
 }
+# the Moonlight tower's kernels, which no TPU kernel precedes
+REPLACES.update({
+    name: (f"lightningdot_tpu_torch/csrc/{source}.cu", None)
+    for name, source in (
+        ("rmsnorm", "layernorm"), ("rmsnorm_bwd", "layernorm"),
+        ("mla_attention", "mla_attention"),
+        ("mla_attention_bwd", "mla_attention"), ("rope", "rope"),
+        ("moe_gemm", "moe_gemm"), ("moe_combine", "moe_gemm"),
+        ("moe_scatter_rows", "moe_gemm"), ("moe_route_grad", "moe_gemm"))})
 # the row each kernel reports in the kernels line: the serving shape (batch
 # 64, 32 tokens, bf16) for the serving kernels; the training step's image
 # tower (64 x 64 rows, bf16) for dh1 and the training attention; every
@@ -5685,10 +6061,21 @@ REPORT_ROW = {"layernorm": ([2048, 768], "bfloat16"),
               "adamw": (None, "float32"),
               "attention_train_fwd": ([64, 64, 12, 64], "bfloat16"),
               "attention_train_bwd_mma": ([64, 64, 12, 64], "bfloat16"),
-              "attention_train_bwd": ([64, 64, 12, 64], "float32")}
+              "attention_train_bwd": ([64, 64, 12, 64], "float32"),
+              # the Moonlight step's shapes: 16,384 token rows, [512, 32]
+              # captions, the routed experts' gate/up GEMM
+              "rmsnorm": ([16384, 2048], "bfloat16"),
+              "rmsnorm_bwd": ([16384, 2048], "bfloat16"),
+              "mla_attention": ([512, 32, 16, 192], "bfloat16"),
+              "mla_attention_bwd": ([512, 32, 16, 192], "bfloat16"),
+              "rope": ([512, 32, 16, 64], "bfloat16"),
+              "moe_gemm": ([16384, 2048, 1408], "bfloat16"),
+              "moe_combine": ([16384, 2048], "bfloat16"),
+              "moe_scatter_rows": ([16384, 2048], "bfloat16"),
+              "moe_route_grad": ([16384, 2048], "float32")}
 # the LayerNorm rows' variant the kernels line reports: the forward without
 # a prologue; the backward of the training sites (res and a mask)
-REPORT_VARIANT = {"layernorm_bwd": "res_keep"}
+REPORT_VARIANT = {"layernorm_bwd": "res_keep", "moe_gemm": "gate_up"}
 # the path whose launch count the kernels line reports for each kernel
 REPORT_PATH = {"layernorm": "text_bf16", "layernorm_bwd": "itm_train",
                "attention": "text_bf16",
@@ -5697,7 +6084,33 @@ REPORT_PATH = {"layernorm": "text_bf16", "layernorm_bwd": "itm_train",
                "ffn_dh1": "itm_train_f32",
                "adamw": "itm_train", "attention_train_fwd": "itm_train",
                "attention_train_bwd_mma": "itm_train",
-               "attention_train_bwd": "itm_train_f32_full"}
+               "attention_train_bwd": "itm_train_f32_full",
+               **{name: "moonlight" for name in PATH_KERNELS["moonlight"]
+                  if name not in PATH_KERNELS["dist_vqa"]}}
+
+
+def kernel_entries(rows, paths, names):
+    """The kernels line: for each kernel of ``names`` its report row (the
+    shape, dtype and variant above) and its launches on its report
+    path."""
+    kernels = []
+    for name in names:
+        source, replaces = REPLACES[name]
+        shape, dtype = REPORT_ROW[name]
+        rep = [r for r in rows if r["kernel"] == name
+               and (shape is None or r["shape"] == shape)
+               and r["dtype"] == dtype and r.get("mode") != "train"
+               and r.get("variant") == REPORT_VARIANT.get(name)
+               and r.get("m_dtype", "float32") == "float32"][0]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=paths[REPORT_PATH[name]][name],
+            max_abs_err=rep["max_abs_err"], ms=rep["ms"],
+            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
+            bound_by=rep["bound_by"], library_ms=rep["library_ms"],
+            shape=rep["shape"], dtype=dtype, path=REPORT_PATH[name],
+            passed=True))
+    return kernels
 
 
 def main() -> int:
@@ -5752,7 +6165,8 @@ def main() -> int:
              registers=regs, spill_store_bytes=spill_st,
              spill_load_bytes=spill_ld)
     for stem in ("attention_mma_bwd", "ffn_mma", "ffn_int8", "ffn",
-                 "attention", "attention_fused"):
+                 "attention", "attention_fused", "moe_gemm", "mla_attention",
+                 "rope"):
         for name, (regs, spill_st, spill_ld) in sorted(
                 _build.ptxas_report(stem).items()):
             entry = re.search(r"\d([a-z_]+_kernel)(?:I((?:L[ib]\d+E)+)E)?",
@@ -5800,25 +6214,13 @@ def main() -> int:
     paths["dist_sharded_int8"] = dist["sharded"]["int8"]
     paths.update(dist["kd_vqa"])
     paths["examples"] = examples_phase(args, device_name)
+    moon = moonlight_phase(args, device_name)
+    rows += moon["rows"]
+    paths["moonlight"] = moon["counts"]
     check(all(any(c[name] > 0 for c in paths.values()) for name in REPLACES),
           f"a kernel was launched on no path: {paths}")
 
-    kernels = []
-    for name, (source, replaces) in REPLACES.items():
-        shape, dtype = REPORT_ROW[name]
-        rep = [r for r in rows if r["kernel"] == name
-               and (shape is None or r["shape"] == shape)
-               and r["dtype"] == dtype and r.get("mode") != "train"
-               and r.get("variant") == REPORT_VARIANT.get(name)
-               and r.get("m_dtype", "float32") == "float32"][0]
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=paths[REPORT_PATH[name]][name],
-            max_abs_err=rep["max_abs_err"], ms=rep["ms"],
-            plain_ms=rep["plain_ms"], bound_ms=rep["bound_ms"],
-            bound_by=rep["bound_by"], library_ms=rep["library_ms"],
-            shape=rep["shape"], dtype=dtype, path=REPORT_PATH[name],
-            passed=True))
+    kernels = kernel_entries(rows, paths, REPLACES)
     check("jax" not in sys.modules, "jax was imported")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

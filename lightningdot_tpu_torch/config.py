@@ -77,6 +77,120 @@ BERT_BASE_UNCASED = EncoderConfig(vocab_size=30522)
 BERT_BASE_CASED = EncoderConfig(vocab_size=28996)
 
 
+@dataclasses.dataclass
+class MoonlightConfig:
+    """A DeepSeek-V3 decoder used as a text tower (Moonlight-16B-A3B's
+    published config.json, ``model_type`` deepseek_v3): RMSNorm, multi-head
+    latent attention with RoPE, one dense SwiGLU layer, then DeepSeekMoE
+    layers with sigmoid routing (``noaux_tc``) and shared experts.
+
+    A card holds ``n_routed_experts`` of each layer's ``router_experts``
+    experts, from ``first_held_expert`` on: the router scores all of them
+    and the layer computes only its own (``models/moonlight.py``).
+    ``layer_norm_eps`` is the projection head's LayerNorm's (BERT's).
+    :meth:`check` refuses sizes outside the card kernels' ranges (ROADMAP
+    §C) before any launch."""
+
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    num_hidden_layers: int = 27
+    first_k_dense_replace: int = 1
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    n_routed_experts: int = 64
+    router_experts: int = 0            # 0: n_routed_experts
+    first_held_expert: int = 0
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    routed_scaling_factor: float = 2.446
+    norm_topk_prob: bool = True
+    scoring_func: str = "sigmoid"
+    topk_method: str = "noaux_tc"
+    n_group: int = 1
+    topk_group: int = 1
+    num_attention_heads: int = 16
+    kv_lora_rank: int = 512
+    q_lora_rank: Optional[int] = None
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 50000.0
+    rms_norm_eps: float = 1e-5
+    hidden_act: str = "silu"
+    initializer_range: float = 0.006
+    layer_norm_eps: float = 1e-12
+    project_dim: int = 0
+
+    # the kernels' ranges (ROADMAP §C): RMS mode of csrc/layernorm.cu,
+    # csrc/mla_attention.cu, csrc/moe_gemm.cu
+    MAX_NORM_WIDTH = 6144
+    MAX_HEAD_WIDTH = 256
+    MAX_HELD_EXPERTS = 64
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "MoonlightConfig":
+        known = {f.name for f in dataclasses.fields(cls)}
+        cfg = cls(**{k: v for k, v in d.items() if k in known})
+        cfg.check()
+        return cfg
+
+    @classmethod
+    def from_json_file(cls, path: str) -> "MoonlightConfig":
+        with open(path, "r", encoding="utf-8") as f:
+            return cls.from_dict(json.load(f))
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @property
+    def n_router(self) -> int:
+        return self.router_experts or self.n_routed_experts
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def out_size(self) -> int:
+        return self.project_dim if self.project_dim > 0 else self.hidden_size
+
+    def check(self) -> None:
+        """Raise on what the tower or its kernels do not take."""
+        bad = []
+        if self.q_lora_rank is not None:
+            bad.append("q_lora_rank (query compression is not built)")
+        if (self.scoring_func, self.topk_method, self.hidden_act) != (
+                "sigmoid", "noaux_tc", "silu"):
+            bad.append("routing other than sigmoid/noaux_tc with silu")
+        if self.n_group != 1 or self.topk_group != 1:
+            bad.append("group-limited routing (n_group, topk_group)")
+        for name in ("hidden_size", "kv_lora_rank"):
+            v = getattr(self, name)
+            if v % 8 or v > self.MAX_NORM_WIDTH:
+                bad.append(f"{name} {v}: a multiple of 8 up to "
+                           f"{self.MAX_NORM_WIDTH}")
+        for name in ("intermediate_size", "moe_intermediate_size"):
+            if getattr(self, name) % 8:
+                bad.append(f"{name}: a multiple of 8")
+        if (self.qk_head_dim > self.MAX_HEAD_WIDTH
+                or self.v_head_dim > self.MAX_HEAD_WIDTH
+                or self.qk_rope_head_dim % 2):
+            bad.append("head widths up to 256, an even RoPE width")
+        if not 0 < self.n_routed_experts <= self.MAX_HELD_EXPERTS:
+            bad.append(f"n_routed_experts held: 1 to "
+                       f"{self.MAX_HELD_EXPERTS}")
+        if (self.first_held_expert < 0 or self.first_held_expert
+                + self.n_routed_experts > self.n_router
+                or self.num_experts_per_tok > self.n_router):
+            bad.append("held experts outside the router's")
+        if bad:
+            raise ValueError("MoonlightConfig outside the port's ranges: "
+                             + "; ".join(bad))
+
+
+MOONLIGHT_16B_A3B = MoonlightConfig()
+
+
 # ---------------------------------------------------------------------------
 # Run options: argparse groups + JSON overlay (dvl/options.py parity)
 # ---------------------------------------------------------------------------

@@ -4,6 +4,11 @@
 //   u   = (x * keep) * s + res     (each op rounded to T; keep, res optional)
 //   out = (u - mean) * rsqrt(var + eps) * scale + bias
 //
+// and its RMS mode (RMSNorm: mean taken as 0, no bias; the Moonlight
+// tower's norms, models/moonlight.py), which has no TPU counterpart:
+//
+//   out = u * rsqrt(mean(u^2) + eps) * scale
+//
 // The forward replaces the TPU kernel lightningdot_tpu/ops/layernorm.py::
 // _ln_kernel (launched by _ln_pallas) and the mask-and-add in front of it
 // (lightningdot_tpu/ops/fused.py::_dal_math). The backward is the card's
@@ -182,7 +187,7 @@ __device__ __forceinline__ float row_sum(float v, float* slots) {
 
 // blockDim (threads per row, rows per block); a thread takes vectors
 // threadIdx.x + j * blockDim.x, j < kVecs, of its row
-template <typename T, int kVecs, bool kRes, bool kKeep>
+template <typename T, int kVecs, bool kRes, bool kKeep, bool kRms>
 __global__ void __launch_bounds__(kMaxThreads)
     layernorm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
                          const uint8_t* __restrict__ keep,
@@ -216,7 +221,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       load_u<T, kRes, kKeep>(x, res, mask, base, vec, keep_scale, u);
       if constexpr (kEarly) {
         load_param<E>(scale, vec, sc[j]);
-        load_param<E>(bias, vec, bi[j]);
+        if constexpr (!kRms) load_param<E>(bias, vec, bi[j]);
       }
     } else {
 #pragma unroll
@@ -226,7 +231,7 @@ __global__ void __launch_bounds__(kMaxThreads)
     for (int e = 0; e < E; ++e) sum += u[e];
     pack(u, ur[j]);
   }
-  const float mean = row_sum(sum, slots[0]) / hidden;
+  const float mean = kRms ? 0.f : row_sum(sum, slots[0]) / hidden;
   float sq = 0.f;
 #pragma unroll
   for (int j = 0; j < kVecs; ++j) {
@@ -248,13 +253,13 @@ __global__ void __launch_bounds__(kMaxThreads)
     unpack(ur[j], u);
     if constexpr (!kEarly) {
       load_param<E>(scale, vec, sc[j]);
-      load_param<E>(bias, vec, bi[j]);
+      if constexpr (!kRms) load_param<E>(bias, vec, bi[j]);
     }
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      y[e] = __fadd_rn(
-          __fmul_rn(__fmul_rn(__fsub_rn(u[e], mean), inv), sc[j][e]),
-          bi[j][e]);
+    for (int e = 0; e < E; ++e) {
+      y[e] = __fmul_rn(__fmul_rn(__fsub_rn(u[e], mean), inv), sc[j][e]);
+      if constexpr (!kRms) y[e] = __fadd_rn(y[e], bi[j][e]);
+    }
     typename V::Raw r;
     pack(y, r);
     reinterpret_cast<typename V::Raw*>(out + base)[vec] = r;
@@ -264,7 +269,7 @@ __global__ void __launch_bounds__(kMaxThreads)
 // blockDim (threads per row, rows per block R, a power of 2); the block
 // walks row groups blockIdx.x, + gridDim.x, ... and writes its partial sums
 // of dscale (the first `hidden` floats) and dbias to partial[blockIdx.x]
-template <typename T, bool kRes, bool kKeep>
+template <typename T, bool kRes, bool kKeep, bool kRms>
 __global__ void __launch_bounds__(kBwdThreads, 2)
     layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
                          const uint8_t* __restrict__ keep,
@@ -316,7 +321,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
       for (int e = 0; e < E; ++e) sum += u[e];
       pack(u, ur[j]);   // exact: u is already a value of T
     }
-    const float mean = row_sum(sum, slots[0]) / hidden;
+    const float mean = kRms ? 0.f : row_sum(sum, slots[0]) / hidden;
     float sq = 0.f;
 #pragma unroll
     for (int j = 0; j < kVecs; ++j) {
@@ -350,7 +355,7 @@ __global__ void __launch_bounds__(kBwdThreads, 2)
         acc_b[j][e] = __fadd_rn(acc_b[j][e], gv[e]);
       }
     }
-    const float m1 = row_sum(s1, slots[2]) / hidden;
+    const float m1 = kRms ? 0.f : row_sum(s1, slots[2]) / hidden;
     const float m2 = row_sum(s2, slots[3]) / hidden;
 
     // du = inv * (gs - mean(gs) - xhat * mean(gs * xhat)), rounded to T
@@ -472,7 +477,7 @@ __global__ void __launch_bounds__(32 * kSumWarps)
 
 int round_up32(int n) { return (n + 31) / 32 * 32; }
 
-template <typename T, bool kRes, bool kKeep>
+template <typename T, bool kRes, bool kKeep, bool kRms = false>
 cudaError_t forward(const void* x, const void* res, const void* keep,
                     const float* scale, const float* bias, void* out,
                     int rows, int hidden, float eps, float keep_scale,
@@ -485,14 +490,14 @@ cudaError_t forward(const void* x, const void* res, const void* keep,
   const uint8_t* kt = static_cast<const uint8_t*>(keep);
   T* ot = static_cast<T*>(out);
   if (rows <= kFewRows && hidden <= kMaxHidden) {
-    layernorm_fwd_kernel<T, 1, kRes, kKeep>
+    layernorm_fwd_kernel<T, 1, kRes, kKeep, kRms>
         <<<rows, dim3(round_up32(nvec), 1), 0, stream>>>(
             xt, rt, kt, scale, bias, ot, rows, hidden, eps, keep_scale);
   } else {
     const int per_row = round_up32((nvec + kVecs - 1) / kVecs);
     const int rows_per_block = per_row < kManyThreads
                                    ? kManyThreads / per_row : 1;
-    layernorm_fwd_kernel<T, kVecs, kRes, kKeep>
+    layernorm_fwd_kernel<T, kVecs, kRes, kKeep, kRms>
         <<<(rows + rows_per_block - 1) / rows_per_block,
            dim3(per_row, rows_per_block), 0, stream>>>(
             xt, rt, kt, scale, bias, ot, rows, hidden, eps, keep_scale);
@@ -500,7 +505,7 @@ cudaError_t forward(const void* x, const void* res, const void* keep,
   return cudaGetLastError();
 }
 
-template <typename T, bool kRes, bool kKeep>
+template <typename T, bool kRes, bool kKeep, bool kRms = false>
 cudaError_t backward(const void* x, const void* res, const void* keep,
                      const float* scale, const void* g, void* du, void* dx,
                      float* partial, float* dscale, float* dbias, int rows,
@@ -517,7 +522,7 @@ cudaError_t backward(const void* x, const void* res, const void* keep,
   const int groups = kBwdThreads / per_row;
   if (kBwdThreads % per_row || (groups & (groups - 1)))
     return cudaErrorInvalidValue;
-  layernorm_bwd_kernel<T, kRes, kKeep>
+  layernorm_bwd_kernel<T, kRes, kKeep, kRms>
       <<<blocks, dim3(per_row, groups), 0, stream>>>(
           static_cast<const T*>(x), static_cast<const T*>(res),
           static_cast<const uint8_t*>(keep), scale,
@@ -592,6 +597,45 @@ extern "C" int ldot_layernorm_bwd(const void* x, const void* res,
   if (dtype == ldot::kFloat32) return LDOT_LN_BWD(float);
   if (dtype == ldot::kBFloat16) return LDOT_LN_BWD(__nv_bfloat16);
 #undef LDOT_LN_BWD
+  return cudaErrorInvalidValue;
+}
+
+// The RMS mode: out = x * rsqrt(mean(x^2) + eps) * scale, x and out
+// [rows, hidden] as for ldot_layernorm, scale float32 [hidden].
+extern "C" int ldot_rmsnorm(const void* x, const float* scale, void* out,
+                            int rows, int hidden, float eps, int dtype,
+                            void* stream) {
+  if (!shape_ok(rows, hidden, nullptr, nullptr)) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ldot::kFloat32)
+    return forward<float, false, false, true>(x, nullptr, nullptr, scale,
+                                              nullptr, out, rows, hidden,
+                                              eps, 1.f, s);
+  if (dtype == ldot::kBFloat16)
+    return forward<__nv_bfloat16, false, false, true>(
+        x, nullptr, nullptr, scale, nullptr, out, rows, hidden, eps, 1.f, s);
+  return cudaErrorInvalidValue;
+}
+
+// The RMS mode's backward: dx in x's dtype, dscale float32 [hidden] summed
+// through partial [blocks, 2 * hidden]; dbias_scratch [hidden] takes the
+// unused bias column sums.
+extern "C" int ldot_rmsnorm_bwd(const void* x, const float* scale,
+                                const void* g, void* dx, float* partial,
+                                float* dscale, float* dbias_scratch,
+                                int rows, int hidden, int blocks, float eps,
+                                int dtype, void* stream) {
+  if (!shape_ok(rows, hidden, nullptr, nullptr) || blocks <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ldot::kFloat32)
+    return backward<float, false, false, true>(
+        x, nullptr, nullptr, scale, g, dx, nullptr, partial, dscale,
+        dbias_scratch, rows, hidden, blocks, eps, 1.f, s);
+  if (dtype == ldot::kBFloat16)
+    return backward<__nv_bfloat16, false, false, true>(
+        x, nullptr, nullptr, scale, g, dx, nullptr, partial, dscale,
+        dbias_scratch, rows, hidden, blocks, eps, 1.f, s);
   return cudaErrorInvalidValue;
 }
 

@@ -16,9 +16,10 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from lightningdot_tpu_torch.config import EncoderConfig
+from lightningdot_tpu_torch.config import EncoderConfig, MoonlightConfig
 from lightningdot_tpu_torch.models.encoder import (Dense, ImageEncoder,
                                                    LayerNorm, TextEncoder)
+from lightningdot_tpu_torch.models.moonlight import MoonlightTextEncoder
 from lightningdot_tpu_torch.ops import gelu, mm_f32
 from lightningdot_tpu_torch.parallel.mesh import (gather_batch_rows,
                                                   gather_rows, process_index)
@@ -83,7 +84,9 @@ class BiEncoder(nn.Module):
     as in the reference's fine-tune checkpoints (bi_encoder.py:203-219).
     Without ``img_cfg`` only the text tower is built (the query server
     needs no image tower). ``fix_txt_encoder`` / ``fix_img_encoder`` run
-    that tower without a gradient (JAX's ``stop_gradient``)."""
+    that tower without a gradient (JAX's ``stop_gradient``). A
+    :class:`~lightningdot_tpu_torch.config.MoonlightConfig` text config
+    builds the Moonlight decoder tower (``models/moonlight.py``)."""
 
     def __init__(self, txt_cfg: EncoderConfig,
                  img_cfg: Optional[EncoderConfig] = None, *,
@@ -96,7 +99,9 @@ class BiEncoder(nn.Module):
         self.compute_dtype = compute_dtype
         self.fix_txt_encoder = fix_txt_encoder
         self.fix_img_encoder = fix_img_encoder
-        self.txt_model = TextEncoder(txt_cfg)
+        self.txt_model = (MoonlightTextEncoder(txt_cfg)
+                          if isinstance(txt_cfg, MoonlightConfig)
+                          else TextEncoder(txt_cfg))
         self.img_model = ImageEncoder(img_cfg) if img_cfg is not None else None
         self.train(False)
 

@@ -18,12 +18,15 @@ from typing import Any, Mapping, Optional
 import torch
 
 from lightningdot_tpu_torch.config import (BERT_BASE_CASED, BERT_BASE_UNCASED,
-                                           EncoderConfig)
+                                           MOONLIGHT_16B_A3B, EncoderConfig,
+                                           MoonlightConfig)
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
 from lightningdot_tpu_torch.models.cross_encoder import (CrossEncoder,
                                                          init_cross_encoder_)
 from lightningdot_tpu_torch.models.encoder import init_tower_
+from lightningdot_tpu_torch.models.moonlight import (MoonlightTextEncoder,
+                                                     init_moonlight_)
 from lightningdot_tpu_torch.models.weights import (cross_encoder_keys,
                                                    load_torch_state_dict,
                                                    load_tower_, normalize_keys,
@@ -55,6 +58,21 @@ def resolve_encoder_config(name_or_path: str, *, project_dim: int = 0,
     return EncoderConfig.from_dict(d)
 
 
+def resolve_moonlight_config(name_or_path: str, *,
+                             project_dim: int = 0) -> MoonlightConfig:
+    """``moonlight-16b-a3b`` (the published config.json) or a JSON path
+    holding its keys (``configs/moonlight_16b_a3b_card.json``: one card's
+    cut) -> MoonlightConfig with the projection head's width."""
+    if name_or_path == "moonlight-16b-a3b":
+        d = MOONLIGHT_16B_A3B.to_dict()
+    elif os.path.exists(name_or_path):
+        d = MoonlightConfig.from_json_file(name_or_path).to_dict()
+    else:
+        raise ValueError(f"unknown decoder tower config: {name_or_path!r}")
+    d["project_dim"] = project_dim
+    return MoonlightConfig.from_dict(d)
+
+
 def _overlay(tower: torch.nn.Module, sd: Mapping[str, Any]) -> None:
     """Load a tower checkpoint over the tower's own weights, keeping what
     the checkpoint lacks (a fresh projection head when loading bert-base
@@ -79,12 +97,19 @@ def build_biencoder(args, *, seed: int = 0) -> BiEncoder:
     if args.img_model_type != "uniter-base":
         raise ValueError(
             f"image encoder does not support {args.img_model_type}")
-    if args.txt_model_type not in ("bert-base", "uniter-base"):
+    if args.txt_model_type not in ("bert-base", "uniter-base",
+                                   "moonlight-16b-a3b"):
         raise ValueError(f"txt encoder does not support {args.txt_model_type}")
 
     project_dim = getattr(args, "project_dim", 0)
-    txt_cfg = resolve_encoder_config(args.txt_model_config,
-                                     project_dim=project_dim)
+    decoder = args.txt_model_type == "moonlight-16b-a3b"
+    if decoder:
+        # the Moonlight tower (models/moonlight.py); its config names it
+        txt_cfg = resolve_moonlight_config(args.txt_model_config,
+                                           project_dim=project_dim)
+    else:
+        txt_cfg = resolve_encoder_config(args.txt_model_config,
+                                         project_dim=project_dim)
     img_cfg = resolve_encoder_config(args.img_model_config,
                                      project_dim=project_dim)
     dtype = (torch.bfloat16 if getattr(args, "compute_dtype", "bf16") == "bf16"
@@ -94,10 +119,17 @@ def build_biencoder(args, *, seed: int = 0) -> BiEncoder:
         fix_txt_encoder=getattr(args, "fix_txt_encoder", False),
         fix_img_encoder=getattr(args, "fix_img_encoder", False))
     gen = torch.Generator().manual_seed(seed)
-    init_tower_(model.txt_model, gen)
+    if isinstance(model.txt_model, MoonlightTextEncoder):
+        init_moonlight_(model.txt_model, gen)
+    else:
+        init_tower_(model.txt_model, gen)
     init_tower_(model.img_model, gen)
 
     txt_ckpt = _maybe(getattr(args, "txt_checkpoint", None))
+    if txt_ckpt and decoder:
+        raise ValueError("--txt_checkpoint takes BERT tower state dicts; "
+                         "the Moonlight tower loads through "
+                         "--biencoder_checkpoint")
     if txt_ckpt:
         _overlay(model.txt_model, load_torch_state_dict(txt_ckpt))
     img_ckpt = _maybe(getattr(args, "img_checkpoint", None))

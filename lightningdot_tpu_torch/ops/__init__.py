@@ -8,7 +8,9 @@ for a CPU tensor. Each kernel wrapper counts its launches through
 has a kernel of its own (the FFN, its backward's dh1 and the training
 attention's backward: bfloat16 on the tensor cores, float32 on FMA units),
 each has its own wrapper and count ("ffn" / "ffn_mma", "ffn_dh1" /
-"ffn_dh1_mma", "attention_train_bwd" / "attention_train_bwd_mma").
+"ffn_dh1_mma", "attention_train_bwd" / "attention_train_bwd_mma"). The
+Moonlight tower's kernels (``layernorm.rms_norm``, ``mla_attention``,
+``rope``, ``moe``) are imported from their modules.
 """
 from lightningdot_tpu_torch.ops.activations import gelu  # noqa: F401
 from lightningdot_tpu_torch.ops.adamw import adamw_, adamw_cuda  # noqa: F401
@@ -31,7 +33,9 @@ from lightningdot_tpu_torch.utils import tracing
 KERNELS = ("layernorm", "layernorm_bwd", "attention", "ffn", "ffn_mma",
            "ffn_int8", "ffn_dh1", "ffn_dh1_mma", "adamw",
            "attention_train_fwd", "attention_train_bwd",
-           "attention_train_bwd_mma")
+           "attention_train_bwd_mma", "rmsnorm", "rmsnorm_bwd",
+           "mla_attention", "mla_attention_bwd", "rope", "moe_gemm",
+           "moe_combine", "moe_scatter_rows", "moe_route_grad")
 
 
 def launch_counts() -> dict:

@@ -74,6 +74,29 @@ _SIGNATURES = {
     # head_dim, scale, mscale, mscale_f32, thresh, dropout, dtype, stream
     "ldot_attention_train_bwd": (_P,) * 10 + (_I, _I, _I, _I, _F, _F, _F, _U,
                                               _I, _I, _P),
+    # x, scale, out, rows, hidden, eps, dtype, stream
+    "ldot_rmsnorm": (_P, _P, _P, _I, _I, _F, _I, _P),
+    # x, scale, g, dx, partial, dscale, dbias_scratch, rows, hidden,
+    # blocks, eps, dtype, stream
+    "ldot_rmsnorm_bwd": (_P,) * 7 + (_I, _I, _I, _F, _I, _P),
+    # q, k, v, key_ok, o, lse, batch, seq, heads, dqk, dv, scale, causal,
+    # dtype, stream
+    "ldot_mla_attention": (_P,) * 6 + (_I,) * 5 + (_F, _I, _I, _P),
+    # q, k, v, o, g, key_ok, lse, dq, dk, dv, batch, seq, heads, dqk, dv,
+    # scale, causal, dtype, stream
+    "ldot_mla_attention_bwd": (_P,) * 10 + (_I,) * 5 + (_F, _I, _I, _P),
+    # x, out, rows, heads, seq, dim, theta, inverse, dtype, stream
+    "ldot_rope": (_P, _P, _I, _I, _I, _I, _F, _I, _I, _P),
+    # kind, epi, a, a_map, b, b_map, offsets, groups, out, out2, out3, g_in,
+    # u_in, m, n, k, grid_rows, stream
+    "ldot_moe_gemm": (_I, _I) + (_P,) * 5 + (_I,) + (_P,) * 5 + (_I,) * 4
+    + (_P,),
+    # y, pos, w, topk, out, tokens, h, stream
+    "ldot_moe_combine": (_P, _P, _P, _I, _P, _I, _I, _P),
+    # g, order, w, topk, offsets, groups, out, rows, h, stream
+    "ldot_moe_scatter_rows": (_P, _P, _P, _I, _P, _I, _P, _I, _I, _P),
+    # g, y, pos, topk, dw, tokens, h, stream
+    "ldot_moe_route_grad": (_P, _P, _P, _I, _P, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -255,3 +255,103 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                                     or bias.requires_grad):
         return _LayerNorm.apply(x, scale, bias, eps)
     return _ln_forward(x, scale, bias, eps)
+
+
+# ---------------------------------------------------------------------------
+# the RMS mode (RMSNorm), for the Moonlight tower (models/moonlight.py)
+# ---------------------------------------------------------------------------
+
+def rms_fwd_math(x, scale, eps):
+    """The RMS mode's twin: ``x * rsqrt(mean(x^2) + eps) * scale`` in
+    float32, cast back to x's dtype (DeepseekV3RMSNorm)."""
+    xf = x.float()
+    inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    return (xf * inv * scale).to(x.dtype)
+
+
+def rms_bwd_math(x, scale, g, eps):
+    """(dx, dscale) of :func:`rms_fwd_math` at cotangent g: dx = inv (g s -
+    xhat mean(g s xhat)) in x's dtype, dscale float32."""
+    xf, gf = x.float(), g.float()
+    inv = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    xhat = xf * inv
+    dscale = (gf * xhat).reshape(-1, x.shape[-1]).sum(0)
+    gs = gf * scale.float()
+    dx = inv * (gs - xhat * (gs * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), dscale
+
+
+def rms_norm_cuda(x2d: torch.Tensor, scale: torch.Tensor,
+                  eps: float) -> torch.Tensor:
+    """Launch the RMS mode's forward on [rows, hidden] CUDA tensors."""
+    what = "rms_norm kernel"
+    code = _check(what, x2d, (scale,), [], None)
+    rows, hidden = x2d.shape
+    out = torch.empty_like(x2d)
+    with torch.cuda.device(x2d.device):
+        _build.check(_build.lib().ldot_rmsnorm(
+            x2d.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, hidden,
+            eps, code, _build.stream_ptr(x2d)), what)
+    tracing.launched("rmsnorm")
+    return out
+
+
+def rms_norm_bwd_cuda(x2d: torch.Tensor, scale: torch.Tensor,
+                      g2d: torch.Tensor, eps: float):
+    """Launch the RMS mode's backward (and its summing pass): (dx,
+    dscale) as :func:`rms_bwd_math` returns them."""
+    what = "rms_norm backward kernel"
+    code = _check(what, x2d, (scale,), [g2d], None)
+    rows, hidden = x2d.shape
+    dx = torch.empty_like(x2d)
+    per_block = 1 if hidden > WIDE_HIDDEN else 4
+    blocks = min(-(-rows // per_block),
+                 BWD_BLOCKS_PER_SM * _build.num_sms(x2d.device))
+    partial = torch.empty(blocks, 2 * hidden, dtype=torch.float32,
+                          device=x2d.device)
+    sums = torch.empty(2, hidden, dtype=torch.float32, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        _build.check(_build.lib().ldot_rmsnorm_bwd(
+            x2d.data_ptr(), scale.data_ptr(), g2d.data_ptr(), dx.data_ptr(),
+            partial.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), rows,
+            hidden, blocks, eps, code, _build.stream_ptr(x2d)), what)
+    tracing.launched("rmsnorm_bwd")
+    return dx, sums[0]
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rms_forward(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale = ctx.saved_tensors
+        if not x.is_cuda:
+            dx, dscale = rms_bwd_math(x, scale, g, ctx.eps)
+        else:
+            h = x.shape[-1]
+            dx, dscale = rms_norm_bwd_cuda(_rows(x, h), scale, _rows(g, h),
+                                           ctx.eps)
+            dx = dx.reshape(x.shape)
+        return dx, dscale, None
+
+
+def _rms_forward(x, scale, eps):
+    if not x.is_cuda:
+        return rms_fwd_math(x, scale, eps)
+    h = x.shape[-1]
+    return rms_norm_cuda(_rows(x, h), scale, eps).reshape(x.shape)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """RMSNorm over the last axis with a float32 scale: the RMS mode of
+    ``csrc/layernorm.cu`` on a CUDA tensor (or an exception: hidden a
+    multiple of 8 up to 6,144), :func:`rms_fwd_math` on a CPU tensor; the
+    backward likewise."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rms_forward(x, scale, eps)

@@ -117,9 +117,11 @@ def span(name: str, id: Optional[int] = None):
     return _OFF
 
 
-def count(name: str, n: int = 1) -> None:
+def count(name: str, n=1) -> None:
     """Add ``n`` to counter ``name`` of the innermost open span on this
-    thread; nothing if none is open."""
+    thread; nothing if none is open. ``n`` may be a count the device holds
+    (a tensor): it is added on the device, and read as an int only by
+    :func:`records`, so that counting waits for nothing."""
     stack = _STATE.local.stack
     if stack:
         counts = stack[-1].counts
@@ -159,6 +161,9 @@ def records() -> List[Record]:
     """The finished spans kept, in the order they began."""
     with _STATE.lock:
         out = list(_STATE.records)
+    out = [r if all(isinstance(v, int) for v in r.counts.values()) else
+           r._replace(counts={k: int(v) for k, v in r.counts.items()})
+           for r in out]
     return sorted(out, key=lambda r: r.index)
 
 

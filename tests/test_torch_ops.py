@@ -379,7 +379,11 @@ def test_cuda_wrappers_refuse_cpu_tensors():
                                "ffn_dh1_mma": 0,
                                "adamw": 0, "attention_train_fwd": 0,
                                "attention_train_bwd": 0,
-                               "attention_train_bwd_mma": 0}
+                               "attention_train_bwd_mma": 0,
+                               "rmsnorm": 0, "rmsnorm_bwd": 0,
+                               "mla_attention": 0, "mla_attention_bwd": 0,
+                               "rope": 0, "moe_gemm": 0, "moe_combine": 0,
+                               "moe_scatter_rows": 0, "moe_route_grad": 0}
 
 
 @pytest.mark.cuda

@@ -28,7 +28,9 @@ from lightningdot_tpu_torch.utils import tracing
 KERNELS = ["layernorm", "layernorm_bwd", "attention", "ffn", "ffn_mma",
            "ffn_int8", "ffn_dh1", "ffn_dh1_mma", "adamw",
            "attention_train_fwd", "attention_train_bwd",
-           "attention_train_bwd_mma"]
+           "attention_train_bwd_mma", "rmsnorm", "rmsnorm_bwd",
+           "mla_attention", "mla_attention_bwd", "rope", "moe_gemm",
+           "moe_combine", "moe_scatter_rows", "moe_route_grad"]
 SMALL = dict(vocab_size=300, hidden_size=32, num_hidden_layers=1,
              num_attention_heads=2, intermediate_size=64,
              max_position_embeddings=128, img_dim=16)
