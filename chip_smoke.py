@@ -5906,6 +5906,98 @@ def moon_moe_rows(device_name, randn, g):
     return rows
 
 
+# the bf16 projections at the cell's shapes (batch 512: 16,384 text rows,
+# 53,248 image rows): MLA's q (2,048 -> 3,072) and kv_b (512 -> 4,096), no
+# bias; the image tower's 768 -> 768, with one
+MOON_PRODUCTS = (("mla_q", MOON_BATCH * MOON_SEQ, MOON_HIDDEN,
+                  MOON_HEADS * MOON_QK, False),
+                 ("mla_kv_b", MOON_BATCH * MOON_SEQ, MOON_LATENT,
+                  MOON_HEADS * (MOON_QK - MOON_ROPE + MOON_V), False),
+                 ("image_dense", MOON_BATCH * 104, 768, 768, True))
+
+
+def _bf16_ulp(x):
+    """The spacing of bfloat16 values at each magnitude of ``x``."""
+    exponent = torch.frexp(x.to(torch.bfloat16).float()).exponent
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), exponent - 8)
+
+
+def moon_round_rows(device_name, randn):
+    """``mm_round`` (the product rounded inside cuBLAS, the bf16 cotangent
+    taken as it comes) against the chain it replaced (``mm_f32``, the
+    float32 bias add, ``.to(bf16)``, whose backward casts the cotangent to
+    float32 and back and rounds each gradient in a pass of its own), forward
+    and backward at the cell's shapes, with
+    ``allow_bf16_reduced_precision_reduction`` off as the bf16 step sets
+    it. Each output (y, da, db) is held within a bf16 ulp of the float32
+    product of the same operands, with the share of its elements that
+    differ from that product rounded; the bias gradient within 1e-5 of the
+    chain's. Both are timed in a CUDA graph."""
+    from lightningdot_tpu_torch.ops.matmul import mm_f32, mm_round
+
+    bf16, rows = torch.bfloat16, []
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        for name, m, k, n, with_bias in MOON_PRODUCTS:
+            a = randn(m, k, dtype=bf16)
+            b = randn(k, n, scale=k ** -0.5, dtype=bf16)
+            bias = randn(n, scale=0.5) if with_bias else None
+            g = randn(m, n, dtype=bf16)
+            operands = (a, b) + ((bias,) if with_bias else ())
+
+            def fwd_bwd(product):
+                # fresh leaves every call: a leaf's gradient accumulator
+                # keeps the stream of the leaf's first use, and a backward
+                # captured in a graph may touch no other stream
+                def run():
+                    leaves = tuple(t.detach().requires_grad_(True)
+                                   for t in operands)
+                    y = product(*leaves)
+                    return (y,) + torch.autograd.grad(y, leaves, g)
+                return run
+
+            new = fwd_bwd(mm_round)
+            chain = fwd_bwd(lambda a, b, bias=None: (
+                mm_f32(a, b) if bias is None else mm_f32(a, b) + bias
+            ).to(bf16))
+            got, old = new(), chain()
+            with torch.no_grad():
+                exact = (mm_f32(a, b) + (0 if bias is None else bias),
+                         mm_f32(g, b.t()), mm_f32(a.t(), g))
+            held = {}
+            for label, x, x_old, x32 in zip(("y", "da", "db"), got, old,
+                                            exact):
+                diff = (x.float() - x32).abs()
+                held[f"{label}_differ_frac"] = (
+                    x != x32.to(bf16)).float().mean().item()
+                held[f"{label}_chain_differ_frac"] = (
+                    x != x_old).float().mean().item()
+                held[f"{label}_max_ulps"] = (
+                    diff / _bf16_ulp(x32)).max().item()
+            if with_bias:
+                held["dbias_rel_err"] = ((got[3] - old[3]).abs().max()
+                                         / old[3].abs().max()).item()
+            del got, old, exact
+            row = dict(phase="rounded_product", kernel="mm_round",
+                       variant=name, shape=[m, k, n], dtype="bfloat16",
+                       bias=with_bias, **held, ms=time_ms(new, 5, 5),
+                       chain_ms=time_ms(chain, 5, 5), device=device_name)
+            emit(**row)
+            check(all(held[f"{x}_max_ulps"] <= 1.0 for x in ("y", "da",
+                                                              "db")),
+                  f"mm_round {name}: more than a bf16 ulp from the float32 "
+                  f"product: {held}")
+            check(not with_bias or held["dbias_rel_err"] <= 1e-5,
+                  f"mm_round {name}: bias gradient off: {held}")
+            rows.append(row)
+            del a, b, bias, g, operands
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+    return rows
+
+
 def moon_step(device_name):
     """One fine-tuning step of a 3-layer cut of the tower (the dense layer
     and two MoE layers; batch 64, captions of 8-32 tokens) beside the
@@ -5914,12 +6006,15 @@ def moon_step(device_name):
     host upload): launch counters reset just before it and read after it,
     under ``torch.cuda.set_sync_debug_mode("error")``, so that a host sync
     anywhere in the step, the routing's included, raises; its spans and
-    the MoE counters recorded. Returns the launch counts."""
+    the MoE counters recorded, and ``mm_round``'s calls held to one a bf16
+    projection. Returns the launch counts."""
     from lightningdot_tpu_torch.config import EncoderConfig, MoonlightConfig
     from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
     from lightningdot_tpu_torch.models.encoder import init_tower_
     from lightningdot_tpu_torch.models.moonlight import init_moonlight_
     from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
+    from lightningdot_tpu_torch.ops.matmul import (reset_rounded_products,
+                                                   rounded_products)
     from lightningdot_tpu_torch.training.itm_step import (batch_to_device,
                                                           make_itm_train_step)
     from lightningdot_tpu_torch.training.optim import make_optimizer
@@ -5930,8 +6025,8 @@ def moon_step(device_name):
         cut = json.load(f)
     cfg = MoonlightConfig.from_dict(dict(
         cut, num_hidden_layers=MOON_STEP_LAYERS, project_dim=768))
-    model = BiEncoder(cfg, EncoderConfig(project_dim=768),
-                      compute_dtype=torch.bfloat16)
+    img_cfg = EncoderConfig(project_dim=768)
+    model = BiEncoder(cfg, img_cfg, compute_dtype=torch.bfloat16)
     gen = torch.Generator().manual_seed(0)
     init_moonlight_(model.txt_model, gen)
     init_tower_(model.img_model, gen)
@@ -5958,6 +6053,7 @@ def moon_step(device_name):
     with tracing.recording():
         tracing.clear()
         reset_launch_counts()
+        reset_rounded_products()
         torch.cuda.set_sync_debug_mode("error")
         try:
             metrics = step(batch)
@@ -5967,14 +6063,25 @@ def moon_step(device_name):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         counts = launch_counts()
+        rounded = rounded_products()
         recs = tracing.records()
     spans = sorted({x.name for x in recs})
     counters = {name: [x.counts[name] for x in recs
                        if x.name == "moe.route" and name in x.counts]
                 for name in ("routed_rows", "max_expert_rows")}
+    # every bf16 projection is one rounded product: MLA's four a layer, the
+    # image tower's two embedding projections and four a layer, two in each
+    # projection head; each counts once in the forward and once in the
+    # backward, on the step's phases
+    want_rounded = (4 * MOON_STEP_LAYERS + 2
+                    + 4 * img_cfg.num_hidden_layers + 4)
+    rounded_on = {name: sum(x.counts.get("rounded_products", 0)
+                            for x in recs if x.name == name)
+                  for name in ("step.forward", "step.backward")}
     emit(phase="moonlight_step", layers=MOON_STEP_LAYERS, batch=b,
          raised=raised, loss=None if raised else float(metrics["loss"]),
-         spans=spans, **counters,
+         spans=spans, **counters, rounded_products=rounded,
+         rounded_products_on=rounded_on,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9, card=device_name)
     check(raised is None, f"moonlight: the step synced the host: {raised}")
     check(set(MOON_SPANS) <= set(spans),
@@ -5983,6 +6090,10 @@ def moon_step(device_name):
           and all(0 < m <= t for m, t in zip(counters["max_expert_rows"],
                                              counters["routed_rows"])),
           f"moonlight: MoE counters {counters}")
+    check(rounded == want_rounded and all(
+        v == want_rounded for v in rounded_on.values()),
+          f"moonlight: {rounded} rounded products ({rounded_on} on the "
+          f"step's phases), {want_rounded} projections")
     del step, opt, model, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -5991,13 +6102,15 @@ def moon_step(device_name):
 
 def moonlight_phase(args, device_name):
     """The Moonlight tower's kernels against their twins at the
-    fine-tuning step's shapes, then one step held to no host sync, its
-    launches held (``moonlight``). Returns {"rows", "counts"}."""
+    fine-tuning step's shapes, its bf16 projections against the chain they
+    replaced, then one step held to no host sync, its launches and rounded
+    products held (``moonlight``). Returns {"rows", "counts"}."""
     randn, g = make_randn(args.seed + 24)
     rows = moon_rms_rows(device_name, randn)
     rows += moon_rope_rows(device_name, randn)
     rows += moon_mla_rows(device_name, randn, g)
     rows += moon_moe_rows(device_name, randn, g)
+    rows += moon_round_rows(device_name, randn)
     gc.collect()
     torch.cuda.empty_cache()
     counts = moon_step(device_name)

@@ -35,7 +35,7 @@ from torch import nn
 from lightningdot_tpu_torch.config import EncoderConfig
 from lightningdot_tpu_torch.ops import (attention_nodrop, ffn_gelu,
                                         fused_attention_train, gelu,
-                                        layer_norm, mm_f32,
+                                        layer_norm, mm_f32, mm_round,
                                         multi_head_attention)
 from lightningdot_tpu_torch.ops.attention import MAX_SEQ
 from lightningdot_tpu_torch.ops.attention_fused import site_seeds
@@ -93,7 +93,8 @@ class Dense(nn.Linear):
     changes (its version counter moves on an in-place update such as
     ``load_state_dict``, and ``training.optim.FusedAdamW`` moves it after
     each step). The numbers are the same. Where the weight needs a
-    gradient, the cast is made on every call, in the graph.
+    gradient, the cast is made on every call, in the graph. Below float32
+    the product, the bias and the rounding are one ``mm_round``.
     """
 
     def __init__(self, in_features: int, out_features: int):
@@ -115,6 +116,10 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         shape = x.shape
+        if dtype != torch.float32:
+            y = mm_round(x.reshape(-1, shape[-1]).to(dtype),
+                         self.kernel(dtype), self.bias)
+            return y.reshape(*shape[:-1], self.out_features)
         y = mm_f32(x.reshape(-1, shape[-1]).to(dtype), self.kernel(dtype))
         return (y + self.bias).to(dtype).reshape(*shape[:-1],
                                                  self.out_features)

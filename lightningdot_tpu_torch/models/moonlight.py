@@ -49,7 +49,7 @@ from torch import nn
 
 from lightningdot_tpu_torch.config import MoonlightConfig
 from lightningdot_tpu_torch.models.encoder import Dense, LayerNorm
-from lightningdot_tpu_torch.ops import gelu, mm_f32
+from lightningdot_tpu_torch.ops import gelu, mm_f32, mm_round
 from lightningdot_tpu_torch.ops.layernorm import rms_norm
 from lightningdot_tpu_torch.ops.mla_attention import mla_attention
 from lightningdot_tpu_torch.ops.moe import (real_rows, route, routed_experts,
@@ -66,8 +66,13 @@ class Weight(nn.Module):
         self.weight = nn.Parameter(torch.empty(*shape))
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """x [..., in] -> [..., out] in ``dtype``, summed in float32."""
+        """x [..., in] -> [..., out] in ``dtype``, summed in float32 (below
+        float32, rounded inside the product: ``mm_round``)."""
         shape = x.shape
+        if dtype != torch.float32:
+            y = mm_round(x.reshape(-1, shape[-1]).to(dtype),
+                         self.weight.to(dtype).t())
+            return y.reshape(*shape[:-1], self.weight.shape[0])
         y = mm_f32(x.reshape(-1, shape[-1]).to(dtype),
                    self.weight.to(dtype).t())
         return y.to(dtype).reshape(*shape[:-1], self.weight.shape[0])

@@ -27,7 +27,8 @@ from lightningdot_tpu_torch.ops.ffn_int8 import (  # noqa: F401
     ffn_gelu_int8, ffn_int8_cuda)
 from lightningdot_tpu_torch.ops.layernorm import (  # noqa: F401
     layer_norm, layer_norm_bwd_cuda, layer_norm_cuda)
-from lightningdot_tpu_torch.ops.matmul import mm_f32, mm_int8  # noqa: F401
+from lightningdot_tpu_torch.ops.matmul import (  # noqa: F401
+    mm_f32, mm_int8, mm_round)
 from lightningdot_tpu_torch.utils import tracing
 
 KERNELS = ("layernorm", "layernorm_bwd", "attention", "ffn", "ffn_mma",

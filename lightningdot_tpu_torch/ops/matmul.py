@@ -1,13 +1,19 @@
-"""Matrix products with float32 accumulation and a float32 result.
+"""Matrix products with float32 accumulation.
 
 The JAX package writes ``jnp.dot(a, b, preferred_element_type=float32)``
 for every dense layer and for the corpus scores. ``torch.matmul`` of two
 bfloat16 tensors instead returns bfloat16, rounding before the bias is
-added; :func:`mm_f32` keeps the float32 result.
+added; :func:`mm_f32` keeps the float32 result. Where a layer rounds that
+result (with its bias added) to bfloat16 at once, as ``encoder._dense``
+does, :func:`mm_round` writes the rounded result without a float32 copy.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from lightningdot_tpu_torch.utils import tracing
 
 # corpus columns per CPU block: bounds the float32 copy that the CPU path
 # makes of a bfloat16 operand
@@ -66,6 +72,94 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _MatmulF32.apply(a, b)
     return _mm_f32(a, b)
+
+
+def _mm_round(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` summed in float32 and rounded once to the operands'
+    dtype: on CUDA one cuBLAS product that writes that dtype, unless
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    lets cuBLAS sum split-k partials in bfloat16; there, and on the CPU, the
+    float32 product, then one rounding."""
+    if (a.is_cuda and not torch.backends.cuda.matmul.
+            allow_bf16_reduced_precision_reduction):
+        return torch.mm(a, b)
+    return _mm_f32(a, b).to(a.dtype)
+
+
+class _MatmulRound(torch.autograd.Function):
+    """:class:`_MatmulF32`'s gradient with the rounding after the product
+    (and the bias) taken in: the cotangent arrives in the operands' dtype
+    and each operand's gradient is one rounded product; the bias's is the
+    cotangent summed over the rows in float32. ``spans``: the forward's
+    thread's open spans, which autograd's device thread counts on."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias):
+        ctx.save_for_backward(a, b)
+        ctx.spans = tracing.open_spans()
+        return _round_forward(a, b, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        tracing.count("rounded_products", 1, ctx.spans)
+        da = db = dbias = None
+        if ctx.needs_input_grad[0]:
+            da = _mm_round(g, b.t())
+        if ctx.needs_input_grad[1]:
+            db = _mm_round(a.t(), g)
+        if ctx.needs_input_grad[2]:
+            dbias = g.sum(0, dtype=torch.float32)
+        return da, db, dbias
+
+
+# calls of mm_round since reset_rounded_products()
+_ROUNDED = [0]
+
+
+def _round_forward(a, b, bias):
+    _ROUNDED[0] += 1
+    tracing.count("rounded_products", 1)
+    if bias is None:
+        return _mm_round(a, b)
+    out = torch.empty((a.shape[0], b.shape[1]), dtype=a.dtype,
+                      device=a.device)
+    return torch.add(_mm_f32(a, b), bias, out=out)
+
+
+def mm_round(a: torch.Tensor, b: torch.Tensor,
+             bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``round(a @ b + bias)`` for 2-D bfloat16 ``a`` [m, k] and ``b``
+    [k, n] and an optional float32 ``bias`` [n]: float32 sums, one rounding
+    to bfloat16, the numbers of ``mm_f32(a, b)`` (``+ bias``) then
+    ``.to(bfloat16)`` (bit for bit on the CPU; on the card cuBLAS may sum
+    in another order, within a bfloat16 ulp of the float32 product).
+
+    Without a bias, one cuBLAS product that writes bfloat16 (on CUDA, while
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    is off: else, as on the CPU, the float32 product and one rounding);
+    with one, the float32 product and one pass that adds the float32 bias
+    and rounds on store. Under autograd (:class:`_MatmulRound`) the
+    bfloat16 cotangent is taken as it comes and each operand's gradient is
+    one product rounded the same way. Each call counts once in
+    :func:`rounded_products` and, with each backward, in the counter
+    ``rounded_products`` of the open span (``utils/tracing.py``).
+    """
+    if torch.is_grad_enabled() and (
+            a.requires_grad or b.requires_grad
+            or (bias is not None and bias.requires_grad)):
+        return _MatmulRound.apply(a, b, bias)
+    return _round_forward(a, b, bias)
+
+
+def rounded_products() -> int:
+    """Calls of :func:`mm_round` since the last
+    :func:`reset_rounded_products`."""
+    return _ROUNDED[0]
+
+
+def reset_rounded_products() -> None:
+    _ROUNDED[0] = 0
 
 
 # torch._int_mm on CUDA takes only more than 16 rows

@@ -354,6 +354,11 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
 
     float32 compute on the card needs ``torch.backends.cuda.matmul.
     allow_tf32`` off: the JAX package's float32 products are true float32.
+    A bf16 step on the card turns ``torch.backends.cuda.matmul.
+    allow_bf16_reduced_precision_reduction`` off, for the process: the
+    bf16 projections and their gradients are cuBLAS products that write
+    bf16 (``ops.matmul.mm_round``), and with it on cuBLAS may sum their
+    split-k partials in bf16, where the JAX package sums in float32.
 
     Each call is a ``step`` span (``utils/tracing.py``) around its phases:
     ``step.to_device``, ``step.forward`` (the loss), ``step.kd``,
@@ -362,6 +367,9 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
     """
     device = resolve_device(device)
     model.to(device)
+    if device.type == "cuda" and model.compute_dtype != torch.float32:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     accumulator = GradAccumulator(optimizer.params, accum_steps)
     last_norm = [torch.zeros((), device=device)]
 

@@ -3,8 +3,9 @@ counterpart: lightningdot_tpu/utils/profiling.py, which wraps a region in a
 JAX profiler trace).
 
 ``span(name, id=None)`` times a region of the program; ``count(name, n)``
-adds to a counter of the innermost open span on the calling thread, so that
-counts are taken at the same boundary as the time. Each record holds the
+adds to a counter of the innermost open span on the calling thread (or on
+another thread's, handed over as ``open_spans()``), so that counts are
+taken at the same boundary as the time. Each record holds the
 span's name, its index, the index of its parent (the span open around it on
 the same thread, or None), the thread, an identifier shared by the spans of
 one batch or call (given, else the parent's, else the span's own index),
@@ -117,15 +118,25 @@ def span(name: str, id: Optional[int] = None):
     return _OFF
 
 
-def count(name: str, n=1) -> None:
+def count(name: str, n=1, spans: Optional[list] = None) -> None:
     """Add ``n`` to counter ``name`` of the innermost open span on this
-    thread; nothing if none is open. ``n`` may be a count the device holds
-    (a tensor): it is added on the device, and read as an int only by
-    :func:`records`, so that counting waits for nothing."""
-    stack = _STATE.local.stack
+    thread (or in ``spans``, another thread's :func:`open_spans`); nothing
+    if none is open. ``n`` may be a count the device holds (a tensor): it
+    is added on the device, and read as an int only by :func:`records`, so
+    that counting waits for nothing."""
+    stack = _STATE.local.stack if spans is None else spans
     if stack:
         counts = stack[-1].counts
         counts[name] = counts.get(name, 0) + n
+
+
+def open_spans() -> list:
+    """This thread's open spans, innermost last: the live list, which
+    holds whatever spans the thread has open when it is read. A backward
+    that autograd runs on its device thread, while the thread that made
+    the forward waits inside a span, counts on it through
+    ``count(..., spans=)``."""
+    return _STATE.local.stack
 
 
 def launched(kernel: str) -> None:

@@ -19,6 +19,7 @@ from lightningdot_tpu_torch.config import EncoderConfig, MoonlightConfig
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
 from lightningdot_tpu_torch.models.moonlight import MoonlightTextEncoder
 from lightningdot_tpu_torch.ops import layernorm, mla_attention, moe, rope
+from lightningdot_tpu_torch.ops.matmul import mm_f32
 from lightningdot_tpu_torch.training.itm_step import itm_loss_fn
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -142,6 +143,83 @@ def test_tower_loss_and_every_gradient_match_the_reference():
         err = float((g - want_g).abs().max())
         assert err <= GRAD_RTOL * max(float(want_g.abs().max()), floor), (
             name, err, float(want_g.abs().max()))
+
+
+def _weight_forward_f32_chain(self, x, dtype):
+    """``Weight.forward`` as it was before ``mm_round``: the float32
+    product, then a cast."""
+    shape = x.shape
+    y = mm_f32(x.reshape(-1, shape[-1]).to(dtype), self.weight.to(dtype).t())
+    return y.to(dtype).reshape(*shape[:-1], self.weight.shape[0])
+
+
+def _dense_forward_f32_chain(self, x, dtype):
+    """``Dense.forward`` as it was before ``mm_round``."""
+    shape = x.shape
+    y = mm_f32(x.reshape(-1, shape[-1]).to(dtype), self.kernel(dtype))
+    return (y + self.bias).to(dtype).reshape(*shape[:-1], self.out_features)
+
+
+def test_bf16_step_rounds_inside_the_products_with_the_chain_s_numbers(
+        monkeypatch):
+    """One bf16 step through ``make_itm_train_step``: every projection of
+    MLA (4 a layer), of the image tower (img_linear, pos_linear, 4 a layer)
+    and of both heads (2 each) is one ``mm_round`` in the forward and
+    counts once on ``step.forward`` and once on ``step.backward``; the loss
+    and every gradient leaf equal those of the float32 product then a cast,
+    bit for bit (a bias's gradient to float32 summation order)."""
+    from lightningdot_tpu_torch.models.encoder import Dense
+    from lightningdot_tpu_torch.models.moonlight import Weight
+    from lightningdot_tpu_torch.ops import matmul
+    from lightningdot_tpu_torch.training.itm_step import make_itm_train_step
+    from lightningdot_tpu_torch.training.optim import make_optimizer
+    from lightningdot_tpu_torch.utils import tracing
+
+    state = _state(ref.text_layout(TEXT, PD) + ref.image_layout(IMAGE, PD),
+                   4)
+    batch = _batch(5)
+    out = {}
+    for path in ("rounded", "chain"):
+        if path == "chain":
+            monkeypatch.setattr(Weight, "forward", _weight_forward_f32_chain)
+            monkeypatch.setattr(Dense, "forward", _dense_forward_f32_chain)
+        model = BiEncoder(
+            MoonlightConfig.from_dict(dict(TEXT, project_dim=PD)),
+            EncoderConfig.from_dict(dict(IMAGE, project_dim=PD)),
+            compute_dtype=torch.bfloat16)
+        model.load_state_dict(state, strict=True)
+        step = make_itm_train_step(
+            model, make_optimizer(model, 2e-5, max_grad_norm=2.0),
+            device="cpu")
+        matmul.reset_rounded_products()
+        tracing.clear()
+        with tracing.recording():
+            metrics = step(batch)
+        counts = {r.name: r.counts.get("rounded_products", 0)
+                  for r in tracing.records()}
+        tracing.clear()
+        out[path] = (metrics["loss"], matmul.rounded_products(), counts,
+                     {n: p.grad for n, p in model.named_parameters()})
+    loss, calls, counts, grads = out["rounded"]
+    want_loss, chain_calls, chain_counts, want_grads = out["chain"]
+    n_proj = (4 * TEXT["num_hidden_layers"]
+              + 2 + 4 * IMAGE["num_hidden_layers"] + 2 + 2)
+    assert calls == n_proj and chain_calls == 0
+    assert counts["step.forward"] == counts["step.backward"] == n_proj
+    assert chain_counts["step.forward"] == chain_counts["step.backward"] == 0
+    assert torch.isfinite(loss) and torch.equal(loss, want_loss)
+    assert set(grads) == set(want_grads)
+    dense_biases = {f"{n}.bias" for n, m in model.named_modules()
+                    if isinstance(m, Dense)}
+    for name, g in grads.items():
+        want = want_grads[name]
+        if g is None or want is None:
+            assert g is None and want is None, name
+        elif name in dense_biases:
+            scale = float(want.abs().max())
+            assert float((g - want).abs().max()) <= 1e-6 * scale, name
+        else:
+            assert torch.equal(g, want), name
 
 
 def test_share_test_held_shares_add_up_to_the_uncut_layer():

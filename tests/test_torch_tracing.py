@@ -123,6 +123,27 @@ def test_count_lands_on_the_innermost_span_of_its_own_thread():
     assert recs["worker"].parent is None
 
 
+def test_count_lands_on_the_spans_of_the_thread_it_is_given():
+    """A backward on the card runs on autograd's device thread while the
+    caller waits inside a span (``ops.matmul.mm_round``'s backward): it
+    counts on the caller's open spans."""
+    with tracing.recording():
+        with tracing.span("caller"):
+            spans = tracing.open_spans()
+            t = threading.Thread(
+                target=lambda: tracing.count("rounded_products", 3, spans))
+            t.start()
+            t.join(10)
+            assert not t.is_alive()
+        t = threading.Thread(
+            target=lambda: tracing.count("rounded_products", 5, spans))
+        t.start()                               # nothing open: dropped
+        t.join(10)
+        assert not t.is_alive()
+    assert [r.counts for r in tracing.records()] == [
+        {"rounded_products": 3}]
+
+
 def test_the_buffer_drops_the_oldest_records_and_counts_them(monkeypatch):
     monkeypatch.setattr(tracing, "_STATE", tracing._State(capacity=4))
     with tracing.recording():
