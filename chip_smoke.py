@@ -204,6 +204,18 @@ from urllib.parse import quote
 import numpy as np
 import torch
 
+
+def _load_file(*parts):
+    """This checkout's file at ``parts`` as a module."""
+    import importlib.util
+
+    path = Path(__file__).resolve().parent.joinpath(*parts)
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 CORPUS_SIZE = 123_287          # COCO images (train + restval + val + test)
 MODEL = dict(vocab_size=28996, project_dim=0)   # BERT-base cased
 IMG_DIM = 2048                 # Faster R-CNN region features
@@ -220,11 +232,11 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
 # may be at most this times the twin's own: as accurate as the spec, with
 # room for the summation order
 ACCURACY_RATIO = 1.1
-# the card's published rates (H100 SXM, dense, at 700 W): device memory,
-# and operations by type (bfloat16 and int8 on the tensor cores, float32 on
-# the FMA units)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+# the card's published rates, the least time work can take on it and the
+# device's busy time, as the benchmark states them (benchmark/harness/)
+_ROOFLINE = _load_file("benchmark", "harness", "roofline.py")
+_TRACE = _load_file("benchmark", "harness", "trace.py")
+PEAK_OPS, bound = _ROOFLINE.PEAK_OPS, _ROOFLINE.bound
 # the int8 FFN kernel is held to its twin bit for bit: both compute the
 # same roundings in the same order, and the int32 sums are exact
 # int8 vs bfloat16 tower, cosine of the query embeddings: int8 weights and
@@ -571,15 +583,6 @@ def time_eager_ms(fn, calls: int = 10, groups: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
-
-
-def bound(nbytes: float, ops: float, peak: float):
-    """(bound_ms, bound_by): the least time the card could take for work
-    that must move ``nbytes`` (each input read once, each output written
-    once) and do ``ops`` operations at ``peak`` per second."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def _flat(out):
@@ -1348,29 +1351,25 @@ def _profile_activities():
 
 def _device_stats(prof, calls, shares=None):
     """Device busy time per call (the union of the device's kernel and
-    copy intervals), the eight costliest device kernels, as [name, ms per
-    call, launches per call], and the device events per call by kind
-    (``_kind``), of a finished profiler over ``calls`` calls; with
-    ``shares`` ({key: regular expression}), also, under ``shares[key]``,
-    the device ms per call of the kernels whose names match it and their
-    launches per call."""
+    copy intervals: the benchmark's ``union_seconds``), the eight costliest
+    device kernels, as [name, ms per call, launches per call], and the
+    device events per call by kind (``_kind``), of a finished profiler over
+    ``calls`` calls; with ``shares`` ({key: regular expression}), also,
+    under ``shares[key]``, the device ms per call of the kernels whose names
+    match it and their launches per call."""
     spans, by_name, kinds = [], {}, {}
     for e in prof.events():
         if str(e.device_type) != "DeviceType.CUDA":
             continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
+        start, end = e.time_range.start, e.time_range.end      # µs
+        spans.append((start * 1e3, end * 1e3))
         ms, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (ms + (end - start) / 1e3, n + 1)
         kinds[_kind(e.name)] = kinds.get(_kind(e.name), 0) + 1
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted(spans):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     stats = dict(calls=calls,
-                 busy_ms=busy_us / 1e3 / calls if spans else None,
+                 busy_ms=(_TRACE.union_seconds(spans) * 1e3 / calls
+                          if spans else None),
                  top=[[name[:70], ms / calls, n / calls]
                       for name, (ms, n) in top],
                  launches_per_call={k: n / calls for k, n in kinds.items()})
@@ -4870,7 +4869,6 @@ def dist_worker(cfg):
     rank, world = cfg["rank"], cfg["world"]
     device = torch.device(DEVICE, cfg["device_index"])
     torch.cuda.set_device(device)
-    torch.backends.cuda.matmul.allow_tf32 = False
     _build.lib()
     state = torch.load(cfg["master"])
     out = {}
@@ -5589,17 +5587,6 @@ def dist_phase(args, device_name):
                 kd_vqa=kd_vqa)
 
 
-def _load_example(name):
-    """``examples/<name>.py`` of this checkout as a module."""
-    import importlib.util
-
-    spec = importlib.util.spec_from_file_location(
-        name, Path(__file__).resolve().parent / "examples" / f"{name}.py")
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module
-
-
 def examples_phase(args, device_name):
     """The port's examples on the card at their widths (ROADMAP A15):
     ``examples/demo_retrieval_torch.py``'s ``main()`` (BERT-base cased and
@@ -5611,7 +5598,7 @@ def examples_phase(args, device_name):
     from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
     from lightningdot_tpu_torch.serving_http import RetrievalServer
 
-    demo = _load_example("demo_retrieval_torch")
+    demo = _load_file("examples", "demo_retrieval_torch.py")
     built = []
 
     def keep(real):
@@ -5639,7 +5626,7 @@ def examples_phase(args, device_name):
     hold_path("examples", counts)
     del retriever, built[:]
 
-    serve = _load_example("serve_http_torch")
+    serve = _load_file("examples", "serve_http_torch.py")
     query = "two dogs play in the park"
     with tempfile.TemporaryDirectory() as tmp:
         t = time.perf_counter()
@@ -5927,74 +5914,68 @@ def moon_round_rows(device_name, randn):
     taken as it comes) against the chain it replaced (``mm_f32``, the
     float32 bias add, ``.to(bf16)``, whose backward casts the cotangent to
     float32 and back and rounds each gradient in a pass of its own), forward
-    and backward at the cell's shapes, with
-    ``allow_bf16_reduced_precision_reduction`` off as the bf16 step sets
-    it. Each output (y, da, db) is held within a bf16 ulp of the float32
-    product of the same operands, with the share of its elements that
-    differ from that product rounded; the bias gradient within 1e-5 of the
-    chain's. Both are timed in a CUDA graph."""
+    and backward at the cell's shapes, under the product rule that
+    importing the port sets (``ops/matmul.py``). Each output (y, da, db) is
+    held within a bf16 ulp of the float32 product of the same operands,
+    with the share of its elements that differ from that product rounded;
+    the bias gradient within 1e-5 of the chain's. Both are timed in a CUDA
+    graph."""
     from lightningdot_tpu_torch.ops.matmul import mm_f32, mm_round
 
     bf16, rows = torch.bfloat16, []
-    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        for name, m, k, n, with_bias in MOON_PRODUCTS:
-            a = randn(m, k, dtype=bf16)
-            b = randn(k, n, scale=k ** -0.5, dtype=bf16)
-            bias = randn(n, scale=0.5) if with_bias else None
-            g = randn(m, n, dtype=bf16)
-            operands = (a, b) + ((bias,) if with_bias else ())
+    for name, m, k, n, with_bias in MOON_PRODUCTS:
+        a = randn(m, k, dtype=bf16)
+        b = randn(k, n, scale=k ** -0.5, dtype=bf16)
+        bias = randn(n, scale=0.5) if with_bias else None
+        g = randn(m, n, dtype=bf16)
+        operands = (a, b) + ((bias,) if with_bias else ())
 
-            def fwd_bwd(product):
-                # fresh leaves every call: a leaf's gradient accumulator
-                # keeps the stream of the leaf's first use, and a backward
-                # captured in a graph may touch no other stream
-                def run():
-                    leaves = tuple(t.detach().requires_grad_(True)
-                                   for t in operands)
-                    y = product(*leaves)
-                    return (y,) + torch.autograd.grad(y, leaves, g)
-                return run
+        def fwd_bwd(product):
+            # fresh leaves every call: a leaf's gradient accumulator
+            # keeps the stream of the leaf's first use, and a backward
+            # captured in a graph may touch no other stream
+            def run():
+                leaves = tuple(t.detach().requires_grad_(True)
+                               for t in operands)
+                y = product(*leaves)
+                return (y,) + torch.autograd.grad(y, leaves, g)
+            return run
 
-            new = fwd_bwd(mm_round)
-            chain = fwd_bwd(lambda a, b, bias=None: (
-                mm_f32(a, b) if bias is None else mm_f32(a, b) + bias
-            ).to(bf16))
-            got, old = new(), chain()
-            with torch.no_grad():
-                exact = (mm_f32(a, b) + (0 if bias is None else bias),
-                         mm_f32(g, b.t()), mm_f32(a.t(), g))
-            held = {}
-            for label, x, x_old, x32 in zip(("y", "da", "db"), got, old,
-                                            exact):
-                diff = (x.float() - x32).abs()
-                held[f"{label}_differ_frac"] = (
-                    x != x32.to(bf16)).float().mean().item()
-                held[f"{label}_chain_differ_frac"] = (
-                    x != x_old).float().mean().item()
-                held[f"{label}_max_ulps"] = (
-                    diff / _bf16_ulp(x32)).max().item()
-            if with_bias:
-                held["dbias_rel_err"] = ((got[3] - old[3]).abs().max()
-                                         / old[3].abs().max()).item()
-            del got, old, exact
-            row = dict(phase="rounded_product", kernel="mm_round",
-                       variant=name, shape=[m, k, n], dtype="bfloat16",
-                       bias=with_bias, **held, ms=time_ms(new, 5, 5),
-                       chain_ms=time_ms(chain, 5, 5), device=device_name)
-            emit(**row)
-            check(all(held[f"{x}_max_ulps"] <= 1.0 for x in ("y", "da",
-                                                              "db")),
-                  f"mm_round {name}: more than a bf16 ulp from the float32 "
-                  f"product: {held}")
-            check(not with_bias or held["dbias_rel_err"] <= 1e-5,
-                  f"mm_round {name}: bias gradient off: {held}")
-            rows.append(row)
-            del a, b, bias, g, operands
-    finally:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            flag
+        new = fwd_bwd(mm_round)
+        chain = fwd_bwd(lambda a, b, bias=None: (
+            mm_f32(a, b) if bias is None else mm_f32(a, b) + bias
+        ).to(bf16))
+        got, old = new(), chain()
+        with torch.no_grad():
+            exact = (mm_f32(a, b) + (0 if bias is None else bias),
+                     mm_f32(g, b.t()), mm_f32(a.t(), g))
+        held = {}
+        for label, x, x_old, x32 in zip(("y", "da", "db"), got, old,
+                                        exact):
+            diff = (x.float() - x32).abs()
+            held[f"{label}_differ_frac"] = (
+                x != x32.to(bf16)).float().mean().item()
+            held[f"{label}_chain_differ_frac"] = (
+                x != x_old).float().mean().item()
+            held[f"{label}_max_ulps"] = (
+                diff / _bf16_ulp(x32)).max().item()
+        if with_bias:
+            held["dbias_rel_err"] = ((got[3] - old[3]).abs().max()
+                                     / old[3].abs().max()).item()
+        del got, old, exact
+        row = dict(phase="rounded_product", kernel="mm_round",
+                   variant=name, shape=[m, k, n], dtype="bfloat16",
+                   bias=with_bias, **held, ms=time_ms(new, 5, 5),
+                   chain_ms=time_ms(chain, 5, 5), device=device_name)
+        emit(**row)
+        check(all(held[f"{x}_max_ulps"] <= 1.0 for x in ("y", "da",
+                                                          "db")),
+              f"mm_round {name}: more than a bf16 ulp from the float32 "
+              f"product: {held}")
+        check(not with_bias or held["dbias_rel_err"] <= 1e-5,
+              f"mm_round {name}: bias gradient off: {held}")
+        rows.append(row)
+        del a, b, bias, g, operands
     return rows
 
 
@@ -6013,8 +5994,6 @@ def moon_step(device_name):
     from lightningdot_tpu_torch.models.encoder import init_tower_
     from lightningdot_tpu_torch.models.moonlight import init_moonlight_
     from lightningdot_tpu_torch.ops import launch_counts, reset_launch_counts
-    from lightningdot_tpu_torch.ops.matmul import (reset_rounded_products,
-                                                   rounded_products)
     from lightningdot_tpu_torch.training.itm_step import (batch_to_device,
                                                           make_itm_train_step)
     from lightningdot_tpu_torch.training.optim import make_optimizer
@@ -6053,7 +6032,6 @@ def moon_step(device_name):
     with tracing.recording():
         tracing.clear()
         reset_launch_counts()
-        reset_rounded_products()
         torch.cuda.set_sync_debug_mode("error")
         try:
             metrics = step(batch)
@@ -6063,7 +6041,6 @@ def moon_step(device_name):
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         counts = launch_counts()
-        rounded = rounded_products()
         recs = tracing.records()
     spans = sorted({x.name for x in recs})
     counters = {name: [x.counts[name] for x in recs
@@ -6080,8 +6057,7 @@ def moon_step(device_name):
                   for name in ("step.forward", "step.backward")}
     emit(phase="moonlight_step", layers=MOON_STEP_LAYERS, batch=b,
          raised=raised, loss=None if raised else float(metrics["loss"]),
-         spans=spans, **counters, rounded_products=rounded,
-         rounded_products_on=rounded_on,
+         spans=spans, **counters, rounded_products_on=rounded_on,
          peak_gb=torch.cuda.max_memory_allocated() / 1e9, card=device_name)
     check(raised is None, f"moonlight: the step synced the host: {raised}")
     check(set(MOON_SPANS) <= set(spans),
@@ -6090,10 +6066,9 @@ def moon_step(device_name):
           and all(0 < m <= t for m, t in zip(counters["max_expert_rows"],
                                              counters["routed_rows"])),
           f"moonlight: MoE counters {counters}")
-    check(rounded == want_rounded and all(
-        v == want_rounded for v in rounded_on.values()),
-          f"moonlight: {rounded} rounded products ({rounded_on} on the "
-          f"step's phases), {want_rounded} projections")
+    check(all(v == want_rounded for v in rounded_on.values()),
+          f"moonlight: rounded products {rounded_on} on the step's phases, "
+          f"{want_rounded} projections")
     del step, opt, model, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -6244,8 +6219,6 @@ def main() -> int:
     print(smi, flush=True)
     emit(phase="setup", torch=torch.__version__, cuda=torch.version.cuda,
          device=device_name, nvidia_smi=smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     _build.lib()
     emit(phase="build", seconds=time.perf_counter() - t0,

@@ -9,9 +9,13 @@ the metrics, the HNSW index, the serving front ends) it keeps as its own
 copies, each naming its counterpart. Its entry points run on the card unless the
 caller passes ``device="cpu"``.
 
-Exports are lazy, so importing the package loads nothing heavy.
+Importing the package imports ``ops/matmul.py``, which sets how the
+process's products sum (float32 in true float32, bfloat16 summed in float32
+and rounded once); the exports below are lazy.
 """
 import importlib
+
+from lightningdot_tpu_torch.ops import matmul  # noqa: F401  (the product rule)
 
 _EXPORTS = {
     "BiEncoder": "lightningdot_tpu_torch.models.bi_encoder",

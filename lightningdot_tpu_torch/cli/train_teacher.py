@@ -64,6 +64,7 @@ from lightningdot_tpu_torch.models.factory import (load_cross_encoder,
                                                    resolve_encoder_config)
 from lightningdot_tpu_torch.models.weights import (cross_encoder_keys,
                                                    load_torch_state_dict)
+from lightningdot_tpu_torch.ops.matmul import require_full_f32
 from lightningdot_tpu_torch.parallel.mesh import (all_reduce_grads_, barrier,
                                                   global_sums,
                                                   is_main_process,
@@ -193,11 +194,7 @@ def make_teacher_step(model, optimizer, device):
     device. float32 on the card needs TF32 products off."""
 
     def step(batch, generator, **kw):
-        if (device.type == "cuda" and model.compute_dtype == torch.float32
-                and torch.backends.cuda.matmul.allow_tf32):
-            raise RuntimeError("float32 training with TF32 products on: set "
-                               "torch.backends.cuda.matmul.allow_tf32 = "
-                               "False")
+        require_full_f32(device, model.compute_dtype)
         optimizer.zero_grad()
         # across processes: the mean over the ranks' equal-shaped batches
         loss = model.apply(batch, compute_loss=True,

@@ -23,7 +23,6 @@ package reads the other's files.
 """
 from __future__ import annotations
 
-import contextlib
 import pickle
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
@@ -31,6 +30,7 @@ import numpy as np
 import torch
 
 from lightningdot_tpu_torch.device import resolve_device
+from lightningdot_tpu_torch.ops.matmul import full_f32
 
 NEG_INF = -1e30
 
@@ -39,22 +39,11 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """float32 products in full precision on the card (no TF32)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def _topk_scores(queries: torch.Tensor, corpus: torch.Tensor,
                  pad_bias: torch.Tensor, k: int):
     """[Q, D] x [N, D] -> (scores [Q, k], idx [Q, k]); padding rows are
     biased to -1e30 (dense.py:36-41)."""
-    with _full_f32():
+    with full_f32():
         scores = queries @ corpus.t()
     return torch.topk(scores + pad_bias[None, :], k, dim=1)
 

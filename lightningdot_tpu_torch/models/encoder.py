@@ -85,7 +85,9 @@ def _dropout(module, x, rate, generator):
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` with the numerics of ``encoder._dense``.
+    """``nn.Linear`` with the numerics of ``encoder._dense``: the one
+    projection layer of every tower (BERT's with a bias, Moonlight's MLA
+    without).
 
     :meth:`kernel` gives the weight in the compute dtype and the [in, out]
     layout. The JAX package casts the float32 masters on every call; this
@@ -97,8 +99,9 @@ class Dense(nn.Linear):
     the product, the bias and the rounding are one ``mm_round``.
     """
 
-    def __init__(self, in_features: int, out_features: int):
-        super().__init__(in_features, out_features)
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__(in_features, out_features, bias)
         self._kernels: Dict[tuple, Tuple[int, torch.Tensor]] = {}
 
     def kernel(self, dtype: torch.dtype) -> torch.Tensor:
@@ -121,8 +124,9 @@ class Dense(nn.Linear):
                          self.kernel(dtype), self.bias)
             return y.reshape(*shape[:-1], self.out_features)
         y = mm_f32(x.reshape(-1, shape[-1]).to(dtype), self.kernel(dtype))
-        return (y + self.bias).to(dtype).reshape(*shape[:-1],
-                                                 self.out_features)
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(dtype).reshape(*shape[:-1], self.out_features)
 
 
 class LayerNorm(nn.Module):

@@ -49,7 +49,7 @@ from torch import nn
 
 from lightningdot_tpu_torch.config import MoonlightConfig
 from lightningdot_tpu_torch.models.encoder import Dense, LayerNorm
-from lightningdot_tpu_torch.ops import gelu, mm_f32, mm_round
+from lightningdot_tpu_torch.ops import gelu, mm_f32
 from lightningdot_tpu_torch.ops.layernorm import rms_norm
 from lightningdot_tpu_torch.ops.mla_attention import mla_attention
 from lightningdot_tpu_torch.ops.moe import (real_rows, route, routed_experts,
@@ -59,23 +59,12 @@ from lightningdot_tpu_torch.utils import tracing
 
 
 class Weight(nn.Module):
-    """A bias-free weight ``weight`` [..., out, in] as stored."""
+    """A bias-free weight ``weight`` [..., out, in] as stored, which the
+    SwiGLU and grouped kernels take whole."""
 
     def __init__(self, *shape: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(*shape))
-
-    def forward(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-        """x [..., in] -> [..., out] in ``dtype``, summed in float32 (below
-        float32, rounded inside the product: ``mm_round``)."""
-        shape = x.shape
-        if dtype != torch.float32:
-            y = mm_round(x.reshape(-1, shape[-1]).to(dtype),
-                         self.weight.to(dtype).t())
-            return y.reshape(*shape[:-1], self.weight.shape[0])
-        y = mm_f32(x.reshape(-1, shape[-1]).to(dtype),
-                   self.weight.to(dtype).t())
-        return y.to(dtype).reshape(*shape[:-1], self.weight.shape[0])
 
 
 class RMSNorm(nn.Module):
@@ -93,13 +82,14 @@ class MLA(nn.Module):
         super().__init__()
         h, nh = cfg.hidden_size, cfg.num_attention_heads
         self.cfg = cfg
-        self.q_proj = Weight(nh * cfg.qk_head_dim, h)
-        self.kv_a_proj_with_mqa = Weight(cfg.kv_lora_rank
-                                         + cfg.qk_rope_head_dim, h)
+        self.q_proj = Dense(h, nh * cfg.qk_head_dim, bias=False)
+        self.kv_a_proj_with_mqa = Dense(
+            h, cfg.kv_lora_rank + cfg.qk_rope_head_dim, bias=False)
         self.kv_a_layernorm = RMSNorm(cfg.kv_lora_rank, cfg.rms_norm_eps)
-        self.kv_b_proj = Weight(nh * (cfg.qk_nope_head_dim
-                                      + cfg.v_head_dim), cfg.kv_lora_rank)
-        self.o_proj = Weight(h, nh * cfg.v_head_dim)
+        self.kv_b_proj = Dense(
+            cfg.kv_lora_rank, nh * (cfg.qk_nope_head_dim + cfg.v_head_dim),
+            bias=False)
+        self.o_proj = Dense(nh * cfg.v_head_dim, h, bias=False)
 
     def forward(self, x, key_ok, dtype):
         c = self.cfg

@@ -1,4 +1,5 @@
-"""Matrix products with float32 accumulation.
+"""Matrix products with float32 accumulation, and the port's one rule for
+how its products sum.
 
 The JAX package writes ``jnp.dot(a, b, preferred_element_type=float32)``
 for every dense layer and for the corpus scores. ``torch.matmul`` of two
@@ -6,14 +7,53 @@ bfloat16 tensors instead returns bfloat16, rounding before the bias is
 added; :func:`mm_f32` keeps the float32 result. Where a layer rounds that
 result (with its bias added) to bfloat16 at once, as ``encoder._dense``
 does, :func:`mm_round` writes the rounded result without a float32 copy.
+
+Importing this module sets cuBLAS's and cuDNN's precision flags for the
+process (below); the package's ``__init__`` imports it, so every entry
+point runs under them. No other module of the port sets or reads them:
+a float32 step checks them through :func:`require_full_f32`, and code that
+must hold them against a caller who turned TF32 back on wraps its
+products in :func:`full_f32`.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
 from lightningdot_tpu_torch.utils import tracing
+
+# The port's contract, as the JAX package's products are: float32 products
+# in true float32 (no TF32, in cuBLAS or in cuDNN), and bfloat16 products
+# summed in float32 and rounded once (no split-k partials summed in
+# bfloat16). Set once for the process, never around a product: autograd's
+# device thread runs the backward's products while the caller's thread
+# waits, so a flag restored in one thread could race a product in the other.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def require_full_f32(device: torch.device, dtype: torch.dtype) -> None:
+    """Raise if float32 compute on a CUDA ``device`` would run TF32
+    products: a caller turned ``allow_tf32`` back on after import."""
+    if (device.type == "cuda" and dtype == torch.float32
+            and torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError("float32 training with TF32 products on: set "
+                           "torch.backends.cuda.matmul.allow_tf32 = False")
+
+
+@contextlib.contextmanager
+def full_f32():
+    """float32 products in full precision on the card (no TF32)."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
 
 # corpus columns per CPU block: bounds the float32 copy that the CPU path
 # makes of a bfloat16 operand
@@ -63,11 +103,10 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     returned in float32.
 
     On CUDA, bfloat16 operands go to ``torch.mm(..., out_dtype=float32)``
-    and float32 operands to ``torch.mm`` (true float32 only while
-    ``torch.backends.cuda.matmul.allow_tf32`` is False). On the CPU the
-    operands are upcast first: a product of two bfloat16 values is exact in
-    float32, so this is float32 accumulation too. Under autograd the
-    gradient is :class:`_MatmulF32`'s.
+    and float32 operands to ``torch.mm`` (true float32 under this module's
+    flags). On the CPU the operands are upcast first: a product of two
+    bfloat16 values is exact in float32, so this is float32 accumulation
+    too. Under autograd the gradient is :class:`_MatmulF32`'s.
     """
     if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
         return _MatmulF32.apply(a, b)
@@ -76,12 +115,10 @@ def mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _mm_round(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` summed in float32 and rounded once to the operands'
-    dtype: on CUDA one cuBLAS product that writes that dtype, unless
-    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
-    lets cuBLAS sum split-k partials in bfloat16; there, and on the CPU, the
-    float32 product, then one rounding."""
-    if (a.is_cuda and not torch.backends.cuda.matmul.
-            allow_bf16_reduced_precision_reduction):
+    dtype: on CUDA one cuBLAS product that writes that dtype (summed in
+    float32 under this module's flags); on the CPU the float32 product, then
+    one rounding."""
+    if a.is_cuda:
         return torch.mm(a, b)
     return _mm_f32(a, b).to(a.dtype)
 
@@ -113,12 +150,7 @@ class _MatmulRound(torch.autograd.Function):
         return da, db, dbias
 
 
-# calls of mm_round since reset_rounded_products()
-_ROUNDED = [0]
-
-
 def _round_forward(a, b, bias):
-    _ROUNDED[0] += 1
     tracing.count("rounded_products", 1)
     if bias is None:
         return _mm_round(a, b)
@@ -135,14 +167,12 @@ def mm_round(a: torch.Tensor, b: torch.Tensor,
     ``.to(bfloat16)`` (bit for bit on the CPU; on the card cuBLAS may sum
     in another order, within a bfloat16 ulp of the float32 product).
 
-    Without a bias, one cuBLAS product that writes bfloat16 (on CUDA, while
-    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
-    is off: else, as on the CPU, the float32 product and one rounding);
-    with one, the float32 product and one pass that adds the float32 bias
-    and rounds on store. Under autograd (:class:`_MatmulRound`) the
-    bfloat16 cotangent is taken as it comes and each operand's gradient is
-    one product rounded the same way. Each call counts once in
-    :func:`rounded_products` and, with each backward, in the counter
+    Without a bias, one cuBLAS product that writes bfloat16 (on the CPU
+    the float32 product and one rounding); with one, the float32 product
+    and one pass that adds the float32 bias and rounds on store. Under
+    autograd (:class:`_MatmulRound`) the bfloat16 cotangent is taken as it
+    comes and each operand's gradient is one product rounded the same way.
+    Each call, and each backward, counts once in the counter
     ``rounded_products`` of the open span (``utils/tracing.py``).
     """
     if torch.is_grad_enabled() and (
@@ -150,16 +180,6 @@ def mm_round(a: torch.Tensor, b: torch.Tensor,
             or (bias is not None and bias.requires_grad)):
         return _MatmulRound.apply(a, b, bias)
     return _round_forward(a, b, bias)
-
-
-def rounded_products() -> int:
-    """Calls of :func:`mm_round` since the last
-    :func:`reset_rounded_products`."""
-    return _ROUNDED[0]
-
-
-def reset_rounded_products() -> None:
-    _ROUNDED[0] = 0
 
 
 # torch._int_mm on CUDA takes only more than 16 rows

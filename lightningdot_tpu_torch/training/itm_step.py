@@ -19,7 +19,7 @@ import torch
 from lightningdot_tpu_torch.data.loader import host_tensor
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoder
-from lightningdot_tpu_torch.ops.matmul import mm_f32
+from lightningdot_tpu_torch.ops.matmul import mm_f32, require_full_f32
 from lightningdot_tpu_torch.parallel.mesh import (all_gather_rows,
                                                   all_reduce_grads_,
                                                   gather_batch_rows,
@@ -352,13 +352,8 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
     backward sums the ranks' cotangents (a full term on every rank would
     give W times one process's gradient), and reports it whole.
 
-    float32 compute on the card needs ``torch.backends.cuda.matmul.
-    allow_tf32`` off: the JAX package's float32 products are true float32.
-    A bf16 step on the card turns ``torch.backends.cuda.matmul.
-    allow_bf16_reduced_precision_reduction`` off, for the process: the
-    bf16 projections and their gradients are cuBLAS products that write
-    bf16 (``ops.matmul.mm_round``), and with it on cuBLAS may sum their
-    split-k partials in bf16, where the JAX package sums in float32.
+    float32 compute on the card refuses TF32 products
+    (``ops.matmul.require_full_f32``).
 
     Each call is a ``step`` span (``utils/tracing.py``) around its phases:
     ``step.to_device``, ``step.forward`` (the loss), ``step.kd``,
@@ -367,20 +362,13 @@ def make_itm_train_step(model: BiEncoder, optimizer: FusedAdamW, *,
     """
     device = resolve_device(device)
     model.to(device)
-    if device.type == "cuda" and model.compute_dtype != torch.float32:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            False
     accumulator = GradAccumulator(optimizer.params, accum_steps)
     last_norm = [torch.zeros((), device=device)]
 
     def step(batch: Dict[str, Any],
              generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        if (device.type == "cuda" and model.compute_dtype == torch.float32
-                and torch.backends.cuda.matmul.allow_tf32):
-            raise RuntimeError("float32 training with TF32 products on: set "
-                               "torch.backends.cuda.matmul.allow_tf32 = "
-                               "False")
+        require_full_f32(device, model.compute_dtype)
         with tracing.span("step"):
             optimizer.zero_grad()
             with tracing.span("step.to_device"):

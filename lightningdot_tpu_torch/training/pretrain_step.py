@@ -18,6 +18,7 @@ import torch
 from lightningdot_tpu_torch.data.loader import host_tensor
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.bi_encoder import BiEncoderForPretraining
+from lightningdot_tpu_torch.ops.matmul import require_full_f32
 from lightningdot_tpu_torch.parallel.mesh import (all_reduce_grads_,
                                                   global_count, global_sums,
                                                   local_scope)
@@ -167,12 +168,7 @@ def make_pretrain_step(model: BiEncoderForPretraining,
         def step(batch: Dict[str, Any],
                  generator: Optional[torch.Generator] = None
                  ) -> Dict[str, torch.Tensor]:
-            if (device.type == "cuda"
-                    and model.compute_dtype == torch.float32
-                    and torch.backends.cuda.matmul.allow_tf32):
-                raise RuntimeError("float32 training with TF32 products on: "
-                                   "set torch.backends.cuda.matmul."
-                                   "allow_tf32 = False")
+            require_full_f32(device, model.compute_dtype)
             optimizer.zero_grad()
             dev_batch = pretrain_batch_to_device(batch, device)
             loss, metrics, out = task_loss(

@@ -24,6 +24,7 @@ from lightningdot_tpu_torch.data.loader import DevicePrefetcher, PinnedStager
 from lightningdot_tpu_torch.data.padding import Recycler
 from lightningdot_tpu_torch.device import resolve_device
 from lightningdot_tpu_torch.models.vqa import BiEncoderForVQA, bce_with_logits
+from lightningdot_tpu_torch.ops.matmul import require_full_f32
 from lightningdot_tpu_torch.parallel.mesh import (all_reduce_grads_,
                                                   global_count, global_sums)
 from lightningdot_tpu_torch.training.itm_step import (GradAccumulator,
@@ -96,11 +97,7 @@ def make_vqa_train_step(model: BiEncoderForVQA, optimizer: FusedAdamW, *,
     def step(batch: Dict[str, Any],
              generator: Optional[torch.Generator] = None
              ) -> Dict[str, torch.Tensor]:
-        if (device.type == "cuda" and model.compute_dtype == torch.float32
-                and torch.backends.cuda.matmul.allow_tf32):
-            raise RuntimeError("float32 training with TF32 products on: set "
-                               "torch.backends.cuda.matmul.allow_tf32 = "
-                               "False")
+        require_full_f32(device, model.compute_dtype)
         optimizer.zero_grad()
         loss, metrics = vqa_loss_fn(model, vqa_batch_to_device(batch, device),
                                     pass_generators(generator, device))

@@ -3,12 +3,13 @@ lightningdot_tpu/utils/runtime.py).
 
 The JAX ``setup_runtime`` turns on XLA's persistent compile cache and picks
 the kernel backend; the port's kernels are built once per checkout
-(``ops/_build.py``) and chosen by the tensors' device, so here it seeds the
-host's generators and sets the float32 product precision. ``dropout_key``
-becomes :func:`step_generator`: a CPU ``torch.Generator`` per global step,
-derived from the run's seed, as the JAX driver folds the step into its key
-(``jax.random.fold_in(rng, global_step)``, cli/train_itm.py:250), so a
-repeated or resumed run draws the same dropout masks at the same step.
+(``ops/_build.py``) and chosen by the tensors' device, and importing the
+package sets the product precision (``ops/matmul.py``), so here it seeds
+the host's generators. ``dropout_key`` becomes :func:`step_generator`: a
+CPU ``torch.Generator`` per global step, derived from the run's seed, as
+the JAX driver folds the step into its key (``jax.random.fold_in(rng,
+global_step)``, cli/train_itm.py:250), so a repeated or resumed run draws
+the same dropout masks at the same step.
 """
 from __future__ import annotations
 
@@ -20,8 +21,7 @@ import torch
 
 def setup_runtime(args=None) -> None:
     """Seed Python's, NumPy's and torch's global generators with
-    ``args.seed``, and turn TF32 products off when ``args.compute_dtype``
-    is ``f32`` (the JAX package's float32 products are true float32)."""
+    ``args.seed``."""
     if args is None:
         return
     seed = getattr(args, "seed", None)
@@ -29,9 +29,6 @@ def setup_runtime(args=None) -> None:
         random.seed(seed)
         np.random.seed(seed)
         torch.manual_seed(seed)
-    if getattr(args, "compute_dtype", "bf16") == "f32":
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
 
 
 def step_generator(seed: int, global_step: int,

@@ -174,7 +174,6 @@ def main() -> int:
         print("bench_torch_serving: no CUDA device; nothing was run",
               file=sys.stderr)
         return 1
-    torch.backends.cuda.matmul.allow_tf32 = False
     smi = smi_line()
     shares = [float(s) for s in args.shares.split(",")]
     with tempfile.TemporaryDirectory() as tmp:

@@ -338,7 +338,6 @@ def main() -> int:
                                             attention_fused, ffn, ffn_dh1,
                                             gemm)
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     emit(smi=subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
