@@ -5728,28 +5728,32 @@ def moon_rope_rows(device_name, randn):
 
 
 def moon_mla_rows(device_name, randn, g):
-    """MLA's attention (``csrc/mla_attention.cu``): q/k 192, v 128, 16
-    heads, causal with pad keys masked, at [512, S] for S 32 (the step's
-    rung), 48 and 64 on ragged lengths, forward and backward: within the
-    twin's tolerance, as accurate as the twin against the float32
-    computation, the same bits again. The bound counts the (query, key)
-    pairs of real queries, the only ones the kernels compute. Library:
-    SDPA with the same boolean mask (forward)."""
+    """MLA's attention (``csrc/mla_attention.cu``: bf16 rows staged by
+    16-byte cp.async, products on mma.sync, p and ds as hi/lo bf16 pairs):
+    q/k 192, v 128, 16 heads, causal with pad keys masked, at [512, S] for
+    S 32 (the step's rung), 40 (not a multiple of 16), 48 and 64 on ragged
+    lengths that include 1 and S, forward and backward: within the twin's
+    tolerance, as accurate as the twin against the float32 computation, the
+    same bits again; the forward faster than SDPA, the backward faster than
+    its twin. The bound counts the bytes of the whole padded tensors and
+    the (query, key) pairs of real queries, the only ones the kernels
+    compute. Library: SDPA with the same boolean mask (forward)."""
     from lightningdot_tpu_torch.ops import mla_attention as mla
 
     bf16, rows = torch.bfloat16, []
     b, nh, sc = MOON_BATCH, MOON_HEADS, MOON_QK ** -0.5
-    for s in (MOON_SEQ, 48, 64):
+    for s in (MOON_SEQ, 40, 48, 64):
         q, k = (randn(b, s, nh, MOON_QK, dtype=bf16) for _ in range(2))
         v, go = (randn(b, s, nh, MOON_V, dtype=bf16) for _ in range(2))
         lens = torch.randint(3, s + 1, (b,), device="cuda", generator=g)
+        lens[0], lens[-1] = 1, s
         key_ok = (torch.arange(s, device="cuda")[None]
                   < lens[:, None]).float()
         allowed = mla._allowed(key_ok, s, True)
         f32 = [t.float() for t in (q, k, v)]
         o, lse = mla.mla_attention_cuda(q, k, v, key_ok, sc)
         pairs = float((lens * (lens + 1) // 2).sum()) * nh
-        rows.append(compare(
+        fwd = compare(
             "mla_attention", (b, s, nh, MOON_QK), bf16,
             lambda: mla.mla_attention_cuda(q, k, v, key_ok, sc)[0],
             lambda: mla.mla_attention_math(q, k, v, key_ok, sc)[0],
@@ -5760,8 +5764,8 @@ def moon_mla_rows(device_name, randn, g):
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=allowed, scale=sc),
             reference=lambda: mla.mla_attention_math(*f32, key_ok, sc)[0],
-            repeat=True))
-        rows.append(compare(
+            repeat=True)
+        bwd = compare(
             "mla_attention_bwd", (b, s, nh, MOON_QK), bf16,
             lambda: mla.mla_attention_bwd_cuda(q, k, v, o, go, key_ok, lse,
                                                sc),
@@ -5771,7 +5775,14 @@ def moon_mla_rows(device_name, randn, g):
              2 * pairs * (3 * MOON_QK + 2 * MOON_V), PEAK_OPS["bf16"]),
             reference=lambda: mla.mla_attention_bwd_math(
                 *f32, o.float(), go.float(), key_ok, lse, sc),
-            repeat=True))
+            repeat=True)
+        rows += [fwd, bwd]
+        check(fwd["ms"] < fwd["library_ms"],
+              f"mla_attention S {s}: {fwd['ms']} ms, SDPA "
+              f"{fwd['library_ms']} ms")
+        check(bwd["ms"] < bwd["plain_ms"],
+              f"mla_attention_bwd S {s}: {bwd['ms']} ms, its twin "
+              f"{bwd['plain_ms']} ms")
     return rows
 
 

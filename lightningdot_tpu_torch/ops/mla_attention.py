@@ -11,7 +11,10 @@ takes one head width of at most 64 and a key-only bias. The Moonlight tower
     p = softmax(s), o = p v   (float32 arithmetic, o rounded to q's dtype)
 
 for each real query i; a padding query (key_ok 0) reads nothing: its o is
-0 (lse +inf), so the kernels' work follows the real tokens.
+0 (lse +inf), so the kernels' work follows the real tokens. The twins take
+any dtype and widths; the kernels take bfloat16 at Moonlight's widths only
+(bf16 operands on the tensor cores, float32 sums, p and ds as hi/lo bf16
+pairs, so that they hold the twins' float32 precision).
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from lightningdot_tpu_torch.ops import _build
 from lightningdot_tpu_torch.utils import tracing
 
 MAX_SEQ = 64       # the kernels hold a head's S x S scores in shared memory
-MAX_HEAD_DIM = 256
+QK_DIM, V_DIM = 192, 128   # the kernels' one instantiation (Moonlight's)
 
 
 def _allowed(key_ok: torch.Tensor, s: int, causal: bool) -> torch.Tensor:
@@ -74,9 +77,13 @@ def _check(what, q, k, v, key_ok):
             or k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError(f"{what}: q, k {tuple(q.shape)}, v "
                          f"{tuple(v.shape)}, key_ok {tuple(key_ok.shape)}")
-    if s > MAX_SEQ or dqk > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:
-        raise ValueError(f"{what}: takes S <= {MAX_SEQ} and head widths <= "
-                         f"{MAX_HEAD_DIM}; got S={s}, dqk={dqk}, dv={dv}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: takes bfloat16 only, got {q.dtype} (the "
+                        f"twins take float32)")
+    if s > MAX_SEQ or (dqk, dv) != (QK_DIM, V_DIM):
+        raise ValueError(f"{what}: takes S <= {MAX_SEQ} and head widths "
+                         f"({QK_DIM}, {V_DIM}); got S={s}, dqk={dqk}, "
+                         f"dv={dv}")
     _build.require_cuda(what, q, k, v, key_ok)
     return code, b, s, nh, dqk, dv
 

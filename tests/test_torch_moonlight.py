@@ -351,6 +351,121 @@ def test_mla_attention_twin_causal_with_pad_keys():
         _close(a.grad, w.grad, GRAD_RTOL)
 
 
+# the cell's MLA shapes: 16 heads, q/k 192 (128 + 64 RoPE), v 128
+MLA_HEADS, MLA_QK, MLA_V = 16, 192, 128
+
+
+def _mla_inputs(b, s, seed):
+    """q, k, v, a cotangent (float32, CPU) and key_ok of ragged lengths
+    1..S, the first sequence of length 1 and the last of length S."""
+    gen = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn(b, s, MLA_HEADS, MLA_QK, generator=gen)
+            for _ in range(2))
+    v, g = (torch.randn(b, s, MLA_HEADS, MLA_V, generator=gen)
+            for _ in range(2))
+    lens = torch.randint(1, s + 1, (b,), generator=gen)
+    lens[0], lens[-1] = 1, s
+    key_ok = (torch.arange(s)[None] < lens[:, None]).float()
+    return q, k, v, g, key_ok
+
+
+@pytest.mark.parametrize("s", [32, 48, 64])
+def test_mla_attention_twin_at_the_cells_widths(s):
+    """The twins (the kernels are held to them) against autograd through a
+    plain float32 masked softmax, at the cell's widths and rungs."""
+    q, k, v, g, key_ok = _mla_inputs(3, s, seed=s)
+    scale = MLA_QK ** -0.5
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    got = mla_attention.mla_attention(*leaves, key_ok, scale)
+    (got * g).sum().backward()
+    qr, kr, vr = (t.clone().requires_grad_(True) for t in (q, k, v))
+    scores = torch.einsum("bihd,bjhd->bhij", qr, kr) * scale
+    ok = (key_ok[:, None, None, :] > 0) & torch.ones(
+        s, s, dtype=torch.bool).tril()
+    p = torch.softmax(scores.masked_fill(~ok, float("-inf")), -1)
+    want = torch.einsum("bhij,bjhd->bihd", p, vr) * key_ok[..., None, None]
+    (want * g).sum().backward()
+    _close(got.detach(), want.detach(), VALUE_RTOL)
+    for a, w in zip(leaves, (qr, kr, vr)):
+        _close(a.grad, w.grad, GRAD_RTOL)
+    pad = key_ok == 0
+    assert not got[pad].any()
+    assert all(not t.grad[pad].any() for t in leaves)
+
+
+# "within a bf16 ulp", as chip_smoke.py holds its bf16 kernels: 2^-7 of the
+# twin's peak magnitude (at least 1), since sums in another order move
+# elements near 0 by more than their own ulp
+BF16_TOL = 2.0 ** -7
+
+
+def _rel_l2(x, ref):
+    return float((x.float() - ref).norm() / ref.norm())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [32, 40, 64])
+def test_mla_attention_kernels_on_card_hold_their_twins(s):
+    """``csrc/mla_attention.cu`` forward and backward against the twins on
+    the same bf16 inputs: each output within a bf16 ulp of the twin's, its
+    relative L2 error against the float32 computation at most 1.1 x the
+    twin's, the same bits on a second launch, padding's rows 0 (lse
+    +inf)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (csrc/mla_attention.cu)")
+    scale = MLA_QK ** -0.5
+    q, k, v, g, key_ok = (t.cuda() for t in _mla_inputs(64, s, seed=s))
+    q, k, v, g = (t.to(torch.bfloat16) for t in (q, k, v, g))
+    o, lse = mla_attention.mla_attention_cuda(q, k, v, key_ok, scale)
+    o2, lse2 = mla_attention.mla_attention_cuda(q, k, v, key_ok, scale)
+    grads = mla_attention.mla_attention_bwd_cuda(q, k, v, o, g, key_ok, lse,
+                                                 scale)
+    again = mla_attention.mla_attention_bwd_cuda(q, k, v, o, g, key_ok, lse,
+                                                 scale)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    f32 = [t.float() for t in (q, k, v)]
+    twin_o, twin_lse = mla_attention.mla_attention_math(q, k, v, key_ok,
+                                                        scale)
+    ref_o, _ = mla_attention.mla_attention_math(*f32, key_ok, scale)
+    twin_g = mla_attention.mla_attention_bwd_math(q, k, v, o, g, key_ok, lse,
+                                                  scale)
+    ref_g = mla_attention.mla_attention_bwd_math(*f32, o.float(), g.float(),
+                                                 key_ok, lse, scale)
+    real = key_ok > 0
+    heads = real[:, None].expand(-1, MLA_HEADS, -1)   # lse's [B, heads, S]
+    assert torch.allclose(lse[heads], twin_lse[heads], rtol=1e-5, atol=1e-5)
+    assert bool((lse[~heads] == float("inf")).all())
+    for got, twin, ref in zip((o, *grads), (twin_o, *twin_g),
+                              (ref_o, *ref_g)):
+        tol = BF16_TOL * max(1.0, float(twin.float().abs().max()))
+        assert float((got.float() - twin.float()).abs().max()) <= tol
+        assert _rel_l2(got, ref) <= 1.1 * _rel_l2(twin, ref)
+        assert not got[~real].any()
+
+
+@pytest.mark.cuda
+def test_mla_attention_kernels_raise_outside_their_range():
+    """float32 CUDA inputs and other head widths raise; the twins take
+    them on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (csrc/mla_attention.cu)")
+    q, k, v, g, key_ok = _mla_inputs(2, 16, seed=0)
+    scale = MLA_QK ** -0.5
+    cq, ck, cv, cok = (t.cuda() for t in (q, k, v, key_ok))
+    with pytest.raises(TypeError):
+        mla_attention.mla_attention(cq, ck, cv, cok, scale)
+    narrow = [t[..., :128].contiguous().to(torch.bfloat16)
+              for t in (cq, ck)]
+    with pytest.raises(ValueError):
+        mla_attention.mla_attention(*narrow, cv.to(torch.bfloat16), cok,
+                                    scale)
+    got = mla_attention.mla_attention(q[..., :128].contiguous(),
+                                      k[..., :128].contiguous(), v, key_ok,
+                                      scale)
+    assert got.shape == v.shape
+
+
 def test_rms_norm_and_rope_twins():
     gen = torch.Generator().manual_seed(8)
     x = torch.randn(5, 7, 32, generator=gen, requires_grad=True)
